@@ -1,0 +1,26 @@
+"""distkeras_tpu_torch — the PyTorch/CUDA port of ``distkeras_tpu``.
+
+The JAX package stays the reference; this package re-implements it slice
+by slice in PyTorch for NVIDIA Hopper (``sm_90a``), with hand-written
+kernels where the JAX package wrote Pallas kernels for the TPU. It imports
+``torch`` and never ``jax`` or anything of ``distkeras_tpu``.
+
+The first slice is paged generative serving of a causal LM::
+
+    from distkeras_tpu_torch.models.gpt import gpt_small, init_params
+    from distkeras_tpu_torch.serving import GenerationEngine
+
+    model = gpt_small()
+    init_params(model, torch.Generator().manual_seed(0))
+    with GenerationEngine(model, page_size=16, num_slots=8) as eng:
+        result = eng.generate(prompt, max_new_tokens=32).result()
+
+Entry points run on ``cuda:0`` unless the caller passes ``device="cpu"``
+(see :func:`distkeras_tpu_torch.device.resolve_device`).
+
+Importing this package is light: submodules load on first use.
+"""
+
+__version__ = "0.1.0"
+
+__all__ = ["__version__"]

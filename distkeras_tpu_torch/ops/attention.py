@@ -1,0 +1,42 @@
+"""Attention ops (port of ``distkeras_tpu/ops/attention.py``).
+
+``dot_product_attention`` is the plain path: the JAX package leaves it to
+XLA, so the port leaves it to PyTorch's matmuls. Layout is the JAX
+package's ``[batch, seq, heads, head_dim]``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+# Large-but-finite mask value (the JAX package's value): keeps softmax
+# defined even for a row whose keys are all masked, and makes a masked
+# key's weight exactly zero, since exp(MASK_VALUE - max) underflows.
+MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None,
+                          causal: bool = False) -> torch.Tensor:
+    """Attention over ``[batch, seq, heads, head_dim]`` tensors.
+
+    The logits are computed in the input dtype, then scaled and
+    softmaxed in float32; the weights are cast back to the input dtype
+    before the value product, as the JAX package does."""
+    dtype = q.dtype
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    if causal:
+        q_pos = torch.arange(q.shape[1], device=q.device)[:, None]
+        k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
+        logits = torch.where(q_pos >= k_pos, logits, MASK_VALUE)
+    if mask is not None:
+        # mask: [batch, kv_seq] (padding) or broadcastable to [b, h, q, k]
+        if mask.dim() == 2:
+            mask = mask[:, None, None, :]
+        logits = torch.where(mask, logits, MASK_VALUE)
+    weights = torch.softmax(logits, dim=-1).to(dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", weights, v)
