@@ -2,9 +2,13 @@
 
 Two paths, as in the JAX package:
 
-- the **full forward** (``model(ids)``): causal attention over the block
-  with the plain :func:`~distkeras_tpu_torch.ops.attention.dot_product_attention`
-  (``attention="full"``); it is the reference the serving path is held to;
+- the **full forward** (``model(ids)``, the training path): causal
+  attention over the block, with the plain
+  :func:`~distkeras_tpu_torch.ops.attention.dot_product_attention` under
+  ``attention="full"`` (the reference the serving path is held to) or
+  through :func:`~distkeras_tpu_torch.ops.attention.apply_attention`'s
+  ``"flash"`` dispatch (the Hopper flash-attention kernels, forward and
+  backward) under ``attention="flash"``;
 - the **paged cache path** (``model(ids, cache=pages,
   cache_index=lengths, page_table=tables)``): ``cache`` is the per-layer
   page pool of :func:`init_paged_cache`, ``[num_pages + 1, page_size,
@@ -16,28 +20,34 @@ Two paths, as in the JAX package:
   (the JAX package returns a new pool; here the pool tensors are updated
   and returned), with ghost and overflow positions (``>= max_len``)
   routed to the scratch page; then it attends through the paged kernel
-  (:mod:`distkeras_tpu_torch.ops.kernels.flash_attention`).
+  (:mod:`distkeras_tpu_torch.ops.kernels.flash_attention`). As in the
+  JAX package, the cache path needs ``attention="full"``.
 
-Parameters follow flax's dtype rules: the token embedding and the
-Dense layers of each block compute in the model's compute dtype (flax
-casts their float32 params at each call; the port stores them in that
-dtype), while the LayerNorms (eps 1e-6, flax's), the position table and
-the LM head stay float32.
+Parameters follow flax's dtype rules: every parameter is stored in
+float32 (the master weights an optimizer updates); the token embedding
+and the Dense layers of each block cast theirs to the model's compute
+dtype at each call (:class:`~distkeras_tpu_torch.models.transformer.Dense`,
+:class:`~distkeras_tpu_torch.models.transformer.Embed`), while the
+LayerNorms (eps 1e-6, flax's), the position table and the LM head
+compute in float32.
 
-Not ported yet: ``attention="flash"``/``"ring"``, the rectangular
-``[batch, max_len]`` cache, and int8 KV pages (ROADMAP.md Queue A).
+Not ported yet: ``attention="ring"``, ``remat`` other than ``"none"``,
+the rectangular ``[batch, max_len]`` cache, and int8 KV pages
+(ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import torch
 from torch import nn
 
 from distkeras_tpu_torch import precision as precision_lib
-from distkeras_tpu_torch.models.transformer import MlpBlock
-from distkeras_tpu_torch.ops.attention import dot_product_attention
+from distkeras_tpu_torch.models.transformer import Dense, Embed, MlpBlock
+from distkeras_tpu_torch.ops.attention import (apply_attention,
+                                               dot_product_attention)
 from distkeras_tpu_torch.ops.kernels import flash_attention as fa
 
 #: flax's LayerNorm epsilon (torch's default is 1e-5)
@@ -49,16 +59,17 @@ class CausalSelfAttention(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  attention: str = "full"):
         super().__init__()
-        if attention in ("flash", "ring"):
+        if attention == "ring":
             raise NotImplementedError(
-                f"attention={attention!r} is not ported yet (ROADMAP.md "
-                f"Queue A, the transformer families with the flash kernel)")
-        if attention != "full":
+                "attention='ring' is not ported yet (ROADMAP.md Queue A, "
+                "item 16, with sequence parallelism)")
+        if attention not in ("full", "flash"):
             raise ValueError(f"Unknown attention {attention!r}; expected "
                              f"'full', 'flash', or 'ring'")
         self.num_heads = num_heads
-        self.qkv = nn.Linear(width, 3 * width, dtype=dtype)
-        self.out = nn.Linear(width, width, dtype=dtype)
+        self.attention = attention
+        self.qkv = Dense(width, 3 * width, dtype)
+        self.out = Dense(width, width, dtype)
 
     def forward(self, x, cache=None, cache_index=None, page_table=None):
         b, t, width = x.shape
@@ -66,8 +77,15 @@ class CausalSelfAttention(nn.Module):
         q, k, v = (z.reshape(b, t, self.num_heads, head_dim).contiguous()
                    for z in self.qkv(x).split(width, dim=-1))
         if cache is None:
-            out = dot_product_attention(q, k, v, causal=True)
+            if self.attention == "flash":
+                out = apply_attention(q, k, v, causal=True,
+                                      attention="flash")
+            else:
+                out = dot_product_attention(q, k, v, causal=True)
             return self.out(out.reshape(b, t, width))
+        if self.attention != "full":
+            raise ValueError(f"KV-cache decode requires attention='full', "
+                             f"got {self.attention!r}")
         if page_table is None:
             raise NotImplementedError(
                 "the rectangular [batch, max_len] KV cache is not ported "
@@ -125,8 +143,13 @@ class CausalLM(nn.Module):
     def __init__(self, vocab_size: int = 32000, max_len: int = 2048,
                  num_layers: int = 12, num_heads: int = 12, width: int = 768,
                  mlp_dim: int = 3072, dtype: torch.dtype = torch.bfloat16,
-                 attention: str = "full", precision: Optional[str] = None):
+                 attention: str = "full", remat: str = "none",
+                 precision: Optional[str] = None):
         super().__init__()
+        if remat != "none":
+            raise NotImplementedError(
+                f"remat={remat!r} is not ported yet (ROADMAP.md Queue A, "
+                f"item 10, models/remat.py)")
         self.vocab_size = vocab_size
         self.max_len = max_len
         self.num_layers = num_layers
@@ -136,7 +159,7 @@ class CausalLM(nn.Module):
         self.precision = precision
         #: compute dtype of the embedding and the blocks' Dense layers
         self.dtype = precision_lib.resolve(precision, dtype)
-        self.tok_embed = nn.Embedding(vocab_size, width, dtype=self.dtype)
+        self.tok_embed = Embed(vocab_size, width, self.dtype)
         self.pos_embed = nn.Parameter(torch.zeros(max_len, width))
         self.layers = nn.ModuleList(
             DecoderBlock(width, num_heads, mlp_dim, self.dtype, attention)
@@ -187,6 +210,23 @@ def init_params(model: CausalLM, generator: torch.Generator) -> CausalLM:
                 m.bias.zero_()
         normal(model.pos_embed, 0.02)
     return model
+
+
+def inference_copy(model: CausalLM) -> CausalLM:
+    """A copy of ``model`` for serving whose embedding and Dense weights
+    are STORED in the compute dtype, so that their casts in ``forward``
+    are no-ops: the same function (the float32 -> compute-dtype cast is
+    deterministic) without one cast kernel per weight per call. The
+    LayerNorms, positions and LM head stay float32. The copy does not
+    follow later updates of ``model``. A float32 model is returned as is
+    (nothing to cast)."""
+    if model.dtype == torch.float32:
+        return model
+    out = copy.deepcopy(model)
+    for m in out.modules():
+        if isinstance(m, (Dense, Embed)):
+            m.to(m.compute_dtype)
+    return out
 
 
 def init_paged_cache(model: CausalLM, num_pages: int, page_size: int,

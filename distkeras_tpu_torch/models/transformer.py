@@ -1,4 +1,12 @@
-"""Transformer building blocks (port of ``distkeras_tpu/models/transformer.py``)."""
+"""Transformer building blocks (port of ``distkeras_tpu/models/transformer.py``).
+
+Parameters follow flax: every weight is STORED in float32 (the master
+copy an optimizer updates) and cast to the layer's compute dtype inside
+``forward``, as flax's ``Dense``/``Embed`` cast their float32 params at
+each call. Storing a bf16 weight instead would round every training
+update to bf16's 8-bit mantissa; for serving the two agree, since the
+cast is deterministic.
+"""
 
 from __future__ import annotations
 
@@ -7,16 +15,43 @@ from torch import nn
 from torch.nn import functional as F
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` with float32 parameters computing in
+    ``compute_dtype`` (flax ``nn.Dense(dtype=...)``)."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(self.compute_dtype),
+                        self.bias.to(self.compute_dtype))
+
+
+class Embed(nn.Embedding):
+    """``nn.Embedding`` with a float32 table looked up in
+    ``compute_dtype`` (flax ``nn.Embed(dtype=...)``: the table is cast,
+    then gathered)."""
+
+    def __init__(self, num_embeddings: int, features: int,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__(num_embeddings, features)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.weight.to(self.compute_dtype))
+
+
 class MlpBlock(nn.Module):
     """``fc1`` -> GELU (tanh approximation, flax's ``nn.gelu`` default)
-    -> ``fc2``. Weights are held in the compute dtype, as flax's Dense
-    casts its float32 params to ``dtype`` at every call."""
+    -> ``fc2``, both :class:`Dense` in the compute dtype."""
 
     def __init__(self, width: int, mlp_dim: int,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        self.fc1 = nn.Linear(width, mlp_dim, dtype=dtype)
-        self.fc2 = nn.Linear(mlp_dim, width, dtype=dtype)
+        self.fc1 = Dense(width, mlp_dim, dtype)
+        self.fc2 = Dense(mlp_dim, width, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))

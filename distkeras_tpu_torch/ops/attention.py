@@ -3,6 +3,16 @@
 ``dot_product_attention`` is the plain path: the JAX package leaves it to
 XLA, so the port leaves it to PyTorch's matmuls. Layout is the JAX
 package's ``[batch, seq, heads, head_dim]``.
+
+``apply_attention(..., attention=)`` is the dispatch switch: ``"xla"``
+(the default) is ``dot_product_attention``; ``"flash"`` is the fused
+flash-attention function of
+:mod:`distkeras_tpu_torch.ops.kernels.flash_attention` (the Hopper kernels
+for CUDA tensors, their plain versions for CPU tensors). Where the JAX
+switch falls back SILENTLY to the XLA path for a shape the kernel's
+``fits`` rejects or for a padding mask (``ops/attention.py:83-99``), the
+port raises ValueError: on the card, ``"flash"`` runs the hand-written
+kernels or nothing.
 """
 
 from __future__ import annotations
@@ -15,6 +25,42 @@ import torch
 # defined even for a row whose keys are all masked, and makes a masked
 # key's weight exactly zero, since exp(MASK_VALUE - max) underflows.
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+
+#: legal values of the ``attention=`` switch (gpt's ``attention="flash"``
+#: field routes through the same dispatch)
+ATTENTION_MODES = ("xla", "flash")
+
+
+def resolve_attention(attention: Optional[str]) -> str:
+    """Normalize the ``attention=`` field (None -> ``"xla"``)."""
+    mode = attention or "xla"
+    if mode not in ATTENTION_MODES:
+        raise ValueError(
+            f"attention={attention!r}; expected one of {ATTENTION_MODES}")
+    return mode
+
+
+def apply_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: Optional[torch.Tensor] = None,
+                    causal: bool = False,
+                    attention: Optional[str] = None) -> torch.Tensor:
+    """Dispatch one attention call per the resolved mode (module
+    docstring). ``"flash"`` raises ValueError for a ``mask`` (the kernels
+    know only the causal mask) and for a shape ``fits`` rejects."""
+    mode = resolve_attention(attention)
+    if mode == "xla":
+        return dot_product_attention(q, k, v, mask=mask, causal=causal)
+    from distkeras_tpu_torch.ops.kernels import flash_attention as fa
+
+    if mask is not None:
+        raise ValueError("attention='flash' takes no mask (the kernels know "
+                         "only the causal mask); use attention='xla'")
+    if not fa.fits(q.shape):
+        raise ValueError(
+            f"attention='flash': fits() rejects shape {tuple(q.shape)} "
+            f"(t >= 128, t % 128 == 0, 8 <= head_dim <= 128, head_dim % 8 "
+            f"== 0); the port does not fall back, use attention='xla'")
+    return fa.flash_attention(q, k, v, causal=causal)
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor,

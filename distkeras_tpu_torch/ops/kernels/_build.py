@@ -3,9 +3,11 @@
 Each kernel source under ``csrc/`` exposes a plain C interface; it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into ``_build/`` beside this
 file (git-ignored) and loaded with :mod:`ctypes`. A library is named by
-the hash of its sources and flags, so a changed source is rebuilt and an
-unchanged one is reused within a checkout. Nothing is built at import
-time: :func:`load` runs on a kernel's first launch.
+the hash of its sources, the shared headers (``csrc/*.cuh``) and the
+flags, so a changed source is rebuilt and an unchanged one is reused
+within a checkout. Nothing is built at import time: :func:`load` runs on
+a kernel's first launch. Different libraries build in parallel when
+loaded from several threads (one ``nvcc`` each).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
+_name_locks: dict = {}
 _libs: dict = {}
 #: name -> {"seconds": build time (0.0 when reused), "log": nvcc's
 #: output (registers, shared memory and spills per kernel), "path": ...}
@@ -49,11 +52,13 @@ def load(name: str, sources) -> ctypes.CDLL:
     names under ``csrc/``) and return it loaded. Raises RuntimeError with
     the compiler's output when the build fails."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _libs:
             return _libs[name]
         paths = [CSRC / s for s in sources]
         digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for p in paths:
+        for p in paths + sorted(CSRC.glob("*.cuh")):
             digest.update(p.read_bytes())
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"

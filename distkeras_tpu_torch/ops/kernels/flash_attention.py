@@ -1,8 +1,19 @@
-"""Paged attention: the hand-written Hopper kernel and its plain version.
+"""Attention kernels: the hand-written Hopper kernels and their plain
+versions.
 
-Port of ``distkeras_tpu/ops/pallas/flash_attention.py``'s paged decode
-kernel (``_paged_kernel`` / ``paged_flash_attention``). The function is
-attention of an in-call query block over a shared KV page pool::
+Port of ``distkeras_tpu/ops/pallas/flash_attention.py``. Two functions,
+as in the JAX module:
+
+- :func:`flash_attention` -- the TRAINING kernel: causal or full
+  attention over ``[batch, t, heads, head_dim]`` with an online softmax,
+  differentiable through a ``torch.autograd.Function`` whose backward
+  recomputes the probability tiles from ``(q, k, lse)`` (three kernels:
+  ``csrc/flash_attention_fwd.cu`` for ``_fwd_kernel``,
+  ``csrc/flash_attention_bwd.cu`` for ``_bwd_dq_kernel`` and
+  ``_bwd_dkv_kernel``). :func:`fits` is the JAX module's shape predicate.
+- :func:`paged_flash_attention` -- attention of an in-call query block
+  over a shared KV page pool (``csrc/paged_attention.cu`` for
+  ``_paged_kernel``)::
 
     q            [batch, t, heads, head_dim]      (already scattered
     k_pages      [num_pages + 1, page_size, heads, head_dim]  into pages)
@@ -11,15 +22,15 @@ attention of an in-call query block over a shared KV page pool::
     cache_index  [batch] int32
     -> out       [batch, t, heads, head_dim] in q's dtype
 
-where row ``b``'s logical key position ``p`` lives in
-``pages[page_table[b, p // page_size], p % page_size]`` and query ``i``
-sees key ``p`` iff ``p <= cache_index[b] + i`` (the fixed-contraction-
-length masked softmax of the JAX package, not an online softmax).
+  where row ``b``'s logical key position ``p`` lives in
+  ``pages[page_table[b, p // page_size], p % page_size]`` and query ``i``
+  sees key ``p`` iff ``p <= cache_index[b] + i`` (the fixed-contraction-
+  length masked softmax of the JAX package, not an online softmax).
 
-Dispatch: a CUDA tensor goes to the kernel (``csrc/paged_attention.cu``,
-built on first use by :mod:`._build`); a CPU tensor goes to
-:func:`paged_flash_attention_reference`. A build or launch failure raises;
-nothing falls back.
+Dispatch: a CUDA tensor goes to the kernel (built on first use by
+:mod:`._build`); a CPU tensor goes to the plain version
+(``*_reference``). A build or launch failure raises; nothing falls back.
+Each kernel wrapper adds one to its ``launches`` count per launch.
 """
 
 from __future__ import annotations
@@ -37,8 +48,12 @@ SMEM_OPTIN_BYTES = 232448
 KERNEL_HEAD_DIMS = (32, 64, 128)
 _TILE_Q, _CHUNK = 16, 64  # must match csrc/paged_attention.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the JAX module's default tiles, which :func:`fits` is stated against
+DEFAULT_BLOCK_Q = 128
+DEFAULT_BLOCK_K = 128
 
 _lib = None
+_flash_libs: dict = {}
 
 
 def _kernel_lib():
@@ -162,3 +177,259 @@ def paged_flash_attention(q, k_pages, v_pages, page_table, cache_index):
 
 
 paged_flash_attention.launches = 0
+
+
+# -- training kernel: forward, dq, dk/dv ------------------------------------
+
+_POINTER, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _flash_lib(part: str):
+    """The built ``flash_attention_{fwd,bwd}`` library (``part``)."""
+    if part not in _flash_libs:
+        from distkeras_tpu_torch.ops.kernels import _build
+
+        lib = _build.load(f"flash_attention_{part}",
+                          [f"flash_attention_{part}.cu"])
+        tail = [_INT] * 4 + [_FLOAT, _FLOAT, _INT, _POINTER]  # b, t, h, d, ...
+        sigs = {"fwd": {"flash_attention_fwd_launch": 5},
+                "bwd": {"flash_attention_bwd_dq_launch": 7,
+                        "flash_attention_bwd_dkv_launch": 8}}[part]
+        for fn, pointers in sigs.items():
+            getattr(lib, fn).argtypes = [_INT] + [_POINTER] * pointers + tail
+            getattr(lib, fn).restype = _INT
+        err_fn = getattr(lib, f"flash_attention_{part}_error_string")
+        err_fn.argtypes = [_INT]
+        err_fn.restype = ctypes.c_char_p
+        _flash_libs[part] = lib
+    return _flash_libs[part]
+
+
+def fits(q_shape, block_q: int = DEFAULT_BLOCK_Q,
+         block_k: int = DEFAULT_BLOCK_K) -> bool:
+    """The JAX module's predicate (``flash_attention.py:97-110``), kept
+    so that the same shapes take the kernel in both packages: at the
+    default blocks, a ``[batch, t, heads, head_dim]`` shape with
+    ``t >= 128``, ``t`` a multiple of 128 and ``8 <= head_dim <= 128``,
+    ``head_dim % 8 == 0`` (the Hopper kernels need ``t % 64 == 0``)."""
+    if len(q_shape) != 4:
+        return False
+    _, t, _, d = q_shape
+    if t < block_q or t % block_q or t % block_k:
+        return False
+    return 8 <= d <= 128 and d % 8 == 0
+
+
+def _logits(q, k, causal):
+    """f32 ``[b, h, tq, tk]`` logits of both kernels: ``q . k`` in f32
+    times ``head_dim ** -0.5``, MASK_VALUE where causal and ``i < j``."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (
+        q.shape[-1] ** -0.5)
+    if causal:
+        q_pos = torch.arange(q.shape[1], device=q.device)[:, None]
+        k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
+        s = torch.where(q_pos >= k_pos, s, MASK_VALUE)
+    return s
+
+
+def flash_attention_reference(q, k, v, causal: bool = True):
+    """Plain version of the forward kernel: ``(out, lse)`` from an exact
+    (not online) masked softmax in f32, P rounded to the input dtype
+    before ``P . V`` as in the kernel, ``out`` in q's dtype and ``lse``
+    f32 ``[b, h, t]``."""
+    s = _logits(q, k, causal)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p.to(q.dtype).float(), v.float())
+    out = pv / l.permute(0, 2, 1, 3)
+    return out.to(q.dtype), (m + torch.log(l))[..., 0]
+
+
+def flash_attention_delta(out, dout):
+    """``delta = rowsum(dout * out)`` in f32, ``[b, h, t]``: the
+    backward's correction term, from the forward's output in its own
+    dtype upcast to f32 (``flash_attention.py:341``). Plain torch on
+    every device, as in the JAX package."""
+    return (dout.float() * out.float()).sum(dim=-1).transpose(1, 2) \
+        .contiguous()
+
+
+def _probs_and_ds(q, k, v, dout, lse, delta, causal):
+    p = torch.exp(_logits(q, k, causal) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", dout.float(), v.float())
+    return p, p * (dp - delta[..., None])
+
+
+def flash_attention_bwd_dq_reference(q, k, v, dout, lse, delta,
+                                     causal: bool = True):
+    """Plain version of the dq kernel: ``(ds . k) * scale`` in q's dtype,
+    with ``p = exp(s - lse)`` and ``ds = p * (dout . v^T - delta)``, every
+    product in f32."""
+    _, ds = _probs_and_ds(q, k, v, dout, lse, delta, causal)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * (
+        q.shape[-1] ** -0.5)
+    return dq.to(q.dtype)
+
+
+def flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta,
+                                      causal: bool = True):
+    """Plain version of the dk/dv kernel: ``((ds^T . q) * scale,
+    p^T . dout)`` in k's and v's dtypes, every product in f32."""
+    p, ds = _probs_and_ds(q, k, v, dout, lse, delta, causal)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dout.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * (
+        q.shape[-1] ** -0.5)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_reference(q, k, v, out, lse, dout,
+                                  causal: bool = True):
+    """Plain version of the whole backward: ``(dq, dk, dv)``."""
+    delta = flash_attention_delta(out, dout)
+    dq = flash_attention_bwd_dq_reference(q, k, v, dout, lse, delta, causal)
+    dk, dv = flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta,
+                                               causal)
+    return dq, dk, dv
+
+
+def _check_flash(name, tensors, rows=()):
+    """Raise ValueError on what the training kernels do not take:
+    ``tensors`` are ``[b, t, h, d]`` of one shape and dtype, ``rows``
+    f32 ``[b, h, t]``; all contiguous, 16-byte aligned, on one device."""
+    q = tensors[0]
+    if q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {q.dtype} not supported (float32, "
+                         f"bfloat16)")
+    if not fits(q.shape):
+        raise ValueError(f"{name}: kernel does not take shape "
+                         f"{tuple(q.shape)} (fits(): t >= 128, t % 128 == 0,"
+                         f" 8 <= head_dim <= 128, head_dim % 8 == 0)")
+    b, t, h, _ = q.shape
+    for x in tensors:
+        if x.shape != q.shape or x.dtype != q.dtype:
+            raise ValueError(f"{name}: q, k, v (and dout) must share shape "
+                             f"and dtype")
+    for x in rows:
+        if tuple(x.shape) != (b, h, t) or x.dtype != torch.float32:
+            raise ValueError(f"{name}: lse and delta must be float32 "
+                             f"[b, h, t]")
+    for x in (*tensors, *rows):
+        if x.device != q.device:
+            raise ValueError(f"{name}: all tensors must be on {q.device}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors must be contiguous and 16-byte"
+                             f" aligned (the kernels read 16-byte vectors)")
+
+
+def _launch_flash(part, fn, wrapper, args, shape, causal, device):
+    lib = _flash_lib(part)
+    b, t, h, d = shape
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, fn)(*args, b, t, h, d, d ** -0.5, MASK_VALUE,
+                               int(causal), stream)
+    if err != 0:
+        msg = getattr(lib, f"flash_attention_{part}_error_string")(err)
+        raise RuntimeError(f"{fn} failed: cudaError {err} ({msg.decode()})")
+    wrapper.launches += 1
+
+
+def _require_cuda(name, device):
+    if device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {device}")
+
+
+def flash_attention_fwd(q, k, v, causal: bool = True):
+    """Forward: ``(out, lse)``; the Hopper kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal)
+    _require_cuda("flash_attention_fwd", q.device)
+    _check_flash("flash_attention_fwd", (q, k, v))
+    b, t, h, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    _launch_flash("fwd", "flash_attention_fwd_launch", flash_attention_fwd,
+                  (_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), out.data_ptr(), lse.data_ptr()),
+                  q.shape, causal, q.device)
+    return out, lse
+
+
+def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True):
+    """dq: the Hopper kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_reference(q, k, v, dout, lse, delta,
+                                                causal)
+    _require_cuda("flash_attention_bwd_dq", q.device)
+    _check_flash("flash_attention_bwd_dq", (q, k, v, dout), (lse, delta))
+    dq = torch.empty_like(q)
+    _launch_flash("bwd", "flash_attention_bwd_dq_launch",
+                  flash_attention_bwd_dq,
+                  (_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                   delta.data_ptr(), dq.data_ptr()),
+                  q.shape, causal, q.device)
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True):
+    """``(dk, dv)``: the Hopper kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta,
+                                                 causal)
+    _require_cuda("flash_attention_bwd_dkv", q.device)
+    _check_flash("flash_attention_bwd_dkv", (q, k, v, dout), (lse, delta))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_flash("bwd", "flash_attention_bwd_dkv_launch",
+                  flash_attention_bwd_dkv,
+                  (_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
+                   v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                   delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
+                  q.shape, causal, q.device)
+    return dk, dv
+
+
+flash_attention_fwd.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The JAX module's ``custom_vjp`` (``_flash``): the forward saves
+    ``(q, k, v, out, lse)``; the backward takes ``delta`` in plain torch
+    and runs the dq and dk/dv passes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = flash_attention_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        delta = flash_attention_delta(out, dout)
+        dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, ctx.causal)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
+                                         ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """Differentiable fused attention over ``[batch, t, heads, head_dim]``
+    (self-attention: q, k, v of one shape). Raises ValueError for a shape
+    :func:`fits` rejects, on every device, as the JAX function does; the
+    kernels take CUDA tensors, the plain versions CPU tensors."""
+    if not fits(q.shape) or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            f"flash_attention: fits() rejected q {tuple(q.shape)} (k "
+            f"{tuple(k.shape)}, v {tuple(v.shape)}); the port has no "
+            f"silent fallback, use attention='full' for such shapes")
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), causal)

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from distkeras_tpu_torch import telemetry
+from distkeras_tpu_torch.models import gpt
 from distkeras_tpu_torch.serving.batching import (DeadlineExceeded,
                                                   EngineClosed, QueueFull)
 from distkeras_tpu_torch.serving.buckets import BucketSpec
@@ -193,7 +194,9 @@ class GenerationEngine:
             hbm_fraction=hbm_fraction)
         self.device = self.pool.device
         model.to(self.device).eval()
-        self._step = make_paged_step_fn(model)
+        # one compute-dtype copy of the weights, made once, instead of a
+        # cast per weight per call on this host-bound loop
+        self._step = make_paged_step_fn(gpt.inference_copy(model))
         self.default_max_new_tokens = int(default_max_new_tokens)
         self.eos_id = eos_id
         self.queue_capacity = int(queue_capacity)

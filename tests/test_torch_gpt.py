@@ -148,21 +148,47 @@ def test_mlp_block_uses_tanh_gelu_like_flax():
 
 
 def test_layernorm_eps_and_dtype_placement_follow_flax():
-    """flax LayerNorm eps is 1e-6 (torch's default 1e-5); in bf16 the
-    embedding and block Dense weights compute in bf16 while the
-    LayerNorms, the position table and the LM head stay f32."""
+    """flax LayerNorm eps is 1e-6 (torch's default 1e-5); every parameter
+    is STORED in float32 (flax's master weights); in bf16 the embedding
+    and block Dense layers COMPUTE in bf16 (their weights cast at each
+    call) while the LayerNorms, the position table and the LM head
+    compute in f32."""
     model = tgpt.gpt_tiny(dtype=torch.bfloat16)
     lns = [m for m in model.modules() if isinstance(m, torch.nn.LayerNorm)]
     assert len(lns) == 2 * model.num_layers + 1
     assert all(m.eps == 1e-6 for m in lns)
-    dtypes = {name: p.dtype for name, p in model.named_parameters()}
-    assert dtypes["tok_embed.weight"] == torch.bfloat16
-    assert dtypes["layers.0.attn.qkv.weight"] == torch.bfloat16
-    assert dtypes["layers.0.mlp.fc2.bias"] == torch.bfloat16
-    assert dtypes["layers.0.ln1.weight"] == torch.float32
-    assert dtypes["pos_embed"] == torch.float32
-    assert dtypes["lm_head.weight"] == torch.float32
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    x = torch.zeros(1, 3, model.width, dtype=torch.bfloat16)
+    assert model.layers[0].attn.qkv(x).dtype == torch.bfloat16
+    assert model.layers[0].mlp.fc2(
+        torch.zeros(1, 3, model.mlp_dim, dtype=torch.bfloat16)).dtype \
+        == torch.bfloat16
+    assert model.tok_embed(torch.zeros(1, 3, dtype=torch.long)).dtype \
+        == torch.bfloat16
+    assert model.lm_head(x.float()).dtype == torch.float32
+    assert model(torch.zeros(1, 3, dtype=torch.long)).dtype == torch.float32
     assert tgpt.gpt_tiny(precision="bf16").dtype == torch.bfloat16
+
+
+def test_inference_copy_stores_compute_dtype_and_keeps_the_function(pair):
+    """The serving engine's copy: Dense and embedding weights stored in
+    bf16 (their casts become no-ops), the same logits bitwise, and the
+    model it was made from untouched (float32)."""
+    _, params, _ = pair
+    model = bridge.load_flax_params(tgpt.gpt_tiny(dtype=torch.bfloat16),
+                                    params).eval()
+    served = tgpt.inference_copy(model)
+    dtypes = {name: p.dtype for name, p in served.named_parameters()}
+    assert dtypes["tok_embed.weight"] == torch.bfloat16
+    assert dtypes["layers.1.mlp.fc1.bias"] == torch.bfloat16
+    assert dtypes["ln_final.weight"] == dtypes["lm_head.weight"] \
+        == dtypes["pos_embed"] == torch.float32
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    ids = torch.from_numpy(_ids(2, 16, seed=8))
+    with torch.no_grad():
+        assert torch.equal(served(ids), model(ids))
+    f32 = tgpt.gpt_tiny()
+    assert tgpt.inference_copy(f32) is f32
 
 
 def test_bf16_full_forward_tracks_jax(pair):
@@ -187,9 +213,17 @@ def test_bf16_full_forward_tracks_jax(pair):
 
 def test_model_options_not_ported_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgpt.gpt_tiny(attention="flash")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgpt.gpt_tiny(attention="ring")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tgpt.gpt_tiny(remat="blocks")
+    with pytest.raises(ValueError, match="attention"):
+        tgpt.gpt_tiny(attention="sparse")
+    flash = tgpt.gpt_tiny(attention="flash")  # ported: the training path
+    with pytest.raises(ValueError, match="attention='full'"):
+        flash(torch.zeros(1, 2, dtype=torch.long),
+              cache=tgpt.init_paged_cache(flash, 8, 16),
+              cache_index=torch.zeros(1, dtype=torch.int32),
+              page_table=torch.zeros(1, 8, dtype=torch.int32))
     model = tgpt.gpt_tiny()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgpt.init_paged_cache(model, 8, 16, kv_dtype="int8")

@@ -1,12 +1,17 @@
-"""The Hopper paged-attention kernel against its plain version, on a card.
+"""The Hopper kernels against their plain versions, on a card.
 
-Skipped without a CUDA device (the kernel has no CPU mode; the plain
-version's agreement with the JAX package is tests/test_torch_paged_attention.py).
+Skipped without a CUDA device (the kernels have no CPU mode; the plain
+versions' agreement with the JAX package is
+tests/test_torch_paged_attention.py and tests/test_torch_flash_attention.py).
 This file imports no JAX, so it also runs where only the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Bounds: float32 (TF32 off) 1e-5 abs, bf16 2e-2 abs.
+Bounds: paged attention float32 (TF32 off) 1e-5 abs, bf16 2e-2 abs.
+Training flash attention: float32 out and lse 1e-5 abs, grads
+1e-4 * max|ref| + 1e-5 (summation order only); bf16 out 2e-2 abs, grads
+2e-2 * max|ref| (P rounded to bf16 at other places than the exact
+softmax of the plain version).
 """
 
 import numpy as np
@@ -89,3 +94,102 @@ def test_paged_equals_contiguous_with_identity_table(cuda_device):
     b = tfa.paged_flash_attention(q, kp, vp, table, ci)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
+
+
+# -- training flash attention (forward, dq, dk/dv) ---------------------------
+
+def _no_tf32():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def _flash_inputs(shape, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(dev, dtype) for _ in range(4)]
+
+
+def _close(got, want, dtype, grad):
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    if dtype == torch.float32:
+        bound = 1e-4 * scale + 1e-5 if grad else 1e-5
+    else:
+        bound = 2e-2 * scale if grad else 2e-2
+    assert err <= bound, (err, bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,causal", [
+    ((1, 128, 12, 64), True), ((2, 256, 12, 64), False),
+    ((2, 256, 3, 32), True), ((1, 384, 2, 128), True),
+    ((1, 256, 2, 72), False), ((1, 128, 1, 8), True)])
+def test_flash_kernels_match_plain_versions_on_card(cuda_device, dtype,
+                                                    shape, causal):
+    """Each of the three training kernels against its plain version on
+    the same inputs (the backward ones fed the plain forward's lse and
+    delta), at head_dims that take both instantiations (64, 128) and the
+    zero-padded features (8, 32, 72)."""
+    _no_tf32()
+    q, k, v, dout = _flash_inputs(shape, dtype, cuda_device, sum(shape))
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal)
+    o_ref, lse_ref = tfa.flash_attention_reference(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and lse.dtype == torch.float32
+    _close(o, o_ref, dtype, grad=False)
+    _close(lse, lse_ref, torch.float32, grad=False)
+    delta = tfa.flash_attention_delta(o_ref, dout)
+    dq = tfa.flash_attention_bwd_dq(q, k, v, dout, lse_ref, delta, causal)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, dout, lse_ref, delta,
+                                         causal)
+    dq_ref = tfa.flash_attention_bwd_dq_reference(q, k, v, dout, lse_ref,
+                                                  delta, causal)
+    dk_ref, dv_ref = tfa.flash_attention_bwd_dkv_reference(
+        q, k, v, dout, lse_ref, delta, causal)
+    torch.cuda.synchronize()
+    for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
+        assert got.dtype == dtype
+        _close(got, want, dtype, grad=True)
+
+
+@pytest.mark.cuda
+def test_flash_autograd_goes_through_the_three_kernels(cuda_device):
+    """``flash_attention`` under autograd on the card: one launch of each
+    kernel, and grads within the float32 bound of the plain backward."""
+    _no_tf32()
+    q, k, v, dout = _flash_inputs((2, 128, 2, 64), torch.float32,
+                                  cuda_device, 5)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    counts = [f.launches for f in (tfa.flash_attention_fwd,
+                                   tfa.flash_attention_bwd_dq,
+                                   tfa.flash_attention_bwd_dkv)]
+    out = tfa.flash_attention(q, k, v, causal=True)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    assert [f.launches - c for f, c in zip(
+        (tfa.flash_attention_fwd, tfa.flash_attention_bwd_dq,
+         tfa.flash_attention_bwd_dkv), counts)] == [1, 1, 1]
+    o_ref, lse_ref = tfa.flash_attention_reference(q.detach(), k.detach(),
+                                                   v.detach(), True)
+    want = tfa.flash_attention_bwd_reference(q.detach(), k.detach(),
+                                             v.detach(), o_ref, lse_ref,
+                                             dout, True)
+    for got, ref in zip((q.grad, k.grad, v.grad), want):
+        _close(got, ref, torch.float32, grad=True)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
+    before = tfa.flash_attention_fwd.launches
+    q = torch.zeros(1, 192, 2, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="does not take"):
+        tfa.flash_attention_fwd(q, q, q)  # t % 128 != 0
+    q = torch.zeros(1, 128, 2, 64, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float16"):
+        tfa.flash_attention_fwd(q, q, q)
+    q = torch.zeros(1, 128, 2, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfa.flash_attention_fwd(q.transpose(1, 2).contiguous()
+                                .transpose(1, 2), q, q)
+    assert tfa.flash_attention_fwd.launches == before

@@ -68,6 +68,8 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
             "import distkeras_tpu_torch\n"
             "import distkeras_tpu_torch.serving\n"
             "import distkeras_tpu_torch.utils.bridge\n"
+            "import distkeras_tpu_torch.engine\n"
+            "import distkeras_tpu_torch.ops.kernels.flash_attention\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(','.join(bad))\n")
