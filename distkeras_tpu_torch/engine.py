@@ -4,10 +4,11 @@ gradient functions, metric terms, the train step, the epoch loop.
 PyTorch idiom where the JAX package is functional:
 
 - the parameters live in the ``nn.Module`` (float32 master weights);
-  :class:`TrainState` holds the module, the optimizer state and ``step``.
-  A step updates the module's parameters IN PLACE (the JAX step donates
-  its state and returns a new one) and returns a new :class:`TrainState`
-  around the same module;
+  :class:`TrainState` holds the module, its ``torch.optim`` optimizer
+  (built by the factory :func:`~distkeras_tpu_torch.ops.optimizers.get`
+  returns) and ``step``. A step updates the module's parameters IN PLACE
+  (the JAX step donates its state and returns a new one) and returns a
+  new :class:`TrainState` around the same module and optimizer;
 - gradient functions take a batch (and a ``torch.Generator``) and read
   the parameters from the module; gradients come back as a dict of
   name -> tensor in the parameters' dtype (float32), as JAX returns them
@@ -28,7 +29,7 @@ arrays; the step moves it to the module's device.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
@@ -36,8 +37,7 @@ from torch import nn
 from distkeras_tpu_torch import precision as precision_lib
 from distkeras_tpu_torch.device import resolve_device
 from distkeras_tpu_torch.ops import losses as losses_lib
-from distkeras_tpu_torch.ops.optimizers import (GradientTransformation,
-                                                apply_updates)
+from distkeras_tpu_torch.ops.optimizers import OptimizerFactory
 from distkeras_tpu_torch.utils.trees import global_norm
 
 Batch = dict
@@ -46,25 +46,24 @@ Batch = dict
 @dataclasses.dataclass
 class TrainState:
     """One replica's training state: the module holding the parameters,
-    the optimizer state and the count of optimizer steps taken."""
+    the optimizer bound to them and the count of optimizer steps taken."""
 
     step: int
     model: nn.Module
-    opt_state: Any
+    opt_state: torch.optim.Optimizer
 
     @property
     def params(self) -> dict:
         return dict(self.model.named_parameters())
 
 
-def create_train_state(model: nn.Module, tx: GradientTransformation,
+def create_train_state(model: nn.Module, tx: OptimizerFactory,
                        device=None) -> TrainState:
     """Move ``model`` (its weights already set, e.g. by ``init_params``)
-    to ``device`` (default ``cuda:0``; the CPU only when asked) and
-    initialize the optimizer state from its parameters."""
+    to ``device`` (default ``cuda:0``; the CPU only when asked) and build
+    the optimizer over its parameters."""
     model.to(resolve_device(device))
-    return TrainState(step=0, model=model,
-                      opt_state=tx.init(dict(model.named_parameters())))
+    return TrainState(step=0, model=model, opt_state=tx(model.parameters()))
 
 
 def _device_of(model: nn.Module) -> torch.device:
@@ -226,14 +225,14 @@ def make_accum_grad_fn(model: nn.Module, loss, accum_steps: int,
     return grad_fn
 
 
-def _make_step_body(model: nn.Module, loss, tx: GradientTransformation,
-                    with_grad_norm: bool, metrics: tuple, dropout_seed: int,
-                    accum_steps: int = 1, precision=None) -> Callable:
+def _make_step_body(model: nn.Module, loss, with_grad_norm: bool,
+                    metrics: tuple, dropout_seed: int, accum_steps: int = 1,
+                    precision=None) -> Callable:
     """The ONE step body :func:`make_train_step` and :func:`make_epoch_fn`
     share, so the two are equal by construction. ``accum_steps > 1``
     swaps the full-batch gradient for :func:`make_accum_grad_fn`; the
-    optimizer applies once either way, so ``step`` counts optimizer
-    steps."""
+    state's optimizer applies once either way, so ``step`` counts
+    optimizer steps."""
     metric_names = tuple(metrics)
     accum_steps = int(accum_steps)
     if accum_steps > 1:
@@ -247,10 +246,11 @@ def _make_step_body(model: nn.Module, loss, tx: GradientTransformation,
         batch = to_device(batch, device)
         generator = _generator(_seeded(dropout_seed, state.step), device)
         (loss_val, aux), grads = grad_fn(batch, generator)
-        params = state.params
+        for name, p in state.model.named_parameters():
+            p.grad = grads[name]
+        state.opt_state.step()
+        state.opt_state.zero_grad(set_to_none=True)
         with torch.no_grad():
-            updates, opt_state = tx.update(grads, state.opt_state, params)
-            apply_updates(params, updates)
             out = {"loss": loss_val}
             if with_grad_norm:
                 out["grad_norm"] = global_norm(grads)
@@ -258,31 +258,33 @@ def _make_step_body(model: nn.Module, loss, tx: GradientTransformation,
                 out[name] = (finalize_metric(aux[name]) if accum_steps > 1
                              else compute_metric(name, aux, batch["labels"]))
         return TrainState(step=state.step + 1, model=state.model,
-                          opt_state=opt_state), out
+                          opt_state=state.opt_state), out
 
     return one_step
 
 
-def make_train_step(model: nn.Module, loss, tx: GradientTransformation,
+def make_train_step(model: nn.Module, loss, tx: OptimizerFactory,
                     with_metrics: bool = True, metrics: tuple = (),
                     dropout_seed: int = 0, accum_steps: int = 1,
                     precision=None) -> Callable:
     """``step(state, batch) -> (state, metrics)``: forward, backward and
-    one optimizer update of the module's parameters (in place). Metrics
-    are 0-d tensors on the device: ``loss``, ``grad_norm`` (with
+    one update of the module's parameters (in place) by the state's
+    optimizer, which :func:`create_train_state` built from ``tx`` (the
+    JAX signature's optimizer; the step itself applies the state's).
+    Metrics are 0-d tensors on the device: ``loss``, ``grad_norm`` (with
     ``with_metrics``) and each requested metric. ``accum_steps=k`` splits
     the batch into k microbatches and applies the optimizer once."""
-    return _make_step_body(model, loss, tx, with_metrics, metrics,
-                           dropout_seed, accum_steps, precision=precision)
+    return _make_step_body(model, loss, with_metrics, metrics, dropout_seed,
+                           accum_steps, precision=precision)
 
 
-def make_epoch_fn(model: nn.Module, loss, tx: GradientTransformation,
+def make_epoch_fn(model: nn.Module, loss, tx: OptimizerFactory,
                   metrics: tuple = (), dropout_seed: int = 0,
                   accum_steps: int = 1, precision=None) -> Callable:
     """``epoch(state, data) -> (state, metrics)`` over ``[steps, batch,
     ...]`` leaves: the same step body as :func:`make_train_step`, looped
     (the JAX package scans it), with each metric stacked to ``[steps]``."""
-    one_step = _make_step_body(model, loss, tx, True, metrics, dropout_seed,
+    one_step = _make_step_body(model, loss, True, metrics, dropout_seed,
                                accum_steps, precision=precision)
 
     def epoch(state: TrainState, data: Batch):

@@ -3,12 +3,12 @@
 Two paths, as in the JAX package:
 
 - the **full forward** (``model(ids)``, the training path): causal
-  attention over the block, with the plain
-  :func:`~distkeras_tpu_torch.ops.attention.dot_product_attention` under
-  ``attention="full"`` (the reference the serving path is held to) or
-  through :func:`~distkeras_tpu_torch.ops.attention.apply_attention`'s
-  ``"flash"`` dispatch (the Hopper flash-attention kernels, forward and
-  backward) under ``attention="flash"``;
+  attention over the block through
+  :func:`~distkeras_tpu_torch.ops.attention.apply_attention`: its
+  ``"xla"`` mode (the plain ``dot_product_attention``, the reference the
+  serving path is held to) under ``attention="full"``, its ``"flash"``
+  mode (the Hopper flash-attention kernels, forward and backward) under
+  ``attention="flash"``;
 - the **paged cache path** (``model(ids, cache=pages,
   cache_index=lengths, page_table=tables)``): ``cache`` is the per-layer
   page pool of :func:`init_paged_cache`, ``[num_pages + 1, page_size,
@@ -46,8 +46,7 @@ from torch import nn
 
 from distkeras_tpu_torch import precision as precision_lib
 from distkeras_tpu_torch.models.transformer import Dense, Embed, MlpBlock
-from distkeras_tpu_torch.ops.attention import (apply_attention,
-                                               dot_product_attention)
+from distkeras_tpu_torch.ops.attention import apply_attention
 from distkeras_tpu_torch.ops.kernels import flash_attention as fa
 
 #: flax's LayerNorm epsilon (torch's default is 1e-5)
@@ -77,11 +76,8 @@ class CausalSelfAttention(nn.Module):
         q, k, v = (z.reshape(b, t, self.num_heads, head_dim).contiguous()
                    for z in self.qkv(x).split(width, dim=-1))
         if cache is None:
-            if self.attention == "flash":
-                out = apply_attention(q, k, v, causal=True,
-                                      attention="flash")
-            else:
-                out = dot_product_attention(q, k, v, causal=True)
+            mode = "flash" if self.attention == "flash" else "xla"
+            out = apply_attention(q, k, v, causal=True, attention=mode)
             return self.out(out.reshape(b, t, width))
         if self.attention != "full":
             raise ValueError(f"KV-cache decode requires attention='full', "

@@ -46,7 +46,8 @@ def apply_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     attention: Optional[str] = None) -> torch.Tensor:
     """Dispatch one attention call per the resolved mode (module
     docstring). ``"flash"`` raises ValueError for a ``mask`` (the kernels
-    know only the causal mask) and for a shape ``fits`` rejects."""
+    know only the causal mask), and ``flash_attention`` raises it for a
+    shape ``fits`` rejects."""
     mode = resolve_attention(attention)
     if mode == "xla":
         return dot_product_attention(q, k, v, mask=mask, causal=causal)
@@ -55,11 +56,6 @@ def apply_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mask is not None:
         raise ValueError("attention='flash' takes no mask (the kernels know "
                          "only the causal mask); use attention='xla'")
-    if not fa.fits(q.shape):
-        raise ValueError(
-            f"attention='flash': fits() rejects shape {tuple(q.shape)} "
-            f"(t >= 128, t % 128 == 0, 8 <= head_dim <= 128, head_dim % 8 "
-            f"== 0); the port does not fall back, use attention='xla'")
     return fa.flash_attention(q, k, v, causal=causal)
 
 

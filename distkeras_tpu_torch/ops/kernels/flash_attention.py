@@ -48,9 +48,6 @@ SMEM_OPTIN_BYTES = 232448
 KERNEL_HEAD_DIMS = (32, 64, 128)
 _TILE_Q, _CHUNK = 16, 64  # must match csrc/paged_attention.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-#: the JAX module's default tiles, which :func:`fits` is stated against
-DEFAULT_BLOCK_Q = 128
-DEFAULT_BLOCK_K = 128
 
 _lib = None
 _flash_libs: dict = {}
@@ -205,19 +202,17 @@ def _flash_lib(part: str):
     return _flash_libs[part]
 
 
-def fits(q_shape, block_q: int = DEFAULT_BLOCK_Q,
-         block_k: int = DEFAULT_BLOCK_K) -> bool:
-    """The JAX module's predicate (``flash_attention.py:97-110``), kept
-    so that the same shapes take the kernel in both packages: at the
-    default blocks, a ``[batch, t, heads, head_dim]`` shape with
-    ``t >= 128``, ``t`` a multiple of 128 and ``8 <= head_dim <= 128``,
-    ``head_dim % 8 == 0`` (the Hopper kernels need ``t % 64 == 0``)."""
+def fits(q_shape) -> bool:
+    """The JAX module's predicate at its default 128-row blocks
+    (``flash_attention.py:97-110``), kept so that the same shapes take
+    the kernel in both packages: a ``[batch, t, heads, head_dim]`` shape
+    with ``t >= 128``, ``t`` a multiple of 128 and ``8 <= head_dim <=
+    128``, ``head_dim % 8 == 0`` (the Hopper kernels need ``t % 64 ==
+    0``)."""
     if len(q_shape) != 4:
         return False
     _, t, _, d = q_shape
-    if t < block_q or t % block_q or t % block_k:
-        return False
-    return 8 <= d <= 128 and d % 8 == 0
+    return t >= 128 and t % 128 == 0 and 8 <= d <= 128 and d % 8 == 0
 
 
 def _logits(q, k, causal):
@@ -429,7 +424,8 @@ def flash_attention(q, k, v, causal: bool = True):
     if not fits(q.shape) or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(
             f"flash_attention: fits() rejected q {tuple(q.shape)} (k "
-            f"{tuple(k.shape)}, v {tuple(v.shape)}); the port has no "
-            f"silent fallback, use attention='full' for such shapes")
+            f"{tuple(k.shape)}, v {tuple(v.shape)}: t >= 128, t % 128 == 0,"
+            f" 8 <= head_dim <= 128, head_dim % 8 == 0); the port has no "
+            f"silent fallback, use the plain attention for such shapes")
     return _FlashAttention.apply(q.contiguous(), k.contiguous(),
                                  v.contiguous(), causal)

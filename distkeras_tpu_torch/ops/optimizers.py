@@ -1,19 +1,24 @@
 """Optimizers by Keras-style name (port of ``distkeras_tpu/ops/optimizers.py``).
 
-The JAX package resolves names to optax transformations; the port keeps
-optax's shape and its DEFAULTS, which are not torch's:
+The JAX package resolves names to optax transformations; the port
+resolves them to ``torch.optim`` classes set to optax's DEFAULTS, which
+are not torch's. :func:`get` returns a factory, ``params ->
+torch.optim.Optimizer`` (a torch optimizer binds to its parameters, so
+the train state builds it from the module's):
 
-- a :class:`GradientTransformation` is ``(init, update)``:
-  ``init(params) -> state`` and ``update(grads, state, params) ->
-  (updates, state)``, over dicts of name -> tensor;
-  :func:`apply_updates` adds the updates to the parameters in place;
-- ``sgd(lr, momentum, nesterov)``: ``trace = g + momentum * trace``;
-  nesterov updates by ``g + momentum * trace`` with the new trace; the
-  update is ``-lr * that`` (torch's SGD with ``dampening=0`` agrees);
-- ``adam(lr)``: b1 0.9, b2 0.999, eps 1e-8 OUTSIDE the square root,
-  bias-corrected moments; ``adamw(lr)`` adds ``weight_decay * p`` with
-  optax's default 1e-4 (torch's AdamW defaults to 1e-2) to the Adam
-  direction before the ``-lr`` scale.
+- ``sgd``/``momentum``/``nesterov``: ``torch.optim.SGD`` with
+  ``dampening=0``, whose ``buf = g + momentum * buf`` and nesterov
+  direction ``g + momentum * buf`` are optax's ``trace``;
+- ``adam``: ``torch.optim.Adam`` with b1 0.9, b2 0.999, eps 1e-8 outside
+  the square root, as optax;
+- ``adamw``: ``torch.optim.AdamW`` with optax's weight decay 1e-4 (torch
+  defaults to 1e-2). torch scales ``p`` by ``1 - lr * wd`` before the
+  Adam step, optax adds ``wd * p`` to the Adam direction before the
+  ``-lr`` scale: both take ``p`` before the step, so the update is the
+  same.
+
+torch computes the bias corrections in float64 where optax takes them in
+float32: at lr 1e-3 the updates differ by about 1e-8.
 
 The other names of the JAX registry (adagrad, rmsprop, adadelta, nadam,
 lamb) raise NotImplementedError.
@@ -21,112 +26,39 @@ lamb) raise NotImplementedError.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Mapping, NamedTuple, Optional, Union
+import functools
+from typing import Callable, Iterable, Union
 
-import numpy as np
 import torch
 
-Tree = Mapping[str, torch.Tensor]
-
-
-class GradientTransformation(NamedTuple):
-    init: Callable[[Tree], Any]
-    update: Callable[..., Any]
-
-
-def apply_updates(params: Tree, updates: Tree) -> None:
-    """``p += u`` for every parameter, in place (optax returns new
-    arrays; the port updates the module's own tensors)."""
-    with torch.no_grad():
-        for name, p in params.items():
-            p.add_(updates[name])
-
-
-def _scale(tree: Tree, lr: float) -> dict:
-    return {n: u * -lr for n, u in tree.items()}
-
-
-def sgd(learning_rate: float, momentum: Optional[float] = None,
-        nesterov: bool = False) -> GradientTransformation:
-    """optax.sgd: plain, heavy-ball (``momentum``) or Nesterov."""
-
-    def init(params):
-        if momentum is None:
-            return {}
-        return {"trace": {n: torch.zeros_like(p) for n, p in params.items()}}
-
-    def update(grads, state, params=None):
-        if momentum is None:
-            return _scale(grads, learning_rate), state
-        trace = {n: g + momentum * state["trace"][n]
-                 for n, g in grads.items()}
-        direction = ({n: g + momentum * trace[n] for n, g in grads.items()}
-                     if nesterov else trace)
-        return _scale(direction, learning_rate), {"trace": trace}
-
-    return GradientTransformation(init, update)
-
-
-def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
-         eps: float = 1e-8,
-         weight_decay: Optional[float] = None) -> GradientTransformation:
-    """optax.adam; with ``weight_decay`` set, optax.adamw's chain
-    ``scale_by_adam -> add_decayed_weights -> scale_by_learning_rate``."""
-
-    def init(params):
-        return {"count": 0,
-                "mu": {n: torch.zeros_like(p) for n, p in params.items()},
-                "nu": {n: torch.zeros_like(p) for n, p in params.items()}}
-
-    def update(grads, state, params=None):
-        if weight_decay is not None and params is None:
-            raise ValueError("adamw needs params for its weight decay")
-        count = state["count"] + 1
-        mu = {n: (1 - b1) * g + b1 * state["mu"][n] for n, g in grads.items()}
-        nu = {n: (1 - b2) * g ** 2 + b2 * state["nu"][n]
-              for n, g in grads.items()}
-        # in float32, as optax takes it (1 - 0.999 ** 1 is 1.3e-5 off there)
-        bc1, bc2 = (float(np.float32(1) - np.float32(b) ** np.float32(count))
-                    for b in (b1, b2))
-        direction = {n: (mu[n] / bc1) / (torch.sqrt(nu[n] / bc2) + eps)
-                     for n in grads}
-        if weight_decay is not None:
-            direction = {n: u + weight_decay * params[n]
-                         for n, u in direction.items()}
-        return (_scale(direction, learning_rate),
-                {"count": count, "mu": mu, "nu": nu})
-
-    return GradientTransformation(init, update)
-
-
-def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,
-          eps: float = 1e-8,
-          weight_decay: float = 1e-4) -> GradientTransformation:
-    """optax.adamw, with optax's default ``weight_decay=1e-4``."""
-    return adam(learning_rate, b1, b2, eps, weight_decay)
-
+#: ``params -> optimizer``: what :func:`get` returns and the train state
+#: is built with
+OptimizerFactory = Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]
 
 _NOT_PORTED = ("adagrad", "rmsprop", "adadelta", "nadam", "lamb")
 
 
-def get(optimizer: Union[str, GradientTransformation],
+def get(optimizer: Union[str, OptimizerFactory],
         learning_rate: float = 0.01,
-        momentum: float = 0.9) -> GradientTransformation:
+        momentum: float = 0.9) -> OptimizerFactory:
     """Resolve an optimizer name (the JAX registry's strings and
-    defaults); a :class:`GradientTransformation` passes through."""
+    defaults) to a factory; a factory passes through."""
     if not isinstance(optimizer, str):
         return optimizer
     name = optimizer.lower()
     if name == "sgd":
-        return sgd(learning_rate)
-    if name in ("momentum", "sgd_momentum"):
-        return sgd(learning_rate, momentum=momentum)
-    if name == "nesterov":
-        return sgd(learning_rate, momentum=momentum, nesterov=True)
+        return functools.partial(torch.optim.SGD, lr=learning_rate)
+    if name in ("momentum", "sgd_momentum", "nesterov"):
+        return functools.partial(torch.optim.SGD, lr=learning_rate,
+                                 momentum=momentum, dampening=0.0,
+                                 nesterov=name == "nesterov")
     if name == "adam":
-        return adam(learning_rate)
+        return functools.partial(torch.optim.Adam, lr=learning_rate,
+                                 betas=(0.9, 0.999), eps=1e-8)
     if name == "adamw":
-        return adamw(learning_rate)
+        return functools.partial(torch.optim.AdamW, lr=learning_rate,
+                                 betas=(0.9, 0.999), eps=1e-8,
+                                 weight_decay=1e-4)
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"optimizer {optimizer!r} is not ported yet (ROADMAP.md Queue "

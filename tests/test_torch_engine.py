@@ -189,6 +189,29 @@ def test_adamw_step_matches_jax(flash_pair):
         assert np.all(np.abs(got[name] - start[name]) <= 1e-3 * (1 + 1e-3))
 
 
+def test_adamw_trajectory_on_a_repeated_batch_matches_jax(flash_pair):
+    """Five adamw(1e-3) steps on one repeated batch (the shape of the
+    chip run's training phase, at gpt_tiny size): the port's losses
+    follow the JAX engine's step by step, to 1e-4 relative."""
+    jmodel, params = flash_pair
+    batch = _batch(seed=21)
+    jtx, ttx = optax.adamw(1e-3), topt.get("adamw", 1e-3)
+    jstep = jeng.make_train_step(jmodel, "masked_lm", jtx)
+    model = _port(params, attention="flash")
+    tstep = teng.make_train_step(model, "masked_lm", ttx)
+    jstate = _jstate(params, jtx)
+    tstate = teng.create_train_state(model, ttx, device="cpu")
+    jlosses_, tlosses_ = [], []
+    for _ in range(5):
+        jstate, jout = jstep(jstate, _jbatch(batch))
+        tstate, tout = tstep(tstate, batch)
+        jlosses_.append(float(jout["loss"]))
+        tlosses_.append(float(tout["loss"]))
+    assert tstate.step == 5
+    for got, want in zip(tlosses_, jlosses_):
+        assert _rel(got, want) <= 1e-4, (tlosses_, jlosses_)
+
+
 # -- accumulation and the epoch loop -----------------------------------------
 
 def test_accumulation_equals_full_batch_and_matches_jax(flash_pair):
@@ -334,31 +357,36 @@ def test_each_optimizer_matches_optax_over_three_steps(name):
     from distkeras_tpu.ops import optimizers as jopt
 
     params = _opt_tree(0)
-    jtx, ttx = jopt.get(name, 0.05), topt.get(name, 0.05)
+    jtx = jopt.get(name, 0.05)
     jp = {k: jnp.asarray(v) for k, v in params.items()}
-    tp = {k: torch.from_numpy(v.copy()) for k, v in params.items()}
-    jst, tst = jtx.init(jp), ttx.init(tp)
+    tp = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
+          for k, v in params.items()}
+    jst, opt = jtx.init(jp), topt.get(name, 0.05)(tp.values())
     for i in range(3):
         grads = _opt_tree(i + 1)
         ju, jst = jtx.update({k: jnp.asarray(v) for k, v in grads.items()},
                              jst, jp)
         jp = optax.apply_updates(jp, ju)
-        tu, tst = ttx.update({k: torch.from_numpy(v)
-                              for k, v in grads.items()}, tst, tp)
-        topt.apply_updates(tp, tu)
+        for k, p in tp.items():
+            p.grad = torch.from_numpy(grads[k])
+        opt.step()
         for k in params:
-            np.testing.assert_allclose(tp[k].numpy(), np.asarray(jp[k]),
-                                       rtol=0, atol=1e-6, err_msg=k)
+            np.testing.assert_allclose(tp[k].detach().numpy(),
+                                       np.asarray(jp[k]), rtol=0, atol=1e-6,
+                                       err_msg=k)
 
 
 def test_adamw_keeps_optax_defaults_not_torch_ones():
-    """optax.adamw's weight decay is 1e-4 (torch's AdamW: 1e-2), added
-    to the update as lr * wd * p: with a zero gradient one step moves p
-    by exactly -lr * 1e-4 * p."""
-    p = {"w": torch.ones(3)}
-    tx = topt.get("adamw", 0.5)
-    updates, _ = tx.update({"w": torch.zeros(3)}, tx.init(p), p)
-    torch.testing.assert_close(updates["w"], torch.full((3,), -0.5 * 1e-4))
+    """optax.adamw's weight decay is 1e-4 (torch's AdamW: 1e-2), applied
+    as lr * wd * p: with a zero gradient one step moves p by exactly
+    -lr * 1e-4 * p."""
+    p = torch.nn.Parameter(torch.ones(3))
+    opt = topt.get("adamw", 0.5)([p])
+    assert (opt.defaults["weight_decay"], opt.defaults["eps"],
+            opt.defaults["betas"]) == (1e-4, 1e-8, (0.9, 0.999))
+    p.grad = torch.zeros(3)
+    opt.step()
+    torch.testing.assert_close(p.detach() - 1, torch.full((3,), -0.5 * 1e-4))
 
 
 def test_optimizer_registry_raises_for_what_is_not_ported():
@@ -367,8 +395,10 @@ def test_optimizer_registry_raises_for_what_is_not_ported():
             topt.get(name)
     with pytest.raises(ValueError, match="Unknown optimizer"):
         topt.get("sgdw")
-    tx = topt.sgd(0.1)
-    assert topt.get(tx) is tx
+    factory = topt.get("sgd", 0.1)
+    assert topt.get(factory) is factory
+    assert isinstance(factory([torch.nn.Parameter(torch.ones(1))]),
+                      torch.optim.SGD)
 
 
 def test_precision_policies_match_jax():
