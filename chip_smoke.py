@@ -5,8 +5,9 @@
 Phases (each asserts; any failure exits non-zero and prints no result):
 
 1. device  — the card's name and power limit (nvidia-smi) and torch's view;
-2. build   — nvcc builds every kernel of both paths (paged attention;
-   flash-attention forward; its dq and dk/dv backward) from the sources in
+2. build   — nvcc builds every kernel (paged attention; flash-attention
+   forward; its dq and dk/dv backward; the int8 product; GroupNorm
+   forward and backward) from the sources in
    this checkout (sm_90a) into the git-ignored build directory, one nvcc
    per source, all started together;
 3. kernels — the paged kernel against its plain PyTorch version on the
@@ -45,7 +46,33 @@ Phases (each asserts; any failure exits non-zero and prints no result):
 10. train identity — float32 with TF32 off, gpt_small widths at 2 layers,
    b=2, t=256: attention="flash" (the kernels) against attention="full"
    (plain autograd) in loss, every parameter's gradient and the
-   parameters after one SGD step.
+   parameters after one SGD step;
+11. int8    — the int8 kernel against its plain version, bitwise, at the
+   four products of a GPT-2-small block at 8 x 2048 rows (qkv, out, fc1,
+   fc2; bf16 output), with its time, the plain version's,
+   ``torch._int_mm`` plus the scale multiply, and its bound;
+12. int8 train — path A: phase 8's configuration with precision="int8"
+   (overflow_guard(adamw(1e-3))), 1 warm-up and 4 timed steps, the int8
+   kernel launched 48 times a step and each flash kernel 12; a traced
+   step; witnesses: the same steps through the plain int8 product (step 1
+   equal, steps 2-5 within 1e-4), the guard's scale 16 with no step
+   skipped, step 1 under precision="bf16" within 2e-2 of int8's and not
+   equal, and block 0's qkv product at least 4x as far from float32
+   under int8 as under bf16;
+13. groupnorm — the GroupNorm forward and backward kernels against their
+   plain versions at ResNet-50 b=128 shapes (stem, stage-0 norm3, stage-3
+   norm3; G=32) in bf16 and float32, with times, plain versions',
+   ``F.group_norm``'s (forward, autograd backward) and bounds;
+14. resnet train — path B: resnet50() (GroupNorm) in bf16 with float32
+   parameters on 128 seeded uint8 224^2 images, one-hot 1000 classes,
+   adamw(1e-3): 1 warm-up and 4 timed steps, 53 GroupNorm forward and 53
+   backward launches a step; a traced step; witness: the same steps
+   through the plain GroupNorm (steps 1-4 within 1e-3); the float32
+   identity (TF32 off in matmuls and cuDNN, cuDNN deterministic) at b=2:
+   kernels against plain GroupNorm in loss, gradients and parameters
+   after one SGD step;
+15. nf      — resnet50_nf() in bf16 at b=128, 2 steps: finite losses and
+   the step time (no kernel of the port on this path).
 
 The last three lines of standard output are the kernels' JSON, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details are
@@ -118,29 +145,31 @@ def device_kernels(prof) -> list:
             if e.device_type == DeviceType.CUDA and e.key not in host]
 
 
-def device_ms(fn, iters: int = 20):
-    """Mean device milliseconds a call (the sum of its CUDA kernels'
-    times, from torch.profiler), or None when the profiler records no
-    device time. One call runs in the profiler's warm-up step, traced but
-    not counted, so that tracing is running before the counted calls (a
-    profile that starts with the counted calls can miss the first
-    kernel)."""
-    from torch.profiler import ProfilerActivity, profile, schedule
+#: card cycles of the spin that ``device_ms`` queues ahead of the timed
+#: calls (~0.1 s at the H100's 1,980 MHz): longer than the host takes to
+#: enqueue them
+_SPIN_CYCLES = 200_000_000
 
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds a call: ``iters`` calls enqueued behind a
+    spin of the card, so that they run back to back whatever the host's
+    pace, between two CUDA events (the host's own time per call is not in
+    it). One untimed call runs first. torch.profiler's kernel records
+    were not used: they dropped some calls of the GroupNorm kernels, so
+    that a call read 2/5 or 3/5 of its events time, one above what the
+    card's memory rate allows."""
     fn(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        fn(0)
-        torch.cuda.synchronize()
-        prof.step()
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
-        prof.step()
-    total_us = sum(e.self_device_time_total for e in device_kernels(prof))
-    return total_us / 1e3 / iters if total_us > 0 else None
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(_SPIN_CYCLES)
+    start.record()
+    for i in range(iters):
+        fn(i)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def smi_sample() -> str:
@@ -182,9 +211,14 @@ def phase_build() -> dict:
     from distkeras_tpu_torch.ops.kernels import _build
     from distkeras_tpu_torch.ops.kernels import flash_attention as fa
 
+    from distkeras_tpu_torch.ops.kernels import groupnorm as gn
+    from distkeras_tpu_torch.ops.kernels import int8_matmul as i8
+
     loaders = {"paged_attention": fa._kernel_lib,
                "flash_attention_fwd": lambda: fa._flash_lib("fwd"),
-               "flash_attention_bwd": lambda: fa._flash_lib("bwd")}
+               "flash_attention_bwd": lambda: fa._flash_lib("bwd"),
+               "int8_matmul": i8._kernel_lib,
+               "groupnorm": gn._kernel_lib}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(loaders)) as pool:
         for fut in [pool.submit(fn) for fn in loaders.values()]:
@@ -283,17 +317,13 @@ def phase_kernels(dev) -> list:
                        - want.float()).abs().max().item()
             library = lambda i: F.scaled_dot_product_attention(
                 qt, *dense[i % len(dense)], attn_mask=mask)
-            # device time (profiler) where it is recorded, else the
-            # events time of back-to-back calls, which includes the host
+            # device time (calls queued behind a spin), and the events
+            # time of back-to-back calls, which includes the host
             times = {}
             for name, fn in (("ms", kernel), ("plain_ms", plain),
                              ("library_ms", library)):
-                call = cuda_ms(fn)
-                dev_ms = device_ms(fn)
-                times[name] = call if dev_ms is None else dev_ms
-                times[name.replace("ms", "call_ms")] = call
-                times[name.replace("ms", "ms_source")] = (
-                    "events" if dev_ms is None else "profiler")
+                times[name], times[name.replace("ms", "call_ms")], \
+                    times[name.replace("ms", "ms_source")] = _timed(fn, 30)
             ms, plain_ms, library_ms = (times["ms"], times["plain_ms"],
                                         times["library_ms"])
             del dense, pools
@@ -490,12 +520,10 @@ def _flash_bound(name, shape, causal, dtype):
 
 
 def _timed(fn, iters):
-    """(device ms a call from the profiler, or the events time when the
-    profiler records none; events ms a call with the host; source)."""
+    """(device ms a call, events queued behind a spin; events ms a call
+    with the host; source)."""
     call = cuda_ms(fn, iters=iters, warmup=1)
-    dev_ms = device_ms(fn, iters=max(2, iters // 2))
-    return ((call, call, "events") if dev_ms is None
-            else (dev_ms, call, "profiler"))
+    return device_ms(fn, iters=iters), call, "queued events"
 
 
 def phase_flash_kernels(dev) -> list:
@@ -601,12 +629,12 @@ def phase_flash_kernels(dev) -> list:
 TRAIN_B, TRAIN_T = 8, 2048
 
 
-def _train_model(num_layers, attention, dtype, seed):
+def _train_model(num_layers, attention, dtype, seed, precision=None):
     from distkeras_tpu_torch.models.gpt import CausalLM, init_params
 
     model = CausalLM(vocab_size=50304, max_len=2048, num_layers=num_layers,
                      num_heads=12, width=768, mlp_dim=3072, dtype=dtype,
-                     attention=attention)
+                     attention=attention, precision=precision)
     return init_params(model, torch.Generator().manual_seed(seed))
 
 
@@ -713,8 +741,8 @@ def phase_train_witness(dev, flash_losses) -> dict:
 
 # -- phase 9 -----------------------------------------------------------------
 
-def phase_train_profile(state, step, batch) -> dict:
-    """One more train step (phase 8's state and batch) under
+def phase_train_profile(state, step, batch, tag="train-profile") -> dict:
+    """One more train step (a train phase's state and batch) under
     torch.profiler: device busy share and device time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -726,18 +754,18 @@ def phase_train_profile(state, step, batch) -> dict:
         wall = time.perf_counter() - t0
     kernels = device_kernels(prof)
     busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:25]
     info = {"wall_s": wall, "device_busy_s": busy_s,
             "device_busy_share": busy_s / wall,
             "kernel_launches": sum(e.count for e in kernels),
             "top_kernels": [{"name": e.key[:90], "count": e.count,
                              "device_ms": e.self_device_time_total / 1e3}
                             for e in top]}
-    log(f"[train-profile] one traced step: wall {wall * 1e3:.1f} ms, device "
+    log(f"[{tag}] one traced step: wall {wall * 1e3:.1f} ms, device "
         f"busy {busy_s * 1e3:.1f} ms ({100 * info['device_busy_share']:.1f}%)"
         f", {info['kernel_launches']} kernel launches")
     for k in info["top_kernels"]:
-        log(f"[train-profile]   {k['device_ms']:9.3f} ms  x{k['count']:<5d} "
+        log(f"[{tag}]   {k['device_ms']:9.3f} ms  x{k['count']:<5d} "
             f"{k['name']}")
     return info
 
@@ -781,6 +809,529 @@ def phase_train_identity(dev) -> dict:
     return info
 
 
+# -- phase 11 ----------------------------------------------------------------
+
+#: the four int8 products of a GPT-2-small block at batch 8 x 2048 (M
+#: rows): (name, K, N)
+INT8_CASES = (("qkv", 768, 2304), ("out", 768, 768), ("fc1", 768, 3072),
+              ("fc2", 3072, 768))
+INT8_M = 16384
+PEAK_INT8_OPS = 1979e12
+
+
+def _int8_bound(m, k, n, out_dtype):
+    """Least time for one product: qx, qw read once and the output
+    written once at the HBM rate, against 2*M*N*K int8 operations at the
+    int8 tensor-core peak."""
+    out_item = torch.finfo(out_dtype).bits // 8
+    moved = m * k + n * k + m * n * out_item + 4
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * n * k / PEAK_INT8_OPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": moved, "ops": 2 * m * n * k}
+
+
+def phase_int8_kernel(dev) -> list:
+    """The int8 kernel against its plain version at the four products
+    of the int8 train path (bf16 output, as the path writes it), bitwise;
+    with its time, the plain version's, ``torch._int_mm`` plus the scale
+    multiply (the library yardstick) and the bound."""
+    from distkeras_tpu_torch.ops.kernels import int8_matmul as i8
+
+    cases = []
+    for name, k, n in INT8_CASES:
+        rng = np.random.default_rng(k + n)
+        qx = torch.from_numpy(rng.integers(-127, 128, (INT8_M, k))
+                              .astype(np.int8)).to(dev)
+        qw = torch.from_numpy(rng.integers(-127, 128, (n, k))
+                              .astype(np.int8)).to(dev)
+        sxw = torch.tensor(rng.uniform(1e-4, 1e-2), dtype=torch.float32,
+                           device=dev)
+        out_dtype = torch.bfloat16
+        got = i8.int8_matmul_dequant(qx, qw, sxw, out_dtype)
+        want = i8.int8_matmul_dequant_reference(qx, qw, sxw, out_dtype)
+        lib = (torch._int_mm(qx, qw.t()).float() * sxw).to(out_dtype)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all()
+        err = (got.float() - want.float()).abs().max().item()
+        lib_err = (lib.float() - want.float()).abs().max().item()
+        ms, call_ms, source = _timed(
+            lambda i: i8.int8_matmul_dequant(qx, qw, sxw, out_dtype), 30)
+        plain_ms, _, _ = _timed(
+            lambda i: i8.int8_matmul_dequant_reference(qx, qw, sxw,
+                                                       out_dtype), 6)
+        lib_ms, _, _ = _timed(lambda i: (torch._int_mm(qx, qw.t()).float()
+                                         * sxw).to(out_dtype), 30)
+        case = {"name": name, "m": INT8_M, "k": k, "n": n,
+                "out_dtype": "bfloat16", "bitwise_equal": torch.equal(
+                    got, want), "max_abs_err": err,
+                "library_max_abs_err": lib_err, "ms": ms, "call_ms": call_ms,
+                "ms_source": source, "plain_ms": plain_ms,
+                "library_ms": lib_ms, **_int8_bound(INT8_M, k, n, out_dtype)}
+        cases.append(case)
+        log(f"[int8] {name} [{INT8_M}, {k}] x [{n}, {k}] -> bf16: bitwise "
+            f"{case['bitwise_equal']} (max abs err {err:.3e}; _int_mm "
+            f"{lib_err:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"_int_mm + scale {lib_ms:.4f} ms ({source}; with the host "
+            f"{call_ms:.4f} ms), bound {case['bound_ms']:.4f} ms "
+            f"({case['bound_by']})")
+        assert case["bitwise_equal"], case
+        del qx, qw, got, want, lib
+    torch.cuda.empty_cache()
+    return cases
+
+
+# -- phase 12 ----------------------------------------------------------------
+
+def _int8_train_run(dev, precision, steps, timed=False):
+    """Phase 8's configuration under ``precision``: adamw(1e-3), wrapped
+    in overflow_guard where the policy scales the loss, ``steps`` steps
+    on the seeded batch. Returns (losses, state, step, batch, info)."""
+    from distkeras_tpu_torch import engine
+    from distkeras_tpu_torch import precision as precision_lib
+    from distkeras_tpu_torch.ops import optimizers
+    from distkeras_tpu_torch.ops.kernels import flash_attention as fa
+    from distkeras_tpu_torch.ops.kernels import int8_matmul as i8
+
+    set_tf32(False)
+    model = _train_model(12, "flash", torch.bfloat16, seed=0,
+                         precision=precision)
+    policy = precision_lib.get_policy(precision)
+    tx = optimizers.get("adamw", 1e-3)
+    if policy.loss_scale != 1.0:
+        tx = precision_lib.overflow_guard(tx, policy)
+    state = engine.create_train_state(model, tx, device=dev)
+    step = engine.make_train_step(model, "masked_lm", tx,
+                                  precision=precision)
+    batch = engine.to_device(_lm_batch(TRAIN_B, TRAIN_T, seed=1), dev)
+    kernels = (i8.int8_matmul_dequant, fa.flash_attention_fwd,
+               fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for kernel in kernels:
+        kernel.launches = 0
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, out = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(out["loss"]))
+    info = {"launches": {k.__name__: k.launches for k in kernels},
+            "step_s": times, "peak_bytes": torch.cuda.max_memory_allocated(
+                dev)}
+    return losses, state, step, batch, info
+
+
+def phase_int8_train(dev, power_line) -> tuple:
+    """Path A: step_probe's gpt configuration with precision="int8" on
+    the card, 1 warm-up and 4 timed steps; every block Dense through the
+    int8 kernel (48 launches a step), attention through the flash kernels
+    (12 of each a step)."""
+    losses, state, step, batch, run = _int8_train_run(dev, "int8", 5)
+    guard = state.opt_state
+    median_s = statistics.median(run["step_s"][1:])
+    info = {"losses": losses, "step_s": run["step_s"],
+            "median_step_s": median_s,
+            "tokens_per_s": TRAIN_B * TRAIN_T / median_s,
+            "peak_bytes": run["peak_bytes"], "launches": run["launches"],
+            "loss_scale": guard.scale, "good_steps": guard.good_steps,
+            "card": power_line, "card_after": smi_sample()}
+    log(f"[int8-train] gpt-2-small widths, seq {TRAIN_T}, batch {TRAIN_B}, "
+        f"precision='int8', overflow_guard(adamw(1e-3)): losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; median step "
+        f"{median_s * 1e3:.1f} ms of 4 timed (warm-up "
+        f"{run['step_s'][0] * 1e3:.1f} ms), {info['tokens_per_s']:.0f} "
+        f"tokens/s, peak {run['peak_bytes'] / 2**30:.2f} GiB, launches "
+        f"{run['launches']}, loss scale {guard.scale} after "
+        f"{guard.good_steps} clean steps [{power_line}; after: "
+        f"{info['card_after']}]")
+    assert all(math.isfinite(x) for x in losses), losses
+    steps = len(losses)
+    # witness (ii): the guard's scale is still the policy's 16, no step
+    # skipped
+    assert guard.scale == 16.0 and guard.good_steps == steps, info
+    assert run["launches"]["int8_matmul_dequant"] == 48 * steps, run
+    assert all(run["launches"][k] == 12 * steps for k in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv")), run
+    return info, (state, step, batch)
+
+
+def _qkv_errors(dev) -> tuple:
+    """Relative errors (norm of the difference over the norm) of the
+    first block's qkv product on phase 12's batch, under int8 and under
+    a bf16 product, each against the float32 product of the same bf16
+    operands: int8 rounds every operand to one of 255 codes, bf16 only
+    the output, so the first is an order of magnitude above the second."""
+    import torch.nn.functional as F
+
+    model = _train_model(1, "flash", torch.bfloat16, seed=0,
+                         precision="int8").to(dev)
+    qkv = model.layers[0].attn.qkv
+    seen = []
+    hook = qkv.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
+    ids = torch.from_numpy(_lm_batch(TRAIN_B, TRAIN_T, seed=1)["features"])
+    with torch.no_grad():
+        model(ids.to(dev))
+        hook.remove()
+        x = seen[0]
+        w, b = qkv.weight.to(x.dtype), qkv.bias.to(x.dtype)
+        want = F.linear(x.float(), w.float(), b.float())
+        errors = tuple(((y.float() - want).norm() / want.norm()).item()
+                       for y in (qkv(x), F.linear(x, w, b)))
+    del model, seen, x, want
+    torch.cuda.empty_cache()
+    return errors
+
+
+def phase_int8_witness(dev, int8_losses) -> dict:
+    """Witnesses (i) and (iii) of phase 12 ((ii), the guard's scale 16
+    with no step skipped, is asserted there): (i) the same steps with the
+    int8 product swapped for its plain version (in this script only):
+    step 1's loss equal, steps 2-5 within 1e-4 relative; (iii) step 1
+    under precision="bf16" within 2e-2 relative of int8's and not equal
+    to it, and, since a loss cannot tell int8 from bf16 rounding, the
+    first block's qkv product on the same batch under int8 at least 4x
+    as far from float32 as under bf16 (quantization ran)."""
+    from unittest import mock
+
+    from distkeras_tpu_torch.ops.kernels import int8_matmul as i8
+
+    with mock.patch.object(i8, "int8_matmul_dequant",
+                           i8.int8_matmul_dequant_reference):
+        plain, *_ = _int8_train_run(dev, "int8", len(int8_losses))
+    torch.cuda.empty_cache()
+    bf16, *_ = _int8_train_run(dev, "bf16", 1)
+    torch.cuda.empty_cache()
+    qkv_int8, qkv_bf16 = _qkv_errors(dev)
+    diff = [abs(a - b) / abs(b) for a, b in zip(int8_losses, plain)]
+    bf16_rel = abs(bf16[0] - int8_losses[0]) / abs(bf16[0])
+    info = {"plain_int8_losses": plain, "rel_diff": diff,
+            "bf16_step1_loss": bf16[0], "bf16_step1_rel": bf16_rel,
+            "qkv_rel_err_int8": qkv_int8, "qkv_rel_err_bf16": qkv_bf16}
+    log(f"[int8-witness] plain int8 product: losses "
+        f"{', '.join(f'{x:.6f}' for x in plain)} (kernel "
+        f"{', '.join(f'{x:.6f}' for x in int8_losses)}; relative "
+        f"differences {', '.join(f'{x:.2e}' for x in diff)}, step 1 must be "
+        f"equal, steps 2-5 within 1e-4); bf16 step 1 {bf16[0]:.6f} "
+        f"(relative {bf16_rel:.2e} from int8's, bound 2e-2, must differ); "
+        f"block 0 qkv against float32: int8 {qkv_int8:.3e}, bf16 "
+        f"{qkv_bf16:.3e} (int8 must be at least 4x bf16)")
+    assert plain[0] == int8_losses[0], info
+    assert max(diff[1:]) <= 1e-4, info
+    assert 0 < bf16_rel <= 2e-2, info
+    assert qkv_int8 >= 4 * qkv_bf16 and qkv_int8 <= 5e-2, info
+    return info
+
+
+# -- phase 13 ----------------------------------------------------------------
+
+#: ResNet-50 at b=128, 224^2: the stem, stage-0 norm3, stage-3 norm3
+GN_CASES = ((128, 12544, 64), (128, 3136, 256), (128, 49, 2048))
+GN_GROUPS = 32
+
+
+def _gn_bound(shape, dtype, backward):
+    """Least time for one call: each input read once and each output
+    written once at the HBM rate (x -> y plus gamma, beta, stats forward;
+    x, dy, gamma, stats -> dx plus the per-sample partials backward)."""
+    b, hw, c = shape
+    item = torch.finfo(dtype).bits // 8
+    tensor = b * hw * c * item
+    stats = b * 2 * GN_GROUPS * 4
+    moved = (3 * tensor + c * 4 + stats + 2 * b * c * 4 if backward
+             else 2 * tensor + 2 * c * 4 + stats)
+    return {"bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": moved}
+
+
+def phase_gn_kernels(dev) -> list:
+    """The GroupNorm kernels against their plain versions at ResNet-50
+    b=128 shapes, bf16 and float32 (TF32 off); with their times, the
+    plain versions', ``F.group_norm`` (forward) and its autograd backward
+    on the same tensors viewed as NCHW, and the bounds."""
+    import torch.nn.functional as F
+
+    from distkeras_tpu_torch.ops.kernels import groupnorm as gn
+
+    set_tf32(False)
+    cases = []
+    for shape in GN_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            b, hw, c = shape
+            side = int(round(math.sqrt(hw)))
+            rng = np.random.default_rng(hw + c)
+            mk = lambda *s: torch.from_numpy(
+                rng.standard_normal(s).astype(np.float32)).to(dev)
+            x, dy = mk(*shape).to(dtype), mk(*shape).to(dtype)
+            gamma, beta = 1.0 + 0.1 * mk(c), 0.1 * mk(c)
+            y, stats = gn.group_norm_fwd(x, gamma, beta, GN_GROUPS)
+            y_ref, stats_ref = gn.group_norm_fwd_reference(
+                x, gamma, beta, GN_GROUPS, 1e-6)
+            dx, dgp, dbp = gn.group_norm_bwd(x, gamma, stats_ref, dy,
+                                             GN_GROUPS)
+            dx_ref, dgp_ref, dbp_ref = gn.group_norm_bwd_reference(
+                x, gamma, stats_ref, dy, GN_GROUPS)
+            torch.cuda.synchronize()
+            errs, ok = {}, True
+            for name, got, want, relative in (
+                    ("y", y, y_ref, False), ("stats", stats, stats_ref, True),
+                    ("dx", dx, dx_ref, True), ("dgamma_p", dgp, dgp_ref, True),
+                    ("dbeta_p", dbp, dbp_ref, True)):
+                assert torch.isfinite(got.float()).all(), name
+                err = (got.float() - want.float()).abs().max().item()
+                scale = want.float().abs().max().item()
+                if dtype == torch.float32 or name == "stats":
+                    bound = 1e-5 * max(1.0, scale) if relative else 1e-5
+                else:
+                    bound = 2e-2 * scale if relative else 2e-2
+                errs[name] = {"max_abs_err": err, "bound": bound,
+                              "max_abs_ref": scale}
+                ok &= err <= bound
+            del y, y_ref, dx, dx_ref
+            # library yardstick: F.group_norm over the NCHW view
+            # (channels_last memory) of the same tensor
+            xt = x.view(b, side, side, c).permute(0, 3, 1, 2)
+            dyt = dy.view(b, side, side, c).permute(0, 3, 1, 2)
+            xg = xt.detach().requires_grad_()
+            gg, bg = (gamma.to(dtype).requires_grad_(),
+                      beta.to(dtype).requires_grad_())
+            lib_out = F.group_norm(xg, GN_GROUPS, gg, bg, 1e-6)
+            iters = 10 if b * hw * c > 5e7 else 30
+            fwd = _timed(lambda i: gn.group_norm_fwd(x, gamma, beta,
+                                                     GN_GROUPS), iters)
+            fwd_plain = _timed(lambda i: gn.group_norm_fwd_reference(
+                x, gamma, beta, GN_GROUPS, 1e-6), max(2, iters // 3))
+            fwd_lib = _timed(lambda i: F.group_norm(xt, GN_GROUPS, gamma.to(
+                dtype), beta.to(dtype), 1e-6), iters)
+            bwd = _timed(lambda i: gn.group_norm_bwd(x, gamma, stats_ref, dy,
+                                                     GN_GROUPS), iters)
+            bwd_plain = _timed(lambda i: gn.group_norm_bwd_reference(
+                x, gamma, stats_ref, dy, GN_GROUPS), max(2, iters // 3))
+            bwd_lib = _timed(lambda i: torch.autograd.grad(
+                lib_out, (xg, gg, bg), dyt, retain_graph=True), iters)
+            kernels = {
+                "fwd": {"ms": fwd[0], "call_ms": fwd[1], "ms_source": fwd[2],
+                        "plain_ms": fwd_plain[0], "library_ms": fwd_lib[0],
+                        **_gn_bound(shape, dtype, False)},
+                "bwd": {"ms": bwd[0], "call_ms": bwd[1], "ms_source": bwd[2],
+                        "plain_ms": bwd_plain[0], "library_ms": bwd_lib[0],
+                        **_gn_bound(shape, dtype, True)}}
+            case = {"shape": list(shape), "groups": GN_GROUPS,
+                    "dtype": str(dtype).split(".")[-1], "errors": errs,
+                    "kernels": kernels}
+            cases.append(case)
+            del xg, gg, bg, lib_out, x, dy
+            torch.cuda.empty_cache()
+            err_line = ", ".join(f"{n} {e['max_abs_err']:.3e} (bound "
+                                 f"{e['bound']:.3e})" for n, e in errs.items())
+            log(f"[groupnorm] {tuple(shape)} G={GN_GROUPS} {case['dtype']}: "
+                f"{err_line}")
+            for name, kk in kernels.items():
+                log(f"[groupnorm]   {name}: kernel {kk['ms']:.4f} ms, plain "
+                    f"{kk['plain_ms']:.4f} ms, F.group_norm "
+                    f"{kk['library_ms']:.4f} ms ({kk['ms_source']}; with the "
+                    f"host {kk['call_ms']:.4f} ms), bound {kk['bound_ms']:.4f}"
+                    f" ms ({kk['bound_by']})")
+            assert ok, errs
+    return cases
+
+
+# -- phase 14 ----------------------------------------------------------------
+
+RESNET_B = 128
+
+
+def _resnet_model(norm, dtype, seed):
+    from distkeras_tpu_torch.models.resnet import init_params, resnet50
+
+    return init_params(resnet50(dtype=dtype, norm=norm),
+                       torch.Generator().manual_seed(seed))
+
+
+def _image_batch(b, seed):
+    """Seeded uint8 NHWC images and one-hot labels over 1000 classes."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 256, (b, 224, 224, 3), dtype=np.uint8)
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, b)]
+    return {"features": x, "labels": y}
+
+
+def _resnet_run(dev, norm, steps):
+    """resnet50(norm) in bf16 with float32 parameters,
+    categorical_crossentropy, adamw(1e-3), ``steps`` steps on one seeded
+    batch: (losses, state, step, batch, info)."""
+    from distkeras_tpu_torch import engine
+    from distkeras_tpu_torch.ops import optimizers
+    from distkeras_tpu_torch.ops.kernels import groupnorm as gn
+
+    set_tf32(False)
+    model = _resnet_model(norm, torch.bfloat16, seed=0)
+    tx = optimizers.get("adamw", 1e-3)
+    state = engine.create_train_state(model, tx, device=dev)
+    step = engine.make_train_step(model, "categorical_crossentropy", tx,
+                                  metrics=("accuracy",))
+    batch = engine.to_device(_image_batch(RESNET_B, seed=1), dev)
+    kernels = (gn.group_norm_fwd, gn.group_norm_bwd)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for kernel in kernels:
+        kernel.launches = 0
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, out = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(out["loss"]))
+    info = {"launches": {k.__name__: k.launches for k in kernels},
+            "step_s": times,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    return losses, state, step, batch, info
+
+
+def phase_resnet_train(dev, power_line) -> tuple:
+    """Path B: resnet50() (GroupNorm) in bf16, batch 128 of seeded uint8
+    224^2 images, adamw(1e-3): 1 warm-up and 4 timed steps, 53 GroupNorm
+    forward and 53 backward launches a step."""
+    losses, state, step, batch, run = _resnet_run(dev, "gn", 5)
+    median_s = statistics.median(run["step_s"][1:])
+    info = {"losses": losses, "step_s": run["step_s"],
+            "median_step_s": median_s,
+            "images_per_s": RESNET_B / median_s,
+            "peak_bytes": run["peak_bytes"], "launches": run["launches"],
+            "card": power_line, "card_after": smi_sample()}
+    log(f"[resnet-train] resnet50() GroupNorm, batch {RESNET_B} x 224^2 "
+        f"uint8, bf16 compute, f32 params, adamw(1e-3): losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}; median step "
+        f"{median_s * 1e3:.1f} ms of 4 timed (warm-up "
+        f"{run['step_s'][0] * 1e3:.1f} ms), {info['images_per_s']:.1f} "
+        f"images/s, peak {run['peak_bytes'] / 2**30:.2f} GiB, GroupNorm "
+        f"launches {run['launches']} [{power_line}; after: "
+        f"{info['card_after']}]")
+    assert all(math.isfinite(x) for x in losses), losses
+    assert all(n == 53 * len(losses) for n in run["launches"].values()), run
+    return info, (state, step, batch)
+
+
+def phase_resnet_witness(dev, losses) -> dict:
+    """The same steps with the GroupNorm kernels swapped for their plain
+    versions (in this script only): steps 1-4 within 1e-3 relative."""
+    from unittest import mock
+
+    from distkeras_tpu_torch.ops.kernels import groupnorm as gn
+
+    with mock.patch.object(gn, "group_norm_fwd",
+                           gn.group_norm_fwd_reference), \
+            mock.patch.object(gn, "group_norm_bwd",
+                              gn.group_norm_bwd_reference):
+        plain, *_ = _resnet_run(dev, "gn", len(losses))
+    torch.cuda.empty_cache()
+    diff = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+    info = {"plain_losses": plain, "kernel_losses": losses,
+            "rel_diff": diff}
+    log(f"[resnet-witness] plain GroupNorm: losses "
+        f"{', '.join(f'{x:.5f}' for x in plain)} (kernels "
+        f"{', '.join(f'{x:.5f}' for x in losses)}; relative differences "
+        f"{', '.join(f'{x:.2e}' for x in diff)}, steps 1-4 bound 1e-3)")
+    assert max(diff[:4]) <= 1e-3, info
+    return info
+
+
+def phase_resnet_identity(dev) -> dict:
+    """float32 with TF32 off in matmuls AND cuDNN convolutions, and
+    cuDNN's deterministic algorithms (its float32 backward otherwise sums
+    in an order that changes from run to run, which is not what this
+    compares): resnet50() at b=2, its norm scales and biases drawn at
+    random (so that no branch is hidden behind a zero-init scale), the
+    GroupNorm kernels against their plain versions in the loss, every
+    gradient, and the parameters after one SGD step."""
+    import copy
+    from unittest import mock
+
+    from distkeras_tpu_torch import engine
+    from distkeras_tpu_torch.ops import optimizers
+    from distkeras_tpu_torch.ops.kernels import groupnorm as gn
+
+    set_tf32(False)
+    model = _resnet_model("gn", torch.float32, seed=7)
+    gen = torch.Generator().manual_seed(8)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, gn.GroupNorm):
+                m.weight.copy_(1.0 + 0.2 * torch.randn(m.weight.shape,
+                                                       generator=gen))
+                m.bias.copy_(0.1 * torch.randn(m.bias.shape, generator=gen))
+    models = {"kernel": model.to(dev), "plain": copy.deepcopy(model).to(dev)}
+    batch = engine.to_device(_image_batch(2, seed=9), dev)
+    plain_gn = (mock.patch.object(gn, "group_norm_fwd",
+                                  gn.group_norm_fwd_reference),
+                mock.patch.object(gn, "group_norm_bwd",
+                                  gn.group_norm_bwd_reference))
+    tx = optimizers.get("sgd", 0.1)
+    got = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for name, m in models.items():
+        patches = plain_gn if name == "plain" else ()
+        for p in patches:
+            p.start()
+        try:
+            (loss, _), grads = engine.make_grad_fn(
+                m, "categorical_crossentropy")(batch)
+            got[name] = (loss.item(), grads)
+            state = engine.create_train_state(m, tx, device=dev)
+            engine.make_train_step(m, "categorical_crossentropy", tx)(
+                state, batch)
+        finally:
+            for p in patches:
+                p.stop()
+    torch.backends.cudnn.deterministic = deterministic
+    loss_rel = abs(got["kernel"][0] - got["plain"][0]) / abs(got["plain"][0])
+    grad_rel = {n: ((g - got["plain"][1][n]).norm()
+                    / got["plain"][1][n].norm().clamp(min=1e-30)).item()
+                for n, g in got["kernel"][1].items()}
+    param_err = max((a - b).abs().max().item() for a, b in zip(
+        models["kernel"].parameters(), models["plain"].parameters()))
+    worst = max(grad_rel, key=grad_rel.get)
+    info = {"loss_kernel": got["kernel"][0], "loss_plain": got["plain"][0],
+            "loss_rel": loss_rel, "max_grad_rel": grad_rel[worst],
+            "worst_grad": worst, "sgd_param_max_abs_err": param_err,
+            "tf32": [torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32]}
+    log(f"[resnet-identity] f32 (TF32 off: matmul, cuDNN; deterministic "
+        f"cuDNN) resnet50() b=2, "
+        f"GroupNorm kernels vs plain: loss {got['kernel'][0]:.6f} vs "
+        f"{got['plain'][0]:.6f} (rel {loss_rel:.2e}, bound 1e-5), worst "
+        f"grad rel {grad_rel[worst]:.2e} ({worst}, bound 1e-4), params "
+        f"after one SGD step {param_err:.2e} (bound 1e-6)")
+    assert not any(info["tf32"])
+    assert loss_rel <= 1e-5 and grad_rel[worst] <= 1e-4 \
+        and param_err <= 1e-6, info
+    del models, model
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_nf(dev, power_line) -> dict:
+    """The NF recipe's first card run: resnet50_nf() in bf16, batch 128,
+    2 adamw steps; finite losses and the step time (no kernel of the
+    port runs: Scaled-WS convolutions on cuDNN)."""
+    losses, _, _, _, run = _resnet_run(dev, "nf", 2)
+    info = {"losses": losses, "step_s": run["step_s"],
+            "peak_bytes": run["peak_bytes"], "card": power_line}
+    log(f"[nf] resnet50_nf() bf16 batch {RESNET_B}: losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}, steps "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in run['step_s'])} ms (the "
+        f"first includes warm-up), peak {run['peak_bytes'] / 2**30:.2f} GiB")
+    assert all(math.isfinite(x) for x in losses), losses
+    assert all(n == 0 for n in run["launches"].values()), run
+    torch.cuda.empty_cache()
+    return info
+
+
 def main() -> int:
     report = {}
     try:
@@ -802,6 +1353,24 @@ def main() -> int:
         report["train_witness"] = phase_train_witness(
             dev, [m["loss"] for m in report["train"]["metrics"]])
         report["train_identity"] = phase_train_identity(dev)
+        report["int8_cases"] = phase_int8_kernel(dev)
+        report["int8_train"], int8_run = phase_int8_train(dev, card)
+        report["int8_train_profile"] = phase_train_profile(
+            *int8_run, tag="int8-profile")
+        del int8_run
+        torch.cuda.empty_cache()
+        report["int8_witness"] = phase_int8_witness(
+            dev, report["int8_train"]["losses"])
+        report["gn_cases"] = phase_gn_kernels(dev)
+        report["resnet_train"], resnet_run = phase_resnet_train(dev, card)
+        report["resnet_train_profile"] = phase_train_profile(
+            *resnet_run, tag="resnet-profile")
+        del resnet_run
+        torch.cuda.empty_cache()
+        report["resnet_witness"] = phase_resnet_witness(
+            dev, report["resnet_train"]["losses"])
+        report["resnet_identity"] = phase_resnet_identity(dev)
+        report["nf"] = phase_nf(dev, card)
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         log("[chip_smoke] FAILED")
@@ -849,6 +1418,37 @@ def main() -> int:
                if "library_bwd_ms" in kk else {}),
             "ms_source": kk["ms_source"],
             "shape": "b=8 t=2048 h=12 d=64 causal bf16",
+        })
+    qkv = next(c for c in report["int8_cases"] if c["name"] == "qkv")
+    rows.append({
+        "name": "int8_matmul_dequant", "route": "cuda",
+        "source": "distkeras_tpu_torch/ops/kernels/csrc/int8_matmul.cu",
+        "replaces": "distkeras_tpu/ops/pallas/int8_matmul.py:68",
+        "launches": report["int8_train"]["launches"]["int8_matmul_dequant"],
+        "max_abs_err": max(c["max_abs_err"] for c in report["int8_cases"]),
+        "ms": qkv["ms"], "plain_ms": qkv["plain_ms"],
+        "bound_ms": qkv["bound_ms"], "bound_by": qkv["bound_by"],
+        "library_ms": qkv["library_ms"], "ms_source": qkv["ms_source"],
+        "shape": "qkv: int8 [16384, 768] x [2304, 768] -> bf16",
+    })
+    stem = next(c for c in report["gn_cases"]
+                if c["shape"] == [128, 12544, 64]
+                and c["dtype"] == "bfloat16")
+    for name, part, outs, line in (
+            ("group_norm_fwd", "fwd", ("y", "stats"), 60),
+            ("group_norm_bwd", "bwd", ("dx", "dgamma_p", "dbeta_p"), 87)):
+        kk = stem["kernels"][part]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "distkeras_tpu_torch/ops/kernels/csrc/groupnorm.cu",
+            "replaces": f"distkeras_tpu/ops/pallas/groupnorm.py:{line}",
+            "launches": report["resnet_train"]["launches"][name],
+            "max_abs_err": max(stem["errors"][o]["max_abs_err"]
+                               for o in outs),
+            "ms": kk["ms"], "plain_ms": kk["plain_ms"],
+            "bound_ms": kk["bound_ms"], "bound_by": kk["bound_by"],
+            "library_ms": kk["library_ms"], "ms_source": kk["ms_source"],
+            "shape": "ResNet-50 stem [128, 12544, 64] G=32 bf16",
         })
     kernels = {"kernels": rows}
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -18,9 +18,12 @@ PyTorch idiom where the JAX package is functional:
   ``dropout_seed`` and the step (and, under accumulation, the
   microbatch). No ported model draws from it yet (``CausalLM`` has no
   dropout);
-- only the precision policies without loss scaling are ported
-  (``None``, ``"f32"``, ``"bf16"``; :mod:`distkeras_tpu_torch.precision`),
-  so no grad function scales the loss.
+- ``precision=``: a policy with a loss scale other than 1 (``"int8"``,
+  ``"fp8-sim"``) scales the loss before ``autograd.grad`` and unscales
+  the gradients in float32 after; the step reads the live scale from an
+  :func:`~distkeras_tpu_torch.precision.overflow_guard`-wrapped optimizer
+  (:func:`~distkeras_tpu_torch.precision.current_scale`), else the
+  policy's static scale applies. The reported loss is the unscaled one.
 
 A batch is a dict ``{"features": ..., "labels": ...}`` of tensors or numpy
 arrays; the step moves it to the module's device.
@@ -87,12 +90,14 @@ def _generator(seed: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def _check_precision(precision) -> None:
+def _loss_scaling(precision):
+    """``(policy, (pre, post))`` when the policy scales the loss, else
+    ``(policy, None)``: f32 and bf16 have scale 1 and run no scaling code,
+    so they equal ``precision=None`` exactly."""
     policy = precision_lib.get_policy(precision)
-    if policy is not None and policy.loss_scale != 1.0:
-        raise NotImplementedError(
-            f"precision {policy.name!r} scales the loss; loss scaling is not "
-            f"ported yet (ROADMAP.md Queue A, item 15)")
+    if policy is None or policy.loss_scale == 1.0:
+        return policy, None
+    return policy, precision_lib.scale_grads_fn(policy)
 
 
 def make_loss_fn(model: nn.Module, loss) -> Callable:
@@ -150,14 +155,23 @@ def _grads(model: nn.Module, loss_val: torch.Tensor) -> dict:
 
 
 def make_grad_fn(model: nn.Module, loss, precision=None) -> Callable:
-    """``(batch, generator=None) -> ((loss, logits), grads)``: the
-    building block a strategy applies its optimizer after."""
-    _check_precision(precision)
+    """``(batch, generator=None, loss_scale=None) -> ((loss, logits),
+    grads)``: the building block a strategy applies its optimizer after.
+    Under a loss-scaling ``precision`` the gradients are those of the
+    loss times ``loss_scale`` (the policy's scale when None), unscaled in
+    float32; ``loss`` is the unscaled loss."""
     compute_loss = make_loss_fn(model, loss)
+    policy, scaling = _loss_scaling(precision)
 
-    def grad_fn(batch: Batch, generator: Optional[torch.Generator] = None):
+    def grad_fn(batch: Batch, generator: Optional[torch.Generator] = None,
+                loss_scale=None):
         loss_val, logits = compute_loss(batch, generator)
-        grads = _grads(model, loss_val)
+        if scaling is None:
+            grads = _grads(model, loss_val)
+        else:
+            scale = policy.loss_scale if loss_scale is None else loss_scale
+            grads = scaling[1](_grads(model, scaling[0](loss_val, scale)),
+                               scale)
         return (loss_val.detach(), logits.detach()), grads
 
     return grad_fn
@@ -187,15 +201,20 @@ def make_accum_grad_fn(model: nn.Module, loss, accum_steps: int,
     full-batch mean-loss gradient), and ``terms`` holds each metric's
     summed ``(num, den)`` pair instead of full-batch logits. Each
     microbatch gets its own generator, derived from ``generator``'s seed
-    and the microbatch index."""
-    _check_precision(precision)
+    and the microbatch index. Under a loss-scaling ``precision`` each
+    microbatch's loss is scaled, and the float32 sum of the scaled
+    gradients is unscaled once (exact for power-of-two scales)."""
     compute_loss = make_loss_fn(model, loss)
+    policy, scaling = _loss_scaling(precision)
     k = int(accum_steps)
     if k < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     metric_names = tuple(metric_names)
 
-    def grad_fn(batch: Batch, generator: Optional[torch.Generator] = None):
+    def grad_fn(batch: Batch, generator: Optional[torch.Generator] = None,
+                loss_scale=None):
+        scale = None if scaling is None else (
+            policy.loss_scale if loss_scale is None else loss_scale)
         micro = _split_microbatches(batch, k)
         params = dict(model.named_parameters())
         device = _device_of(model)
@@ -210,7 +229,8 @@ def make_accum_grad_fn(model: nn.Module, loss, accum_steps: int,
             gen_i = None if generator is None else _generator(
                 _seeded(generator.initial_seed(), i), generator.device)
             loss_i, logits = compute_loss(batch_i, gen_i)
-            grads = _grads(model, loss_i)
+            grads = _grads(model, loss_i if scale is None
+                           else scaling[0](loss_i, scale))
             with torch.no_grad():
                 for name in metric_names:
                     num, den = compute_metric_terms(name, logits,
@@ -219,6 +239,8 @@ def make_accum_grad_fn(model: nn.Module, loss, accum_steps: int,
                 grad_sum = {n: a + grads[n].float()
                             for n, a in grad_sum.items()}
                 loss_sum = loss_sum + loss_i.detach().float()
+        if scale is not None:
+            grad_sum = scaling[1](grad_sum, scale)
         grads = {n: (g / k).to(params[n].dtype) for n, g in grad_sum.items()}
         return (loss_sum / k, terms), grads
 
@@ -232,7 +254,8 @@ def _make_step_body(model: nn.Module, loss, with_grad_norm: bool,
     share, so the two are equal by construction. ``accum_steps > 1``
     swaps the full-batch gradient for :func:`make_accum_grad_fn`; the
     state's optimizer applies once either way, so ``step`` counts
-    optimizer steps."""
+    optimizer steps. The live loss scale of a guard-wrapped optimizer
+    (``precision.current_scale``) is fed to the grad function."""
     metric_names = tuple(metrics)
     accum_steps = int(accum_steps)
     if accum_steps > 1:
@@ -245,7 +268,9 @@ def _make_step_body(model: nn.Module, loss, with_grad_norm: bool,
         device = _device_of(state.model)
         batch = to_device(batch, device)
         generator = _generator(_seeded(dropout_seed, state.step), device)
-        (loss_val, aux), grads = grad_fn(batch, generator)
+        (loss_val, aux), grads = grad_fn(
+            batch, generator,
+            loss_scale=precision_lib.current_scale(state.opt_state))
         for name, p in state.model.named_parameters():
             p.grad = grads[name]
         state.opt_state.step()

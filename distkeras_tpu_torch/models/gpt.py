@@ -29,7 +29,10 @@ and the Dense layers of each block cast theirs to the model's compute
 dtype at each call (:class:`~distkeras_tpu_torch.models.transformer.Dense`,
 :class:`~distkeras_tpu_torch.models.transformer.Embed`), while the
 LayerNorms (eps 1e-6, flax's), the position table and the LM head
-compute in float32.
+compute in float32. ``precision`` (:mod:`distkeras_tpu_torch.precision`)
+sets the compute dtype and, for ``"int8"``/``"fp8-sim"``, quantizes the
+products of every block Dense (qkv, out, fc1, fc2; under ``"int8"`` through
+the int8 matmul kernel); the LM head stays float32 and unquantized.
 
 Not ported yet: ``attention="ring"``, ``remat`` other than ``"none"``,
 the rectangular ``[batch, max_len]`` cache, and int8 KV pages
@@ -56,7 +59,7 @@ LN_EPS = 1e-6
 class CausalSelfAttention(nn.Module):
     def __init__(self, width: int, num_heads: int,
                  dtype: torch.dtype = torch.bfloat16,
-                 attention: str = "full"):
+                 attention: str = "full", precision: Optional[str] = None):
         super().__init__()
         if attention == "ring":
             raise NotImplementedError(
@@ -67,8 +70,8 @@ class CausalSelfAttention(nn.Module):
                              f"'full', 'flash', or 'ring'")
         self.num_heads = num_heads
         self.attention = attention
-        self.qkv = Dense(width, 3 * width, dtype)
-        self.out = Dense(width, width, dtype)
+        self.qkv = Dense(width, 3 * width, dtype, precision)
+        self.out = Dense(width, width, dtype, precision)
 
     def forward(self, x, cache=None, cache_index=None, page_table=None):
         b, t, width = x.shape
@@ -114,13 +117,14 @@ class CausalSelfAttention(nn.Module):
 class DecoderBlock(nn.Module):
     def __init__(self, width: int, num_heads: int, mlp_dim: int,
                  dtype: torch.dtype = torch.bfloat16,
-                 attention: str = "full"):
+                 attention: str = "full", precision: Optional[str] = None):
         super().__init__()
         self.dtype = dtype
         self.ln1 = nn.LayerNorm(width, eps=LN_EPS)
-        self.attn = CausalSelfAttention(width, num_heads, dtype, attention)
+        self.attn = CausalSelfAttention(width, num_heads, dtype, attention,
+                                        precision)
         self.ln2 = nn.LayerNorm(width, eps=LN_EPS)
-        self.mlp = MlpBlock(width, mlp_dim, dtype)
+        self.mlp = MlpBlock(width, mlp_dim, dtype, precision)
 
     def forward(self, x, cache=None, cache_index=None, page_table=None):
         y = self.ln1(x.float()).to(self.dtype)
@@ -158,9 +162,12 @@ class CausalLM(nn.Module):
         self.tok_embed = Embed(vocab_size, width, self.dtype)
         self.pos_embed = nn.Parameter(torch.zeros(max_len, width))
         self.layers = nn.ModuleList(
-            DecoderBlock(width, num_heads, mlp_dim, self.dtype, attention)
+            DecoderBlock(width, num_heads, mlp_dim, self.dtype, attention,
+                         self.precision)
             for _ in range(num_layers))
         self.ln_final = nn.LayerNorm(width, eps=LN_EPS)
+        # float32 and unquantized under every policy (the JAX model's head
+        # takes no dense_kw)
         self.lm_head = nn.Linear(width, vocab_size)
 
     def forward(self, input_ids, cache=None, cache_index=None,

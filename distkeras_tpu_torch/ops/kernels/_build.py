@@ -25,6 +25,10 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
+#: dynamic shared memory one block may opt into on Hopper (H100 and H200:
+#: 227 KiB of the SM's 256 KiB)
+SMEM_OPTIN_BYTES = 232448
+
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -40,10 +40,8 @@ import ctypes
 import torch
 
 from distkeras_tpu_torch.ops.attention import MASK_VALUE, dot_product_attention
+from distkeras_tpu_torch.ops.kernels._build import SMEM_OPTIN_BYTES
 
-#: dynamic shared memory one block may opt into on Hopper (H100 and H200:
-#: 227 KiB of the SM's 256 KiB)
-SMEM_OPTIN_BYTES = 232448
 #: head_dims the kernel is instantiated for
 KERNEL_HEAD_DIMS = (32, 64, 128)
 _TILE_Q, _CHUNK = 16, 64  # must match csrc/paged_attention.cu

@@ -402,19 +402,24 @@ def test_optimizer_registry_raises_for_what_is_not_ported():
 
 
 def test_precision_policies_match_jax():
-    for name in ("f32", "bf16"):
+    assert tprecision.PRECISION_POLICIES == jprecision.PRECISION_POLICIES
+    for name in ("f32", "bf16", "int8", "fp8-sim"):
         tp, jp = tprecision.get_policy(name), jprecision.get_policy(name)
-        assert (tp.name, tp.loss_scale, tp.quant) == (jp.name, jp.loss_scale,
-                                                      jp.quant)
+        assert (tp.name, tp.quant, tp.loss_scale, tp.growth_interval,
+                tp.max_scale, tp.mfu_dtype) == (
+                    jp.name, jp.quant, jp.loss_scale, jp.growth_interval,
+                    jp.max_scale, jp.mfu_dtype)
         assert str(tp.compute_dtype).split(".")[-1] == jnp.dtype(
             jp.compute_dtype).name
+        assert tprecision.validate_precision(tp) == name
     assert tprecision.get_policy(None) is None
     assert tprecision.current_scale({"anything": 1}) is None
+    assert tprecision.resolve("int8", torch.float32) == torch.bfloat16
+    assert tprecision.resolve("fp8-sim", torch.float32) == torch.bfloat16
+    # the loss-scaling policies build grad fns (no longer refused)
     for name in ("int8", "fp8-sim"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tprecision.get_policy(name)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            teng.make_grad_fn(torch.nn.Linear(2, 2), "mse", precision=name)
+        assert callable(teng.make_grad_fn(torch.nn.Linear(2, 2), "mse",
+                                          precision=name))
     with pytest.raises(ValueError):
         tprecision.get_policy("fp16")
 

@@ -2,7 +2,8 @@
 
 Skipped without a CUDA device (the kernels have no CPU mode; the plain
 versions' agreement with the JAX package is
-tests/test_torch_paged_attention.py and tests/test_torch_flash_attention.py).
+tests/test_torch_paged_attention.py, tests/test_torch_flash_attention.py,
+tests/test_torch_int8.py and tests/test_torch_groupnorm.py).
 This file imports no JAX, so it also runs where only the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
@@ -11,14 +12,24 @@ Bounds: paged attention float32 (TF32 off) 1e-5 abs, bf16 2e-2 abs.
 Training flash attention: float32 out and lse 1e-5 abs, grads
 1e-4 * max|ref| + 1e-5 (summation order only); bf16 out 2e-2 abs, grads
 2e-2 * max|ref| (P rounded to bf16 at other places than the exact
-softmax of the plain version).
+softmax of the plain version). Scaled int8 product: bitwise (an exact
+int32 sum and one rounding on both sides). GroupNorm: float32 y and stats
+1e-5 abs, dx and the dgamma/dbeta partials 1e-5 * max(1, max|ref|)
+(summation order); bf16 y 2e-2 abs, dx and partials 2e-2 * max|ref|; and
+y, dx and the partials bitwise, the stats within one float32 ulp (float64
+sums rounded once, the plain version's operation order).
 """
+
+import math
 
 import numpy as np
 import pytest
 import torch
 
+from distkeras_tpu_torch import precision as tprecision
 from distkeras_tpu_torch.ops.kernels import flash_attention as tfa
+from distkeras_tpu_torch.ops.kernels import groupnorm as tgn
+from distkeras_tpu_torch.ops.kernels import int8_matmul as tk
 
 
 @pytest.fixture
@@ -193,3 +204,158 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
         tfa.flash_attention_fwd(q.transpose(1, 2).contiguous()
                                 .transpose(1, 2), q, q)
     assert tfa.flash_attention_fwd.launches == before
+
+
+# -- scaled int8 product ------------------------------------------------------
+
+def _int8_inputs(m, k, n, dev, seed):
+    rng = np.random.default_rng(seed)
+    qx = torch.from_numpy(rng.integers(-127, 128, (m, k)).astype(np.int8))
+    qw = torch.from_numpy(rng.integers(-127, 128, (n, k)).astype(np.int8))
+    sxw = torch.tensor(rng.uniform(1e-4, 1e-2), dtype=torch.float32)
+    return qx.to(dev), qw.to(dev), sxw.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(16384, 768, 2304), (512, 3072, 768),
+                                   (100, 48, 72), (3, 16, 5), (130, 96, 1),
+                                   (257, 80, 129)])
+def test_int8_kernel_bitwise_equals_plain_version(cuda_device, out_dtype,
+                                                  m, k, n):
+    """GPT-2-small's qkv shape, a K=3072 shape, and ragged M, N and K
+    tails (K a multiple of 16, not of the 64-deep tile)."""
+    qx, qw, sxw = _int8_inputs(m, k, n, cuda_device, m + k + n)
+    got = tk.int8_matmul_dequant(qx, qw, sxw, out_dtype)
+    want = tk.int8_matmul_dequant_reference(qx, qw, sxw, out_dtype)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_int8_kernel_rejects_what_it_does_not_take(cuda_device):
+    qx, qw, sxw = _int8_inputs(64, 48, 32, cuda_device, 0)
+    before = tk.int8_matmul_dequant.launches
+    with pytest.raises(ValueError, match="does not take"):
+        tk.int8_matmul_dequant(qx[:, :40].contiguous(),
+                               qw[:, :40].contiguous(), sxw)  # K % 16
+    with pytest.raises(ValueError, match="int8"):
+        tk.int8_matmul_dequant(qx.int(), qw, sxw)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.int8_matmul_dequant(qx.t().contiguous().t(), qw, sxw)
+    with pytest.raises(ValueError, match="out_dtype"):
+        tk.int8_matmul_dequant(qx, qw, sxw, torch.float16)
+    assert tk.int8_matmul_dequant.launches == before
+
+
+@pytest.mark.cuda
+def test_scaled_int8_matmul_on_card_equals_cpu(cuda_device):
+    """The Dense product under precision="int8" (quantize, kernel) on the
+    card against the same function on the CPU, bitwise, and its STE
+    gradients within the bf16 bound."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((4, 64, 96)).astype(
+        np.float32)).bfloat16()
+    w = torch.from_numpy(rng.standard_normal((48, 96)).astype(
+        np.float32)).bfloat16()
+    before = tk.int8_matmul_dequant.launches
+    got = tprecision.scaled_int8_matmul(x.to(cuda_device), w.to(cuda_device))
+    torch.cuda.synchronize()
+    assert tk.int8_matmul_dequant.launches == before + 1
+    assert torch.equal(got.cpu(), tprecision.scaled_int8_matmul(x, w))
+
+
+# -- GroupNorm ----------------------------------------------------------------
+
+def _gn_inputs(shape, dtype, dev, seed):
+    rng = np.random.default_rng(seed)
+    c = shape[-1]
+    mk = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32))
+    x, dy = mk(*shape).to(dev, dtype), mk(*shape).to(dev, dtype)
+    gamma = (1.0 + 0.1 * mk(c)).to(dev)
+    beta = (0.1 * mk(c)).to(dev)
+    return x, gamma, beta, dy
+
+
+def _gn_close(got, want, dtype, relative):
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    if dtype == torch.float32:
+        bound = 1e-5 * max(1.0, scale) if relative else 1e-5
+    else:
+        bound = 2e-2 * scale if relative else 2e-2
+    assert err <= bound, (err, bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups", [
+    ((4, 3136, 256), 32), ((4, 49, 2048), 32), ((2, 12544, 64), 32),
+    ((3, 10, 24), 8), ((2, 7, 48), 16), ((2, 100, 512), 4)])
+def test_groupnorm_kernels_match_plain_versions_on_card(cuda_device, dtype,
+                                                        shape, groups):
+    """Forward and backward kernels against their plain versions, at
+    ResNet-50 shapes (C/G = 8, 64, 2) and at odd ones (C/G = 3 with
+    one-value loads, C/G = 128 with 16 chunks a row)."""
+    _no_tf32()
+    x, gamma, beta, dy = _gn_inputs(shape, dtype, cuda_device, sum(shape))
+    y, stats = tgn.group_norm_fwd(x, gamma, beta, groups)
+    y_ref, stats_ref = tgn.group_norm_fwd_reference(x, gamma, beta, groups,
+                                                    1e-6)
+    dx, dgp, dbp = tgn.group_norm_bwd(x, gamma, stats_ref, dy, groups)
+    dx_ref, dgp_ref, dbp_ref = tgn.group_norm_bwd_reference(
+        x, gamma, stats_ref, dy, groups)
+    torch.cuda.synchronize()
+    assert y.dtype == dx.dtype == dtype and stats.dtype == torch.float32
+    _gn_close(y, y_ref, dtype, relative=False)
+    _gn_close(stats, stats_ref, torch.float32, relative=True)
+    for got, want in ((dx, dx_ref), (dgp, dgp_ref), (dbp, dbp_ref)):
+        _gn_close(got, want, dtype, relative=True)
+    for got, want in ((y, y_ref), (dx, dx_ref), (dgp, dgp_ref),
+                      (dbp, dbp_ref)):
+        assert torch.equal(got, want)
+    # every sum is float64 rounded once, but a value far below its
+    # group's others can leave the float64 sum of mu inexact: one ulp
+    ulp = torch.nextafter(stats_ref.abs(), torch.full_like(stats_ref,
+                                                           math.inf))
+    assert ((stats - stats_ref).abs() <= ulp - stats_ref.abs()).all()
+
+
+@pytest.mark.cuda
+def test_groupnorm_autograd_goes_through_both_kernels(cuda_device):
+    x, gamma, beta, dy = _gn_inputs((2, 196, 64), torch.float32,
+                                    cuda_device, 4)
+    x, gamma, beta = (t.requires_grad_() for t in (x, gamma, beta))
+    counts = (tgn.group_norm_fwd.launches, tgn.group_norm_bwd.launches)
+    tgn.group_norm(x, gamma, beta, 32).backward(dy)
+    torch.cuda.synchronize()
+    assert (tgn.group_norm_fwd.launches - counts[0],
+            tgn.group_norm_bwd.launches - counts[1]) == (1, 1)
+    _, stats = tgn.group_norm_fwd_reference(x.detach(), gamma.detach(),
+                                            beta.detach(), 32, 1e-6)
+    dx, dgp, dbp = tgn.group_norm_bwd_reference(x.detach(), gamma.detach(),
+                                                stats, dy, 32)
+    for got, want in ((x.grad, dx), (gamma.grad, dgp.sum(0)),
+                      (beta.grad, dbp.sum(0))):
+        _gn_close(got, want, torch.float32, relative=True)
+
+
+@pytest.mark.cuda
+def test_groupnorm_kernels_reject_what_they_do_not_take(cuda_device):
+    before = (tgn.group_norm_fwd.launches, tgn.group_norm_bwd.launches)
+    x = torch.zeros(1, 60000, 64, device=cuda_device)
+    g = torch.ones(64, device=cuda_device)
+    with pytest.raises(ValueError, match="does not take"):
+        tgn.group_norm_fwd(x, g, g, 32)  # slab above 227 KiB
+    x = torch.zeros(2, 10, 24, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float16"):
+        tgn.group_norm_fwd(x, g[:24], g[:24], 8)
+    x = torch.zeros(2, 24, 10, device=cuda_device).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tgn.group_norm_bwd(x, g[:24], torch.zeros(2, 2, 8,
+                                                  device=cuda_device),
+                           x, 8)
+    assert (tgn.group_norm_fwd.launches,
+            tgn.group_norm_bwd.launches) == before

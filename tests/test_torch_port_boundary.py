@@ -57,8 +57,8 @@ def test_hbm_stats_is_none_on_cpu_and_precision_policies():
     assert precision.resolve(None, torch.float32) == torch.float32
     assert precision.resolve("bf16", torch.float32) == torch.bfloat16
     assert precision.resolve("f32", torch.bfloat16) == torch.float32
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        precision.resolve("int8", torch.float32)
+    assert precision.resolve("int8", torch.float32) == torch.bfloat16
+    assert precision.resolve("fp8-sim", torch.float32) == torch.bfloat16
     with pytest.raises(ValueError):
         precision.resolve("fp64", torch.float32)
 
@@ -70,6 +70,8 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
             "import distkeras_tpu_torch.utils.bridge\n"
             "import distkeras_tpu_torch.engine\n"
             "import distkeras_tpu_torch.ops.kernels.flash_attention\n"
+            "import distkeras_tpu_torch.models\n"
+            "import distkeras_tpu_torch.precision\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(','.join(bad))\n")
