@@ -9,7 +9,8 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    forward; its dq and dk/dv backward; the int8 product; GroupNorm
    forward and backward) from the sources in
    this checkout (sm_90a) into the git-ignored build directory, one nvcc
-   per source, all started together;
+   per source, all started together; the SASS of the flash backward
+   must hold wgmma (HGMMA) in each bf16 kernel;
 3. kernels — the paged kernel against its plain PyTorch version on the
    card at the shapes gpt_small serving gives it (float32 with TF32 off,
    and bf16), with its time, the plain version's time, one PyTorch
@@ -82,6 +83,7 @@ also written to ``chiprun_out/chip_smoke.json``.
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -231,9 +233,36 @@ def phase_build() -> dict:
         log(f"[build] {name}: nvcc {info[name]['seconds']:.2f} s -> "
             f"{info[name]['path']}")
         for line in info[name]["log"].splitlines():
+            if "Compiling entry function" in line:
+                log(f"[build]   {line.split(chr(39))[1]}")
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build]   {line.strip()}")
+    info["flash_bwd_sass"] = _sass_counts(
+        info["flash_attention_bwd"]["path"])
     return info
+
+
+def _sass_counts(lib_path) -> dict:
+    """Per kernel of a built library, its count of wgmma (HGMMA) and
+    float32 FMA (FFMA) instructions in the SASS (cuobjdump): the bf16
+    backward kernels must multiply on the tensor cores."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=120).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = {"HGMMA": 0, "FFMA": 0}
+        elif name is not None:
+            for op in ("HGMMA", "FFMA"):
+                counts[name][op] += f" {op}." in line or f" {op} " in line
+    for name, c in counts.items():  # from the kernel's own name on
+        log(f"[build]   sass {name[name.rfind('flash_'):][:48]}: "
+            f"{c['HGMMA']} HGMMA, {c['FFMA']} FFMA")
+    sm90 = [c for n, c in counts.items() if "sm90" in n]
+    assert len(sm90) == 4 and all(c["HGMMA"] > 0 for c in sm90), counts
+    return counts
 
 
 # -- phase 3 -----------------------------------------------------------------
@@ -499,8 +528,11 @@ def _flash_bound(name, shape, causal, dtype):
     the rate of their operand types, counting visible (query, key) pairs
     only. Products of input-dtype operands (q k^T, dout v^T, and p v in
     the forward, which takes p in the input dtype) run at that dtype's
-    peak; those with a float32 operand (ds k, p^T dout, ds^T q) at the
-    float32 peak."""
+    peak. Those with a float32 operand (ds k, p^T dout, ds^T q): for
+    float32 inputs at the float32 peak; for bf16 inputs as three bf16
+    tensor-core products (the float32 operand split into three bf16
+    terms, the fastest float32-accurate route on this card), three times
+    their flops at the bf16 peak."""
     b, t, h, d = shape
     item = torch.finfo(dtype).bits // 8
     pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
@@ -510,13 +542,17 @@ def _flash_bound(name, shape, causal, dtype):
              "dkv": 6 * tensor + 2 * rows}[name]  # ... -> dk, dv
     in_ops, f32_ops = {"fwd": (4 * d, 0), "dq": (4 * d, 2 * d),
                        "dkv": (4 * d, 4 * d)}[name]
+    split = 3 if dtype == torch.bfloat16 and f32_ops else 0
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = (in_ops * pairs / PEAK_FLOPS[dtype]
-             + f32_ops * pairs / PEAK_FLOPS[torch.float32]) * 1e3
+    if split:
+        t_ops = (in_ops + split * f32_ops) * pairs / PEAK_FLOPS[dtype] * 1e3
+    else:
+        t_ops = (in_ops * pairs / PEAK_FLOPS[dtype]
+                 + f32_ops * pairs / PEAK_FLOPS[torch.float32]) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": moved, "flops": (in_ops + f32_ops) * pairs,
-            "pairs": pairs}
+            "pairs": pairs, "split_terms": split}
 
 
 def _timed(fn, iters):
@@ -1416,6 +1452,7 @@ def main() -> int:
             "library_ms": kk["library_ms"],
             **({"library_bwd_ms": kk["library_bwd_ms"]}
                if "library_bwd_ms" in kk else {}),
+            "split_terms": kk["split_terms"],
             "ms_source": kk["ms_source"],
             "shape": "b=8 t=2048 h=12 d=64 causal bf16",
         })

@@ -135,3 +135,51 @@ def test_xla_dispatch_is_the_plain_path_and_flash_agrees_with_it():
                                                         causal=True))
     flash = tattn.apply_attention(q, k, v, causal=True, attention="flash")
     torch.testing.assert_close(flash, xla, rtol=0, atol=1e-5)
+
+
+def _bf16_terms(x, n):
+    """``x`` (float32) as ``n`` bf16 terms, each the bf16 rounding of what
+    the terms before it leave (the kernels' split of p and ds)."""
+    terms, rest = [], x
+    for _ in range(n):
+        term = rest.to(torch.bfloat16)
+        terms.append(term)
+        rest = rest - term.float()
+    return terms
+
+
+@pytest.mark.parametrize("product", ["dq", "dk", "dv"])
+@pytest.mark.parametrize("shape,causal", [((2, 128, 2, 32), True),
+                                          ((1, 256, 4, 64), False),
+                                          ((2, 128, 2, 64), True)])
+def test_three_term_bf16_split_reproduces_float32_products(product, shape,
+                                                           causal):
+    """The bf16 backward kernels multiply the float32 operand (ds or p)
+    as three bf16 terms into one float32 sum. Emulated here: the split
+    products give the plain versions' float32 results within
+    2e-6 * max|ref|, and one bf16 term misses by more than 5e-4 * max|ref|
+    (so the bound tells the two apart)."""
+    for seed in range(3):
+        q, k, v, do = (torch.from_numpy(x).bfloat16()
+                       for x in _qkv(shape, seed=seed, n=4))
+        out, lse = tfa.flash_attention_reference(q, k, v, causal)
+        delta = tfa.flash_attention_delta(out, do)
+        p, ds = tfa._probs_and_ds(q, k, v, do, lse, delta, causal)
+        scale = shape[-1] ** -0.5
+        x, other, eq, s = {
+            "dq": (ds, k, "bhqk,bkhd->bqhd", scale),
+            "dk": (ds, q, "bhqk,bqhd->bkhd", scale),
+            "dv": (p, do, "bhqk,bqhd->bkhd", 1.0)}[product]
+        ref = torch.einsum(eq, x, other.float()) * s
+
+        def split_product(n):  # one float32 sum, scaled at the end
+            acc = torch.zeros_like(ref)
+            for term in _bf16_terms(x, n):
+                acc += torch.einsum(eq, term.float(), other.float())
+            return acc * s
+
+        top = ref.abs().max().item()
+        three = (split_product(3) - ref).abs().max().item()
+        one = (split_product(1) - ref).abs().max().item()
+        assert three <= 2e-6 * top, (seed, three / top)
+        assert one > 5e-4 * top, (seed, one / top)

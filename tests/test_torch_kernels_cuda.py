@@ -10,10 +10,13 @@ This file imports no JAX, so it also runs where only the port is installed:
 
 Bounds: paged attention float32 (TF32 off) 1e-5 abs, bf16 2e-2 abs.
 Training flash attention: float32 out and lse 1e-5 abs, grads
-1e-4 * max|ref| + 1e-5 (summation order only); bf16 out 2e-2 abs, grads
-2e-2 * max|ref| (P rounded to bf16 at other places than the exact
-softmax of the plain version). Scaled int8 product: bitwise (an exact
-int32 sum and one rounding on both sides). GroupNorm: float32 y and stats
+1e-4 * max|ref| + 1e-5 (summation order only); bf16 out 2e-2 abs (P
+rounded to bf16 at other places than the exact softmax of the plain
+version), grads 2e-2 * max|ref| (the outputs' bf16 rounding: the bf16
+backward's products are float32-accurate through the three-term split);
+the backward bitwise from one launch to the next (no atomics). Scaled
+int8 product: bitwise (an exact int32 sum and one rounding on both
+sides). GroupNorm: float32 y and stats
 1e-5 abs, dx and the dgamma/dbeta partials 1e-5 * max(1, max|ref|)
 (summation order); bf16 y 2e-2 abs, dx and partials 2e-2 * max|ref|; and
 y, dx and the partials bitwise, the stats within one float32 ulp (float64
@@ -135,13 +138,19 @@ def _close(got, want, dtype, grad):
 @pytest.mark.parametrize("shape,causal", [
     ((1, 128, 12, 64), True), ((2, 256, 12, 64), False),
     ((2, 256, 3, 32), True), ((1, 384, 2, 128), True),
-    ((1, 256, 2, 72), False), ((1, 128, 1, 8), True)])
+    ((1, 256, 2, 72), False), ((1, 128, 1, 8), True),
+    ((1, 128, 2, 128), True), ((1, 128, 2, 128), False),
+    ((2, 256, 3, 128), True), ((2, 256, 3, 128), False)])
 def test_flash_kernels_match_plain_versions_on_card(cuda_device, dtype,
                                                     shape, causal):
     """Each of the three training kernels against its plain version on
     the same inputs (the backward ones fed the plain forward's lse and
     delta), at head_dims that take both instantiations (64, 128) and the
-    zero-padded features (8, 32, 72)."""
+    zero-padded features (8, 32, 72). t = 128 and 256 at head_dim 128
+    are one and two of the bf16 backward's CTA tiles (two warpgroups of
+    64 rows: a causal dq CTA's last key tile and a dk/dv CTA's first
+    query tile are each seen by one warpgroup only); at head_dim 64 a
+    CTA tile is 64 rows, so t = 128, the least fits() takes, is two."""
     _no_tf32()
     q, k, v, dout = _flash_inputs(shape, dtype, cuda_device, sum(shape))
     o, lse = tfa.flash_attention_fwd(q, k, v, causal)
@@ -162,6 +171,48 @@ def test_flash_kernels_match_plain_versions_on_card(cuda_device, dtype,
     for got, want in ((dq, dq_ref), (dk, dk_ref), (dv, dv_ref)):
         assert got.dtype == dtype
         _close(got, want, dtype, grad=True)
+
+
+def _flash_backward(q, k, v, dout, causal):
+    """The backward kernels and their plain versions on the same inputs
+    (the plain forward's lse and delta): ((dq, dk, dv), (refs))."""
+    o_ref, lse_ref = tfa.flash_attention_reference(q, k, v, causal)
+    delta = tfa.flash_attention_delta(o_ref, dout)
+    args = (q, k, v, dout, lse_ref, delta, causal)
+    got = (tfa.flash_attention_bwd_dq(*args),
+           *tfa.flash_attention_bwd_dkv(*args))
+    want = (tfa.flash_attention_bwd_dq_reference(*args),
+            *tfa.flash_attention_bwd_dkv_reference(*args))
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_backward_is_deterministic(cuda_device, dtype, d):
+    """No atomics: two launches on the same inputs give the same bits."""
+    q, k, v, dout = _flash_inputs((2, 384, 4, d), dtype, cuda_device, d)
+    first, _ = _flash_backward(q, k, v, dout, True)
+    second, _ = _flash_backward(q, k, v, dout, True)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_backward_with_wide_logits(cuda_device, d, causal):
+    """q and k scaled by 8, so that the probabilities span many decades
+    and every term of the bf16 split of p and ds carries weight."""
+    _no_tf32()
+    q, k, v, dout = _flash_inputs((1, 256, 2, d), torch.bfloat16,
+                                  cuda_device, 11 + d)
+    q, k = q * 8, k * 8
+    got, want = _flash_backward(q, k, v, dout, causal)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g.float()).all()
+        _close(g, w, torch.bfloat16, grad=True)
 
 
 @pytest.mark.cuda
