@@ -237,7 +237,8 @@ def init_paged_cache(model: CausalLM, num_pages: int, page_size: int,
                      device=None):
     """Zeroed shared page pool: a tuple (one entry per layer) of
     ``{"k", "v"}`` tensors ``[num_pages + 1, page_size, heads, head_dim]``
-    on ``device``. The extra LAST page is scratch. Native dtype only."""
+    on ``device`` (None: the model's own device, that of its first
+    parameter). The extra LAST page is scratch. Native dtype only."""
     if kv_dtype == "int8":
         raise NotImplementedError(
             "int8 KV pages are not ported yet (ROADMAP.md Queue A, item 5)")
@@ -245,6 +246,8 @@ def init_paged_cache(model: CausalLM, num_pages: int, page_size: int,
         raise ValueError(
             f"kv_dtype must be None, 'native', or 'int8', got {kv_dtype!r}")
     dtype = model.dtype if dtype is None else dtype
+    if device is None:
+        device = next(model.parameters()).device
     shape = (num_pages + 1, page_size, model.num_heads,
              model.width // model.num_heads)
     return tuple({"k": torch.zeros(shape, dtype=dtype, device=device),

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) pieces of the bf16 flash-attention kernels: bf16 tiles
 // staged asynchronously in the 128-byte-swizzled layout that wgmma
 // descriptors read, the wgmma products (operands from shared memory, or A
-// from registers), and the three-term bf16 split of a float32 operand.
+// from registers), the three-term bf16 split of a float32 operand
+// (backward) and its one-term rounding (forward, whose p . v takes p in
+// bf16).
 //
 // Shared layout of a staged tile of R rows (R a multiple of 64) by D
 // features (D = 64 or 128, bf16): R / 64 blocks of 64 rows, each D / 64
@@ -278,6 +280,36 @@ __device__ __forceinline__ void mma_split(float (&d)[D / 2],
       else
         wgmma_rs_m64n128k16_tb(d, frag[term][kk], desc_mn(b, kk));
     }
+}
+
+// The A fragments of a float32 accumulator (m64n64 layout) rounded to
+// bf16, one cvt.rn.bf16x2 a pair (round to nearest even, as a float32 ->
+// bf16 cast): frag[kk] is the fragment of slice kk.
+__device__ __forceinline__ void round_frags(const float (&acc)[32],
+                                            uint32_t (&frag)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const __nv_bfloat162 r =
+          __floats2bfloat162_rn(acc[8 * kk + 2 * j], acc[8 * kk + 2 * j + 1]);
+      frag[kk][j] = *reinterpret_cast<const uint32_t*>(&r);
+    }
+}
+
+// d[64 x D] += a b over 64 rows: a the bf16 fragments of a 64 x 64 tile,
+// b a 64-row block read MN-major.
+template <int D>
+__device__ __forceinline__ void mma_frags(float (&d)[D / 2],
+                                          const uint32_t (&frag)[4][4],
+                                          uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (D == 64)
+      wgmma_rs_m64n64k16_tb(d, frag[kk], desc_mn(b, kk));
+    else
+      wgmma_rs_m64n128k16_tb(d, frag[kk], desc_mn(b, kk));
+  }
 }
 
 // Row (0..63) and column of accumulator element e of warpgroup thread lt.

@@ -13,7 +13,7 @@ as in the JAX module:
   ``_bwd_dkv_kernel``). :func:`fits` is the JAX module's shape predicate.
 - :func:`paged_flash_attention` -- attention of an in-call query block
   over a shared KV page pool (``csrc/paged_attention.cu`` for
-  ``_paged_kernel``)::
+  ``_paged_kernel``; two launches a call, split over the keys)::
 
     q            [batch, t, heads, head_dim]      (already scattered
     k_pages      [num_pages + 1, page_size, heads, head_dim]  into pages)
@@ -40,15 +40,22 @@ import ctypes
 import torch
 
 from distkeras_tpu_torch.ops.attention import MASK_VALUE, dot_product_attention
-from distkeras_tpu_torch.ops.kernels._build import SMEM_OPTIN_BYTES
 
-#: head_dims the kernel is instantiated for
-KERNEL_HEAD_DIMS = (32, 64, 128)
-_TILE_Q, _CHUNK = 16, 64  # must match csrc/paged_attention.cu
+#: keys a CTA of the paged kernel covers (a split), by choice of the
+#: wrapper; must match csrc/paged_attention.cu (multiples of its 64-key
+#: chunk, at most 256)
+SPLIT_KEYS = (64, 128, 256)
+#: queries a CTA of the paged kernel takes
+_TILE_Q = 16
+#: split CTAs a call may have (batch rows x heads x splits) before the
+#: next larger split size is taken: about six per SM of the H100's 132
+#: (PERF.md: each split size timed at phase 3's shapes)
+_MAX_SPLIT_CTAS = 768
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lib = None
 _flash_libs: dict = {}
+_paged_counters: dict = {}
 
 
 def _kernel_lib():
@@ -58,7 +65,7 @@ def _kernel_lib():
 
         lib = _build.load("paged_attention", ["paged_attention.cu"])
         lib.paged_attention_launch.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+            [ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
             + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
         lib.paged_attention_launch.restype = ctypes.c_int
         lib.paged_attention_error_string.argtypes = [ctypes.c_int]
@@ -67,26 +74,29 @@ def _kernel_lib():
     return _lib
 
 
-def smem_bytes(max_len: int, head_dim: int) -> int:
-    """Dynamic shared memory one block of the kernel uses: the f32 logits
-    of a 16-query tile over every key, the query tile, and one staged
-    64-key chunk (rows padded by one float)."""
-    return 4 * (_TILE_Q * max_len + _TILE_Q * head_dim
-                + _CHUNK * (head_dim + 1))
+def split_keys(max_len: int, heads_rows: int) -> int:
+    """Keys a CTA of the paged kernel covers at this context length over
+    ``heads_rows`` (batch rows x heads): the smallest of
+    :data:`SPLIT_KEYS` that leaves at most ``_MAX_SPLIT_CTAS`` splits in
+    all, else the largest. Fewer, longer splits pay less for the
+    statistics and the partials' sum once the card is full. A function
+    of the shapes only, never of the cursors."""
+    for split in SPLIT_KEYS:
+        if heads_rows * -(-max_len // split) <= _MAX_SPLIT_CTAS:
+            return split
+    return SPLIT_KEYS[-1]
 
 
 def paged_fits(q_shape, pages_shape, page_table_shape) -> bool:
     """Whether the kernel takes these shapes: matching heads and
-    head_dim, a head_dim it is instantiated for, and a logits buffer
-    within the card's opt-in shared memory."""
+    head_dim, and ``1 <= head_dim <= 128`` (the largest instantiation).
+    Any context length: nothing in the kernel grows with it."""
     if len(q_shape) != 4 or len(pages_shape) != 4 \
             or len(page_table_shape) != 2:
         return False
     _, _, h, d = q_shape
-    _, ps, hp, dp = pages_shape
-    if (h, d) != (hp, dp) or d not in KERNEL_HEAD_DIMS:
-        return False
-    return smem_bytes(page_table_shape[1] * ps, d) <= SMEM_OPTIN_BYTES
+    _, _, hp, dp = pages_shape
+    return (h, d) == (hp, dp) and 1 <= d <= 128
 
 
 def paged_flash_attention_reference(q, k_pages, v_pages, page_table,
@@ -132,20 +142,32 @@ def _check(q, k_pages, v_pages, page_table, cache_index):
         raise ValueError(
             f"paged_flash_attention: kernel does not take q {tuple(q.shape)}"
             f", pages {tuple(k_pages.shape)}, table "
-            f"{tuple(page_table.shape)} (head_dim in {KERNEL_HEAD_DIMS}, "
-            f"{smem_bytes(page_table.shape[1] * k_pages.shape[1], q.shape[3])}"
-            f" B of shared memory against {SMEM_OPTIN_BYTES})")
+            f"{tuple(page_table.shape)} (heads and head_dim must match, "
+            f"1 <= head_dim <= 128)")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("paged_flash_attention: tensors must be contiguous")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("paged_flash_attention: page pools must be 16-byte "
-                         "aligned (the kernel reads them in 16-byte loads)")
+
+
+def _counters(device, stream: int, n: int) -> torch.Tensor:
+    """The paged kernel's arrival counters for calls on ``stream`` of
+    ``device``: a persistent zeroed int32 buffer of at least ``n``
+    entries. Each call leaves the entries it used at zero, so the calls
+    of one stream, which run in turn, share it; each stream has its own.
+    Grown, never shrunk."""
+    buf = _paged_counters.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _paged_counters[(device, stream)] = buf
+    return buf
 
 
 def paged_flash_attention(q, k_pages, v_pages, page_table, cache_index):
     """Paged attention (module docstring): the Hopper kernel for CUDA
-    tensors, the plain version for CPU tensors. Each kernel launch adds
-    one to ``paged_flash_attention.launches``."""
+    tensors, the plain version for CPU tensors. A kernel call is two
+    launches (the split logits and statistics, then the normalized
+    ``P . V`` with the partials' sum) and adds one to
+    ``paged_flash_attention.launches``. The keys a CTA covers are
+    :func:`split_keys` of the shapes."""
     if q.device.type == "cpu":
         return paged_flash_attention_reference(q, k_pages, v_pages,
                                                page_table, cache_index)
@@ -153,16 +175,30 @@ def paged_flash_attention(q, k_pages, v_pages, page_table, cache_index):
         raise ValueError(f"paged_flash_attention: no kernel for device "
                          f"{q.device}")
     _check(q, k_pages, v_pages, page_table, cache_index)
-    lib = _kernel_lib()
     b, t, h, d = q.shape
+    max_len = page_table.shape[1] * k_pages.shape[1]
+    split = split_keys(max_len, b * h)
+    nsplit = -(-max_len // split)
+    lib = _kernel_lib()
     out = torch.empty_like(q)
+    # one float32 workspace: the logits [b, h, t, nsplit * split], the
+    # split statistics [2, b, h, t, nsplit] and the partials [b, h,
+    # nsplit, t, d] (one allocation a call: serving is bound by the host)
+    n_logits, n_stats = b * h * t * nsplit * split, 2 * b * h * t * nsplit
+    ws = torch.empty(n_logits + n_stats + (b * h * nsplit * t * d
+                                           if nsplit > 1 else 0),
+                     dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        counters = _counters(q.device, stream, b * h * -(-t // _TILE_Q))
         err = lib.paged_attention_launch(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), page_table.data_ptr(), cache_index.data_ptr(),
-            out.data_ptr(), b, t, h, d, k_pages.shape[1], page_table.shape[1],
-            d ** -0.5, MASK_VALUE, stream)
+            out.data_ptr(), ws.data_ptr(), ws.data_ptr() + 4 * n_logits,
+            ws.data_ptr() + 4 * (n_logits + n_stats), counters.data_ptr(),
+            b, t, h, d,
+            k_pages.shape[1], page_table.shape[1], split, d ** -0.5,
+            MASK_VALUE, stream)
     if err != 0:
         raise RuntimeError(
             f"paged attention kernel launch failed: cudaError {err} "

@@ -253,3 +253,18 @@ def test_init_params_is_seeded():
         if name.endswith("weight") and ".ln" not in name \
                 and not name.startswith("ln"):
             assert not torch.equal(pa, pc), name
+
+
+def test_init_paged_cache_defaults_to_the_models_device():
+    """``device=None`` puts the pool where the model's parameters are (a
+    model on the meta device gets a meta pool, not a CPU one); an explicit
+    device still wins."""
+    model = tgpt.gpt_tiny().to("meta")
+    pool = tgpt.init_paged_cache(model, 4, 16)
+    assert len(pool) == model.num_layers
+    assert all(x.device.type == "meta" for layer in pool
+               for x in layer.values())
+    assert pool[0]["k"].shape == (5, 16, model.num_heads,
+                                  model.width // model.num_heads)
+    pool = tgpt.init_paged_cache(model, 4, 16, device="cpu")
+    assert pool[0]["v"].device.type == "cpu"

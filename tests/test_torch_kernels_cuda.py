@@ -8,13 +8,18 @@ This file imports no JAX, so it also runs where only the port is installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Bounds: paged attention float32 (TF32 off) 1e-5 abs, bf16 2e-2 abs.
+Bounds: paged attention float32 (TF32 off) 1e-5 abs, bf16 2e-2 abs and
+2**-6 * max|ref| (a few bf16 ulps of the largest output: over tens of
+thousands of keys the outputs shrink to a few hundredths), and bitwise
+from one call to the next (the split partials summed in split order).
 Training flash attention: float32 out and lse 1e-5 abs, grads
 1e-4 * max|ref| + 1e-5 (summation order only); bf16 out 2e-2 abs (P
 rounded to bf16 at other places than the exact softmax of the plain
-version), grads 2e-2 * max|ref| (the outputs' bf16 rounding: the bf16
+version), lse 1e-5 abs (1e-5 of its magnitude for logits in the
+hundreds), grads 2e-2 * max|ref| (the outputs' bf16 rounding: the bf16
 backward's products are float32-accurate through the three-term split);
-the backward bitwise from one launch to the next (no atomics). Scaled
+forward and backward bitwise from one launch to the next (no atomics).
+Scaled
 int8 product: bitwise (an exact int32 sum and one rounding on both
 sides). GroupNorm: float32 y and stats
 1e-5 abs, dx and the dgamma/dbeta partials 1e-5 * max(1, max|ref|)
@@ -42,25 +47,24 @@ def cuda_device():
     return torch.device("cuda:0")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
-                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("b,t", [(1, 2), (8, 2), (1, 128)])
-def test_kernel_matches_plain_version_on_card(cuda_device, dtype, atol, b,
-                                              t):
-    """The Hopper kernel against its plain version at gpt_small's
-    attention shapes (h=12, d=64, page_size 16, 64 pages a row)."""
-    h, d, ps, pmax = 12, 64, 16, 64
-    rng = np.random.default_rng(b * 1000 + t)
+def _paged_args(dev, dtype, b, t, h, d, ps, pmax, seed):
+    """q, pools, table and cursors: tables drawn from every page including
+    the scratch page, cursors random with room for the block."""
+    rng = np.random.default_rng(seed)
     num_pages = b * pmax
     mk = lambda *s: torch.from_numpy(
-        rng.standard_normal(s).astype(np.float32)).to(cuda_device, dtype)
+        rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
     q, k, v = mk(b, t, h, d), mk(num_pages + 1, ps, h, d), \
         mk(num_pages + 1, ps, h, d)
     table = rng.permutation(num_pages + 1)[:b * pmax].reshape(b, pmax)
     ci = rng.integers(0, pmax * ps - t + 1, size=b)
-    args = (q, k, v, torch.from_numpy(table.astype(np.int32)).to(cuda_device),
-            torch.from_numpy(ci.astype(np.int32)).to(cuda_device))
+    return (q, k, v, torch.from_numpy(table.astype(np.int32)).to(dev),
+            torch.from_numpy(ci.astype(np.int32)).to(dev))
+
+
+def _assert_paged_close(args, atol):
+    """The kernel within ``atol`` of its plain version, and in bf16 also
+    within 2**-6 of the plain version's largest output."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
@@ -69,19 +73,103 @@ def test_kernel_matches_plain_version_on_card(cuda_device, dtype, atol, b,
         torch.cuda.synchronize()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.isfinite(got.float()).all()
     err = (got.float() - want.float()).abs().max().item()
-    assert err <= atol, err
+    bound = atol
+    if got.dtype == torch.bfloat16:
+        bound = min(atol, 2 ** -6 * want.float().abs().max().item())
+    assert err <= bound, (err, bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,t", [(1, 2), (8, 2), (1, 128)])
+def test_kernel_matches_plain_version_on_card(cuda_device, dtype, atol, b,
+                                              t):
+    """The Hopper kernel against its plain version at gpt_small's
+    attention shapes (h=12, d=64, page_size 16, 64 pages a row)."""
+    args = _paged_args(cuda_device, dtype, b, t, 12, 64, 16, 64,
+                       b * 1000 + t)
+    _assert_paged_close(args, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,t,h,d,ps,pmax", [
+    (4, 2, 2, 16, 16, 8),        # gpt_tiny's head_dim, decode
+    (1, 40, 2, 16, 16, 8),       # ... and a three-tile prefill
+    (4, 2, 8, 96, 16, 64),       # head_dim 96
+    (2, 17, 8, 96, 16, 64),      # ... prefill, a ragged tile
+    (8, 2, 12, 64, 16, 256),     # 4096 keys
+    (1, 2, 12, 64, 16, 2048),    # 32768 keys
+    (2, 3, 4, 20, 8, 16),        # 40-byte rows in bf16: narrow loads
+])
+def test_kernel_takes_any_head_dim_and_context(cuda_device, dtype, atol, b,
+                                               t, h, d, ps, pmax):
+    """Shapes the split-K kernel takes where the first version raised:
+    head_dims other than 32, 64 and 128 (zero-padded to the 64 or 128
+    instantiation) and contexts whose logits row outgrew shared memory."""
+    args = _paged_args(cuda_device, dtype, b, t, h, d, ps, pmax,
+                       b + t + d + pmax)
+    _assert_paged_close(args, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("split", tfa.SPLIT_KEYS)
+def test_kernel_at_every_split_size(cuda_device, dtype, atol, split):
+    """Each split size the wrapper may choose, at 4096 keys over 12, 24
+    and 48 (row, head) pairs, which make it choose 64, 128 and 256 keys
+    (16 to 64 splits a row, so the partials' sum runs)."""
+    b = split // 64
+    assert tfa.split_keys(4096, b * 12) == split
+    args = _paged_args(cuda_device, dtype, b, 2, 12, 64, 16, 256, split)
+    _assert_paged_close(args, atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_is_deterministic(cuda_device, dtype):
+    """The partials are summed in split order by whichever CTA arrives
+    last: two calls give the same bits."""
+    args = _paged_args(cuda_device, dtype, 8, 2, 12, 64, 16, 256, 7)
+    a = tfa.paged_flash_attention(*args)
+    b = tfa.paged_flash_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_on_two_streams_at_once(cuda_device):
+    """Calls queued on two streams at once (each stream has its own
+    arrival counters) give the bits of the same calls on one stream."""
+    calls = [_paged_args(cuda_device, torch.bfloat16, 8, 2, 12, 64, 16, 256,
+                         seed) for seed in range(4)]
+    want = [tfa.paged_flash_attention(*args) for args in calls]
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    torch.cuda.synchronize()
+    got = [None] * len(calls)
+    for _ in range(8):
+        for i, args in enumerate(calls):
+            with torch.cuda.stream(streams[i % 2]):
+                got[i] = tfa.paged_flash_attention(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
-    q = torch.zeros(1, 2, 2, 16, device=cuda_device)
-    pages = torch.zeros(17, 16, 2, 16, device=cuda_device)
+    q = torch.zeros(1, 2, 2, 136, device=cuda_device)
+    pages = torch.zeros(17, 16, 2, 136, device=cuda_device)
     table = torch.zeros(1, 8, dtype=torch.int32, device=cuda_device)
     ci = torch.zeros(1, dtype=torch.int32, device=cuda_device)
     before = tfa.paged_flash_attention.launches
     with pytest.raises(ValueError, match="does not take"):
-        tfa.paged_flash_attention(q, pages, pages, table, ci)  # head_dim 16
+        tfa.paged_flash_attention(q, pages, pages, table, ci)  # head_dim 136
     with pytest.raises(ValueError, match="int32"):
         tfa.paged_flash_attention(q, pages, pages, table.long(), ci)
     assert tfa.paged_flash_attention.launches == before
@@ -213,6 +301,61 @@ def test_flash_backward_with_wide_logits(cuda_device, d, causal):
     for g, w in zip(got, want):
         assert torch.isfinite(g.float()).all()
         _close(g, w, torch.bfloat16, grad=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [128, 256, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_forward_bf16_matches_plain_version(cuda_device, d, causal,
+                                                  t):
+    """The bf16 forward (wgmma) at both instantiations, causal and full,
+    from one CTA tile to the training length: out within 2e-2 (p rounded
+    to bf16 against the running, not the final, max; out rounded once),
+    lse within 1e-5 (float32 sums in another order)."""
+    _no_tf32()
+    q, k, v, _ = _flash_inputs((2, t, 3, d), torch.bfloat16, cuda_device,
+                               t + d)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal)
+    o_ref, lse_ref = tfa.flash_attention_reference(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    _close(o, o_ref, torch.bfloat16, grad=False)
+    _close(lse, lse_ref, torch.float32, grad=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_forward_with_wide_logits(cuda_device, d, causal):
+    """q and k scaled by 8, so that the running max moves between key
+    tiles by many units and the rescale alpha = exp(m_prev - m_next)
+    carries weight: out within 2e-2, lse within 1e-5 of its magnitude
+    (float32 sums of logits in the hundreds)."""
+    _no_tf32()
+    q, k, v, _ = _flash_inputs((1, 256, 2, d), torch.bfloat16, cuda_device,
+                               23 + d)
+    q, k = q * 8, k * 8
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal)
+    o_ref, lse_ref = tfa.flash_attention_reference(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    _close(o, o_ref, torch.bfloat16, grad=False)
+    err = (lse - lse_ref).abs().max().item()
+    assert err <= 1e-5 * max(1.0, lse_ref.abs().max().item()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_forward_is_deterministic(cuda_device, dtype, d):
+    """No atomics: two launches on the same inputs give the same bits."""
+    q, k, v, _ = _flash_inputs((2, 384, 4, d), dtype, cuda_device, d + 1)
+    first = tfa.flash_attention_fwd(q, k, v, True)
+    second = tfa.flash_attention_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
