@@ -244,6 +244,12 @@ def phase_build() -> dict:
                 log(f"[build]   {line.split(chr(39))[1]}")
             if "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build]   {line.strip()}")
+    info["groupnorm_kernels"] = _ptxas_table(info["groupnorm"]["log"])
+    for name, k in info["groupnorm_kernels"].items():
+        log(f"[build] groupnorm {name}: {k['registers']} registers, "
+            f"{k['spill_stores']} + {k['spill_loads']} bytes spilled "
+            f"(stores + loads), {k['smem']} bytes static shared memory "
+            f"(the tiles are dynamic: phase 13 gives each plan's)")
     # the bf16 kernels (two forward, four backward: "sm90" in their
     # names) must multiply on the tensor cores
     for lib, n in (("flash_attention_fwd", 2), ("flash_attention_bwd", 4)):
@@ -252,6 +258,41 @@ def phase_build() -> dict:
         sm90 = [c for name, c in counts.items() if "sm90" in name]
         assert len(sm90) == n and all(c["HGMMA"] > 0 for c in sm90), counts
     return info
+
+
+def _ptxas_table(build_log) -> dict:
+    """Per kernel of a build's ``-Xptxas=-v`` output: registers, spilled
+    bytes and static shared memory, keyed by the kernel's template
+    (``gn_fwd_kernel<float, 4>``)."""
+    import re
+
+    table, name = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            kernel = re.search(r"\d+(gn_\w+?_kernel)I", mangled)
+            ty = "bf16" if "nv_bfloat16" in mangled else "float"
+            vec = re.search(r"Li(\d+)E", mangled)
+            name = (f"{kernel.group(1)}<{ty}, {vec.group(1)}>"
+                    if kernel and vec else mangled)
+            table[name] = {"registers": 0, "spill_stores": 0,
+                           "spill_loads": 0, "smem": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            table[name]["spill_stores"] = int(m.group(1))
+            table[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            table[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            table[name]["smem"] = int(m.group(1))
+    return table
 
 
 def _sass_counts(lib_path) -> dict:
@@ -847,16 +888,26 @@ def phase_train_profile(state, step, batch, tag="train-profile") -> dict:
         wall = time.perf_counter() - t0
     kernels = device_kernels(prof)
     busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    gn = [e for e in kernels if "gn_fwd_kernel" in e.key
+          or "gn_bwd_kernel" in e.key]
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:25]
     info = {"wall_s": wall, "device_busy_s": busy_s,
             "device_busy_share": busy_s / wall,
             "kernel_launches": sum(e.count for e in kernels),
+            "groupnorm_device_ms": sum(e.self_device_time_total
+                                       for e in gn) / 1e3,
+            "groupnorm_kernel_launches": sum(e.count for e in gn),
             "top_kernels": [{"name": e.key[:90], "count": e.count,
                              "device_ms": e.self_device_time_total / 1e3}
                             for e in top]}
     log(f"[{tag}] one traced step: wall {wall * 1e3:.1f} ms, device "
         f"busy {busy_s * 1e3:.1f} ms ({100 * info['device_busy_share']:.1f}%)"
         f", {info['kernel_launches']} kernel launches")
+    if gn:
+        log(f"[{tag}] GroupNorm kernels: {info['groupnorm_device_ms']:.3f} "
+            f"device ms over {info['groupnorm_kernel_launches']} launches "
+            f"({100 * info['groupnorm_device_ms'] / 1e3 / busy_s:.1f}% of "
+            f"the busy time)")
     for k in info["top_kernels"]:
         log(f"[{tag}]   {k['device_ms']:9.3f} ms  x{k['count']:<5d} "
             f"{k['name']}")
@@ -1121,8 +1172,13 @@ def phase_int8_witness(dev, int8_losses) -> dict:
 
 # -- phase 13 ----------------------------------------------------------------
 
-#: ResNet-50 at b=128, 224^2: the stem, stage-0 norm3, stage-3 norm3
-GN_CASES = ((128, 12544, 64), (128, 3136, 256), (128, 49, 2048))
+#: ResNet-50 at b=128, 224^2: one norm of each C/G class (2: the stem,
+#: 4, 8: stage-0 norm3, 16, 32, 64: stage-3 norm3), all on the cluster
+#: path
+GN_CASES = ((128, 12544, 64), (128, 784, 128), (128, 3136, 256),
+            (128, 784, 512), (128, 196, 1024), (128, 49, 2048))
+#: a 512^2 stem in float32: the streaming path, forward and backward
+GN_STREAM_CASE = (2, 65536, 64)
 GN_GROUPS = 32
 
 
@@ -1140,95 +1196,124 @@ def _gn_bound(shape, dtype, backward):
             "bytes": moved}
 
 
+def _gn_errors(got, want):
+    """y, dx and the partials bitwise; the stats within one float32 ulp
+    (a float64 sum rounded once, csrc/groupnorm.cu); with each output's
+    largest error."""
+    errs, ok = {}, True
+    for name in ("y", "stats", "dx", "dgamma_p", "dbeta_p"):
+        g, w = got[name], want[name]
+        assert torch.isfinite(g.float()).all(), name
+        err = (g.float() - w.float()).abs().max().item()
+        if name == "stats":
+            ulp = torch.nextafter(w.abs(), torch.full_like(w, math.inf)) \
+                - w.abs()
+            good = bool(((g - w).abs() <= ulp).all())
+        else:
+            good = torch.equal(g, w)
+        errs[name] = {"max_abs_err": err, "bitwise": torch.equal(g, w),
+                      "max_abs_ref": w.float().abs().max().item()}
+        ok &= good
+    return errs, ok
+
+
 def phase_gn_kernels(dev) -> list:
-    """The GroupNorm kernels against their plain versions at ResNet-50
-    b=128 shapes, bf16 and float32 (TF32 off); with their times, the
-    plain versions', ``F.group_norm`` (forward) and its autograd backward
-    on the same tensors viewed as NCHW, and the bounds."""
+    """The GroupNorm kernels against their plain versions at one
+    ResNet-50 b=128 norm of each C/G class, bf16 and float32 (TF32 off),
+    and at the streaming case: bitwise (stats within one ulp), with each
+    call's plan, the kernels' times, their bounds and ``F.group_norm``'s
+    (forward) and its autograd backward on the same tensors viewed as
+    NCHW; the plain versions' times at the stem."""
     import torch.nn.functional as F
 
     from distkeras_tpu_torch.ops.kernels import groupnorm as gn
 
     set_tf32(False)
     cases = []
-    for shape in GN_CASES:
-        for dtype in (torch.bfloat16, torch.float32):
-            b, hw, c = shape
-            side = int(round(math.sqrt(hw)))
-            rng = np.random.default_rng(hw + c)
-            mk = lambda *s: torch.from_numpy(
-                rng.standard_normal(s).astype(np.float32)).to(dev)
-            x, dy = mk(*shape).to(dtype), mk(*shape).to(dtype)
-            gamma, beta = 1.0 + 0.1 * mk(c), 0.1 * mk(c)
-            y, stats = gn.group_norm_fwd(x, gamma, beta, GN_GROUPS)
-            y_ref, stats_ref = gn.group_norm_fwd_reference(
-                x, gamma, beta, GN_GROUPS, 1e-6)
-            dx, dgp, dbp = gn.group_norm_bwd(x, gamma, stats_ref, dy,
-                                             GN_GROUPS)
-            dx_ref, dgp_ref, dbp_ref = gn.group_norm_bwd_reference(
-                x, gamma, stats_ref, dy, GN_GROUPS)
-            torch.cuda.synchronize()
-            errs, ok = {}, True
-            for name, got, want, relative in (
-                    ("y", y, y_ref, False), ("stats", stats, stats_ref, True),
-                    ("dx", dx, dx_ref, True), ("dgamma_p", dgp, dgp_ref, True),
-                    ("dbeta_p", dbp, dbp_ref, True)):
-                assert torch.isfinite(got.float()).all(), name
-                err = (got.float() - want.float()).abs().max().item()
-                scale = want.float().abs().max().item()
-                if dtype == torch.float32 or name == "stats":
-                    bound = 1e-5 * max(1.0, scale) if relative else 1e-5
-                else:
-                    bound = 2e-2 * scale if relative else 2e-2
-                errs[name] = {"max_abs_err": err, "bound": bound,
-                              "max_abs_ref": scale}
-                ok &= err <= bound
-            del y, y_ref, dx, dx_ref
-            # library yardstick: F.group_norm over the NCHW view
-            # (channels_last memory) of the same tensor
-            xt = x.view(b, side, side, c).permute(0, 3, 1, 2)
-            dyt = dy.view(b, side, side, c).permute(0, 3, 1, 2)
-            xg = xt.detach().requires_grad_()
-            gg, bg = (gamma.to(dtype).requires_grad_(),
-                      beta.to(dtype).requires_grad_())
-            lib_out = F.group_norm(xg, GN_GROUPS, gg, bg, 1e-6)
-            iters = 10 if b * hw * c > 5e7 else 30
-            fwd = _timed(lambda i: gn.group_norm_fwd(x, gamma, beta,
-                                                     GN_GROUPS), iters)
-            fwd_plain = _timed(lambda i: gn.group_norm_fwd_reference(
-                x, gamma, beta, GN_GROUPS, 1e-6), max(2, iters // 3))
-            fwd_lib = _timed(lambda i: F.group_norm(xt, GN_GROUPS, gamma.to(
-                dtype), beta.to(dtype), 1e-6), iters)
-            bwd = _timed(lambda i: gn.group_norm_bwd(x, gamma, stats_ref, dy,
-                                                     GN_GROUPS), iters)
-            bwd_plain = _timed(lambda i: gn.group_norm_bwd_reference(
-                x, gamma, stats_ref, dy, GN_GROUPS), max(2, iters // 3))
-            bwd_lib = _timed(lambda i: torch.autograd.grad(
-                lib_out, (xg, gg, bg), dyt, retain_graph=True), iters)
-            kernels = {
-                "fwd": {"ms": fwd[0], "call_ms": fwd[1], "ms_source": fwd[2],
-                        "plain_ms": fwd_plain[0], "library_ms": fwd_lib[0],
-                        **_gn_bound(shape, dtype, False)},
-                "bwd": {"ms": bwd[0], "call_ms": bwd[1], "ms_source": bwd[2],
-                        "plain_ms": bwd_plain[0], "library_ms": bwd_lib[0],
-                        **_gn_bound(shape, dtype, True)}}
-            case = {"shape": list(shape), "groups": GN_GROUPS,
-                    "dtype": str(dtype).split(".")[-1], "errors": errs,
-                    "kernels": kernels}
-            cases.append(case)
-            del xg, gg, bg, lib_out, x, dy
-            torch.cuda.empty_cache()
-            err_line = ", ".join(f"{n} {e['max_abs_err']:.3e} (bound "
-                                 f"{e['bound']:.3e})" for n, e in errs.items())
-            log(f"[groupnorm] {tuple(shape)} G={GN_GROUPS} {case['dtype']}: "
-                f"{err_line}")
-            for name, kk in kernels.items():
-                log(f"[groupnorm]   {name}: kernel {kk['ms']:.4f} ms, plain "
-                    f"{kk['plain_ms']:.4f} ms, F.group_norm "
-                    f"{kk['library_ms']:.4f} ms ({kk['ms_source']}; with the "
-                    f"host {kk['call_ms']:.4f} ms), bound {kk['bound_ms']:.4f}"
-                    f" ms ({kk['bound_by']})")
-            assert ok, errs
+    runs = [(shape, dtype) for shape in GN_CASES
+            for dtype in (torch.bfloat16, torch.float32)]
+    runs.append((GN_STREAM_CASE, torch.float32))
+    for shape, dtype in runs:
+        b, hw, c = shape
+        side = int(round(math.sqrt(hw)))
+        rng = np.random.default_rng(hw + c)
+        mk = lambda *s: torch.from_numpy(
+            rng.standard_normal(s).astype(np.float32)).to(dev)
+        x, dy = mk(*shape).to(dtype), mk(*shape).to(dtype)
+        gamma, beta = 1.0 + 0.1 * mk(c), 0.1 * mk(c)
+        y, stats = gn.group_norm_fwd(x, gamma, beta, GN_GROUPS)
+        y_ref, stats_ref = gn.group_norm_fwd_reference(
+            x, gamma, beta, GN_GROUPS, 1e-6)
+        dx, dgp, dbp = gn.group_norm_bwd(x, gamma, stats_ref, dy, GN_GROUPS)
+        dx_ref, dgp_ref, dbp_ref = gn.group_norm_bwd_reference(
+            x, gamma, stats_ref, dy, GN_GROUPS)
+        torch.cuda.synchronize()
+        errs, ok = _gn_errors(
+            {"y": y, "stats": stats, "dx": dx, "dgamma_p": dgp,
+             "dbeta_p": dbp},
+            {"y": y_ref, "stats": stats_ref, "dx": dx_ref,
+             "dgamma_p": dgp_ref, "dbeta_p": dbp_ref})
+        del y, y_ref, dx, dx_ref
+        # library yardstick: F.group_norm over the NCHW view
+        # (channels_last memory) of the same tensor
+        xt = x.view(b, side, side, c).permute(0, 3, 1, 2)
+        dyt = dy.view(b, side, side, c).permute(0, 3, 1, 2)
+        xg = xt.detach().requires_grad_()
+        gg, bg = (gamma.to(dtype).requires_grad_(),
+                  beta.to(dtype).requires_grad_())
+        lib_out = F.group_norm(xg, GN_GROUPS, gg, bg, 1e-6)
+        iters = 10 if b * hw * c > 5e7 else 30
+        plain = shape == GN_CASES[0]
+        kernels = {}
+        for part, backward in (("fwd", False), ("bwd", True)):
+            if backward:
+                call = lambda i: gn.group_norm_bwd(x, gamma, stats_ref, dy,
+                                                   GN_GROUPS)
+                ref = lambda i: gn.group_norm_bwd_reference(
+                    x, gamma, stats_ref, dy, GN_GROUPS)
+                lib = lambda i: torch.autograd.grad(
+                    lib_out, (xg, gg, bg), dyt, retain_graph=True)
+            else:
+                call = lambda i: gn.group_norm_fwd(x, gamma, beta, GN_GROUPS)
+                ref = lambda i: gn.group_norm_fwd_reference(
+                    x, gamma, beta, GN_GROUPS, 1e-6)
+                lib = lambda i: F.group_norm(xt, GN_GROUPS, gamma.to(dtype),
+                                             beta.to(dtype), 1e-6)
+            ms, call_ms, source = _timed(call, iters)
+            kernels[part] = {
+                "ms": ms, "call_ms": call_ms, "ms_source": source,
+                "plain_ms": (_timed(ref, max(2, iters // 3))[0] if plain
+                             else None),
+                "library_ms": _timed(lib, iters)[0],
+                "plan": gn.plan(shape, GN_GROUPS, dtype, backward)._asdict(),
+                **_gn_bound(shape, dtype, backward)}
+        case = {"shape": list(shape), "groups": GN_GROUPS,
+                "dtype": str(dtype).split(".")[-1], "errors": errs,
+                "kernels": kernels}
+        cases.append(case)
+        del xg, gg, bg, lib_out, x, dy
+        torch.cuda.empty_cache()
+        err_line = ", ".join(
+            f"{n} {e['max_abs_err']:.3e}{' (bitwise)' if e['bitwise'] else ''}"
+            for n, e in errs.items())
+        log(f"[groupnorm] {tuple(shape)} G={GN_GROUPS} C/G={c // GN_GROUPS} "
+            f"{case['dtype']}: {err_line}")
+        for name, kk in kernels.items():
+            p = kk["plan"]
+            plain_txt = (f", plain {kk['plain_ms']:.4f} ms"
+                         if kk["plain_ms"] is not None else "")
+            log(f"[groupnorm]   {name}: kernel {kk['ms']:.4f} ms{plain_txt}, "
+                f"F.group_norm {kk['library_ms']:.4f} ms ({kk['ms_source']};"
+                f" with the host {kk['call_ms']:.4f} ms), bound "
+                f"{kk['bound_ms']:.4f} ms ({kk['bound_by']}); plan "
+                f"{p['path']}: {p['cols']} channels x {p['rows']} rows, "
+                f"{p['tiles']} tiles, cluster {p['cluster']}, vec "
+                f"{p['vec']}, {p['threads']} threads and {p['smem']} B "
+                f"shared memory a CTA")
+        assert ok, errs
+    for d in ("fwd", "bwd"):
+        assert any(c["kernels"][d]["plan"]["path"] == "stream"
+                   for c in cases), f"no streaming case in {d}"
     return cases
 
 

@@ -483,18 +483,13 @@ def _gn_close(got, want, dtype, relative):
     assert err <= bound, (err, bound)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape,groups", [
-    ((4, 3136, 256), 32), ((4, 49, 2048), 32), ((2, 12544, 64), 32),
-    ((3, 10, 24), 8), ((2, 7, 48), 16), ((2, 100, 512), 4)])
-def test_groupnorm_kernels_match_plain_versions_on_card(cuda_device, dtype,
-                                                        shape, groups):
-    """Forward and backward kernels against their plain versions, at
-    ResNet-50 shapes (C/G = 8, 64, 2) and at odd ones (C/G = 3 with
-    one-value loads, C/G = 128 with 16 chunks a row)."""
+def _gn_against_plain(shape, groups, dtype, dev, seed=None):
+    """Both kernels against their plain versions on seeded inputs (seed
+    ``sum(shape)`` by default): the bounds, then y, dx and the partials
+    bitwise and the stats within one float32 ulp."""
     _no_tf32()
-    x, gamma, beta, dy = _gn_inputs(shape, dtype, cuda_device, sum(shape))
+    x, gamma, beta, dy = _gn_inputs(shape, dtype, dev,
+                                    sum(shape) if seed is None else seed)
     y, stats = tgn.group_norm_fwd(x, gamma, beta, groups)
     y_ref, stats_ref = tgn.group_norm_fwd_reference(x, gamma, beta, groups,
                                                     1e-6)
@@ -515,6 +510,71 @@ def test_groupnorm_kernels_match_plain_versions_on_card(cuda_device, dtype,
     ulp = torch.nextafter(stats_ref.abs(), torch.full_like(stats_ref,
                                                            math.inf))
     assert ((stats - stats_ref).abs() <= ulp - stats_ref.abs()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,groups", [
+    ((4, 3136, 256), 32), ((4, 49, 2048), 32), ((2, 12544, 64), 32),
+    ((2, 784, 128), 32), ((2, 784, 512), 32), ((2, 196, 1024), 32),
+    ((3, 10, 24), 8), ((2, 7, 48), 16), ((2, 100, 512), 4),
+    ((1, 60000, 64), 32), ((2, 7, 8192), 2)])
+def test_groupnorm_kernels_match_plain_versions_on_card(cuda_device, dtype,
+                                                        shape, groups):
+    """Forward and backward kernels against their plain versions, at
+    ResNet-50 shapes (every C/G class: 8, 64, 2, 4, 16, 32; the cluster
+    path), at odd ones (C/G = 3 with chunks across groups, C/G = 128) and
+    on the streaming path (a slab the cluster cannot hold; one group of
+    4096 channels, wider than 256 chunks, split across column blocks)."""
+    _gn_against_plain(shape, groups, dtype, cuda_device)
+
+
+@pytest.mark.cuda
+def test_groupnorm_mean_rounds_as_the_plain_version_on_card(cuda_device):
+    """The plain version's ``sum / n`` runs on the card as a multiply by
+    the float64 reciprocal, which rounds some groups' mean to another
+    float32 than a division: seed 0 at [64, 49, 64] float32 (n = 98) has
+    such groups. The kernels multiply the same way: y, dx and the
+    partials bitwise, mu equal."""
+    shape, groups = (64, 49, 64), 32
+    x = np.random.default_rng(0).standard_normal(shape).astype(np.float32)
+    s = torch.from_numpy(x).double().reshape(64, 49, groups, 2).sum((1, 3))
+    assert ((s / 98).float() != (s * (1.0 / 98)).float()).any()
+    _gn_against_plain(shape, groups, torch.float32, cuda_device, seed=0)
+    x = torch.from_numpy(x).to(cuda_device)
+    gamma = torch.ones(64, device=cuda_device)
+    _, stats = tgn.group_norm_fwd(x, gamma, gamma, groups)
+    _, want = tgn.group_norm_fwd_reference(x, gamma, gamma, groups, 1e-6)
+    assert torch.equal(stats[:, 0], want[:, 0])
+
+
+@pytest.mark.cuda
+def test_groupnorm_kernels_take_what_the_old_gate_refused(cuda_device):
+    """[1, 60000, 64] float32, once refused for a (sample, group) slab
+    above 227 KiB, runs on the kernels (the streaming path), one count a
+    call, and matches the plain versions bitwise."""
+    plan = tgn.plan((1, 60000, 64), 32, torch.float32, backward=True)
+    assert plan.path == "stream"
+    before = (tgn.group_norm_fwd.launches, tgn.group_norm_bwd.launches)
+    _gn_against_plain((1, 60000, 64), 32, torch.float32, cuda_device)
+    assert (tgn.group_norm_fwd.launches - before[0],
+            tgn.group_norm_bwd.launches - before[1]) == (1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 12544, 64), (4, 3136, 256),
+                                   (1, 60000, 64)])
+def test_groupnorm_kernels_are_deterministic(cuda_device, dtype, shape):
+    """Two calls give the same bits (partials summed in rank or tile
+    order, no atomics), on the cluster path and the streaming one."""
+    x, gamma, beta, dy = _gn_inputs(shape, dtype, cuda_device, 3)
+    outs = []
+    for _ in range(2):
+        y, stats = tgn.group_norm_fwd(x, gamma, beta, 32)
+        outs.append((y, stats, *tgn.group_norm_bwd(x, gamma, stats, dy, 32)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
 
 
 @pytest.mark.cuda
@@ -539,10 +599,7 @@ def test_groupnorm_autograd_goes_through_both_kernels(cuda_device):
 @pytest.mark.cuda
 def test_groupnorm_kernels_reject_what_they_do_not_take(cuda_device):
     before = (tgn.group_norm_fwd.launches, tgn.group_norm_bwd.launches)
-    x = torch.zeros(1, 60000, 64, device=cuda_device)
     g = torch.ones(64, device=cuda_device)
-    with pytest.raises(ValueError, match="does not take"):
-        tgn.group_norm_fwd(x, g, g, 32)  # slab above 227 KiB
     x = torch.zeros(2, 10, 24, device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError, match="float16"):
         tgn.group_norm_fwd(x, g[:24], g[:24], 8)

@@ -88,6 +88,7 @@ def _port_sources():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "groupnorm_ab.py")
 
 
 def test_no_forbidden_import_statement_in_port_or_chip_smoke():
