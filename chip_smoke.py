@@ -11,7 +11,9 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    this checkout (sm_90a) into the git-ignored build directory, one nvcc
    per source, all started together, and logs each kernel's registers,
    spills and shared memory; the SASS of the flash forward and backward
-   must hold wgmma (HGMMA) in each bf16 kernel;
+   must hold wgmma (HGMMA) in each bf16 kernel, and the int8 product's
+   integer wgmma (IGMMA) in each of its kernels, with no mma.sync (IMMA)
+   left;
 3. kernels — the paged kernel (a call is two launches, split over the
    keys) against its plain PyTorch version on the card (float32 with
    TF32 off, and bf16) at the shapes gpt_small serving gives it and at
@@ -55,12 +57,15 @@ Phases (each asserts; any failure exits non-zero and prints no result):
 11. int8    — the int8 kernel against its plain version, bitwise, at the
    four products of a GPT-2-small block at 8 x 2048 rows (qkv, out, fc1,
    fc2; bf16 output), with its time, the plain version's,
-   ``torch._int_mm`` plus the scale multiply, and its bound;
+   ``torch._int_mm`` plus the scale multiply, its bound and its time over
+   the bound, and its schedule (the C entry's, which must equal
+   ``int8_matmul.plan``);
 12. int8 train — path A: phase 8's configuration with precision="int8"
    (overflow_guard(adamw(1e-3))), 1 warm-up and 4 timed steps, the int8
    kernel launched 48 times a step and each flash kernel 12; a traced
-   step; witnesses: the same steps through the plain int8 product (step 1
-   equal, steps 2-5 within 1e-4), the guard's scale 16 with no step
+   step (48 int8 kernels in it, their device ms); witnesses: the same
+   steps through the plain int8 product (step 1 equal, steps 2-5 within
+   1e-4), the guard's scale 16 with no step
    skipped, step 1 under precision="bf16" within 2e-2 of int8's and not
    equal, and block 0's qkv product at least 4x as far from float32
    under int8 as under bf16;
@@ -257,6 +262,12 @@ def phase_build() -> dict:
         info[f"{lib}_sass"] = counts
         sm90 = [c for name, c in counts.items() if "sm90" in name]
         assert len(sm90) == n and all(c["HGMMA"] > 0 for c in sm90), counts
+    # the int8 product (float32 and bf16 output) on integer wgmma, with no
+    # warp-level mma.sync left in the library
+    counts = _sass_counts(info["int8_matmul"]["path"], ("IGMMA", "IMMA"))
+    info["int8_matmul_sass"] = counts
+    assert len(counts) == 2 and all(
+        c["IGMMA"] > 0 and c["IMMA"] == 0 for c in counts.values()), counts
     return info
 
 
@@ -295,9 +306,10 @@ def _ptxas_table(build_log) -> dict:
     return table
 
 
-def _sass_counts(lib_path) -> dict:
-    """Per kernel of a built library, its count of wgmma (HGMMA) and
-    float32 FMA (FFMA) instructions in the SASS (cuobjdump)."""
+def _sass_counts(lib_path, ops=("HGMMA", "FFMA")) -> dict:
+    """Per kernel of a built library, its count of each of ``ops`` in the
+    SASS (cuobjdump): by default bf16 wgmma (HGMMA) and float32 FMA
+    (FFMA)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
                           text=True, timeout=120).stdout
@@ -305,13 +317,14 @@ def _sass_counts(lib_path) -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = {"HGMMA": 0, "FFMA": 0}
+            counts[name] = dict.fromkeys(ops, 0)
         elif name is not None:
-            for op in ("HGMMA", "FFMA"):
+            for op in ops:
                 counts[name][op] += f" {op}." in line or f" {op} " in line
     for name, c in counts.items():  # from the kernel's own name on
-        log(f"[build]   sass {name[name.rfind('flash_'):][:48]}: "
-            f"{c['HGMMA']} HGMMA, {c['FFMA']} FFMA")
+        start = max(name.rfind("flash_"), name.rfind("int8_"), 0)
+        log(f"[build]   sass {name[start:][:48]}: "
+            + ", ".join(f"{c[op]} {op}" for op in ops))
     return counts
 
 
@@ -890,6 +903,7 @@ def phase_train_profile(state, step, batch, tag="train-profile") -> dict:
     busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
     gn = [e for e in kernels if "gn_fwd_kernel" in e.key
           or "gn_bwd_kernel" in e.key]
+    int8 = [e for e in kernels if "int8_matmul" in e.key]
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:25]
     info = {"wall_s": wall, "device_busy_s": busy_s,
             "device_busy_share": busy_s / wall,
@@ -897,6 +911,9 @@ def phase_train_profile(state, step, batch, tag="train-profile") -> dict:
             "groupnorm_device_ms": sum(e.self_device_time_total
                                        for e in gn) / 1e3,
             "groupnorm_kernel_launches": sum(e.count for e in gn),
+            "int8_device_ms": sum(e.self_device_time_total
+                                  for e in int8) / 1e3,
+            "int8_kernel_launches": sum(e.count for e in int8),
             "top_kernels": [{"name": e.key[:90], "count": e.count,
                              "device_ms": e.self_device_time_total / 1e3}
                             for e in top]}
@@ -908,6 +925,9 @@ def phase_train_profile(state, step, batch, tag="train-profile") -> dict:
             f"device ms over {info['groupnorm_kernel_launches']} launches "
             f"({100 * info['groupnorm_device_ms'] / 1e3 / busy_s:.1f}% of "
             f"the busy time)")
+    if int8:
+        log(f"[{tag}] int8 product: {info['int8_device_ms']:.3f} device ms "
+            f"over {info['int8_kernel_launches']} launches")
     for k in info["top_kernels"]:
         log(f"[{tag}]   {k['device_ms']:9.3f} ms  x{k['count']:<5d} "
             f"{k['name']}")
@@ -983,6 +1003,7 @@ def phase_int8_kernel(dev) -> list:
     multiply (the library yardstick) and the bound."""
     from distkeras_tpu_torch.ops.kernels import int8_matmul as i8
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cases = []
     for name, k, n in INT8_CASES:
         rng = np.random.default_rng(k + n)
@@ -1000,6 +1021,8 @@ def phase_int8_kernel(dev) -> list:
         assert torch.isfinite(got.float()).all()
         err = (got.float() - want.float()).abs().max().item()
         lib_err = (lib.float() - want.float()).abs().max().item()
+        plan = i8.kernel_plan(INT8_M, n, k, out_dtype, dev)
+        assert plan == i8.plan(INT8_M, n, k, out_dtype, sms), plan
         ms, call_ms, source = _timed(
             lambda i: i8.int8_matmul_dequant(qx, qw, sxw, out_dtype), 30)
         plain_ms, _, _ = _timed(
@@ -1012,14 +1035,17 @@ def phase_int8_kernel(dev) -> list:
                     got, want), "max_abs_err": err,
                 "library_max_abs_err": lib_err, "ms": ms, "call_ms": call_ms,
                 "ms_source": source, "plain_ms": plain_ms,
-                "library_ms": lib_ms, **_int8_bound(INT8_M, k, n, out_dtype)}
+                "library_ms": lib_ms, **_int8_bound(INT8_M, k, n, out_dtype),
+                "plan": plan._asdict()}
+        case["x_bound"] = ms / case["bound_ms"]
         cases.append(case)
         log(f"[int8] {name} [{INT8_M}, {k}] x [{n}, {k}] -> bf16: bitwise "
             f"{case['bitwise_equal']} (max abs err {err:.3e}; _int_mm "
             f"{lib_err:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"_int_mm + scale {lib_ms:.4f} ms ({source}; with the host "
             f"{call_ms:.4f} ms), bound {case['bound_ms']:.4f} ms "
-            f"({case['bound_by']})")
+            f"({case['bound_by']}), {case['x_bound']:.2f}x the bound; plan "
+            f"{tuple(plan)}")
         assert case["bitwise_equal"], case
         del qx, qw, got, want, lib
     torch.cuda.empty_cache()
@@ -1535,6 +1561,7 @@ def main() -> int:
         report["int8_train"], int8_run = phase_int8_train(dev, card)
         report["int8_train_profile"] = phase_train_profile(
             *int8_run, tag="int8-profile")
+        assert report["int8_train_profile"]["int8_kernel_launches"] == 48
         del int8_run
         torch.cuda.empty_cache()
         report["int8_witness"] = phase_int8_witness(
@@ -1610,6 +1637,7 @@ def main() -> int:
         "ms": qkv["ms"], "plain_ms": qkv["plain_ms"],
         "bound_ms": qkv["bound_ms"], "bound_by": qkv["bound_by"],
         "library_ms": qkv["library_ms"], "ms_source": qkv["ms_source"],
+        "x_bound": qkv["x_bound"],
         "shape": "qkv: int8 [16384, 768] x [2304, 768] -> bf16",
     })
     stem = next(c for c in report["gn_cases"]

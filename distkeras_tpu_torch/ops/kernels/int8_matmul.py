@@ -13,6 +13,10 @@ Port of ``distkeras_tpu/ops/pallas/int8_matmul.py``: the product of the
 
 The int32 sum is exact and converted to float32 round-to-nearest, so the
 kernel (``csrc/int8_matmul.cu``) and the plain version agree bitwise.
+The kernel runs ``wgmma`` s8 on operands that TMA copies into swizzled
+shared memory, in persistent CTAs that walk 128 x 256 output tiles;
+:func:`plan` is its schedule for a call (the C entry computes the same
+one, which ``int8_matmul_plan`` reports on the card).
 
 Dispatch: a CUDA tensor goes to the kernel (built on first use by
 :mod:`._build`), a CPU tensor to the plain version. A build or launch
@@ -25,10 +29,19 @@ kernel computes this function for every call.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel's tile (output rows, output columns, int8 of K a stage),
+#: ring stages, threads a CTA (a producer and two consumer warpgroups)
+#: and dynamic shared memory (1024 to align, the stages, two 16-row x
+#: 128-byte output buffers for each of the 8 consumer warps, a full and
+#: an empty mbarrier a stage): csrc/int8_matmul.cu
+BLOCK_M, BLOCK_N, BLOCK_K, STAGES, THREADS = 128, 256, 128, 4, 384
+SMEM_BYTES = (1024 + STAGES * (BLOCK_M + BLOCK_N) * BLOCK_K
+              + 8 * 2 * 16 * 128 + 2 * STAGES * 8)
 
 _lib = None
 
@@ -43,6 +56,9 @@ def _kernel_lib():
             [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
             + [ctypes.c_void_p])
         lib.int8_matmul_dequant_launch.restype = ctypes.c_int
+        lib.int8_matmul_plan.argtypes = (
+            [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
+        lib.int8_matmul_plan.restype = ctypes.c_int
         lib.int8_matmul_error_string.argtypes = [ctypes.c_int]
         lib.int8_matmul_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -59,6 +75,58 @@ def fits(x_shape, w_shape) -> bool:
     n, k2 = w_shape
     return k == k2 and k >= 16 and k % 16 == 0 and m >= 1 and n >= 1 \
         and -(-m // 128) <= 65535
+
+
+class Plan(NamedTuple):
+    """How the kernel computes one call: ``tiles_m`` x ``tiles_n`` output
+    tiles of ``block_m`` x ``block_n``, K in slices of ``block_k`` through
+    a ring of ``stages``; ``grid`` persistent CTAs of ``threads`` threads
+    and ``smem`` bytes of dynamic shared memory, CTA b taking tiles b, b +
+    grid, ... (tile i at row tile i // tiles_n, column tile i % tiles_n);
+    ``wide_store``: the output's row pitch is a multiple of 16 bytes, so
+    the epilogue stores by TMA, else a value at a time."""
+    block_m: int
+    block_n: int
+    block_k: int
+    stages: int
+    tiles_m: int
+    tiles_n: int
+    grid: int
+    wide_store: bool
+    threads: int
+    smem: int
+
+
+def plan(m: int, n: int, k: int, out_dtype, num_sms: int) -> Plan:
+    """The schedule of ``qx [m, k] @ qw [n, k].T`` into ``out_dtype`` on a
+    card of ``num_sms`` streaming multiprocessors (csrc/int8_matmul.cu
+    ``make_plan``). Raises ValueError for what the kernel does not take."""
+    if out_dtype not in _OUT_CODES or not fits((m, k), (n, k)) \
+            or num_sms < 1:
+        raise ValueError(f"int8_matmul_dequant: no plan for m={m}, n={n}, "
+                         f"k={k}, {out_dtype}, {num_sms} SMs")
+    tiles_m, tiles_n = -(-m // BLOCK_M), -(-n // BLOCK_N)
+    if tiles_m * tiles_n >= 2 ** 31:
+        raise ValueError(f"int8_matmul_dequant: {tiles_m} x {tiles_n} "
+                         f"tiles overflow the tile index")
+    itemsize = torch.finfo(out_dtype).bits // 8
+    return Plan(BLOCK_M, BLOCK_N, BLOCK_K, STAGES, tiles_m, tiles_n,
+                min(tiles_m * tiles_n, num_sms), n * itemsize % 16 == 0,
+                THREADS, SMEM_BYTES)
+
+
+def kernel_plan(m: int, n: int, k: int, out_dtype, device=None) -> Plan:
+    """The schedule the built kernel takes for these arguments on the
+    current CUDA device (``int8_matmul_plan``), to hold :func:`plan` to."""
+    lib = _kernel_lib()
+    fields = (ctypes.c_int * len(Plan._fields))()
+    with torch.cuda.device(device):
+        err = lib.int8_matmul_plan(_OUT_CODES[out_dtype], m, n, k, fields)
+    if err != 0:
+        raise ValueError(f"int8_matmul_plan: cudaError {err} "
+                         f"({lib.int8_matmul_error_string(err).decode()})")
+    p = Plan._make(fields)
+    return p._replace(wide_store=bool(p.wide_store))
 
 
 def int8_matmul_dequant_reference(qx, qw, sxw, out_dtype=torch.float32):

@@ -410,21 +410,94 @@ def _int8_inputs(m, k, n, dev, seed):
     return qx.to(dev), qw.to(dev), sxw.to(dev)
 
 
+#: GPT-2-small's four block products at 8 x 2048 rows (qkv, out, fc1, fc2)
+INT8_GPT_SHAPES = [(16384, 768, 2304), (16384, 768, 768), (16384, 768, 3072),
+                   (16384, 3072, 768)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [(16384, 768, 2304), (512, 3072, 768),
                                    (100, 48, 72), (3, 16, 5), (130, 96, 1),
-                                   (257, 80, 129)])
+                                   (257, 80, 129), *INT8_GPT_SHAPES[1:],
+                                   (300, 784, 200), (129, 3088, 520),
+                                   (16384 + 77, 768, 2304)])
 def test_int8_kernel_bitwise_equals_plain_version(cuda_device, out_dtype,
                                                   m, k, n):
-    """GPT-2-small's qkv shape, a K=3072 shape, and ragged M, N and K
-    tails (K a multiple of 16, not of the 64-deep tile)."""
+    """GPT-2-small's four products, a K=3072 shape, ragged M, N and K
+    tails (K a multiple of 16, not of the 128-deep slice: 16, 48, 80,
+    784, 3088), and a last row of tiles left ragged after several
+    persistent waves (16384 + 77 rows)."""
     qx, qw, sxw = _int8_inputs(m, k, n, cuda_device, m + k + n)
     got = tk.int8_matmul_dequant(qx, qw, sxw, out_dtype)
     want = tk.int8_matmul_dequant_reference(qx, qw, sxw, out_dtype)
     torch.cuda.synchronize()
     assert got.dtype == out_dtype and got.shape == (m, n)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8_kernel_with_saturated_codes(cuda_device, out_dtype):
+    """Every code +-127 at K = 3072: int32 sums up to 127^2 * 3072 (~4.95e7,
+    beyond float32's 2^24), all-positive rows and columns among them."""
+    m, k, n = 384, 3072, 512
+    rng = np.random.default_rng(11)
+    qx = np.where(rng.random((m, k)) < 0.5, -127, 127).astype(np.int8)
+    qw = np.where(rng.random((n, k)) < 0.5, -127, 127).astype(np.int8)
+    qx[:7], qw[:5] = 127, 127
+    qw[5:9] = -127
+    qx, qw = (torch.from_numpy(a).to(cuda_device) for a in (qx, qw))
+    sxw = torch.tensor(3.1e-5, dtype=torch.float32, device=cuda_device)
+    got = tk.int8_matmul_dequant(qx, qw, sxw, out_dtype)
+    want = tk.int8_matmul_dequant_reference(qx, qw, sxw, out_dtype)
+    torch.cuda.synchronize()
+    assert want.float().abs().max().item() == pytest.approx(
+        127 * 127 * k * 3.1e-5, rel=1e-2)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_int8_kernel_is_deterministic(cuda_device):
+    """Two calls on the same inputs give the same bits."""
+    qx, qw, sxw = _int8_inputs(*INT8_GPT_SHAPES[0], cuda_device, 5)
+    a = tk.int8_matmul_dequant(qx, qw, sxw, torch.bfloat16)
+    b = tk.int8_matmul_dequant(qx, qw, sxw, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_int8_kernel_on_two_streams_at_once(cuda_device):
+    """Calls queued on two streams at once (each call has its own tensor
+    maps, passed by value) give the bits of the plain version."""
+    calls = [_int8_inputs(m, k, n, cuda_device, seed) for seed, (m, k, n)
+             in enumerate([(4096, 768, 2304), (2048, 3072, 768),
+                           (1000, 784, 200), (4096, 768, 3072)])]
+    want = [tk.int8_matmul_dequant_reference(*args, torch.bfloat16)
+            for args in calls]
+    streams = [torch.cuda.Stream(cuda_device) for _ in range(2)]
+    torch.cuda.synchronize()
+    got = [None] * len(calls)
+    for _ in range(4):
+        for i, args in enumerate(calls):
+            with torch.cuda.stream(streams[i % 2]):
+                got[i] = tk.int8_matmul_dequant(*args, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_int8_kernel_takes_the_plan_of_the_host(cuda_device, out_dtype):
+    """The C entry's schedule (``int8_matmul_plan``) is ``plan`` of the
+    card's SM count at every shape of these tests."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for m, k, n in [(100, 48, 72), (3, 16, 5), (130, 96, 1), (257, 80, 129),
+                    (129, 3088, 520), (16384 + 77, 768, 2304),
+                    *INT8_GPT_SHAPES]:
+        assert tk.kernel_plan(m, n, k, out_dtype, cuda_device) == tk.plan(
+            m, n, k, out_dtype, sms)
 
 
 @pytest.mark.cuda
