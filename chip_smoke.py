@@ -18,20 +18,32 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    keys) against its plain PyTorch version on the card (float32 with
    TF32 off, and bf16) at the shapes gpt_small serving gives it and at
    head_dim 16 (h=2) and 96, max_len 4096 at b=8 and 32768 at b=1
-   (t=2), with its time, the plain version's time, one PyTorch library
-   call's time for the same function, and its bound from this run's
-   data;
+   (t=2), and at the chunk shape (1, 16) at cursors 16 and 32, with its
+   time, the plain version's time, one PyTorch library call's time for
+   the same function, and its bound from this run's data;
 4. engine  — the serving path: GenerationEngine(gpt_small) in bf16 on the
    card with seeded random weights, paged (page_size 16), 8 slots,
-   prefill buckets (32, 128), 8 concurrent requests of 32 new tokens;
-   the paged kernel's launch count is zeroed just before and read just
-   after;
+   prefill buckets (32, 128), first 20 bursts of 8 requests of 32 new
+   tokens submitted at once (each burst's tokens/s, time a model call
+   and longest gap), then three windows of 128 requests of 16-128
+   prompt tokens and 64 new tokens each, 8 in flight (a closed loop):
+   tokens/s a window and their spread, TTFT, the longest gap between two
+   token emissions and the garbage collector's time in each window;
+   every declared shape (2 buckets, 4 ladder widths) is captured as a
+   CUDA graph in the constructor (the capture time is in ``setup_s``,
+   the graphs' memory in ``graph_pool_bytes``) and only replayed after:
+   the compiles count must not move under traffic; the paged kernel's
+   launch count (one a layer a replay) is zeroed just before and read
+   just after;
 5. greedy  — in float32 with TF32 off, the engine's greedy tokens for two
    prompts equal the argmax of the port's full forward (plain attention,
    no kernel) re-run over each growing prefix, for gpt_small and for
    gpt_tiny (head_dim 16);
-6. profile — a separate short run of the serving path under
-   torch.profiler: the device's busy share and its time by kernel;
+6. profile — a separate run of the serving path under torch.profiler
+   (32 requests of 100 prompt tokens and 16 new tokens, 8 in flight):
+   the device's busy share, its time by kernel, and the kernels each
+   model call (a graph replay) puts on the device; the paged kernels in
+   the trace must be two for each paged call counted;
 7. flash   — the three training flash kernels (forward, dq, dk/dv)
    against their plain versions as in phase 3, at the training shape
    [8, 2048, 12, 64] causal and at two small shapes;
@@ -82,7 +94,18 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    kernels against plain GroupNorm in loss, gradients and parameters
    after one SGD step;
 15. nf      — resnet50_nf() in bf16 at b=128, 2 steps: finite losses and
-   the step time (no kernel of the port on this path).
+   the step time (no kernel of the port on this path);
+16. rect    — phase 4's engine and traffic on the default rectangular
+   pool (``page_size=None``: no paged kernel, plain attention over each
+   full-context row), a traced run for its busy share, and phase 5's
+   float32 greedy check on that pool;
+17. sampled — ``sampling=True, temperature=0.7`` in bf16 on both pools:
+   seed 321 twice gives identical streams, seed 322 another, every token
+   in the vocabulary;
+18. chunked — paged with ``prefill_chunk=16``: phase 5's float32 greedy
+   check (the 40-token prompt in three chunks; the chunk shares the
+   16-token bucket's graph); then phase 4's traffic in bf16 with
+   ``prefill_chunk=32`` (the 32-token bucket's graph).
 
 The last three lines of standard output are the kernels' JSON, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details are
@@ -330,11 +353,11 @@ def _sass_counts(lib_path, ops=("HGMMA", "FFMA")) -> dict:
 
 # -- phase 3 -----------------------------------------------------------------
 
-def _paged_inputs(b, t, dtype, rng, dev, h=H, d=D, pmax=PMAX):
+def _paged_inputs(b, t, dtype, rng, dev, h=H, d=D, pmax=PMAX, ci=None):
     """q, k_pages, v_pages, page_table, cache_index at a pool of ``pmax``
     pages a row of ``b`` rows (the engine's geometry by default): tables
     drawn from every page INCLUDING the scratch page, cursors random with
-    room for the block."""
+    room for the block unless ``ci`` gives them."""
     num_pages = b * pmax if pmax != PMAX else NUM_PAGES
     mk = lambda *s: torch.from_numpy(
         rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
@@ -342,7 +365,8 @@ def _paged_inputs(b, t, dtype, rng, dev, h=H, d=D, pmax=PMAX):
     k = mk(num_pages + 1, PAGE, h, d)
     v = mk(num_pages + 1, PAGE, h, d)
     table = rng.permutation(num_pages + 1)[:b * pmax].reshape(b, pmax)
-    ci = rng.integers(0, pmax * PAGE - t + 1, size=b)
+    ci = (rng.integers(0, pmax * PAGE - t + 1, size=b) if ci is None
+          else np.full(b, ci))
     return (q, k, v, torch.from_numpy(table.astype(np.int32)).to(dev),
             torch.from_numpy(ci.astype(np.int32)).to(dev))
 
@@ -368,13 +392,16 @@ def _bound(b, t, dtype, ci, h=H, d=D, pmax=PMAX):
             "bound_full_pool_ms": full_bytes / HBM_BYTES_PER_S * 1e3}
 
 
-#: phase 3's cases: (b, t, heads, head_dim, pages a row). gpt_small's
-#: serving geometry (decode at b=1 and 8, a 128-token prefill), then
-#: shapes the first kernel refused: gpt_tiny's head_dim 16, head_dim 96,
-#: and 4096- and 32768-key contexts
+#: phase 3's cases: (b, t, heads, head_dim, pages a row[, cursor]).
+#: gpt_small's serving geometry (decode at b=1 and 8, a 128-token
+#: prefill), then shapes the first kernel refused: gpt_tiny's head_dim
+#: 16, head_dim 96, and 4096- and 32768-key contexts; then the chunk
+#: calls of a 40-token prompt under prefill_chunk=16 (its second and
+#: third chunks, at cursors 16 and 32)
 PAGED_CASES = (((1, 2, H, D, PMAX), (8, 2, H, D, PMAX), (1, 128, H, D, PMAX)),
                ((8, 2, 2, 16, PMAX), (8, 2, 8, 96, PMAX), (8, 2, H, D, 256),
-                (1, 2, H, D, 2048)))
+                (1, 2, H, D, 2048)),
+               ((1, 16, H, D, PMAX, 16), (1, 16, H, D, PMAX, 32)))
 
 
 def phase_kernels(dev) -> list:
@@ -389,9 +416,9 @@ def phase_kernels(dev) -> list:
     runs = [(dtype, case) for group in PAGED_CASES
             for dtype in (torch.float32, torch.bfloat16) for case in group]
     set_tf32(False)
-    for dtype, (b, t, h, d, pmax) in runs:
+    for dtype, (b, t, h, d, pmax, *cursor) in runs:
         q, k, v, table, ci = _paged_inputs(b, t, dtype, rng, dev, h, d,
-                                           pmax)
+                                           pmax, *cursor)
         args = (q, k, v, table, ci)
         got = fa.paged_flash_attention(*args)
         want = fa.paged_flash_attention_reference(*args)
@@ -446,10 +473,12 @@ def phase_kernels(dev) -> list:
                 "max_abs_err": err, "max_abs_ref": scale, "bound": bound,
                 **times, "split": fa.split_keys(max_len, b * h),
                 "library_max_abs_err": lib_err,
+                **({"cache_index": cursor[0]} if cursor else {}),
                 **_bound(b, t, dtype, ci.tolist(), h, d, pmax)}
         cases.append(case)
+        at = f" cache_index={cursor[0]}" if cursor else ""
         log(f"[kernels] paged_flash_attention b={b} t={t} h={h} d={d} "
-            f"max_len={max_len} {case['dtype']}: max_abs_err {err:.3e} "
+            f"max_len={max_len}{at} {case['dtype']}: max_abs_err {err:.3e} "
             f"(bound {bound:.3g}), kernel {ms:.4f} ms (split "
             f"{case['split']}), plain {plain_ms:.4f} ms, "
             f"sdpa-over-gather {library_ms:.4f} ms (device, "
@@ -463,61 +492,189 @@ def phase_kernels(dev) -> list:
 
 # -- phase 4 -----------------------------------------------------------------
 
-def phase_engine(dev, power_line) -> dict:
-    from distkeras_tpu_torch import telemetry
-    from distkeras_tpu_torch.models.gpt import gpt_small, init_params
-    from distkeras_tpu_torch.ops.kernels import flash_attention as fa
-    from distkeras_tpu_torch.serving import GenerationEngine
+#: the serving engine's declared shapes at gpt_small (phases 4, 6, 16-18)
+ENGINE_KW = dict(num_slots=SLOTS, prefill_buckets=(32, 128),
+                 queue_capacity=64)
 
-    set_tf32(False)
-    model = init_params(gpt_small(dtype=torch.bfloat16),
-                        torch.Generator().manual_seed(0))
-    t0 = time.perf_counter()
-    eng = GenerationEngine(model, device=dev, num_slots=SLOTS,
-                           prefill_buckets=(32, 128), page_size=PAGE,
-                           queue_capacity=64)
-    setup_s = time.perf_counter() - t0
+
+#: phase 4's traffic (also phases 16 and 18's): SERVE_REQUESTS requests
+#: of 16-128 prompt tokens and SERVE_NEW new tokens each, SLOTS of them
+#: in flight (a closed loop: a request is submitted as one completes),
+#: served SERVE_WINDOWS times over on one engine. At ~3,500 tokens/s a
+#: window lasts ~2.3 s, the eager engine's ~11 s.
+SERVE_REQUESTS = 128
+SERVE_NEW = 64
+SERVE_WINDOWS = 3
+#: before the windows, BURSTS bursts of SLOTS requests of BURST_NEW new
+#: tokens each, submitted at once (~0.07 s each on graphs): how much a
+#: run that short varies, and whether a slow one stalled (its longest
+#: gap) or ran slow throughout (its time a model call)
+BURSTS = 20
+BURST_NEW = 32
+
+
+def _serving_prompts():
+    """Phase 4's prompts: SERVE_REQUESTS of 16-128 tokens."""
     rng = np.random.default_rng(1)
-    prompts = [rng.integers(1, 50304, int(n)).tolist()
-               for n in rng.integers(16, 129, size=8)]
-    first = {}
-    count = lambda name: telemetry.counter(f"serving.decode.{name}").value
+    return [rng.integers(1, 50304, int(k)).tolist()
+            for k in rng.integers(16, 129, size=SERVE_REQUESTS)]
+
+
+def _gpt_small_bf16():
+    from distkeras_tpu_torch.models.gpt import gpt_small, init_params
+
+    return init_params(gpt_small(dtype=torch.bfloat16),
+                       torch.Generator().manual_seed(0))
+
+
+def _serve_window(eng, prompts, new) -> dict:
+    """Serve ``prompts`` through ``eng`` with ``new`` new tokens each,
+    SLOTS requests in flight: tokens/s, TTFT (submission to first token),
+    and what would show a stall: the longest gap between two of the
+    scheduler's token emissions, with its start from the window's, beside
+    the window's mean time a model call, and the time Python's garbage
+    collector ran in the window."""
+    import gc
+    import threading
+
+    from distkeras_tpu_torch import telemetry
+
+    prefill = ("chunk.steps" if "prefill_chunk" in eng.compiled_executables
+               else "prefills")
+    calls = lambda: sum(telemetry.counter(f"serving.decode.{name}").value
+                        for name in (prefill, "steps"))
+    free = threading.Semaphore(SLOTS)
+    submit, first, emits, gc_runs = {}, {}, [], []
+
+    def on_token(i):
+        def stream(tok):
+            now = time.perf_counter()
+            emits.append(now)
+            first.setdefault(i, now)
+        return stream
+
+    def on_gc(phase, info):
+        gc_runs.append(time.perf_counter())
+
+    calls0 = calls()
+    gc.callbacks.append(on_gc)
     try:
-        calls0 = count("prefills") + count("steps")
-        fa.paged_flash_attention.launches = 0
-        t_start = time.perf_counter()
-        submit = {}
+        t0 = time.perf_counter()
         futs = []
         for i, p in enumerate(prompts):
+            assert free.acquire(timeout=600), "no request completed"
             submit[i] = time.perf_counter()
-            futs.append(eng.generate(
-                p, max_new_tokens=32,
-                stream=lambda tok, i=i: first.setdefault(
-                    i, time.perf_counter())))
+            futs.append(eng.generate(p, max_new_tokens=new,
+                                     stream=on_token(i)))
+            futs[-1].add_done_callback(lambda f: free.release())
         results = [f.result(timeout=600) for f in futs]
-        wall = time.perf_counter() - t_start
-        launches = fa.paged_flash_attention.launches
-        calls = count("prefills") + count("steps") - calls0
+        wall = time.perf_counter() - t0
     finally:
-        eng.shutdown()
-    assert all(r.reason == "length" and r.tokens.size == 32
+        gc.callbacks.remove(on_gc)
+    n_calls = calls() - calls0
+    assert all(r.reason == "length" and r.tokens.size == new
                for r in results), results
     assert all(0 <= int(tok) < 50304 for r in results for tok in r.tokens)
     tokens = sum(r.tokens.size for r in results)
     ttft = sorted(first[i] - submit[i] for i in range(len(prompts)))
-    info = {"requests": len(prompts), "new_tokens": tokens,
-            "prompt_lengths": [len(p) for p in prompts],
+    gaps = np.diff([t0] + emits)
+    at = int(np.argmax(gaps))
+    return {"requests": len(prompts), "new_tokens": tokens,
             "wall_s": wall, "tokens_per_s": tokens / wall,
             "ttft_p50_s": statistics.median(ttft), "ttft_max_s": ttft[-1],
-            "setup_s": setup_s, "launches": launches, "model_calls": calls,
-            "card": power_line}
-    log(f"[engine] gpt_small bf16, 8 requests x 32 new tokens: "
-        f"{info['tokens_per_s']:.1f} tokens/s, TTFT p50 "
-        f"{info['ttft_p50_s'] * 1e3:.1f} ms (max {ttft[-1] * 1e3:.1f} ms), "
-        f"setup {setup_s:.1f} s, paged kernel launches {launches} "
-        f"[{power_line}]")
+            "model_calls": n_calls, "ms_per_call": wall / n_calls * 1e3,
+            "max_gap_ms": float(gaps[at]) * 1e3,
+            "max_gap_at_s": ([t0] + emits)[at] - t0,
+            "gc_s": sum(b - a for a, b in zip(gc_runs[::2], gc_runs[1::2])),
+            "gc_runs": len(gc_runs) // 2}
+
+
+def _serve_windows(eng) -> dict:
+    """SERVE_WINDOWS windows of phase 4's traffic back to back on ``eng``:
+    each window's numbers, the median and spread of their tokens/s, and
+    the paged kernel's launches (zeroed just before the first window,
+    read just after the last) beside the model calls of all of them."""
+    from distkeras_tpu_torch.ops.kernels import flash_attention as fa
+
+    prompts = _serving_prompts()
+    fa.paged_flash_attention.launches = 0
+    runs = [_serve_window(eng, prompts, SERVE_NEW)
+            for _ in range(SERVE_WINDOWS)]
+    launches = fa.paged_flash_attention.launches
+    rates = [r["tokens_per_s"] for r in runs]
+    return {"windows": runs, "tokens_per_s": statistics.median(rates),
+            "tokens_per_s_min": min(rates), "tokens_per_s_max": max(rates),
+            "ttft_p50_s": statistics.median(r["ttft_p50_s"] for r in runs),
+            "ttft_max_s": max(r["ttft_max_s"] for r in runs),
+            "max_gap_ms": max(r["max_gap_ms"] for r in runs),
+            "launches": launches,
+            "model_calls": sum(r["model_calls"] for r in runs)}
+
+
+def _engine_run(dev, model, power_line, tag, **kw) -> dict:
+    """Build ``GenerationEngine(model, **ENGINE_KW, **kw)`` (every shape
+    captured as a CUDA graph in the constructor: ``setup_s``) and serve
+    phase 4's traffic (:func:`_serve_windows`). Asserts that the compiles
+    count and ``compiled_executables`` do not move under traffic."""
+    from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch.serving import GenerationEngine
+
+    set_tf32(False)
+    compiles = telemetry.counter("serving.decode.compiles")
+    compiles0 = compiles.value
+    t0 = time.perf_counter()
+    eng = GenerationEngine(model, device=dev, **ENGINE_KW, **kw)
+    setup_s = time.perf_counter() - t0
+    captured = compiles.value - compiles0
+    declared = eng.compiled_executables
+    try:
+        bursts = [_serve_window(eng, _serving_prompts()[:SLOTS], BURST_NEW)
+                  for _ in range(BURSTS)]
+        info = _serve_windows(eng)
+        assert compiles.value - compiles0 == captured, "captured late"
+        assert eng.compiled_executables == declared
+    finally:
+        eng.shutdown()
+    info.update(setup_s=setup_s, compiles=captured,
+                compiled_executables=declared,
+                graph_pool_bytes=eng.graph_pool_bytes, card=power_line,
+                bursts=bursts)
+    rates = [b["tokens_per_s"] for b in bursts]
+    slow = bursts[int(np.argmin(rates))]
+    log(f"[{tag}] {BURSTS} bursts of {SLOTS} requests x {BURST_NEW} new "
+        f"tokens at once: tokens/s min {min(rates):.1f}, median "
+        f"{statistics.median(rates):.1f}, max {max(rates):.1f} (first "
+        f"{rates[0]:.1f}); the slowest: {slow['ms_per_call']:.3f} ms a "
+        f"model call, longest gap {slow['max_gap_ms']:.1f} ms at "
+        f"{slow['max_gap_at_s']:.3f} s, gc {slow['gc_s'] * 1e3:.1f} ms")
+    for k, w in enumerate(info["windows"]):
+        log(f"[{tag}] window {k}: {w['requests']} requests x {SERVE_NEW} "
+            f"new tokens, {SLOTS} in flight: {w['tokens_per_s']:.1f} "
+            f"tokens/s in {w['wall_s']:.3f} s, TTFT p50 "
+            f"{w['ttft_p50_s'] * 1e3:.1f} ms (max "
+            f"{w['ttft_max_s'] * 1e3:.1f} ms), {w['model_calls']} model "
+            f"calls ({w['ms_per_call']:.3f} ms a call), longest gap "
+            f"{w['max_gap_ms']:.1f} ms at {w['max_gap_at_s']:.3f} s, gc "
+            f"{w['gc_s'] * 1e3:.1f} ms in {w['gc_runs']} runs")
+    log(f"[{tag}] gpt_small bf16: median {info['tokens_per_s']:.1f} "
+        f"tokens/s (min {info['tokens_per_s_min']:.1f}, max "
+        f"{info['tokens_per_s_max']:.1f}) over {len(info['windows'])} "
+        f"windows, setup {setup_s:.2f} s for {captured} CUDA graphs "
+        f"{declared} holding {eng.graph_pool_bytes / 2**20:.1f} MiB, "
+        f"{info['model_calls']} model calls, paged kernel launches "
+        f"{info['launches']} [{power_line}]")
+    return info
+
+
+def phase_engine(dev, power_line) -> dict:
+    """The main path: the paged engine (page_size 16) through its CUDA
+    graphs, one launch of the paged kernel per layer per model call."""
+    model = _gpt_small_bf16()
+    info = _engine_run(dev, model, power_line, "engine", page_size=PAGE)
     # one launch per layer per prefill or decode call, none elsewhere
-    assert launches == model.num_layers * calls > 0, (launches, calls)
+    assert info["launches"] == model.num_layers * info["model_calls"] > 0, (
+        info["launches"], info["model_calls"])
+    assert info["compiles"] == 6, info["compiled_executables"]
     del model
     torch.cuda.empty_cache()
     return info
@@ -525,10 +682,11 @@ def phase_engine(dev, power_line) -> dict:
 
 # -- phase 5 -----------------------------------------------------------------
 
-def _greedy(dev, model, seed) -> dict:
+def _greedy(dev, model, seed, **kw) -> dict:
     """The engine's greedy tokens for two prompts of 9 and 40 tokens
     (float32, TF32 off) against the argmax of the model's full forward
-    (plain attention, no kernel) re-run over each growing prefix."""
+    (plain attention, no kernel) re-run over each growing prefix. Paged
+    (page_size 16) unless ``kw`` says otherwise."""
     from distkeras_tpu_torch.ops.kernels import flash_attention as fa
     from distkeras_tpu_torch.serving import GenerationEngine
 
@@ -537,13 +695,17 @@ def _greedy(dev, model, seed) -> dict:
     prompts = [rng.integers(1, model.vocab_size, n).tolist()
                for n in (9, 40)]
     new = 12
+    kw = {"page_size": PAGE, **kw}
     fa.paged_flash_attention.launches = 0
     with GenerationEngine(model, device=dev, num_slots=2,
-                          prefill_buckets=(16, 64), page_size=PAGE) as eng:
+                          prefill_buckets=(16, 64), **kw) as eng:
         results = [f.result(timeout=600) for f in
                    [eng.generate(p, max_new_tokens=new) for p in prompts]]
     launches = fa.paged_flash_attention.launches
-    assert launches > 0, "the engine did not reach the paged kernel"
+    if kw["page_size"] is not None:
+        assert launches > 0, "the engine did not reach the paged kernel"
+    else:
+        assert launches == 0, "the rectangular pool runs no paged kernel"
     checked = 0
     margins = []
     with torch.no_grad():
@@ -562,7 +724,7 @@ def _greedy(dev, model, seed) -> dict:
             "min_top2_margin": min(margins), "paged_launches": launches}
 
 
-def phase_greedy(dev) -> dict:
+def phase_greedy(dev, tag="greedy", **kw) -> dict:
     """gpt_small (head_dim 64) and gpt_tiny (head_dim 16, which the first
     paged kernel refused) served greedily in float32 on the card."""
     from distkeras_tpu_torch.models.gpt import (gpt_small, gpt_tiny,
@@ -573,8 +735,8 @@ def phase_greedy(dev) -> dict:
                              ("gpt_tiny", gpt_tiny, 6)):
         model = init_params(make(dtype=torch.float32),
                             torch.Generator().manual_seed(seed))
-        info[name] = _greedy(dev, model, seed + 1)
-        log(f"[greedy] {name} (head_dim {model.width // model.num_heads}) "
+        info[name] = _greedy(dev, model, seed + 1, **kw)
+        log(f"[{tag}] {name} (head_dim {model.width // model.num_heads}) "
             f"f32 engine tokens == full-forward argmax on "
             f"{info[name]['tokens_checked']}/{info[name]['tokens_checked']} "
             f"positions (min top-2 margin "
@@ -586,43 +748,80 @@ def phase_greedy(dev) -> dict:
 
 # -- phase 6 -----------------------------------------------------------------
 
-def phase_profile(dev) -> dict:
-    """A separate traced run of the main path (8 requests x 8 new tokens,
-    bf16): device busy share and device time by kernel. Phase 4's
-    numbers are taken with the profiler off."""
+#: the traced run's traffic (phases 6 and 16): TRACE_REQUESTS requests of
+#: 100 prompt tokens and TRACE_NEW new tokens each, SLOTS in flight
+TRACE_REQUESTS = 32
+TRACE_NEW = 16
+
+
+def _traced_serve(eng, tag) -> dict:
+    """The traced run's traffic under torch.profiler: the device's busy
+    share, its time by kernel, and the kernels a model call (a graph
+    replay) put on the device: all of them, and the paged kernel's two,
+    beside the paged calls the wrapper counted (zeroed just before, read
+    just after)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from distkeras_tpu_torch.models.gpt import gpt_small, init_params
-    from distkeras_tpu_torch.serving import GenerationEngine
+    from distkeras_tpu_torch.ops.kernels import flash_attention as fa
 
-    model = init_params(gpt_small(dtype=torch.bfloat16),
-                        torch.Generator().manual_seed(0))
     rng = np.random.default_rng(4)
-    prompts = [rng.integers(1, 50304, 100).tolist() for _ in range(8)]
-    with GenerationEngine(model, device=dev, num_slots=SLOTS,
-                          prefill_buckets=(32, 128), page_size=PAGE) as eng:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for f in [eng.generate(p, max_new_tokens=8) for p in prompts]:
-                f.result(timeout=600)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+    prompts = [rng.integers(1, 50304, 100).tolist()
+               for _ in range(TRACE_REQUESTS)]
+    fa.paged_flash_attention.launches = 0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        n_calls = _serve_window(eng, prompts, TRACE_NEW)["model_calls"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counted = fa.paged_flash_attention.launches
     kernels = device_kernels(prof)
     busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    paged = sum(e.count for e in kernels
+                if "paged_logits_kernel" in e.key
+                or "paged_values_kernel" in e.key)
     info = {"wall_s": wall, "device_busy_s": busy_s,
             "device_busy_share": busy_s / wall,
             "kernel_launches": sum(e.count for e in kernels),
+            "model_calls": n_calls, "paged_calls_counted": counted,
+            "paged_kernels_traced": paged,
+            "kernels_per_call": sum(e.count for e in kernels) / n_calls,
+            "paged_kernels_per_call": paged / n_calls,
             "top_kernels": [{"name": e.key[:90], "count": e.count,
                              "device_ms": e.self_device_time_total / 1e3}
                             for e in top]}
-    log(f"[profile] traced main path: wall {wall * 1e3:.1f} ms, device busy "
+    log(f"[{tag}] traced serving run: wall {wall * 1e3:.1f} ms, device busy "
         f"{busy_s * 1e3:.1f} ms ({100 * info['device_busy_share']:.1f}%), "
-        f"{info['kernel_launches']} kernel launches")
+        f"{info['kernel_launches']} kernels on the device in {n_calls} "
+        f"model calls ({info['kernels_per_call']:.1f} a call), paged "
+        f"kernels {paged} ({info['paged_kernels_per_call']:.1f} a call) "
+        f"for {counted} counted paged calls")
     for k in info["top_kernels"]:
-        log(f"[profile]   {k['device_ms']:9.3f} ms  x{k['count']:<5d} "
+        log(f"[{tag}]   {k['device_ms']:9.3f} ms  x{k['count']:<5d} "
             f"{k['name']}")
+    return info
+
+
+def phase_profile(dev) -> dict:
+    """A separate traced run of the main path (bf16, the traced run's
+    traffic): device busy share and device time by kernel. Phase 4's
+    numbers are taken with the profiler off."""
+    from distkeras_tpu_torch.serving import GenerationEngine
+
+    model = _gpt_small_bf16()
+    with GenerationEngine(model, device=dev, page_size=PAGE,
+                          **ENGINE_KW) as eng:
+        info = _traced_serve(eng, "profile")
+    # every replay launched its layers' paged calls, and the trace holds
+    # their kernels, two a call: the count a replay adds is the count the
+    # card ran
+    assert info["paged_calls_counted"] == (
+        model.num_layers * info["model_calls"]) > 0, info
+    assert info["paged_kernels_traced"] == 2 * info["paged_calls_counted"], (
+        info)
+    del model
+    torch.cuda.empty_cache()
     return info
 
 
@@ -1536,6 +1735,75 @@ def phase_nf(dev, power_line) -> dict:
     return info
 
 
+# -- phases 16-18 -------------------------------------------------------------
+
+def phase_rect(dev, power_line) -> dict:
+    """The engine's default pool (``page_size=None``: one full-context
+    row a slot, plain attention over it) on phase 4's traffic, a traced
+    run for its busy share, and phase 5's float32 greedy check."""
+    from distkeras_tpu_torch.serving import GenerationEngine
+
+    model = _gpt_small_bf16()
+    info = _engine_run(dev, model, power_line, "rect")
+    assert info["launches"] == 0 and info["compiles"] == 6, info
+    with GenerationEngine(model, device=dev, **ENGINE_KW) as eng:
+        info["profile"] = _traced_serve(eng, "rect-profile")
+    assert info["profile"]["paged_kernels_traced"] == 0, info["profile"]
+    del model
+    torch.cuda.empty_cache()
+    info["greedy"] = phase_greedy(dev, tag="rect-greedy", page_size=None)
+    return info
+
+
+def phase_sampled(dev) -> dict:
+    """``sampling=True, temperature=0.7`` in bf16 on both pools: two
+    engines fed the same requests in the same order give the same
+    streams, another seed another stream, every token in the vocabulary."""
+    from distkeras_tpu_torch.serving import GenerationEngine
+
+    model = _gpt_small_bf16()
+    prompts = _serving_prompts()[:4]
+    info = {}
+    for pool, page_size in (("paged", PAGE), ("rect", None)):
+        streams = []
+        for seed in (321, 321, 322):
+            with GenerationEngine(model, device=dev, page_size=page_size,
+                                  sampling=True, temperature=0.7,
+                                  seed=seed, **ENGINE_KW) as eng:
+                streams.append([f.result(timeout=600).tokens.tolist()
+                                for f in [eng.generate(p, max_new_tokens=16)
+                                          for p in prompts]])
+        assert streams[0] == streams[1], (pool, streams[:2])
+        assert streams[0] != streams[2], pool
+        assert all(0 <= t < model.vocab_size for s in streams for r in s
+                   for t in r)
+        info[pool] = {"seed_321": streams[0], "seed_322": streams[2]}
+        log(f"[sampled] {pool}: seed 321 twice gives the same "
+            f"{sum(map(len, streams[0]))} tokens, seed 322 another stream")
+    del model
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_chunked(dev, power_line) -> dict:
+    """Chunked prefill on the paged pool: phase 5's float32 greedy check
+    with ``prefill_chunk=16`` (the 40-token prompt in three chunks, at
+    cursors 0, 16 and 32; the chunk shares the 16-token bucket's graph),
+    then phase 4's traffic in bf16 with ``prefill_chunk=32`` (the
+    32-token bucket's graph)."""
+    info = {"greedy": phase_greedy(dev, tag="chunked-greedy",
+                                   page_size=PAGE, prefill_chunk=16)}
+    model = _gpt_small_bf16()
+    info.update(_engine_run(dev, model, power_line, "chunked",
+                            page_size=PAGE, prefill_chunk=32))
+    assert info["compiled_executables"]["prefill_chunk"] == (32,)
+    assert info["compiles"] == 6, info["compiled_executables"]
+    assert info["launches"] == model.num_layers * info["model_calls"] > 0
+    del model
+    torch.cuda.empty_cache()
+    return info
+
+
 def main() -> int:
     report = {}
     try:
@@ -1576,6 +1844,9 @@ def main() -> int:
             dev, report["resnet_train"]["losses"])
         report["resnet_identity"] = phase_resnet_identity(dev)
         report["nf"] = phase_nf(dev, card)
+        report["rect"] = phase_rect(dev, card)
+        report["sampled"] = phase_sampled(dev)
+        report["chunked"] = phase_chunked(dev, card)
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         log("[chip_smoke] FAILED")

@@ -1,6 +1,6 @@
 """Causal LM (port of ``distkeras_tpu/models/gpt.py``).
 
-Two paths, as in the JAX package:
+Three paths, as in the JAX package:
 
 - the **full forward** (``model(ids)``, the training path): causal
   attention over the block through
@@ -9,6 +9,16 @@ Two paths, as in the JAX package:
   serving path is held to) under ``attention="full"``, its ``"flash"``
   mode (the Hopper flash-attention kernels, forward and backward) under
   ``attention="flash"``;
+- the **rectangular cache path** (``model(ids, cache=rows,
+  cache_index=lengths)``): ``cache`` is the per-layer cache of
+  :func:`init_cache`, ``[batch, max_len, heads, head_dim]`` per
+  ``{"k", "v"}``. Each layer scatters the block's K/V to ``[row,
+  cache_index + j]`` IN PLACE, dropping a position ``>= max_len`` (the
+  JAX package's ``mode="drop"``: the decode step's ghost never
+  overwrites the last real cell), then attends with the plain
+  :func:`~distkeras_tpu_torch.ops.attention.dot_product_attention` over
+  all ``max_len`` keys under the mask ``key_pos <= pos`` (the JAX package
+  computes it outside any Pallas kernel too);
 - the **paged cache path** (``model(ids, cache=pages,
   cache_index=lengths, page_table=tables)``): ``cache`` is the per-layer
   page pool of :func:`init_paged_cache`, ``[num_pages + 1, page_size,
@@ -35,8 +45,7 @@ products of every block Dense (qkv, out, fc1, fc2; under ``"int8"`` through
 the int8 matmul kernel); the LM head stays float32 and unquantized.
 
 Not ported yet: ``attention="ring"``, ``remat`` other than ``"none"``,
-the rectangular ``[batch, max_len]`` cache, and int8 KV pages
-(ROADMAP.md Queue A).
+and int8 KV pages (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -49,7 +58,8 @@ from torch import nn
 
 from distkeras_tpu_torch import precision as precision_lib
 from distkeras_tpu_torch.models.transformer import Dense, Embed, MlpBlock
-from distkeras_tpu_torch.ops.attention import apply_attention
+from distkeras_tpu_torch.ops.attention import (apply_attention,
+                                               dot_product_attention)
 from distkeras_tpu_torch.ops.kernels import flash_attention as fa
 
 #: flax's LayerNorm epsilon (torch's default is 1e-5)
@@ -85,20 +95,19 @@ class CausalSelfAttention(nn.Module):
         if self.attention != "full":
             raise ValueError(f"KV-cache decode requires attention='full', "
                              f"got {self.attention!r}")
-        if page_table is None:
-            raise NotImplementedError(
-                "the rectangular [batch, max_len] KV cache is not ported "
-                "yet (ROADMAP.md Queue A, item 1); pass page_table")
         if "k_scale" in cache:
             raise NotImplementedError(
                 "int8 KV pages are not ported yet (ROADMAP.md Queue A, "
                 "item 5)")
+        pos = (cache_index.long()[:, None]
+               + torch.arange(t, device=x.device)[None, :])
+        if page_table is None:
+            out = _rect_attention(q, k, v, cache, pos)
+            return self.out(out.reshape(b, t, width)), cache
         ps = cache["k"].shape[1]
         pmax = page_table.shape[1]
         max_len = pmax * ps
         scratch_page = cache["k"].shape[0] - 1
-        pos = (cache_index.long()[:, None]
-               + torch.arange(t, device=x.device)[None, :])
         # scatter the block to its PHYSICAL cells first; ghost/overflow
         # positions (>= max_len) and unmapped table entries land in the
         # scratch page, so padding never touches a live page
@@ -112,6 +121,33 @@ class CausalSelfAttention(nn.Module):
         out = fa.paged_flash_attention(q, cache["k"], cache["v"],
                                        page_table, cache_index)
         return self.out(out.reshape(b, t, width)), cache
+
+
+def _rect_attention(q, k, v, cache, pos):
+    """The rectangular cache branch: scatter ``k``/``v`` to ``[row,
+    pos]`` in place, dropping positions ``>= max_len``, then attend over
+    every cell with the mask ``key_pos <= pos``.
+
+    A dropped position is written to the row's last cell with the value
+    that cell holds after the scatter anyway (the in-call token at
+    ``max_len - 1``, else its current value), so the write is a no-op
+    and the scatter keeps fixed shapes (no data-dependent index list,
+    which a CUDA graph could not hold)."""
+    b, t = pos.shape
+    max_len = cache["k"].shape[1]
+    rows = torch.arange(b, device=q.device)
+    inside = (pos < max_len)[..., None, None]
+    last = max_len - 1 - pos[:, 0]  # the in-call index of cell max_len-1
+    has_last = ((last >= 0) & (last < t))[:, None, None]
+    col = pos.clamp(max=max_len - 1)
+    for name, new in (("k", k), ("v", v)):
+        tail = torch.where(has_last, new[rows, last.clamp(0, t - 1)],
+                           cache[name][:, max_len - 1])
+        cache[name][rows[:, None], col] = torch.where(inside, new,
+                                                      tail[:, None])
+    key_pos = torch.arange(max_len, device=q.device)
+    mask = key_pos[None, None, None, :] <= pos[:, None, :, None]
+    return dot_product_attention(q, cache["k"], cache["v"], mask=mask)
 
 
 class DecoderBlock(nn.Module):
@@ -230,6 +266,23 @@ def inference_copy(model: CausalLM) -> CausalLM:
         if isinstance(m, (Dense, Embed)):
             m.to(m.compute_dtype)
     return out
+
+
+def init_cache(model: CausalLM, batch: int,
+               dtype: Optional[torch.dtype] = None, device=None):
+    """Zeroed rectangular cache for ``batch`` rows of ``model.max_len``
+    context: a tuple (one entry per layer) of ``{"k", "v"}`` tensors
+    ``[batch, max_len, heads, head_dim]`` in the compute dtype (the
+    qkv projection's), on ``device`` (None: the model's own device, that
+    of its first parameter). ``cache_bytes_per_row`` bytes a row."""
+    dtype = model.dtype if dtype is None else dtype
+    if device is None:
+        device = next(model.parameters()).device
+    shape = (batch, model.max_len, model.num_heads,
+             model.width // model.num_heads)
+    return tuple({"k": torch.zeros(shape, dtype=dtype, device=device),
+                  "v": torch.zeros(shape, dtype=dtype, device=device)}
+                 for _ in range(model.num_layers))
 
 
 def init_paged_cache(model: CausalLM, num_pages: int, page_size: int,

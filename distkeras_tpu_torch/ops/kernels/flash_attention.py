@@ -56,6 +56,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib = None
 _flash_libs: dict = {}
 _paged_counters: dict = {}
+_retired_counters: list = []
 
 
 def _kernel_lib():
@@ -148,17 +149,37 @@ def _check(q, k_pages, v_pages, page_table, cache_index):
         raise ValueError("paged_flash_attention: tensors must be contiguous")
 
 
-def _counters(device, stream: int, n: int) -> torch.Tensor:
-    """The paged kernel's arrival counters for calls on ``stream`` of
-    ``device``: a persistent zeroed int32 buffer of at least ``n``
-    entries. Each call leaves the entries it used at zero, so the calls
-    of one stream, which run in turn, share it; each stream has its own.
-    Grown, never shrunk."""
+def reserve_counters(device, stream: int, n: int = 4096) -> torch.Tensor:
+    """The paged kernel's arrival counters for calls on ``stream`` (a
+    ``cuda_stream`` handle) of ``device``: a persistent zeroed int32
+    buffer of at least ``n`` entries, allocated or grown here. Each call
+    leaves the entries it used at zero, so the calls of one stream,
+    which run in turn, share it; each stream has its own. Grown, never
+    shrunk. Call it before capturing a CUDA graph on ``stream``: a
+    capture finds the buffer and never allocates one."""
+    device = torch.device(device)
     buf = _paged_counters.get((device, stream))
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"paged attention: the arrival counters of stream "
+                f"{stream:#x} hold {0 if buf is None else buf.numel()} of "
+                f"the {n} entries this call needs, and a CUDA graph is "
+                f"being captured: call reserve_counters before the "
+                f"capture (an allocation here would land in the graph's "
+                f"pool)")
+        if buf is not None:
+            # a graph captured earlier may hold the old buffer: keep it
+            _retired_counters.append(buf)
         buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
         _paged_counters[(device, stream)] = buf
     return buf
+
+
+def counters_needed(b: int, t: int, h: int) -> int:
+    """Arrival counters a paged call over ``[b, t, h, *]`` queries uses
+    (one a query tile of a row and head)."""
+    return b * h * -(-t // _TILE_Q)
 
 
 def paged_flash_attention(q, k_pages, v_pages, page_table, cache_index):
@@ -166,8 +187,10 @@ def paged_flash_attention(q, k_pages, v_pages, page_table, cache_index):
     tensors, the plain version for CPU tensors. A kernel call is two
     launches (the split logits and statistics, then the normalized
     ``P . V`` with the partials' sum) and adds one to
-    ``paged_flash_attention.launches``. The keys a CTA covers are
-    :func:`split_keys` of the shapes."""
+    ``paged_flash_attention.launches``; a call recorded into a CUDA graph
+    launches nothing and adds one to ``paged_flash_attention.captured``
+    instead (the graph's owner counts its launches at each replay). The
+    keys a CTA covers are :func:`split_keys` of the shapes."""
     if q.device.type == "cpu":
         return paged_flash_attention_reference(q, k_pages, v_pages,
                                                page_table, cache_index)
@@ -190,7 +213,8 @@ def paged_flash_attention(q, k_pages, v_pages, page_table, cache_index):
                      dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        counters = _counters(q.device, stream, b * h * -(-t // _TILE_Q))
+        counters = reserve_counters(q.device, stream,
+                                    counters_needed(b, t, h))
         err = lib.paged_attention_launch(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
             v_pages.data_ptr(), page_table.data_ptr(), cache_index.data_ptr(),
@@ -203,11 +227,15 @@ def paged_flash_attention(q, k_pages, v_pages, page_table, cache_index):
         raise RuntimeError(
             f"paged attention kernel launch failed: cudaError {err} "
             f"({lib.paged_attention_error_string(err).decode()})")
-    paged_flash_attention.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        paged_flash_attention.captured += 1
+    else:
+        paged_flash_attention.launches += 1
     return out
 
 
 paged_flash_attention.launches = 0
+paged_flash_attention.captured = 0
 
 
 # -- training kernel: forward, dq, dk/dv ------------------------------------

@@ -19,19 +19,14 @@ nvcc; each checkout builds its own kernels on first use.
 
 from __future__ import annotations
 
-import argparse
 import hashlib
 import json
-import os
-import subprocess
 import sys
-import tempfile
 
 import torch
 
+import ab_driver
 import chip_smoke
-
-HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def _cases():
@@ -58,13 +53,14 @@ def _digest(tensors) -> str:
     return h.hexdigest()
 
 
-def time_tree(tree, iters, dev) -> list:
+def run_tree(tree, args) -> list:
     """The GroupNorm wrappers of the checkout at ``tree``, at every case
-    on ``dev``: device ms a call and a digest of the outputs, forward and
-    backward."""
-    sys.path.insert(0, os.path.abspath(tree))
+    on the card: device ms a call and a digest of the outputs, forward
+    and backward."""
+    ab_driver.use_tree(tree)
     from distkeras_tpu_torch.ops.kernels import groupnorm as gn
 
+    dev, iters = torch.device("cuda:0"), args.iters
     rows = []
     for shape, dtype_name in _cases():
         dtype = getattr(torch, dtype_name)
@@ -93,40 +89,14 @@ def time_tree(tree, iters, dev) -> list:
     return rows
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--other", required=True,
-                        help="root of another checkout of this repo")
-    parser.add_argument("--iters", type=int, default=20)
-    parser.add_argument("--time-tree", help=argparse.SUPPRESS)
-    parser.add_argument("--out", help=argparse.SUPPRESS)
-    args = parser.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("groupnorm_ab.py needs a CUDA card")
-    if args.time_tree:
-        with open(args.out, "w") as f:
-            json.dump(time_tree(args.time_tree, args.iters,
-                                torch.device("cuda:0")), f)
-        return 0
-
-    order = [("other", args.other), ("this", HERE), ("this", HERE),
-             ("other", args.other)]
-    runs = []
-    with tempfile.TemporaryDirectory() as tmp:
-        for k, (_, tree) in enumerate(order):
-            out = os.path.join(tmp, f"{k}.json")
-            subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--other",
-                 args.other, "--iters", str(args.iters), "--time-tree",
-                 tree, "--out", out], check=True, cwd=HERE)
-            with open(out) as f:
-                runs.append(json.load(f))
+def report(runs, args) -> tuple:
+    """One row a case; ok when both checkouts give the same bits."""
     card = chip_smoke.smi_sample()
     rows, same = [], True
     for i, (shape, dtype_name) in enumerate(_cases()):
         row = {"shape": list(shape), "dtype": dtype_name, "card": card}
         for part in ("fwd", "bwd"):
-            got = [run[i][part] for run in runs]
+            got = [run[i][part] if run else {} for run in runs]
             timed = [g for g in got if "ms" in g]
             digests = {g["digest"] for g in timed}
             row[part] = {
@@ -138,13 +108,12 @@ def main(argv=None) -> int:
             same &= len(digests) == 1 and all("ms" in g for g in got[1:3])
         rows.append(row)
         print(json.dumps(row), flush=True)
-    os.makedirs(chip_smoke.OUT_DIR, exist_ok=True)
-    with open(os.path.join(chip_smoke.OUT_DIR, "groupnorm_ab.json"),
-              "w") as f:
-        json.dump({"device": torch.cuda.get_device_name(0),
-                   "other": args.other, "rows": rows}, f, indent=1)
-    return 0 if same else 1
+    return same, {"rows": rows}
+
+
+def _iters(parser) -> None:
+    parser.add_argument("--iters", type=int, default=20)
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab_driver.main(__file__, run_tree, report, add_args=_iters))

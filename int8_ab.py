@@ -17,27 +17,19 @@ use.
 
 from __future__ import annotations
 
-import argparse
 import json
-import os
-import subprocess
 import sys
-import tempfile
 
 import torch
 
+import ab_driver
 import chip_smoke
 
-HERE = os.path.dirname(os.path.abspath(__file__))
 
-
-def run_tree(tree) -> dict:
+def run_tree(tree, args) -> dict:
     """Phases 11 and 12 (and the traced step) of the checkout at
     ``tree``, through its own ``chip_smoke``."""
-    sys.path.insert(0, os.path.abspath(tree))
-    for name in [m for m in sys.modules
-                 if m == "chip_smoke" or m.startswith("distkeras_tpu_torch")]:
-        del sys.modules[name]
+    ab_driver.use_tree(tree)
     import chip_smoke as smoke
     from concurrent.futures import ThreadPoolExecutor
 
@@ -64,35 +56,8 @@ def run_tree(tree) -> dict:
             "card": card}
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--other", required=True,
-                        help="root of another checkout of this repo")
-    parser.add_argument("--run-tree", help=argparse.SUPPRESS)
-    parser.add_argument("--out", help=argparse.SUPPRESS)
-    args = parser.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("int8_ab.py needs a CUDA card")
-    if args.run_tree:
-        with open(args.out, "w") as f:
-            json.dump(run_tree(args.run_tree), f, default=str)
-        return 0
-
-    order = [("other", args.other), ("this", HERE), ("this", HERE),
-             ("other", args.other)]
-    runs, ok = [], True
-    with tempfile.TemporaryDirectory() as tmp:
-        for k, (_, tree) in enumerate(order):
-            out = os.path.join(tmp, f"{k}.json")
-            proc = subprocess.run(
-                [sys.executable, os.path.abspath(__file__), "--other",
-                 args.other, "--run-tree", tree, "--out", out], cwd=HERE)
-            ok &= proc.returncode == 0
-            if proc.returncode != 0:
-                runs.append(None)
-                continue
-            with open(out) as f:
-                runs.append(json.load(f))
+def report(runs, args) -> tuple:
+    """One row a product and one for the train step."""
     rows = []
     for i, (name, k, n) in enumerate(chip_smoke.INT8_CASES):
         got = [run["cases"][i] if run else {} for run in runs]
@@ -117,13 +82,8 @@ def main(argv=None) -> int:
             "card": [run and run["card"] for run in runs]}
     rows.append(step)
     print(json.dumps(step), flush=True)
-    os.makedirs(chip_smoke.OUT_DIR, exist_ok=True)
-    with open(os.path.join(chip_smoke.OUT_DIR, "int8_ab.json"), "w") as f:
-        json.dump({"device": torch.cuda.get_device_name(0),
-                   "other": args.other, "rows": rows, "runs": runs}, f,
-                  indent=1, default=str)
-    return 0 if ok else 1
+    return True, {"rows": rows, "runs": runs}
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab_driver.main(__file__, run_tree, report))

@@ -7,7 +7,9 @@ identical greedy tokens. The port's own engine then shows the serving
 contracts: page exhaustion is backpressure (a queued request waits for
 pages and still completes), ``QueueFull`` at capacity,
 ``DeadlineExceeded`` at admission, the warmed shape set, and
-NotImplementedError for the kwargs not ported yet.
+NotImplementedError for the kwargs not ported yet (the rectangular
+pool, sampling and chunked prefill are held to the JAX engine in
+tests/test_torch_generation_options.py).
 """
 
 import jax
@@ -142,9 +144,8 @@ def test_streaming_and_eos(weights):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(page_size=None), dict(prefix_cache_bytes=1 << 20),
-    dict(spec_k=2), dict(prefill_chunk=8), dict(kv_dtype="int8"),
-    dict(sampling=True)])
+    dict(prefix_cache_bytes=1 << 20), dict(spec_k=2),
+    dict(kv_dtype="int8")], ids=["kw1", "kw2", "kw4"])
 def test_options_not_ported_raise(weights, kw):
     _, params = weights
     args = dict(ENGINE_KW, device="cpu")

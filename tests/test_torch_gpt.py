@@ -227,10 +227,11 @@ def test_model_options_not_ported_raise():
     model = tgpt.gpt_tiny()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tgpt.init_paged_cache(model, 8, 16, kv_dtype="int8")
-    with pytest.raises(NotImplementedError, match="rectangular"):
-        model(torch.zeros(1, 2, dtype=torch.long),
-              cache=tgpt.init_paged_cache(model, 8, 16),
-              cache_index=torch.zeros(1, dtype=torch.int32))
+    # ported: the rectangular cache (no page_table) serves
+    logits, _ = model(torch.zeros(1, 2, dtype=torch.long),
+                      cache=tgpt.init_cache(model, 1),
+                      cache_index=torch.zeros(1, dtype=torch.int32))
+    assert logits.shape == (1, 2, model.vocab_size)
 
 
 def test_cache_sizes_match_jax():

@@ -19,7 +19,8 @@ import torch
 from distkeras_tpu_torch import observability, precision
 from distkeras_tpu_torch.device import resolve_device
 from distkeras_tpu_torch.models import gpt as tgpt
-from distkeras_tpu_torch.serving import GenerationEngine, PagedKVCachePool
+from distkeras_tpu_torch.serving import (GenerationEngine, KVCachePool,
+                                         PagedKVCachePool)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "distkeras_tpu")
@@ -42,6 +43,8 @@ def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
     lambda m: PagedKVCachePool(m, 2, page_size=16),
     lambda m: GenerationEngine(m, num_slots=2, prefill_buckets=(16,),
                                page_size=16),
+    lambda m: KVCachePool(m, 2),
+    lambda m: GenerationEngine(m, num_slots=2, prefill_buckets=(16,)),
 ])
 def test_entry_points_do_not_fall_back_to_cpu(monkeypatch, build):
     _no_cuda(monkeypatch)
@@ -88,7 +91,9 @@ def _port_sources():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(REPO, "chip_smoke.py")
-    yield os.path.join(REPO, "groupnorm_ab.py")
+    for script in ("ab_driver.py", "groupnorm_ab.py", "int8_ab.py",
+                   "serving_ab.py"):
+        yield os.path.join(REPO, script)
 
 
 def test_no_forbidden_import_statement_in_port_or_chip_smoke():
