@@ -18,9 +18,13 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    keys) against its plain PyTorch version on the card (float32 with
    TF32 off, and bf16) at the shapes gpt_small serving gives it and at
    head_dim 16 (h=2) and 96, max_len 4096 at b=8 and 32768 at b=1
-   (t=2), and at the chunk shape (1, 16) at cursors 16 and 32, with its
-   time, the plain version's time, one PyTorch library call's time for
-   the same function, and its bound from this run's data;
+   (t=2), at the chunk shape (1, 16) at cursors 16 and 32, at the
+   verify shape (n, 5) of every ladder width, at the int8 KV path's
+   dense view behind an identity table (decode (8, 2), prefill
+   (1, 128)), at a 32-token tail prefill from mid-page (cursor 101), and
+   at head_dim 256 (3 heads; decode and prefill), with its time, the
+   plain version's time, one PyTorch library call's time for the same
+   function, and its bound from this run's data;
 4. engine  — the serving path: GenerationEngine(gpt_small) in bf16 on the
    card with seeded random weights, paged (page_size 16), 8 slots,
    prefill buckets (32, 128), first 20 bursts of 8 requests of 32 new
@@ -105,7 +109,28 @@ Phases (each asserts; any failure exits non-zero and prints no result):
 18. chunked — paged with ``prefill_chunk=16``: phase 5's float32 greedy
    check (the 40-token prompt in three chunks; the chunk shares the
    16-token bucket's graph); then phase 4's traffic in bf16 with
-   ``prefill_chunk=32`` (the 32-token bucket's graph).
+   ``prefill_chunk=32`` (the 32-token bucket's graph);
+19. prefix  — ``prefix_cache_bytes`` (4 GiB of host RAM) on the paged
+   pool: 8 system prompts of 96 tokens served alone (each parked), then
+   128 requests of a system prompt and a seeded 8-32-token tail, 64 new
+   tokens each, 8 in flight, with the cache on and off, in float32 (TF32
+   off: the greedy tokens must be equal) and in bf16: hit rate, full
+   hits, pages swapped, TTFT, tokens/s and the host seconds in the
+   cache's calls; the swap graphs' round trip over 64 pages of the bf16
+   engine must be bitwise; 8 graphs (the swap pair) and none under
+   traffic; one paged launch a layer a model call;
+20. int8    — ``kv_dtype="int8"``: in float32 gpt_small's greedy tokens
+   for prompts of 9 and 40 tokens equal those of the same engine with the
+   paged kernel swapped for its plain version; then phase 4's traffic in
+   bf16 on the int8 pool (tokens/s, launches), and the pool's bytes
+   against native bf16 pages;
+21. spec    — ``draft=``/``spec_k=4``: in float32 gpt_small's greedy
+   tokens for 4 prompts that repeat a seeded 16-token phrase, 24 new
+   tokens, equal the plain engine's with an ``NgramDraft`` and with a
+   2-layer ``ModelDraft`` (gpt_small's vocab, max_len and widths); then
+   in bf16 128 such requests, 64 new tokens, 8 in flight, with the
+   n-gram draft and without: accept rate, tokens/s, TTFT; 10 graphs (4
+   verify widths) and none under traffic.
 
 The last three lines of standard output are the kernels' JSON, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details are
@@ -353,18 +378,23 @@ def _sass_counts(lib_path, ops=("HGMMA", "FFMA")) -> dict:
 
 # -- phase 3 -----------------------------------------------------------------
 
-def _paged_inputs(b, t, dtype, rng, dev, h=H, d=D, pmax=PMAX, ci=None):
+def _paged_inputs(b, t, dtype, rng, dev, h=H, d=D, pmax=PMAX, ci=None,
+                  view=False):
     """q, k_pages, v_pages, page_table, cache_index at a pool of ``pmax``
     pages a row of ``b`` rows (the engine's geometry by default): tables
     drawn from every page INCLUDING the scratch page, cursors random with
-    room for the block unless ``ci`` gives them."""
-    num_pages = b * pmax if pmax != PMAX else NUM_PAGES
+    room for the block unless ``ci`` gives them. ``view``: the int8 KV
+    path's call instead, the dense ``[b, max_len]`` view as ``b * pmax``
+    pages behind the identity table."""
+    num_pages = b * pmax if pmax != PMAX or view else NUM_PAGES
     mk = lambda *s: torch.from_numpy(
         rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
     q = mk(b, t, h, d)
-    k = mk(num_pages + 1, PAGE, h, d)
-    v = mk(num_pages + 1, PAGE, h, d)
-    table = rng.permutation(num_pages + 1)[:b * pmax].reshape(b, pmax)
+    extra = 0 if view else 1
+    k = mk(num_pages + extra, PAGE, h, d)
+    v = mk(num_pages + extra, PAGE, h, d)
+    table = (np.arange(b * pmax).reshape(b, pmax) if view else
+             rng.permutation(num_pages + 1)[:b * pmax].reshape(b, pmax))
     ci = (rng.integers(0, pmax * PAGE - t + 1, size=b) if ci is None
           else np.full(b, ci))
     return (q, k, v, torch.from_numpy(table.astype(np.int32)).to(dev),
@@ -392,16 +422,30 @@ def _bound(b, t, dtype, ci, h=H, d=D, pmax=PMAX):
             "bound_full_pool_ms": full_bytes / HBM_BYTES_PER_S * 1e3}
 
 
-#: phase 3's cases: (b, t, heads, head_dim, pages a row[, cursor]).
-#: gpt_small's serving geometry (decode at b=1 and 8, a 128-token
-#: prefill), then shapes the first kernel refused: gpt_tiny's head_dim
-#: 16, head_dim 96, and 4096- and 32768-key contexts; then the chunk
-#: calls of a 40-token prompt under prefill_chunk=16 (its second and
-#: third chunks, at cursors 16 and 32)
+#: the speculative phase's verify width (spec_k) and ladder
+SPEC_K = 4
+LADDER = (1, 2, 4, 8)
+
+#: phase 3's cases: (b, t, heads, head_dim, pages a row[, cursor[,
+#: view]]). gpt_small's serving geometry (decode at b=1 and 8, a
+#: 128-token prefill), then shapes the first kernel refused: gpt_tiny's
+#: head_dim 16, head_dim 96, and 4096- and 32768-key contexts; then the
+#: chunk calls of a 40-token prompt under prefill_chunk=16 (its second
+#: and third chunks, at cursors 16 and 32); then the inputs of the
+#: prefix, int8 and speculative options: the verify call (n, SPEC_K + 1)
+#: at every ladder width, the int8 path's dense view behind the identity
+#: table at decode (8, 2) and prefill (1, 128), a 32-token tail prefill
+#: after a prefix hit at a cursor mid-page (101), and head_dim 256 (3
+#: heads: gpt_small's width) at decode and prefill
 PAGED_CASES = (((1, 2, H, D, PMAX), (8, 2, H, D, PMAX), (1, 128, H, D, PMAX)),
                ((8, 2, 2, 16, PMAX), (8, 2, 8, 96, PMAX), (8, 2, H, D, 256),
                 (1, 2, H, D, 2048)),
-               ((1, 16, H, D, PMAX, 16), (1, 16, H, D, PMAX, 32)))
+               ((1, 16, H, D, PMAX, 16), (1, 16, H, D, PMAX, 32)),
+               tuple((n, SPEC_K + 1, H, D, PMAX) for n in LADDER)
+               + ((8, 2, H, D, PMAX, None, True),
+                  (1, 128, H, D, PMAX, 0, True),
+                  (1, 32, H, D, PMAX, 101),
+                  (8, 2, 3, 256, PMAX), (1, 128, 3, 256, PMAX)))
 
 
 def phase_kernels(dev) -> list:
@@ -416,9 +460,12 @@ def phase_kernels(dev) -> list:
     runs = [(dtype, case) for group in PAGED_CASES
             for dtype in (torch.float32, torch.bfloat16) for case in group]
     set_tf32(False)
-    for dtype, (b, t, h, d, pmax, *cursor) in runs:
+    for dtype, (b, t, h, d, pmax, *extra) in runs:
+        cursor = [] if not extra or extra[0] is None else [extra[0]]
+        view = len(extra) > 1 and extra[1]
         q, k, v, table, ci = _paged_inputs(b, t, dtype, rng, dev, h, d,
-                                           pmax, *cursor)
+                                           pmax, *cursor or [None],
+                                           view=view)
         args = (q, k, v, table, ci)
         got = fa.paged_flash_attention(*args)
         want = fa.paged_flash_attention_reference(*args)
@@ -474,9 +521,11 @@ def phase_kernels(dev) -> list:
                 **times, "split": fa.split_keys(max_len, b * h),
                 "library_max_abs_err": lib_err,
                 **({"cache_index": cursor[0]} if cursor else {}),
+                **({"int8_view": True} if view else {}),
                 **_bound(b, t, dtype, ci.tolist(), h, d, pmax)}
         cases.append(case)
         at = f" cache_index={cursor[0]}" if cursor else ""
+        at += " (int8 path's view, identity table)" if view else ""
         log(f"[kernels] paged_flash_attention b={b} t={t} h={h} d={d} "
             f"max_len={max_len}{at} {case['dtype']}: max_abs_err {err:.3e} "
             f"(bound {bound:.3g}), kernel {ms:.4f} ms (split "
@@ -527,13 +576,14 @@ def _gpt_small_bf16():
                        torch.Generator().manual_seed(0))
 
 
-def _serve_window(eng, prompts, new) -> dict:
+def _serve_window(eng, prompts, new, tokens=None) -> dict:
     """Serve ``prompts`` through ``eng`` with ``new`` new tokens each,
     SLOTS requests in flight: tokens/s, TTFT (submission to first token),
     and what would show a stall: the longest gap between two of the
     scheduler's token emissions, with its start from the window's, beside
     the window's mean time a model call, and the time Python's garbage
-    collector ran in the window."""
+    collector ran in the window. ``tokens``, a dict, receives each
+    request's tokens by its index."""
     import gc
     import threading
 
@@ -574,6 +624,8 @@ def _serve_window(eng, prompts, new) -> dict:
     n_calls = calls() - calls0
     assert all(r.reason == "length" and r.tokens.size == new
                for r in results), results
+    if tokens is not None:
+        tokens.update((i, r.tokens.tolist()) for i, r in enumerate(results))
     assert all(0 <= int(tok) < 50304 for r in results for tok in r.tokens)
     tokens = sum(r.tokens.size for r in results)
     ttft = sorted(first[i] - submit[i] for i in range(len(prompts)))
@@ -1804,6 +1856,377 @@ def phase_chunked(dev, power_line) -> dict:
     return info
 
 
+# -- phases 19-21 -------------------------------------------------------------
+
+#: phase 19's traffic: PREFIX_SYSTEMS system prompts of PREFIX_SYSTEM_LEN
+#: tokens, each served alone first (parked in the prefix cache), then
+#: SERVE_REQUESTS requests of a system prompt and a seeded tail of 8-32
+#: tokens, SERVE_NEW new tokens each, SLOTS in flight
+PREFIX_SYSTEMS = 8
+PREFIX_SYSTEM_LEN = 96
+#: host RAM the prefix cache may hold
+PREFIX_BUDGET = 4 << 30
+
+
+def _prefix_traffic(vocab):
+    rng = np.random.default_rng(19)
+    systems = [rng.integers(1, vocab, PREFIX_SYSTEM_LEN).tolist()
+               for _ in range(PREFIX_SYSTEMS)]
+    requests = [systems[int(rng.integers(PREFIX_SYSTEMS))]
+                + rng.integers(1, vocab, int(rng.integers(8, 33))).tolist()
+                for _ in range(SERVE_REQUESTS)]
+    return systems, requests
+
+
+def _counted(eng, prompts, new, tag) -> dict:
+    """One closed-loop window (:func:`_serve_window`) of ``prompts`` on
+    ``eng`` with the paged kernel's count zeroed just before and read
+    just after: its numbers, the tokens, and the launches beside the
+    model calls (each launches the kernel once a layer)."""
+    from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch.ops.kernels import flash_attention as fa
+
+    tokens = {}
+    calls = lambda: sum(telemetry.counter(f"serving.decode.{n}").value
+                        for n in ("prefills", "steps"))
+    calls0 = calls()
+    fa.paged_flash_attention.launches = 0
+    info = _serve_window(eng, prompts, new, tokens)
+    info["launches"] = fa.paged_flash_attention.launches
+    info["paged_calls"] = calls() - calls0
+    info["tokens"] = [tokens[i] for i in range(len(prompts))]
+    assert info["launches"] == eng.model.num_layers * info["paged_calls"], (
+        tag, info["launches"], info["paged_calls"])
+    return info
+
+
+def _swap_round_trip(eng) -> dict:
+    """The engine's swap pair on its graphs, over a full slot's worth of
+    pages (pages 0..pmax-1): gathered into pinned host memory, zeroed
+    in the pool, scattered back: every leaf bitwise; then each step's
+    host time at 8 pages and at 64."""
+    from distkeras_tpu_torch.serving.kv_cache import tree_leaves
+
+    pmax = eng.pool.pages_per_slot
+    ids = np.arange(pmax, dtype=np.int32)
+    torch.cuda.synchronize()
+    before = [x.clone() for x in tree_leaves(eng.pool.pool)]
+    t0 = time.perf_counter()
+    eng._swap_runs["out"](page_ids=ids)
+    parked = eng._swap_runs["out"].fetch_rows(pmax)
+    out_s = time.perf_counter() - t0
+    with torch.cuda.stream(eng.stream):
+        for leaf in tree_leaves(eng.pool.pool):
+            leaf[:pmax] = 0
+    t0 = time.perf_counter()
+    eng._swap_runs["in"](page_ids=ids, **{
+        f"leaf{i}": x for i, x in enumerate(parked)})
+    eng.stream.synchronize()
+    in_s = time.perf_counter() - t0
+    same = all(torch.equal(a, b)
+               for a, b in zip(tree_leaves(eng.pool.pool), before))
+    nbytes = sum(x.nbytes for x in parked)
+    assert same, "swap out and back in changed the pool"
+    # the swap pair's steps apart, for a prefill's 8 pages and for 64: the
+    # gather graph, the copy into pinned host memory, the swap-in
+    run = eng._swap_runs["out"]
+    steps = {}
+    for n in (8, pmax):
+        t0 = time.perf_counter()
+        run(page_ids=ids)
+        eng.stream.synchronize()
+        t1 = time.perf_counter()
+        rows = run.fetch_rows(n)
+        t2 = time.perf_counter()
+        eng._swap_runs["in"](page_ids=ids, **{
+            f"leaf{i}": x for i, x in enumerate(rows)})
+        eng.stream.synchronize()
+        steps[n] = {"gather_s": t1 - t0, "fetch_rows_s": t2 - t1,
+                    "swap_in_s": time.perf_counter() - t2}
+    return {"pages": pmax, "bytes": nbytes, "swap_out_s": out_s,
+            "swap_in_s": in_s, "bitwise": same,
+            "parked_pinned": parked[0].is_pinned(), "steps": steps}
+
+
+def _host_seconds(obj, names) -> dict:
+    """Wrap methods ``names`` of ``obj`` (an instance) to add up their
+    calls and host seconds into the returned dict, read after traffic."""
+    spent = {name: {"calls": 0, "s": 0.0} for name in names}
+    for name in names:
+        def timed(*a, _fn=getattr(obj, name), _rec=spent[name], **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                _rec["calls"] += 1
+                _rec["s"] += time.perf_counter() - t0
+        setattr(obj, name, timed)
+    return spent
+
+
+def phase_prefix(dev, power_line) -> dict:
+    """The prefix cache with host swap: in float32 (TF32 off) the same
+    traffic with the cache on and off gives the same greedy tokens; in
+    bf16 the same traffic's TTFT and tokens/s with the cache on and off;
+    the swap pair's round trip on the bf16 engine is bitwise."""
+    from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch.models.gpt import gpt_small, init_params
+    from distkeras_tpu_torch.serving import GenerationEngine
+
+    set_tf32(False)
+    info = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = init_params(gpt_small(dtype=dtype),
+                            torch.Generator().manual_seed(0))
+        systems, requests = _prefix_traffic(model.vocab_size)
+        name = str(dtype).split(".")[-1]
+        for cache in (True, False):
+            tag = f"prefix-{name}-{'on' if cache else 'off'}"
+            telemetry.reset()
+            kw = dict(prefix_cache_bytes=PREFIX_BUDGET) if cache else {}
+            with GenerationEngine(model, device=dev, page_size=PAGE,
+                                  **ENGINE_KW, **kw) as eng:
+                declared = eng.compiled_executables
+                compiles = telemetry.counter("serving.decode.compiles").value
+                warm = _counted(eng, systems, SERVE_NEW, tag)
+                host = _host_seconds(eng, ("_prefill_paged", "_emit",
+                                           "_decode_step"))
+                if cache:
+                    host.update(_host_seconds(eng, ("_capture_prefix",
+                                                    "_swap_in_entry")))
+                    host.update(_host_seconds(eng._prefix, ("lookup",
+                                                            "insert")))
+                    host.update(_host_seconds(eng._swap_runs["out"],
+                                              ("fetch_rows",)))
+                run = _counted(eng, requests, SERVE_NEW, tag)
+                run["host_seconds"] = host
+                assert eng.compiled_executables == declared
+                assert telemetry.counter(
+                    "serving.decode.compiles").value == compiles
+                if cache and dtype == torch.bfloat16:
+                    run["swap_round_trip"] = _swap_round_trip(eng)
+            count = lambda n: telemetry.counter(  # noqa: E731
+                f"serving.decode.{n}").value
+            run.update(systems_tokens=warm.pop("tokens"), card=power_line,
+                       compiled_executables=declared, compiles=compiles,
+                       hits=count("prefix.hits"),
+                       misses=count("prefix.misses"),
+                       full_hits=count("prefix.full_hits"),
+                       swapped_in=count("paged.swapped_in"),
+                       swapped_out=count("paged.swapped_out"),
+                       evictions=count("prefix.evictions"),
+                       prefix_bytes=telemetry.gauge(
+                           "serving.decode.prefix.bytes").value)
+            lookups = run["hits"] + run["misses"]
+            run["hit_rate"] = run["hits"] / lookups if lookups else 0.0
+            if cache:
+                assert declared["swap"] == ("in", "out") and compiles == 8
+                assert run["hits"] >= SERVE_REQUESTS, run["hits"]
+            info[tag] = run
+            log(f"[{tag}] {len(requests)} requests x {SERVE_NEW} new "
+                f"tokens after {len(systems)} system prompts, {SLOTS} in "
+                f"flight: {run['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+                f"{run['ttft_p50_s'] * 1e3:.2f} ms (max "
+                f"{run['ttft_max_s'] * 1e3:.2f} ms), prefix hits "
+                f"{run['hits']}/{lookups} ({100 * run['hit_rate']:.1f}%), "
+                f"full hits {run['full_hits']}, pages swapped in "
+                f"{run['swapped_in']} / out {run['swapped_out']}, "
+                f"evictions {run['evictions']}, {run['paged_calls']} paged "
+                f"calls, {run['launches']} kernel launches [{power_line}]")
+            log(f"[{tag}] host seconds in the window: " + ", ".join(
+                f"{k} {v['s']:.3f} s / {v['calls']} calls"
+                for k, v in run["host_seconds"].items()))
+        on, off = info[f"prefix-{name}-on"], info[f"prefix-{name}-off"]
+        if dtype == torch.float32:
+            assert on["tokens"] == off["tokens"], "cache changed the tokens"
+            assert on["systems_tokens"] == off["systems_tokens"]
+            log(f"[prefix] float32: the {len(requests)} requests' greedy "
+                f"tokens with the cache equal those without it")
+        else:
+            rt = on["swap_round_trip"]
+            log(f"[prefix] bf16 swap round trip over {rt['pages']} pages "
+                f"({rt['bytes'] / 2**20:.1f} MiB): bitwise; out "
+                f"{rt['swap_out_s'] * 1e3:.2f} ms, in "
+                f"{rt['swap_in_s'] * 1e3:.2f} ms (host clock); parked "
+                f"data pinned: {rt['parked_pinned']} [{power_line}]")
+            for n, st in rt["steps"].items():
+                log(f"[prefix] {n} pages, host clock: gather graph "
+                    f"{st['gather_s'] * 1e3:.3f} ms, into pinned host "
+                    f"memory {st['fetch_rows_s'] * 1e3:.3f} ms, swap-in "
+                    f"{st['swap_in_s'] * 1e3:.3f} ms [{power_line}]")
+        for run in (on, off):
+            run.pop("tokens")
+        del model
+        torch.cuda.empty_cache()
+    return info
+
+
+def _plain_paged():
+    """A stand-in for the paged kernel's wrapper that runs its plain
+    version (counting nothing)."""
+    from distkeras_tpu_torch.ops.kernels import flash_attention as fa
+
+    plain = lambda *a: fa.paged_flash_attention_reference(*a)  # noqa: E731
+    plain.launches = plain.captured = 0
+    return plain
+
+
+def _engine_tokens(dev, model, prompts, new, **kw) -> list:
+    from distkeras_tpu_torch.serving import GenerationEngine
+
+    with GenerationEngine(model, device=dev, num_slots=2,
+                          prefill_buckets=(16, 64), **kw) as eng:
+        return [f.result(timeout=600).tokens.tolist() for f in
+                [eng.generate(p, max_new_tokens=new) for p in prompts]]
+
+
+def phase_int8(dev, power_line) -> dict:
+    """int8 KV pages: in float32 (TF32 off) gpt_small's greedy tokens on
+    the int8 pool equal those of the same engine with the paged kernel
+    swapped for its plain version; then phase 4's windows in bf16 on the
+    int8 pool: tokens/s, and the pool's bytes against native pages."""
+    from distkeras_tpu_torch.models.gpt import gpt_small, init_params
+    from distkeras_tpu_torch.ops.kernels import flash_attention as fa
+    from distkeras_tpu_torch.serving.kv_cache import PagedKVCachePool
+
+    set_tf32(False)
+    model = init_params(gpt_small(dtype=torch.float32),
+                        torch.Generator().manual_seed(2))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, model.vocab_size, n).tolist()
+               for n in (9, 40)]
+    fa.paged_flash_attention.launches = 0
+    got = _engine_tokens(dev, model, prompts, 12, page_size=PAGE,
+                         kv_dtype="int8")
+    launches = fa.paged_flash_attention.launches
+    assert launches > 0, "the int8 engine did not reach the paged kernel"
+    kernel = fa.paged_flash_attention
+    fa.paged_flash_attention = _plain_paged()
+    try:
+        want = _engine_tokens(dev, model, prompts, 12, page_size=PAGE,
+                              kv_dtype="int8")
+    finally:
+        fa.paged_flash_attention = kernel
+    assert got == want, (got, want)
+    log(f"[int8] gpt_small float32 int8-KV engine tokens == the same "
+        f"engine through the plain attention on {sum(map(len, got))} "
+        f"tokens ({launches} paged kernel calls)")
+    del model
+    model = _gpt_small_bf16()
+    info = {"greedy_tokens_checked": sum(map(len, got)),
+            "greedy_paged_launches": launches}
+    info.update(_engine_run(dev, model, power_line, "int8", page_size=PAGE,
+                            kv_dtype="int8"))
+    assert info["launches"] == model.num_layers * info["model_calls"] > 0
+    assert info["compiles"] == 6, info["compiled_executables"]
+    native = PagedKVCachePool(model, SLOTS, page_size=PAGE, device="meta")
+    int8 = PagedKVCachePool(model, SLOTS, page_size=PAGE, device="meta",
+                            kv_dtype="int8")
+    info.update(pool_bytes=int8.cache_bytes,
+                native_pool_bytes=native.cache_bytes,
+                kv_quant_bytes_saved=int8.kv_quant_bytes_saved)
+    log(f"[int8] pool {int8.cache_bytes / 2**20:.2f} MiB against "
+        f"{native.cache_bytes / 2**20:.2f} MiB native bf16 "
+        f"({int8.cache_bytes / native.cache_bytes:.3f}x) at {SLOTS} slots "
+        f"x {PMAX} pages [{power_line}]")
+    del model
+    torch.cuda.empty_cache()
+    return info
+
+
+def _spec_prompts(vocab, n, seed):
+    """Prompts that repeat a seeded 16-token phrase (2 or 3 times), then
+    a seeded tail of 0-8 tokens."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        phrase = rng.integers(1, vocab, 16).tolist()
+        out.append(phrase * int(rng.integers(2, 4))
+                   + rng.integers(1, vocab, int(rng.integers(0, 9)))
+                   .tolist())
+    return out
+
+
+def _draft_model(dtype):
+    """The 2-layer draft: gpt_small's vocab, max_len and widths."""
+    from distkeras_tpu_torch.models.gpt import CausalLM, init_params
+
+    return init_params(CausalLM(vocab_size=50304, max_len=1024,
+                                num_layers=2, num_heads=12, width=768,
+                                mlp_dim=3072, dtype=dtype),
+                       torch.Generator().manual_seed(5))
+
+
+def phase_spec(dev, power_line) -> dict:
+    """Speculative decoding: in float32 (TF32 off) gpt_small's greedy
+    tokens with an NgramDraft (spec_k=4) and with a 2-layer ModelDraft
+    equal its plain greedy tokens; then in bf16 128 requests on the
+    n-gram draft (closed loop, 8 in flight): accept rate and tokens/s,
+    beside the same traffic with no draft."""
+    from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch.models.gpt import gpt_small, init_params
+    from distkeras_tpu_torch.serving import (GenerationEngine, ModelDraft,
+                                             NgramDraft)
+
+    set_tf32(False)
+    model = init_params(gpt_small(dtype=torch.float32),
+                        torch.Generator().manual_seed(2))
+    prompts = _spec_prompts(model.vocab_size, 4, seed=21)
+    kw = dict(page_size=PAGE)
+    plain = _engine_tokens(dev, model, prompts, 24, **kw)
+    info = {}
+    for name, make in (("ngram", NgramDraft),
+                       ("model", lambda: ModelDraft(
+                           _draft_model(torch.float32)))):
+        telemetry.reset()
+        got = _engine_tokens(dev, model, prompts, 24, draft=make(),
+                             spec_k=SPEC_K, **kw)
+        assert got == plain, (name, got, plain)
+        acc = telemetry.counter("serving.decode.spec.accepted").value
+        prop = telemetry.counter("serving.decode.spec.proposed").value
+        info[f"greedy_{name}"] = {"tokens": sum(map(len, got)),
+                                  "accepted": acc, "proposed": prop}
+        log(f"[spec] gpt_small float32 spec tokens ({name} draft, spec_k "
+            f"{SPEC_K}) == plain greedy tokens on {sum(map(len, got))} "
+            f"tokens; accepted {acc}/{prop}")
+    del model
+    model = _gpt_small_bf16()
+    traffic = _spec_prompts(model.vocab_size, SERVE_REQUESTS, seed=22)
+    for name, extra in (("off", {}), ("ngram", dict(draft=NgramDraft(),
+                                                   spec_k=SPEC_K))):
+        telemetry.reset()
+        with GenerationEngine(model, device=dev, page_size=PAGE,
+                              **ENGINE_KW, **extra) as eng:
+            declared = eng.compiled_executables
+            compiles = telemetry.counter("serving.decode.compiles").value
+            run = _counted(eng, traffic, SERVE_NEW, f"spec-{name}")
+            assert eng.compiled_executables == declared
+            assert telemetry.counter("serving.decode.compiles").value \
+                == compiles
+        run.pop("tokens")
+        acc = telemetry.counter("serving.decode.spec.accepted").value
+        prop = telemetry.counter("serving.decode.spec.proposed").value
+        run.update(compiled_executables=declared, compiles=compiles,
+                   accepted=acc, proposed=prop,
+                   accept_rate=acc / prop if prop else 0.0,
+                   iterations=telemetry.counter(
+                       "serving.decode.spec.iterations").value,
+                   card=power_line)
+        if extra:
+            assert declared["verify"] == LADDER and compiles == 10
+            assert run["iterations"] > 0
+        info[f"bf16_{name}"] = run
+        log(f"[spec-{name}] gpt_small bf16 {len(traffic)} requests x "
+            f"{SERVE_NEW} new tokens, {SLOTS} in flight: "
+            f"{run['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+            f"{run['ttft_p50_s'] * 1e3:.2f} ms, {run['paged_calls']} model "
+            f"calls, accept rate {100 * run['accept_rate']:.1f}% "
+            f"({acc}/{prop}) [{power_line}]")
+    del model
+    torch.cuda.empty_cache()
+    return info
+
+
 def main() -> int:
     report = {}
     try:
@@ -1847,6 +2270,9 @@ def main() -> int:
         report["rect"] = phase_rect(dev, card)
         report["sampled"] = phase_sampled(dev)
         report["chunked"] = phase_chunked(dev, card)
+        report["prefix"] = phase_prefix(dev, card)
+        report["int8_kv"] = phase_int8(dev, card)
+        report["spec"] = phase_spec(dev, card)
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         log("[chip_smoke] FAILED")

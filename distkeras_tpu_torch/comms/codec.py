@@ -2,8 +2,9 @@
 ``distkeras_tpu/comms/codec.py``).
 
 One scale rule serves the parameter-server wire codec (``lo=min``,
-``hi=max``, ``levels=255``) and the in-step int8 quantizer of
-:mod:`distkeras_tpu_torch.precision` (``lo=-amax``, ``hi=+amax``,
+``hi=max``, ``levels=255``), the in-step int8 quantizer of
+:mod:`distkeras_tpu_torch.precision` and the int8 KV pages of
+:mod:`distkeras_tpu_torch.models.gpt` (``lo=-amax``, ``hi=+amax``,
 ``levels=254``). The codecs themselves are not ported yet (ROADMAP.md
 Queue A, item 13).
 """

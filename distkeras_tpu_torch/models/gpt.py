@@ -31,7 +31,15 @@ Three paths, as in the JAX package:
   and returned), with ghost and overflow positions (``>= max_len``)
   routed to the scratch page; then it attends through the paged kernel
   (:mod:`distkeras_tpu_torch.ops.kernels.flash_attention`). As in the
-  JAX package, the cache path needs ``attention="full"``.
+  JAX package, the cache path needs ``attention="full"``;
+- the **int8 paged cache path**: when the page pool carries
+  ``k_scale``/``v_scale`` (:func:`init_paged_cache` with
+  ``kv_dtype="int8"``), pages hold symmetric int8 codes with one float32
+  scale a page (:func:`quantize_kv_page`) and each layer runs
+  :func:`_paged_int8_attention`: the JAX package's default order
+  (dequantize, overlay the exact in-call block, requantize only the
+  touched pages, attend), with the attention through the paged kernel
+  over the dense view.
 
 Parameters follow flax's dtype rules: every parameter is stored in
 float32 (the master weights an optimizer updates); the token embedding
@@ -44,8 +52,8 @@ sets the compute dtype and, for ``"int8"``/``"fp8-sim"``, quantizes the
 products of every block Dense (qkv, out, fc1, fc2; under ``"int8"`` through
 the int8 matmul kernel); the LM head stays float32 and unquantized.
 
-Not ported yet: ``attention="ring"``, ``remat`` other than ``"none"``,
-and int8 KV pages (ROADMAP.md Queue A).
+Not ported yet: ``attention="ring"`` and ``remat`` other than
+``"none"`` (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ import torch
 from torch import nn
 
 from distkeras_tpu_torch import precision as precision_lib
+from distkeras_tpu_torch.comms import codec
 from distkeras_tpu_torch.models.transformer import Dense, Embed, MlpBlock
 from distkeras_tpu_torch.ops.attention import (apply_attention,
                                                dot_product_attention)
@@ -95,14 +104,14 @@ class CausalSelfAttention(nn.Module):
         if self.attention != "full":
             raise ValueError(f"KV-cache decode requires attention='full', "
                              f"got {self.attention!r}")
-        if "k_scale" in cache:
-            raise NotImplementedError(
-                "int8 KV pages are not ported yet (ROADMAP.md Queue A, "
-                "item 5)")
         pos = (cache_index.long()[:, None]
                + torch.arange(t, device=x.device)[None, :])
         if page_table is None:
             out = _rect_attention(q, k, v, cache, pos)
+            return self.out(out.reshape(b, t, width)), cache
+        if "k_scale" in cache:
+            out = _paged_int8_attention(q, k, v, cache, page_table, pos,
+                                        cache_index)
             return self.out(out.reshape(b, t, width)), cache
         ps = cache["k"].shape[1]
         pmax = page_table.shape[1]
@@ -148,6 +157,101 @@ def _rect_attention(q, k, v, cache, pos):
     key_pos = torch.arange(max_len, device=q.device)
     mask = key_pos[None, None, None, :] <= pos[:, None, :, None]
     return dot_product_attention(q, cache["k"], cache["v"], mask=mask)
+
+
+#: levels of the symmetric int8 KV grid (codes -127..127 after
+#: centering): ``precision.py``'s int8 grid, so KV pages, the wire codec
+#: and fake-quant training share one affine arithmetic
+KV_QUANT_LEVELS = 254
+
+
+def quantize_kv_page(x, valid=None):
+    """Per-page symmetric int8 quantization of K/V page data.
+
+    ``x`` is ``[..., page_size, heads, head_dim]`` (leading dims index
+    pages); returns ``(codes int8, scale float32 [...])`` on the codec's
+    grid: ``scale = symmetric_int8_qparams(amax) = amax / 127``, codes
+    centered at zero. ``valid`` (``[..., page_size]`` bool) zeroes cells
+    past a row's length before ``amax``, so stale cells never inflate a
+    page's scale; masked cells store code 0, and an all-zero page scale
+    0 and codes 0. One encode's per-cell error is at most ``scale / 2``."""
+    x = x.float()
+    if valid is not None:
+        x = torch.where(valid[..., None, None], x, 0.0)
+    amax = x.abs().amax(dim=(-3, -2, -1))
+    scale = precision_lib.symmetric_int8_qparams(amax)
+    sc = scale[..., None, None, None]
+    codes = codec.affine_quantize(x, -amax[..., None, None, None], sc,
+                                  KV_QUANT_LEVELS) - 127.0
+    codes = torch.where(sc > 0, codes, 0.0)
+    return codes.to(torch.int8), scale
+
+
+def dequantize_kv_page(codes, scale, dtype=torch.float32):
+    """Inverse of :func:`quantize_kv_page`: ``scale * codes`` in float32,
+    broadcast per page, then ``dtype``."""
+    return (codes.float() * scale[..., None, None, None]).to(dtype)
+
+
+def _paged_int8_attention(q, k, v, cache, page_table, pos, cache_index):
+    """One paged step over int8 KV pages, in the JAX package's default
+    order: gather codes and scales through the page table into the dense
+    float32 ``[b, max_len]`` view and dequantize; overlay the EXACT
+    in-call K/V block at ``pos`` (in-call positions attend at full
+    precision, only history is round-tripped; a position ``>= max_len``,
+    the decode ghost, is dropped); requantize IN PLACE only the window
+    of ``ceil(t / page_size) + 1`` pages the block touched, from
+    ``cache_index // page_size``, with cells at or past ``cache_index +
+    t`` zeroed before ``amax`` (untouched pages keep their codes bit for
+    bit); then attend over the view in ``q``'s dtype through the paged
+    kernel, the view handed over as ``b * pmax`` pages behind a fixed
+    identity page table (fixed shapes, so a CUDA graph holds the call)."""
+    b, t = pos.shape
+    heads, head_dim = k.shape[2], k.shape[3]
+    ps = cache["k"].shape[1]
+    pmax = page_table.shape[1]
+    max_len = pmax * ps
+    scratch_page = cache["k"].shape[0] - 1
+    table = page_table.long()
+    rows = torch.arange(b, device=q.device)[:, None]
+    # a position past the view lands in one extra cell, cut off after
+    ghost = pos.clamp(max=max_len)
+
+    def dense_view(codes, scale, block):
+        view = torch.empty((b, max_len + 1, heads, head_dim),
+                           dtype=torch.float32, device=q.device)
+        view[:, :max_len] = dequantize_kv_page(codes[table],
+                                               scale[table]).reshape(
+            b, max_len, heads, head_dim)
+        view[rows, ghost] = block.float()
+        return view[:, :max_len]
+
+    k_dense = dense_view(cache["k"], cache["k_scale"], k)
+    v_dense = dense_view(cache["v"], cache["v_scale"], v)
+    # positions [cache_index, cache_index + t) span at most ceil(t/ps) + 1
+    # logical pages from cache_index // ps (the cursor may sit mid-page)
+    ci = cache_index.long()
+    n_touch = -(-t // ps) + 1
+    first = (ci // ps).clamp(0, pmax - 1)
+    win = first[:, None] + torch.arange(n_touch, device=q.device)[None, :]
+    last = ((ci + t - 1) // ps).clamp(0, pmax - 1)
+    ok_w = (win <= last[:, None]) & (win < pmax)
+    win_c = win.clamp(0, pmax - 1)
+    phys_w = torch.where(ok_w, torch.gather(table, 1, win_c), scratch_page)
+    cell = win_c[..., None] * ps + torch.arange(ps, device=q.device)
+    valid = cell < (ci + t)[:, None, None]
+    bidx = torch.arange(b, device=q.device)[:, None, None]
+    for name, dense in (("k", k_dense), ("v", v_dense)):
+        codes, scale = quantize_kv_page(dense[bidx, cell], valid)
+        cache[name][phys_w] = codes
+        cache[f"{name}_scale"][phys_w] = scale
+    view_pages = lambda dense: dense.to(q.dtype).reshape(
+        b * pmax, ps, heads, head_dim).contiguous()
+    identity = torch.arange(b * pmax, dtype=torch.int32,
+                            device=q.device).reshape(b, pmax)
+    return fa.paged_flash_attention(q, view_pages(k_dense),
+                                    view_pages(v_dense), identity,
+                                    cache_index)
 
 
 class DecoderBlock(nn.Module):
@@ -291,11 +395,10 @@ def init_paged_cache(model: CausalLM, num_pages: int, page_size: int,
     """Zeroed shared page pool: a tuple (one entry per layer) of
     ``{"k", "v"}`` tensors ``[num_pages + 1, page_size, heads, head_dim]``
     on ``device`` (None: the model's own device, that of its first
-    parameter). The extra LAST page is scratch. Native dtype only."""
-    if kv_dtype == "int8":
-        raise NotImplementedError(
-            "int8 KV pages are not ported yet (ROADMAP.md Queue A, item 5)")
-    if kv_dtype not in (None, "native"):
+    parameter). The extra LAST page is scratch. ``kv_dtype="int8"``
+    stores int8 codes and adds float32 ``k_scale``/``v_scale``
+    ``[num_pages + 1]`` (the attention path tells the format by them)."""
+    if kv_dtype not in (None, "native", "int8"):
         raise ValueError(
             f"kv_dtype must be None, 'native', or 'int8', got {kv_dtype!r}")
     dtype = model.dtype if dtype is None else dtype
@@ -303,14 +406,26 @@ def init_paged_cache(model: CausalLM, num_pages: int, page_size: int,
         device = next(model.parameters()).device
     shape = (num_pages + 1, page_size, model.num_heads,
              model.width // model.num_heads)
+    if kv_dtype == "int8":
+        zeros = lambda *s, dt: torch.zeros(s, dtype=dt, device=device)
+        return tuple({"k": zeros(*shape, dt=torch.int8),
+                      "v": zeros(*shape, dt=torch.int8),
+                      "k_scale": zeros(num_pages + 1, dt=torch.float32),
+                      "v_scale": zeros(num_pages + 1, dt=torch.float32)}
+                     for _ in range(model.num_layers))
     return tuple({"k": torch.zeros(shape, dtype=dtype, device=device),
                   "v": torch.zeros(shape, dtype=dtype, device=device)}
                  for _ in range(model.num_layers))
 
 
 def page_bytes(model: CausalLM, page_size: int,
-               dtype: Optional[torch.dtype] = None) -> int:
-    """Device bytes one logical page costs (k + v cells, every layer)."""
+               dtype: Optional[torch.dtype] = None, kv_dtype=None) -> int:
+    """Device bytes one logical page costs (k + v cells, every layer);
+    under ``kv_dtype="int8"`` one byte a cell plus a float32 scale per
+    layer and k/v."""
+    if kv_dtype == "int8":
+        return (2 * model.num_layers * page_size * model.width
+                + 2 * model.num_layers * 4)
     dtype = model.dtype if dtype is None else dtype
     return 2 * model.num_layers * page_size * model.width * dtype.itemsize
 

@@ -31,7 +31,8 @@
 //     by 16 bytes so that lanes on neighbouring keys hit distinct banks;
 //   - no buffer grows with the context: the logits go to a float32
 //     workspace in device memory, so any max_len and any head_dim up to
-//     128 are taken (D = 64 and 128 instantiations).
+//     256 are taken (D = 64, 128 and 256 instantiations; at D = 256 a
+//     float32 CTA stages 133 KB of K or V, under the 227 KB opt-in).
 // Because P is rounded only after it is divided by the whole row's sum, a
 // one-pass online softmax per split would round differently. A call is
 // therefore two launches:
@@ -556,7 +557,9 @@ cudaError_t launch_t(const Args& a) {
                    reinterpret_cast<uintptr_t>(a.v_pages) % 16 == 0;
   if (a.d <= 64)
     return vec ? launch<T, 64, true>(a) : launch<T, 64, false>(a);
-  return vec ? launch<T, 128, true>(a) : launch<T, 128, false>(a);
+  if (a.d <= 128)
+    return vec ? launch<T, 128, true>(a) : launch<T, 128, false>(a);
+  return vec ? launch<T, 256, true>(a) : launch<T, 256, false>(a);
 }
 
 }  // namespace
@@ -575,7 +578,7 @@ int paged_attention_launch(int dtype, const void* q, const void* k_pages,
                            int t, int h, int d, int page_size, int pmax,
                            int split, float scale, float mask_value,
                            void* stream) {
-  if (b < 1 || t < 1 || h < 1 || d < 1 || d > 128 || page_size < 1 ||
+  if (b < 1 || t < 1 || h < 1 || d < 1 || d > 256 || page_size < 1 ||
       pmax < 1 || split < kChunk || split > kMaxSplit || split % kChunk)
     return cudaErrorInvalidValue;
   const Args a{q,

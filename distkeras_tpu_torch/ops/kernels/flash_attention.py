@@ -90,14 +90,14 @@ def split_keys(max_len: int, heads_rows: int) -> int:
 
 def paged_fits(q_shape, pages_shape, page_table_shape) -> bool:
     """Whether the kernel takes these shapes: matching heads and
-    head_dim, and ``1 <= head_dim <= 128`` (the largest instantiation).
+    head_dim, and ``1 <= head_dim <= 256`` (the largest instantiation).
     Any context length: nothing in the kernel grows with it."""
     if len(q_shape) != 4 or len(pages_shape) != 4 \
             or len(page_table_shape) != 2:
         return False
     _, _, h, d = q_shape
     _, _, hp, dp = pages_shape
-    return (h, d) == (hp, dp) and 1 <= d <= 128
+    return (h, d) == (hp, dp) and 1 <= d <= 256
 
 
 def paged_flash_attention_reference(q, k_pages, v_pages, page_table,
@@ -144,7 +144,7 @@ def _check(q, k_pages, v_pages, page_table, cache_index):
             f"paged_flash_attention: kernel does not take q {tuple(q.shape)}"
             f", pages {tuple(k_pages.shape)}, table "
             f"{tuple(page_table.shape)} (heads and head_dim must match, "
-            f"1 <= head_dim <= 128)")
+            f"1 <= head_dim <= 256)")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("paged_flash_attention: tensors must be contiguous")
 

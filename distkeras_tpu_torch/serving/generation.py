@@ -35,13 +35,15 @@ kernel. Every step updates the pool in place.
 engine's ``_compile_all``: nothing compiles after ``__init__``). The
 constructor makes one runner per prefill bucket, per ladder entry and
 for the chunk width (unless a bucket has that width, whose runner it
-shares), each counted on ``serving.decode.compiles`` under a
-``serving.decode.compile`` span. A runner holds the step's static
-device inputs; on a CUDA device it also holds pinned host staging
-buffers and the graph, captured on the engine's own stream after one
-eager run there (which builds the kernel; the paged kernel's arrival
-counters for that stream are reserved before the first capture). The
-engine's graphs share one memory pool, since they run in turn. A call
+shares), and under the options below one verify runner per ladder
+entry, the swap pair and a model draft's own, each counted on
+``serving.decode.compiles`` under a ``serving.decode.compile`` span. A
+runner holds the step's static device inputs; on a CUDA device it also
+holds pinned host staging buffers and the graph, captured on the
+engine's own stream after one eager run there (which builds the
+kernel; the paged kernel's arrival counters for that stream are
+reserved before the first capture). The engine's graphs share one
+memory pool, since they run in turn. A call
 copies the host arrays into the static inputs, replays the graph, and
 copies to the host only the logits rows the token choice needs, before
 the next replay. A replay adds the paged calls its graph captured to
@@ -58,8 +60,32 @@ leaves the request at the queue head until pages return, deadlines are
 checked at admission and between decode steps
 (:class:`DeadlineExceeded`), :class:`EngineClosed` after shutdown.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP.md
-Queue A item): the prefix cache, speculative decoding, int8 KV pages.
+Three more options of the JAX engine, each with its own declared shapes,
+all made in ``__init__``:
+
+- ``prefix_cache_bytes=`` (paged only): a host-RAM
+  :class:`~distkeras_tpu_torch.serving.kv_cache.PrefixCache` of
+  content-hashed KV prefixes. Admission looks the prompt up; a hit
+  scatters the parked pages into the slot's reservation (the swap-in
+  graph, fixed ``[pages_per_slot]`` ids, unused ones on the scratch
+  page) and prefills only the tail at ``lengths=[start]`` on the
+  prefill graphs; a full hit with parked logits emits the first token
+  with no model call. A finished prefill and a retiring conversation
+  are parked through the swap-out graph (a gather) and one copy into a
+  new page-locked host buffer from torch's caching host allocator
+  (which keeps freed blocks for reuse: up to about twice the budget
+  stays pinned), from which a swap-in copies straight to the card.
+  ``export_prefix``/``import_prefix`` hand entries to and from other
+  threads through the scheduler thread.
+- ``kv_dtype="int8"`` (paged only): int8 pages with per-page float32
+  scales (:func:`~distkeras_tpu_torch.models.gpt._paged_int8_attention`).
+- ``draft=``/``spec_k=``: speculative decoding. The draft
+  (:class:`NgramDraft` on the host, or :class:`ModelDraft`, a smaller
+  model with its own rectangular pool and graphs) proposes ``spec_k``
+  tokens a lane, one verify call (``T = spec_k + 1``, a graph per
+  ladder entry) scores them, and the host walks the accept/reject rule:
+  greedy tokens are those of plain greedy decode, sampled streams those
+  of plain sampled decode under the same seed.
 """
 
 from __future__ import annotations
@@ -80,7 +106,8 @@ from distkeras_tpu_torch.serving.batching import (DeadlineExceeded,
                                                   EngineClosed, QueueFull)
 from distkeras_tpu_torch.serving.buckets import BucketSpec
 from distkeras_tpu_torch.serving.kv_cache import (KVCachePool,
-                                                  PagedKVCachePool)
+                                                  PagedKVCachePool,
+                                                  PrefixCache, tree_leaves)
 
 #: token id fed at the decode step's ghost position (its output is
 #: discarded, so any valid id works)
@@ -171,16 +198,232 @@ def make_paged_step_fn(model):
     return step
 
 
+def make_verify_fn(model):
+    """``(pool, slot_ids[n], tokens[n, T], lengths[n]) -> logits[n, T,
+    V]``: the speculative verify step over the rectangular pool. Each
+    lane feeds ``[pending, d_1 .. d_{T-1}]`` at positions ``len ..
+    len + T - 1``; ALL T cells are scattered back IN PLACE (accepted
+    cells are what sequential decode writes; rejected ones lie past the
+    post-accept length, masked until overwritten). A position ``>=
+    max_len`` is written to the row's last cell with the value the
+    model's row holds there, which is that cell's own (the JAX package
+    drops it)."""
+
+    @torch.no_grad()
+    def verify(pool, slot_ids, tokens, lengths):
+        rows_of = slot_ids.long()
+        rows = tuple({name: a[rows_of] for name, a in layer.items()}
+                     for layer in pool)
+        logits, rows = model(tokens, cache=rows, cache_index=lengths)
+        n, t = tokens.shape
+        max_len = pool[0]["k"].shape[1]
+        lane = torch.arange(n, device=slot_ids.device)[:, None]
+        col = (lengths.long()[:, None]
+               + torch.arange(t, device=slot_ids.device)[None, :]).clamp(
+            max=max_len - 1)
+        for layer, new in zip(pool, rows):
+            for name, a in layer.items():
+                a[rows_of[:, None], col] = new[name][lane, col]
+        return logits
+
+    return verify
+
+
+def make_swap_out_fn():
+    """``(pages, page_ids[Pmax]) -> leaves``: gather the named pages of
+    every pool leaf (:func:`~distkeras_tpu_torch.serving.kv_cache.
+    tree_leaves` order) for host parking; unused ids point at scratch."""
+
+    @torch.no_grad()
+    def swap_out(pages, page_ids):
+        ids = page_ids.long()
+        return tuple(a[ids] for a in tree_leaves(pages))
+
+    return swap_out
+
+
+def make_swap_in_fn():
+    """``(pages, page_ids[Pmax], leaves) -> pages``: scatter parked page
+    data back into the pool IN PLACE. Unused ids point at scratch, so
+    their rows collide only on the scratch page."""
+
+    @torch.no_grad()
+    def swap_in(pages, page_ids, leaves):
+        ids = page_ids.long()
+        for a, d in zip(tree_leaves(pages), leaves):
+            a[ids] = d
+        return pages
+
+    return swap_in
+
+
+def _unflatten(pool, leaves):
+    """``leaves`` (:func:`tree_leaves` order) in ``pool``'s structure."""
+    it = iter(leaves)
+    return tuple({name: next(it) for name in sorted(layer)}
+                 for layer in pool)
+
+
+class NgramDraft:
+    """Prompt-lookup drafting (host only): propose the k tokens that
+    followed the most recent earlier occurrence of the context's final
+    ``ngram``-gram; with no match, the last token repeated (a proposal
+    is always exactly k tokens: the verify shape is fixed). Draft
+    quality moves the accept rate only, never the tokens."""
+
+    def __init__(self, ngram: int = 2):
+        if ngram < 1:
+            raise ValueError(f"ngram must be >= 1, got {ngram}")
+        self.ngram = int(ngram)
+        self._ctx: dict = {}
+
+    def bind(self, engine) -> None:  # noqa: ARG002 - uniform draft API
+        """Nothing to capture: the draft is host work."""
+
+    def begin(self, slot: int, prompt, first_token: int) -> None:
+        self._ctx[slot] = [int(t) for t in prompt] + [int(first_token)]
+
+    def propose(self, slots, last_tokens, lengths, k: int) -> np.ndarray:
+        del last_tokens, lengths  # the host context already ends on them
+        out = np.zeros((len(slots), k), np.int32)
+        for i, s in enumerate(slots):
+            out[i] = self._propose_one(self._ctx[s], k)
+        return out
+
+    def _propose_one(self, ctx, k: int):
+        n = self.ngram
+        props: list = []
+        if len(ctx) > n:
+            tail = ctx[-n:]
+            for start in range(len(ctx) - n - 1, -1, -1):
+                if ctx[start:start + n] == tail:
+                    props = ctx[start + n:start + n + k]
+                    break
+        while len(props) < k:
+            props.append(props[-1] if props else ctx[-1])
+        return np.asarray(props[:k], np.int32)
+
+    def observe(self, slot: int, emitted) -> None:
+        self._ctx[slot].extend(int(t) for t in emitted)
+
+    def release(self, slot: int) -> None:
+        self._ctx.pop(slot, None)
+
+
+class ModelDraft:
+    """Draft-model proposals: a smaller
+    :class:`~distkeras_tpu_torch.models.gpt.CausalLM` (holding its
+    weights) runs k + 1 greedy decode steps to propose k tokens. It keeps
+    its OWN rectangular pool indexed by the target's slot ids and always
+    feeds at the target's lengths, so its cache follows the accepted
+    sequence; a stale draft cell can only lower the accept rate.
+
+    ``bind`` makes one prefill runner per prompt bucket and one decode
+    runner per ladder entry on the engine's stream and graph pool (CUDA
+    graphs on the card), counted on ``serving.decode.compiles``, and
+    runs each once on the scratch row."""
+
+    def __init__(self, model, *, dtype=None):
+        self.model = model
+        self._dtype = dtype
+        self._cache = None
+
+    def bind(self, engine) -> None:
+        if int(self.model.max_len) < engine.max_len:
+            raise ValueError(
+                f"draft max_len {self.model.max_len} < target max_len "
+                f"{engine.max_len}; the draft must cover every position "
+                f"the target can reach")
+        self._buckets = engine._buckets
+        self._ladder = engine._ladder
+        self._scratch = engine.pool.num_slots
+        self.model.to(engine.device).eval()
+        serve = gpt.inference_copy(self.model)
+        self._cache = gpt.init_cache(self.model, engine.pool.num_slots + 1,
+                                     self._dtype, device=engine.device)
+        self._lengths = np.zeros(engine.pool.num_slots + 1, np.int32)
+        prefill, decode = make_prefill_fn(serve), make_decode_fn(serve)
+        compiles = telemetry.counter("serving.decode.compiles")
+        self._prefill_runs, self._decode_runs = {}, {}
+        for lb in self._buckets:
+            with telemetry.span("serving.decode.compile", draft_prefill=lb):
+                self._prefill_runs[lb] = engine._runner(
+                    prefill, self._cache, ids=np.zeros((1, lb), np.int32),
+                    slot=np.full(1, self._scratch, np.int64),
+                    length=np.full(1, lb, np.int32))
+            compiles.inc()
+        for n in self._ladder:
+            with telemetry.span("serving.decode.compile", draft_lanes=n):
+                self._decode_runs[n] = engine._runner(
+                    decode, self._cache,
+                    slot_ids=np.full(n, self._scratch, np.int32),
+                    tokens=np.zeros(n, np.int32),
+                    lengths=np.zeros(n, np.int32))
+            compiles.inc()
+        for run in (*self._prefill_runs.values(),
+                    *self._decode_runs.values()):
+            run.warm()
+
+    @property
+    def compiled_executables(self):
+        return {"prefill": tuple(sorted(self._prefill_runs)),
+                "decode": tuple(sorted(self._decode_runs))}
+
+    def begin(self, slot: int, prompt, first_token: int) -> None:
+        del first_token  # arrives as last_tokens at the next propose
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        n = prompt.size
+        lb = self._buckets.bucket_for(n)
+        ids = np.zeros((1, lb), np.int32)
+        ids[0, :n] = prompt
+        self._prefill_runs[lb](ids=ids, slot=np.full(1, slot, np.int64),
+                               length=np.full(1, n, np.int32))
+        self._lengths[slot] = n
+
+    def propose(self, slots, last_tokens, lengths, k: int) -> np.ndarray:
+        n = len(slots)
+        lane = self._ladder.bucket_for(n)
+        run = self._decode_runs[lane]
+        out = np.zeros((n, k), np.int32)
+        feed = np.asarray(last_tokens, np.int32).copy()
+        lens_live = np.asarray(lengths, np.int32).copy()
+        # k proposal feeds and one that caches the last proposal, so that
+        # a full accept leaves the draft cache complete
+        for step in range(k + 1):
+            slot_ids = np.full(lane, self._scratch, np.int32)
+            toks = np.full(lane, GHOST_TOKEN, np.int32)
+            lens = np.zeros(lane, np.int32)
+            slot_ids[:n] = slots
+            toks[:n] = feed
+            lens[:n] = lens_live
+            run(slot_ids=slot_ids, tokens=toks, lengths=lens)
+            lens_live += 1
+            if step < k:
+                feed = np.argmax(run.fetch(slice(0, n)), axis=-1).astype(
+                    np.int32)
+                out[:, step] = feed
+        self._lengths[list(slots)] = lens_live
+        return out
+
+    def observe(self, slot: int, emitted) -> None:
+        """The draft feeds at the target's lengths: acceptance needs no
+        rollback here."""
+
+    def release(self, slot: int) -> None:
+        self._lengths[slot] = 0
+
+
 class _StepRunner:
     """One declared shape of a step (module docstring): ``fn(pool,
     **inputs) -> out`` over static input tensors made from ``inputs``
-    (numpy arrays that point every lane at the scratch slot or page, so
-    that the eager run before the capture and :meth:`warm` touch no
-    live cell). With a ``stream`` (a CUDA device) the graph is captured
-    here, its memory drawn from ``graph_pool``, which the engine's
-    graphs share: ``out`` then holds until the engine's next replay,
-    which may reuse its memory, so the caller fetches what it needs of
-    it first. Without a stream (the CPU) each call runs ``fn``
+    (numpy arrays or CPU tensors that point every lane at the scratch
+    slot or page, so that the eager run before the capture and
+    :meth:`warm` touch no live cell). A call may pass fewer leading rows
+    than an input holds; the rest keep their last values. With a
+    ``stream`` (a CUDA device) the graph is captured here, its memory
+    drawn from ``graph_pool``, which the engine's graphs share: ``out``
+    then holds until the engine's next replay, which may reuse its
+    memory, so the caller fetches what it needs of it first. Without a stream (the CPU) each call runs ``fn``
     eagerly."""
 
     def __init__(self, fn, pool, inputs: dict, device, stream=None,
@@ -188,7 +431,7 @@ class _StepRunner:
         self._fn = fn
         self._pool = pool
         self._inputs = inputs
-        self._static = {k: torch.from_numpy(v.copy()).to(device)
+        self._static = {k: torch.as_tensor(v).clone().to(device)
                         for k, v in inputs.items()}
         self._stream = stream
         self._graph = None
@@ -197,7 +440,7 @@ class _StepRunner:
         self.out = None
         if stream is None:
             return
-        self._host = {k: torch.from_numpy(v.copy()).pin_memory()
+        self._host = {k: torch.as_tensor(v).clone().pin_memory()
                       for k, v in inputs.items()}
         self._copied = torch.cuda.Event()
         torch.cuda.synchronize(device)  # the static inputs have landed
@@ -218,15 +461,20 @@ class _StepRunner:
     def __call__(self, **arrays) -> torch.Tensor:
         if self._graph is None:
             for k, a in arrays.items():
-                self._static[k].copy_(torch.from_numpy(a))
+                a = torch.as_tensor(a)
+                self._static[k][:a.shape[0]].copy_(a)
             self.out = self._fn(self._pool, **self._static)
             return self.out
         # the previous call's copies must have read the staging buffers
         self._copied.synchronize()
         with torch.cuda.stream(self._stream):
             for k, a in arrays.items():
-                self._host[k].numpy()[...] = a
-                self._static[k].copy_(self._host[k], non_blocking=True)
+                a = torch.as_tensor(a)
+                if not a.is_pinned():  # a pinned input is copied as is
+                    host = self._host[k][:a.shape[0]]
+                    host.copy_(a)
+                    a = host
+                self._static[k][:a.shape[0]].copy_(a, non_blocking=True)
             self._copied.record()
             self._graph.replay()
         fa.paged_flash_attention.launches += self.launches
@@ -238,6 +486,28 @@ class _StepRunner:
             return self.out[index].float().numpy()
         with torch.cuda.stream(self._stream):
             return self.out[index].float().cpu().numpy()
+
+    def fetch_rows(self, n: int) -> list:
+        """The first ``n`` rows of each tensor of ``out`` (a sequence) on
+        the host in its own dtype, once the step has run: on the card as
+        views of ONE new pinned buffer a call, copied into on the
+        engine's stream (page-locked memory: no staging copy out, and
+        :meth:`__call__` copies such a view straight to the card)."""
+        if self._graph is None:
+            return [o[:n].clone() for o in self.out]
+        rows = [o[:n] for o in self.out]
+        offsets, total = [], 0
+        for r in rows:  # each view 16-byte aligned
+            offsets.append(total)
+            total += -(-r.nbytes // 16) * 16
+        buf = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+        host = [buf[at:at + r.nbytes].view(r.dtype).view(r.shape)
+                for r, at in zip(rows, offsets)]
+        with torch.cuda.stream(self._stream):
+            for h, r in zip(host, rows):
+                h.copy_(r, non_blocking=True)
+        self._stream.synchronize()
+        return host
 
     def warm(self) -> None:
         """One call on the scratch inputs, so no request pays a first
@@ -269,7 +539,7 @@ class GenerationResult:
 class _GenRequest:
     __slots__ = ("prompt", "max_new_tokens", "eos_id", "stream", "future",
                  "t_submit", "deadline", "generated", "last_token", "trace",
-                 "t_perf", "rng", "prefill_pos")
+                 "t_perf", "rng", "prefill_pos", "last_logits")
 
     def __init__(self, prompt, max_new_tokens, eos_id, stream,
                  t_submit, deadline, trace=None):
@@ -290,11 +560,10 @@ class _GenRequest:
         self.rng = None
         #: chunked prefill cursor: prompt tokens already cached
         self.prefill_pos = 0
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue A, item {item})")
+        #: logits row of the newest token (kept under a prefix cache only:
+        #: retirement parks it, so that a resumed conversation's full hit
+        #: emits with no model call)
+        self.last_logits = None
 
 
 class GenerationEngine:
@@ -303,15 +572,16 @@ class GenerationEngine:
     ``generate()`` is thread-safe and returns a Future of
     :class:`GenerationResult`; an optional ``stream`` callback receives
     each token as it is emitted (called on the scheduler thread — it
-    must not block). One scheduler thread owns the pool, the runners and
-    all host-side accounting.
+    must not block). One scheduler thread owns the pool, the runners, the
+    prefix cache and all host-side accounting.
 
     ``model`` is a :class:`~distkeras_tpu_torch.models.gpt.CausalLM`
     holding its weights; the engine moves it to ``device`` (default
     ``cuda:0``; ``"cpu"`` only when asked) and puts it in eval mode.
     ``page_size=None`` (the default) serves from the rectangular pool,
     an int from the paged pool. ``warmup`` runs every declared shape
-    once after its capture.
+    once after its capture. ``draft`` is an :class:`NgramDraft` or a
+    :class:`ModelDraft` (with ``spec_k >= 1``).
     """
 
     def __init__(self, model, *, num_slots: int = 4,
@@ -330,12 +600,6 @@ class GenerationEngine:
                  kv_dtype: Optional[str] = None,
                  sampling: bool = False, temperature: float = 1.0,
                  seed: int = 0):
-        if prefix_cache_bytes:
-            raise _not_ported("the prefix cache (prefix_cache_bytes)", 2)
-        if draft is not None or spec_k:
-            raise _not_ported("speculative decoding (draft/spec_k)", 3)
-        if kv_dtype == "int8":
-            raise _not_ported("int8 KV pages (kv_dtype='int8')", 5)
         self.model = model
         self.max_len = int(model.max_len)
         self._buckets = BucketSpec(prefill_buckets)
@@ -355,6 +619,18 @@ class GenerationEngine:
                 f"num_slots={num_slots} so every in-flight count has a "
                 f"lane width")
         self._paged = page_size is not None
+        if prefix_cache_bytes and not self._paged:
+            raise ValueError(
+                "prefix_cache_bytes requires page_size: the prefix cache "
+                "parks/restores KV at page granularity")
+        if (draft is None) != (spec_k == 0):
+            raise ValueError(
+                "speculative decoding needs BOTH draft= and spec_k >= 1")
+        if spec_k < 0 or spec_k >= self.max_len - 1:
+            raise ValueError(f"spec_k must be in [0, max_len-1), got "
+                             f"{spec_k}")
+        self._draft = draft
+        self._spec_k = int(spec_k)
         self._chunk = None if prefill_chunk is None else int(prefill_chunk)
         if self._chunk is not None:
             if not self._paged:
@@ -387,12 +663,18 @@ class GenerationEngine:
         else:
             self.pool = KVCachePool(model, num_slots, device=device,
                                     dtype=dtype, hbm_fraction=hbm_fraction)
+        self._prefix = (PrefixCache(prefix_cache_bytes)
+                        if prefix_cache_bytes else None)
         self.device = self.pool.device
         model.to(self.device).eval()
         self.default_max_new_tokens = int(default_max_new_tokens)
         self.eos_id = eos_id
         self.queue_capacity = int(queue_capacity)
         self._dq: "collections.deque[_GenRequest]" = collections.deque()
+        # prefix imports/exports from other threads, applied by the
+        # scheduler thread between iterations (the prefix cache has one
+        # owner and no lock)
+        self._host_ops: collections.deque = collections.deque()
         self._cv = threading.Condition()
         self._closed = False
         self._drain = True
@@ -412,6 +694,25 @@ class GenerationEngine:
         self._tps_g = telemetry.gauge("serving.decode.tokens_per_s")
         self._active_g = telemetry.gauge("serving.decode.slots_active")
         self._depth_g = telemetry.gauge("serving.decode.queue_depth")
+        self._spec_proposed_c = telemetry.counter(
+            "serving.decode.spec.proposed")
+        self._spec_accepted_c = telemetry.counter(
+            "serving.decode.spec.accepted")
+        self._spec_iters_c = telemetry.counter(
+            "serving.decode.spec.iterations")
+        self._spec_rate_g = telemetry.gauge("serving.decode.spec.accept_rate")
+        self._swapped_in_c = telemetry.counter(
+            "serving.decode.paged.swapped_in")
+        self._swapped_out_c = telemetry.counter(
+            "serving.decode.paged.swapped_out")
+        self._swap_fail_c = telemetry.counter(
+            "serving.decode.paged.swap_in_failures")
+        self._prefix_full_c = telemetry.counter(
+            "serving.decode.prefix.full_hits")
+        self._prefix_imports_c = telemetry.counter(
+            "serving.decode.prefix.imports")
+        self._prefix_exports_c = telemetry.counter(
+            "serving.decode.prefix.exports")
         if self._chunk is not None:
             # created only when chunking is on, as in the JAX engine
             self._chunk_admits_c = telemetry.counter(
@@ -421,6 +722,11 @@ class GenerationEngine:
             self._chunk_depth_g = telemetry.gauge(
                 "serving.decode.chunk.queue_depth")
             self._chunk_depth_g.set(0)
+        if self._sampling and self._spec_k:
+            self._spec_s_accepts_c = telemetry.counter(
+                "serving.decode.spec.sampled_accepts")
+            self._spec_s_resamples_c = telemetry.counter(
+                "serving.decode.spec.sampled_resamples")
 
         self._compile_all(gpt.inference_copy(model))
         if warmup:
@@ -432,18 +738,26 @@ class GenerationEngine:
 
     # -- one runner (a CUDA graph on the card) per declared shape ----------
 
+    def _runner(self, fn, pool, **inputs) -> _StepRunner:
+        """A runner of ``fn`` over ``pool`` on this engine's device,
+        stream and graph pool (a draft's runners too)."""
+        return _StepRunner(fn, pool, inputs, self.device, self.stream,
+                           self._graph_pool)
+
     def _compile_all(self, serve_model) -> None:
         """Make exactly one runner per prefill bucket, one per ladder
-        entry and one for the chunk width (shared with a bucket of that
-        width), up front (module docstring). On a CUDA device each
-        captures its graph on the engine's stream; ``graph_pool_bytes``
-        is the device memory the runners then hold (the graphs' pools and
-        the static inputs)."""
+        entry, one for the chunk width (shared with a bucket of that
+        width), one verify runner per ladder entry (speculative only) and
+        the swap pair (prefix cache only), up front (module docstring),
+        then bind the draft. On a CUDA device each captures its graph on
+        the engine's stream; ``graph_pool_bytes`` is the device memory
+        the runners then hold (the graphs' pools and the static
+        inputs)."""
         cuda = self.device.type == "cuda"
         #: the stream every capture and replay of this engine runs on
         self.stream = torch.cuda.Stream(self.device) if cuda else None
         #: the memory pool the engine's graphs share (they run in turn)
-        graph_pool = torch.cuda.graph_pool_handle() if cuda else None
+        self._graph_pool = torch.cuda.graph_pool_handle() if cuda else None
         if cuda:
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()
@@ -455,17 +769,24 @@ class GenerationEngine:
                 widths = list(self._buckets) + [self._chunk or 0]
                 fa.reserve_counters(self.device, self.stream.cuda_stream, max(
                     [fa.counters_needed(1, w, h) for w in widths]
-                    + [fa.counters_needed(n, 2, h) for n in self._ladder]))
+                    + [fa.counters_needed(n, max(2, self._spec_k + 1), h)
+                       for n in self._ladder]))
         compiles = telemetry.counter("serving.decode.compiles")
         scratch = self.pool.scratch_slot
+        runner = lambda fn, **inputs: self._runner(  # noqa: E731
+            fn, self.pool.pool, **inputs)
 
-        def runner(fn, **inputs):
-            return _StepRunner(fn, self.pool.pool, inputs, self.device,
-                               self.stream, graph_pool)
+        def declare(runs, key, make, **span):
+            with telemetry.span("serving.decode.compile", **span):
+                runs[key] = make()
+            compiles.inc()
 
         self._prefill_runs = {}
         self._decode_runs = {}
+        self._verify_runs = {}
+        self._swap_runs = {}
         self._chunk_run = None
+        t_verify = self._spec_k + 1
         if self._paged:
             step = make_paged_step_fn(serve_model)
             fn = lambda pool, **kw: step(pool, **kw)[1]  # noqa: E731
@@ -475,9 +796,8 @@ class GenerationEngine:
                 tokens=np.zeros((n, t), np.int32),
                 lengths=np.zeros(n, np.int32))
             for lb in self._buckets:
-                with telemetry.span("serving.decode.compile", prefill=lb):
-                    self._prefill_runs[lb] = paged(1, lb)
-                compiles.inc()
+                declare(self._prefill_runs, lb, lambda: paged(1, lb),
+                        prefill=lb)
             if self._chunk is not None:
                 if self._chunk in self._prefill_runs:
                     # a chunk the width of a bucket is the same shape
@@ -488,32 +808,58 @@ class GenerationEngine:
                         self._chunk_run = paged(1, self._chunk)
                     compiles.inc()
             for n in self._ladder:
-                with telemetry.span("serving.decode.compile", lanes=n):
-                    self._decode_runs[n] = paged(n, 2)
-                compiles.inc()
+                declare(self._decode_runs, n, lambda: paged(n, 2), lanes=n)
+                if self._spec_k:
+                    declare(self._verify_runs, n,
+                            lambda: paged(n, t_verify), verify=n)
+            if self._prefix is not None:
+                self._declare_swaps(declare, runner)
         else:
             prefill = make_prefill_fn(serve_model)
             decode = make_decode_fn(serve_model)
+            verify = make_verify_fn(serve_model)
             for lb in self._buckets:
-                with telemetry.span("serving.decode.compile", prefill=lb):
-                    self._prefill_runs[lb] = runner(
-                        prefill, ids=np.zeros((1, lb), np.int32),
-                        slot=np.full(1, scratch, np.int64),
-                        length=np.full(1, lb, np.int32))
-                compiles.inc()
+                declare(self._prefill_runs, lb, lambda: runner(
+                    prefill, ids=np.zeros((1, lb), np.int32),
+                    slot=np.full(1, scratch, np.int64),
+                    length=np.full(1, lb, np.int32)), prefill=lb)
+            lanes = lambda n, t: dict(  # noqa: E731
+                slot_ids=np.full(n, scratch, np.int32),
+                tokens=np.zeros((n, t) if t else n, np.int32),
+                lengths=np.zeros(n, np.int32))
             for n in self._ladder:
-                with telemetry.span("serving.decode.compile", lanes=n):
-                    self._decode_runs[n] = runner(
-                        decode, slot_ids=np.full(n, scratch, np.int32),
-                        tokens=np.zeros(n, np.int32),
-                        lengths=np.zeros(n, np.int32))
-                compiles.inc()
+                declare(self._decode_runs, n,
+                        lambda: runner(decode, **lanes(n, 0)), lanes=n)
+                if self._spec_k:
+                    declare(self._verify_runs, n, lambda: runner(
+                        verify, **lanes(n, t_verify)), verify=n)
+        if self._draft is not None:
+            self._draft.bind(self)
         self.graph_pool_bytes = 0
         if cuda:
             torch.cuda.synchronize(self.device)
             torch.cuda.empty_cache()
             self.graph_pool_bytes = (torch.cuda.memory_reserved(self.device)
                                      - reserved0)
+
+    def _declare_swaps(self, declare, runner) -> None:
+        """The prefix cache's fixed-shape page pair over ``[pmax]`` page
+        ids (unused ones on the scratch page): ``"out"`` gathers a slot's
+        pages (copied to pinned host memory), ``"in"`` scatters parked
+        pages into a reservation."""
+        pmax = self.pool.pages_per_slot
+        ids = np.full(pmax, self.pool.scratch_page, np.int32)
+        leaves = tree_leaves(self.pool.pool)
+        swap_out, swap_in = make_swap_out_fn(), make_swap_in_fn()
+        data = {f"leaf{i}": torch.zeros((pmax,) + a.shape[1:],
+                                        dtype=a.dtype)
+                for i, a in enumerate(leaves)}
+        fn_in = lambda pool, page_ids, **d: swap_in(  # noqa: E731
+            pool, page_ids, [d[f"leaf{i}"] for i in range(len(d))])
+        declare(self._swap_runs, "out",
+                lambda: runner(swap_out, page_ids=ids), swap="out")
+        declare(self._swap_runs, "in",
+                lambda: runner(fn_in, page_ids=ids, **data), swap="in")
 
     def _warmup(self) -> None:
         """Run every shape once against the scratch slot/page (scratch
@@ -525,22 +871,124 @@ class GenerationEngine:
     def _runners(self):
         runs = list(self._prefill_runs.values())
         runs += list(self._decode_runs.values())
+        runs += list(self._verify_runs.values())
         if self._chunk_run is not None \
                 and self._chunk not in self._prefill_runs:
             runs.append(self._chunk_run)
+        runs += [self._swap_runs[k] for k in ("out", "in")
+                 if k in self._swap_runs]
         return runs
 
     @property
     def compiled_executables(self):
         """{"prefill": bucket sizes, "decode": lane widths}, plus
-        ``"prefill_chunk"`` under chunked prefill: the shapes made in
-        ``__init__`` (CUDA graphs on the card), the only ones any
-        request runs. Never grows."""
+        ``"prefill_chunk"`` under chunked prefill, ``"verify"`` lane
+        widths under speculative decoding, ``"swap": ("in", "out")``
+        under the prefix cache and ``"draft_prefill"``/``"draft_decode"``
+        with a :class:`ModelDraft`: the shapes made in ``__init__`` (CUDA
+        graphs on the card), the only ones any request runs. Never
+        grows."""
         execs = {"prefill": tuple(sorted(self._prefill_runs)),
                  "decode": tuple(sorted(self._decode_runs))}
         if self._chunk_run is not None:
             execs["prefill_chunk"] = (self._chunk,)
+        if self._verify_runs:
+            execs["verify"] = tuple(sorted(self._verify_runs))
+        if self._swap_runs:
+            execs["swap"] = ("in", "out")
+        if self._draft is not None and hasattr(self._draft,
+                                               "compiled_executables"):
+            de = self._draft.compiled_executables
+            execs["draft_prefill"] = de["prefill"]
+            execs["draft_decode"] = de["decode"]
         return execs
+
+    # -- prefix handoff between engines ------------------------------------
+
+    def _host_op(self, kind: str, payload, timeout: float):
+        """Hand one prefix-cache operation to the scheduler thread and
+        wait for its result: other threads never touch the cache."""
+        done = threading.Event()
+        box: list = []
+        with self._cv:
+            if self._closed:
+                return None if kind == "export" else False
+            self._host_ops.append((kind, payload, done, box))
+            self._cv.notify_all()
+        if not done.wait(timeout):
+            return None if kind == "export" else False
+        return box[0]
+
+    def export_prefix(self, tokens, timeout: float = 10.0):
+        """Host copy of the parked KV for exactly ``tokens``: ``(data,
+        last_logits)`` (``data`` the pool's structure, each leaf a CPU
+        tensor of the prefix's pages in the pool's dtype; ``last_logits``
+        may be None), or None when no such entry (or no cache) exists."""
+        tokens = tuple(int(t) for t in np.asarray(tokens).reshape(-1))
+        return self._host_op("export", tokens, timeout)
+
+    def import_prefix(self, tokens, leaves, last_logits=None,
+                      timeout: float = 10.0) -> bool:
+        """Install a shipped prefix into this engine's cache. ``leaves``
+        is the flat leaf list (:func:`~distkeras_tpu_torch.serving.
+        kv_cache.tree_leaves`) of an :meth:`export_prefix` ``data``; a
+        leaf count, page count, shape or dtype that does not match this
+        pool is refused, never half-installed. True when the entry is
+        resident; False means the caller must prefill."""
+        tokens = tuple(int(t) for t in np.asarray(tokens).reshape(-1))
+        if last_logits is not None:
+            last_logits = np.asarray(last_logits)
+        return bool(self._host_op("import", (tokens, list(leaves),
+                                             last_logits), timeout))
+
+    def _apply_host_ops(self) -> None:
+        """Scheduler-thread half of import/export_prefix."""
+        while True:
+            with self._cv:
+                if not self._host_ops:
+                    return
+                kind, payload, done, box = self._host_ops.popleft()
+            try:
+                if self._prefix is None:
+                    box.append(None if kind == "export" else False)
+                elif kind == "export":
+                    entry = self._prefix.peek(payload)
+                    if entry is None:
+                        box.append(None)
+                    else:
+                        self._prefix_exports_c.inc()
+                        box.append((entry.data, entry.last_logits))
+                else:
+                    tokens, leaves, last_logits = payload
+                    leaves = [torch.as_tensor(x) for x in leaves]
+                    pool_leaves = tree_leaves(self.pool.pool)
+                    pages = self.pool.pages_for(len(tokens))
+                    ok = len(leaves) == len(pool_leaves) and all(
+                        x.shape == (pages,) + p.shape[1:]
+                        and x.dtype == p.dtype
+                        for x, p in zip(leaves, pool_leaves))
+                    if ok:
+                        self._prefix.insert(
+                            tokens, _unflatten(self.pool.pool, leaves),
+                            last_logits)
+                        ok = self._prefix.has(tokens)
+                        if ok:
+                            self._prefix_imports_c.inc()
+                    box.append(bool(ok))
+            except Exception:  # a bad handoff must not kill the loop
+                self._swap_fail_c.inc()
+                box.append(None if kind == "export" else False)
+            finally:
+                done.set()
+
+    def _fail_host_ops(self) -> None:
+        """Unblock waiters whose op can no longer run (crash/shutdown)."""
+        with self._cv:
+            pending = list(self._host_ops)
+            self._host_ops.clear()
+        for kind, _payload, done, box in pending:
+            box.append(None if kind == "export" else False)
+            done.set()
 
     # -- client API --------------------------------------------------------
 
@@ -610,7 +1058,7 @@ class GenerationEngine:
             while True:
                 with self._cv:
                     while not self._dq and not active and not prefilling \
-                            and not self._closed:
+                            and not self._closed and not self._host_ops:
                         self._cv.wait()
                     if self._closed and not self._drain:
                         pending = list(self._dq)
@@ -619,14 +1067,15 @@ class GenerationEngine:
                         break
                     if self._closed and not self._dq and not active \
                             and not prefilling:
+                        self._fail_host_ops()
                         return
+                self._apply_host_ops()
                 self._admit(active, prefilling)
                 self._expire(active, prefilling)
                 if prefilling:
                     self._chunk_step(active, prefilling)
                 if active:
-                    self._decode_group(active, sorted(active))
-                    self._active_g.set(len(active))
+                    self._decode_step(active)
         except BaseException as e:  # scheduler must never die silently
             self._loop_err_c.inc()
             telemetry.record_event("serving", outcome="loop_error",
@@ -647,6 +1096,7 @@ class GenerationEngine:
         self._active_g.set(0)
 
     def _fail_all(self, err, pending, active, prefilling) -> None:
+        self._fail_host_ops()
         for req in (pending + list(active.values())
                     + list(prefilling.values())):
             req.future.set_exception(err)
@@ -689,13 +1139,12 @@ class GenerationEngine:
                 return
             self._admitted_c.inc()
             if self._chunk is not None:
-                self.pool.lengths[slot] = 0
-                req.prefill_pos = 0
-                prefilling[slot] = req
-                self._chunk_admits_c.inc()
-                self._chunk_depth_g.set(len(prefilling))
-                continue
-            if self._paged:
+                if self._start_chunked(req, slot, prefilling):
+                    self._chunk_admits_c.inc()
+                    self._chunk_depth_g.set(len(prefilling))
+                    continue
+                # else a full prefix hit completed with no chunk work
+            elif self._paged:
                 self._prefill_paged(req, slot)
             else:
                 self._prefill(req, slot)
@@ -721,28 +1170,110 @@ class GenerationEngine:
             length=np.full(1, n, np.int32))
         self._finish_prefill(req, slot, run.fetch(...), t0, tp0, bucket=lb)
 
+    def _prefix_start(self, req: _GenRequest, slot: int):
+        """Prefix-cache half of paged admission: lookup and page swap-in.
+        Returns ``(start, logits_row, hit)``: positions ``[0, start)``
+        are resident in ``slot``; ``logits_row`` is not None on a full
+        hit with parked logits (the caller emits with no model call);
+        ``hit`` says whether a cached prefix was restored."""
+        n = req.prompt.size
+        entry = (self._prefix.lookup(req.prompt)
+                 if self._prefix is not None else None)
+        if entry is None:
+            return 0, None, False
+        self._swap_in_entry(slot, entry)
+        if entry.length < n:
+            return entry.length, None, True
+        if entry.last_logits is not None:
+            # full hit: the parked logits ARE the first-token
+            # distribution
+            self._prefix_full_c.inc()
+            return n, entry.last_logits, True
+        # the KV covers the prompt but no logits were parked: re-derive
+        # them by feeding the last prompt token again
+        return n - 1, None, True
+
     def _prefill_paged(self, req: _GenRequest, slot: int) -> None:
-        """Paged admission: one bucketed prefill call over the slot's
-        pages; emits the first token."""
+        """Paged admission: prefix lookup and swap-in, then one bucketed
+        prefill of what the cache did not cover, at ``lengths=[start]``
+        on the prefill runners. A full hit with parked logits emits the
+        first token with no model call."""
         n = req.prompt.size
         t0 = time.monotonic()
         tp0 = time.perf_counter()
-        lb, ids = self._bucket_ids(req.prompt)
-        run = self._prefill_runs[lb]
-        run(page_tables=self.pool.page_table_row(slot)[None, :],
-            tokens=ids, lengths=np.zeros(1, np.int32))
-        self._finish_prefill(req, slot, run.fetch((0, n - 1)), t0, tp0,
-                             bucket=lb)
+        start, logits_row, hit = self._prefix_start(req, slot)
+        self.pool.lengths[slot] = start
+        ran_prefill = logits_row is None
+        if ran_prefill:
+            lb, ids = self._bucket_ids(req.prompt[start:])
+            run = self._prefill_runs[lb]
+            run(page_tables=self.pool.page_table_row(slot)[None, :],
+                tokens=ids, lengths=np.full(1, start, np.int32))
+            logits_row = run.fetch((0, n - start - 1))
+        self._finish_prefill(req, slot, logits_row, t0, tp0,
+                             ran_prefill=ran_prefill, prefix_hit=hit)
+
+    def _start_chunked(self, req: _GenRequest, slot: int,
+                       prefilling) -> bool:
+        """Chunked admission: the prefix half of :meth:`_prefill_paged`,
+        then the request parks in ``prefilling`` with its cursor at the
+        restored length. False when no chunk work is left (a full hit
+        with parked logits completes here with no model call)."""
+        t0 = time.monotonic()
+        tp0 = time.perf_counter()
+        start, logits_row, hit = self._prefix_start(req, slot)
+        self.pool.lengths[slot] = start
+        if logits_row is not None:
+            self._finish_prefill(req, slot, logits_row, t0, tp0,
+                                 ran_prefill=False, prefix_hit=hit)
+            return False
+        req.prefill_pos = start
+        prefilling[slot] = req
+        return True
+
+    def _swap_in_entry(self, slot: int, entry) -> None:
+        """Scatter a parked prefix's pages into ``slot``'s reservation
+        (the swap-in runner; only the entry's pages are copied in)."""
+        pmax = self.pool.pages_per_slot
+        p0 = self.pool.pages_for(entry.length)
+        page_ids = np.full(pmax, self.pool.scratch_page, np.int32)
+        page_ids[:p0] = self.pool.page_table_row(slot)[:p0]
+        self._swap_runs["in"](page_ids=page_ids, **{
+            f"leaf{i}": leaf for i, leaf in enumerate(tree_leaves(
+                entry.data))})
+        self._swapped_in_c.inc(p0)
+
+    def _capture_prefix(self, slot: int, tokens, last_logits) -> None:
+        """Park ``slot``'s first ``len(tokens)`` cells and a copy of
+        ``last_logits`` in the prefix cache (the swap-out runner, then one
+        copy into pinned host memory), unless the cache holds those
+        tokens already."""
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        if self._prefix.has(tokens):
+            return
+        pmax = self.pool.pages_per_slot
+        p0 = self.pool.pages_for(tokens.size)
+        page_ids = np.full(pmax, self.pool.scratch_page, np.int32)
+        page_ids[:p0] = self.pool.page_table_row(slot)[:p0]
+        run = self._swap_runs["out"]
+        run(page_ids=page_ids)
+        data = _unflatten(self.pool.pool, run.fetch_rows(p0))
+        self._swapped_out_c.inc(p0)
+        self._prefix.insert(tokens, data,
+                            np.array(last_logits, np.float32))
 
     def _finish_prefill(self, req: _GenRequest, slot: int, logits_row,
-                        t0: float, tp0: float, **span) -> None:
-        """Shared tail of every prefill path (one-shot, chunked): the
-        first-token pick, TTFT accounting, stream."""
+                        t0: float, tp0: float, ran_prefill: bool = True,
+                        **span) -> None:
+        """Shared tail of every prefill path (one-shot, chunked, full
+        hit): the first-token pick, TTFT accounting, prefix capture,
+        draft begin, stream."""
         self.pool.lengths[slot] = req.prompt.size
         tok = self._pick_token(req, logits_row)
         now = time.monotonic()
-        self._prefills_c.inc()
-        self._prefill_h.record(now - t0)
+        if ran_prefill:
+            self._prefills_c.inc()
+            self._prefill_h.record(now - t0)
         self._ttft_h.record(now - req.t_submit)
         if req.trace is not None:
             telemetry.record_trace_span(
@@ -750,6 +1281,11 @@ class GenerationEngine:
                 time.perf_counter() - tp0, slot=slot, **span)
         req.generated.append(tok)
         req.last_token = tok
+        if self._prefix is not None:
+            req.last_logits = logits_row
+            self._capture_prefix(slot, req.prompt, logits_row)
+        if self._draft is not None:
+            self._draft.begin(slot, req.prompt, tok)
         self._stream_token(req, tok)
 
     def _chunk_step(self, active, prefilling) -> None:
@@ -800,6 +1336,33 @@ class GenerationEngine:
         return int(min(np.searchsorted(cdf, u, side="right"),
                        cdf.size - 1))
 
+    def _decode_step(self, active) -> None:
+        """One scheduler iteration of decode over every active slot: a
+        speculative iteration when every lane's verify block ``[len, len
+        + spec_k]`` stays inside the context window, else plain decode
+        (the tokens are the same either way)."""
+        slots = sorted(active)
+        if self._spec_k and all(
+                self.pool.lengths[s] + self._spec_k < self.max_len
+                for s in slots):
+            self._spec_group(active, slots)
+        else:
+            self._decode_group(active, slots)
+        self._active_g.set(len(active))
+
+    def _group_arrays(self, active, slots, lane: int, t: int):
+        """Ladder-padded step inputs: scratch lanes for padding, column
+        0 each lane's pending token, columns 1..t-1 GHOST_TOKEN (the
+        speculative path puts the draft's proposals there)."""
+        slot_ids = np.full(lane, self.pool.scratch_slot, np.int32)
+        tokens = np.full((lane, t), GHOST_TOKEN, np.int32)
+        lengths = np.zeros(lane, np.int32)
+        for i, s in enumerate(slots):
+            slot_ids[i] = s
+            tokens[i, 0] = active[s].last_token
+            lengths[i] = self.pool.lengths[s]
+        return slot_ids, tokens, lengths
+
     def _decode_group(self, active, slots) -> None:
         """Advance ``slots`` one token in one ladder-padded step. Padded
         lanes use the scratch slot (length 0; in the paged pool its
@@ -807,13 +1370,8 @@ class GenerationEngine:
         n = len(slots)
         lane = self._ladder.bucket_for(n)
         run = self._decode_runs[lane]
-        slot_ids = np.full(lane, self.pool.scratch_slot, np.int32)
-        tokens = np.full((lane, 2), GHOST_TOKEN, np.int32)
-        lengths = np.zeros(lane, np.int32)
-        for i, s in enumerate(slots):
-            slot_ids[i] = s
-            tokens[i, 0] = active[s].last_token
-            lengths[i] = self.pool.lengths[s]
+        slot_ids, tokens, lengths = self._group_arrays(active, slots, lane,
+                                                       2)
         t0 = time.monotonic()
         tp0 = time.perf_counter()
         if self._paged:
@@ -838,6 +1396,12 @@ class GenerationEngine:
             tok = self._pick_token(req, rows[i])
             req.generated.append(tok)
             req.last_token = tok
+            if self._prefix is not None:
+                # a view of this step's own host array: copied only if
+                # the conversation is parked
+                req.last_logits = rows[i]
+            if self._draft is not None:
+                self._draft.observe(s, (tok,))
             if req.trace is not None:
                 # one step serves every lane, so each traced request gets
                 # the SHARED step interval
@@ -847,6 +1411,105 @@ class GenerationEngine:
             self._stream_token(req, tok)
             if self._emit(req, s) is not None:
                 del active[s]
+
+    def _sampled_accept_walk(self, req: _GenRequest, props_i, logits_i):
+        """Host side of sampled speculative verification: the target-vs-
+        draft accept/reject rule for point-mass drafts. ONE tempered
+        inverse-CDF draw a position accepts the proposal iff it lands on
+        it (probability ``p_target(d)``), and otherwise is itself a
+        sample of the normalized residual. One uniform per EMITTED token,
+        in emission order: the stream plain sampled decode draws.
+        Returns ``(emit, resampled)``; the caps (max_new_tokens, EOS)
+        apply inside the walk, so no draw is spent on a token that is not
+        emitted."""
+        s = self._spec_k
+        emit: list = []
+        resampled = False
+        remaining = req.max_new_tokens - len(req.generated)
+        for m in range(min(s + 1, remaining)):
+            tok = self._pick_token(req, logits_i[m])
+            emit.append(tok)
+            if req.eos_id is not None and tok == req.eos_id:
+                break
+            if m < s and tok != int(props_i[m]):
+                resampled = True
+                break
+        return emit, resampled
+
+    def _spec_group(self, active, slots) -> None:
+        """One draft-verify iteration: the draft proposes ``spec_k``
+        tokens a lane, ONE verify call (``T = spec_k + 1``) scores them
+        all, and the greedy rule emits token i+1 iff proposals 1..i all
+        matched greedy's choices, plus the one token the verify call
+        always yields: the tokens of sequential greedy decode. Under
+        ``sampling=True`` the walk is :meth:`_sampled_accept_walk`."""
+        n = len(slots)
+        s = self._spec_k
+        lane = self._ladder.bucket_for(n)
+        run = self._verify_runs[lane]
+        slot_ids, tokens, lengths = self._group_arrays(active, slots, lane,
+                                                       s + 1)
+        props = self._draft.propose(slots, tokens[:n, 0], lengths[:n], s)
+        tokens[:n, 1:] = props
+        t0 = time.monotonic()
+        tp0 = time.perf_counter()
+        if self._paged:
+            run(page_tables=self.pool.page_tables[slot_ids], tokens=tokens,
+                lengths=lengths)
+        else:
+            run(slot_ids=slot_ids, tokens=tokens, lengths=lengths)
+        logits = run.fetch(slice(0, n))  # [n, s + 1, V]
+        greedy = np.argmax(logits, axis=-1)
+        dt = time.monotonic() - t0
+        dt_p = time.perf_counter() - tp0
+        self._steps_c.inc()
+        self._step_h.record(dt)
+        self._padded_h.record(lane - n)
+        self._spec_iters_c.inc()
+        emitted_total = 0
+        for i, slot in enumerate(slots):
+            req = active[slot]
+            if self._sampling:
+                emit, resampled = self._sampled_accept_walk(
+                    req, props[i], logits[i])
+            else:
+                m = 0
+                while m < s and props[i, m] == greedy[i, m]:
+                    m += 1
+                emit = [int(t) for t in greedy[i, :m + 1]]
+                # caps: never past max_new_tokens, truncated at EOS
+                emit = emit[:req.max_new_tokens - len(req.generated)]
+                if req.eos_id is not None and req.eos_id in emit:
+                    emit = emit[:emit.index(req.eos_id) + 1]
+                resampled = False
+            p = len(emit)
+            self._spec_proposed_c.inc(s)
+            self._spec_accepted_c.inc(p - 1)
+            if self._sampling:
+                self._spec_s_accepts_c.inc(p - 1)
+                if resampled:
+                    self._spec_s_resamples_c.inc()
+            self.pool.lengths[slot] += p  # cells L..L+p-1 are now true
+            for tok in emit:
+                req.generated.append(tok)
+                req.last_token = tok
+                self._stream_token(req, tok)
+            if self._prefix is not None:
+                req.last_logits = logits[i, p - 1]
+            self._draft.observe(slot, emit)
+            emitted_total += p
+            if req.trace is not None:
+                telemetry.record_trace_span(
+                    req.trace, "trace.decode", tp0, dt_p,
+                    step=len(req.generated), lanes=lane, spec=p)
+            if self._emit(req, slot) is not None:
+                del active[slot]
+        self._tokens_c.inc(emitted_total)
+        if dt > 0:
+            self._tps_g.set(emitted_total / dt)
+        proposed = self._spec_proposed_c.value
+        if proposed:
+            self._spec_rate_g.set(self._spec_accepted_c.value / proposed)
 
     def _emit(self, req: _GenRequest, slot: int) -> Optional[str]:
         """After a token lands, decide retirement. Returns the reason
@@ -861,7 +1524,17 @@ class GenerationEngine:
             reason = "max_len"
         else:
             return None
+        if (self._prefix is not None and req.last_logits is not None
+                and len(req.generated) > 1):
+            # park the finished conversation: cells [0, length) hold the
+            # prompt and generated[:-1], and last_logits gives the last
+            # token: a resumed conversation becomes a full hit
+            self._capture_prefix(
+                slot, np.concatenate([req.prompt, np.asarray(
+                    req.generated[:-1], np.int32)]), req.last_logits)
         self.pool.free(slot)
+        if self._draft is not None:
+            self._draft.release(slot)
         telemetry.counter("serving.decode.retired", reason=reason).inc()
         if req.trace is not None:
             telemetry.record_trace_span(
@@ -882,6 +1555,8 @@ class GenerationEngine:
                 if req.deadline is not None and now > req.deadline:
                     del group[slot]
                     self.pool.free(slot)
+                    if self._draft is not None:
+                        self._draft.release(slot)
                     self._expired_c.inc()
                     telemetry.counter("serving.decode.retired",
                                       reason="deadline").inc()
@@ -921,6 +1596,7 @@ class GenerationEngine:
                 self._depth_g.set(0)
             err = EngineClosed(
                 f"scheduler still running after {timeout}s shutdown join")
+            self._fail_host_ops()
             for req in pending:
                 req.future.set_exception(err)
 

@@ -6,10 +6,11 @@ concurrent prompts (one more than the slots) must come back with
 identical greedy tokens. The port's own engine then shows the serving
 contracts: page exhaustion is backpressure (a queued request waits for
 pages and still completes), ``QueueFull`` at capacity,
-``DeadlineExceeded`` at admission, the warmed shape set, and
-NotImplementedError for the kwargs not ported yet (the rectangular
-pool, sampling and chunked prefill are held to the JAX engine in
-tests/test_torch_generation_options.py).
+``DeadlineExceeded`` at admission and the warmed shape set (the
+rectangular pool, sampling and chunked prefill are held to the JAX
+engine in tests/test_torch_generation_options.py; the prefix cache, int8
+KV pages and speculative decoding in tests/test_torch_prefix.py,
+tests/test_torch_kv_int8.py and tests/test_torch_spec.py).
 """
 
 import jax
@@ -141,17 +142,6 @@ def test_streaming_and_eos(weights):
     stop = list(full.tokens).index(eos)
     np.testing.assert_array_equal(res.tokens, full.tokens[:stop + 1])
     assert seen == res.tokens.tolist()
-
-
-@pytest.mark.parametrize("kw", [
-    dict(prefix_cache_bytes=1 << 20), dict(spec_k=2),
-    dict(kv_dtype="int8")], ids=["kw1", "kw2", "kw4"])
-def test_options_not_ported_raise(weights, kw):
-    _, params = weights
-    args = dict(ENGINE_KW, device="cpu")
-    args.update(kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A"):
-        GenerationEngine(_port_model(params), **args)
 
 
 def test_pool_reservation_all_or_nothing():

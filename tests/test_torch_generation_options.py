@@ -324,9 +324,14 @@ def test_chunk_shares_a_bucket_of_its_width(weights):
     (dict(RECT_KW, sampling=True, temperature=0.0), "temperature"),
     (dict(RECT_KW, prefill_buckets=(1, 16)), "must be >= 2"),
     (dict(RECT_KW, prefill_buckets=(256,)), "exceeds model max_len"),
-    (dict(RECT_KW, slot_ladder=(1,)), "must top out")],
+    (dict(RECT_KW, slot_ladder=(1,)), "must top out"),
+    (dict(RECT_KW, prefix_cache_bytes=1 << 20), "requires page_size"),
+    (dict(PAGED_KW, spec_k=2), "BOTH draft= and spec_k"),
+    (dict(PAGED_KW, draft="ngram"), "BOTH draft= and spec_k"),
+    (dict(PAGED_KW, draft="ngram", spec_k=127), r"spec_k must be in")],
     ids=["chunk-unpaged", "chunk-1", "chunk-wide", "kv-unpaged",
-         "temperature", "bucket-1", "bucket-wide", "ladder"])
+         "temperature", "bucket-1", "bucket-wide", "ladder",
+         "prefix-unpaged", "spec-no-draft", "draft-no-spec", "spec-wide"])
 def test_value_errors_as_jax(weights, kw, match):
     """Every ValueError of the JAX engine's constructor that the port's
     options reach, raised alike by both."""

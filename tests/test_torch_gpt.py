@@ -225,8 +225,17 @@ def test_model_options_not_ported_raise():
               cache_index=torch.zeros(1, dtype=torch.int32),
               page_table=torch.zeros(1, 8, dtype=torch.int32))
     model = tgpt.gpt_tiny()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgpt.init_paged_cache(model, 8, 16, kv_dtype="int8")
+    with pytest.raises(ValueError, match="kv_dtype"):
+        tgpt.init_paged_cache(model, 8, 16, kv_dtype="fp8")
+    # ported: the int8 paged cache serves (its codes and scales written)
+    pages = tgpt.init_paged_cache(model, 8, 16, kv_dtype="int8")
+    assert pages[0]["k"].dtype == torch.int8
+    logits, _ = model(torch.ones(1, 2, dtype=torch.long), cache=pages,
+                      cache_index=torch.zeros(1, dtype=torch.int32),
+                      page_table=torch.arange(8, dtype=torch.int32)[None])
+    assert logits.shape == (1, 2, model.vocab_size)
+    assert torch.isfinite(logits).all()
+    assert pages[0]["k"][0].any() and pages[0]["k_scale"][0] > 0
     # ported: the rectangular cache (no page_table) serves
     logits, _ = model(torch.zeros(1, 2, dtype=torch.long),
                       cache=tgpt.init_cache(model, 1),

@@ -106,12 +106,16 @@ def test_kernel_matches_plain_version_on_card(cuda_device, dtype, atol, b,
     (8, 2, 12, 64, 16, 256),     # 4096 keys
     (1, 2, 12, 64, 16, 2048),    # 32768 keys
     (2, 3, 4, 20, 8, 16),        # 40-byte rows in bf16: narrow loads
+    (8, 2, 4, 256, 16, 16),      # head_dim 256, decode
+    (1, 40, 2, 256, 16, 8),      # ... a three-tile prefill
+    (2, 2, 2, 200, 16, 8),       # head_dim 200 (zero-padded to 256)
 ])
 def test_kernel_takes_any_head_dim_and_context(cuda_device, dtype, atol, b,
                                                t, h, d, ps, pmax):
     """Shapes the split-K kernel takes where the first version raised:
-    head_dims other than 32, 64 and 128 (zero-padded to the 64 or 128
-    instantiation) and contexts whose logits row outgrew shared memory."""
+    head_dims other than 32, 64, 128 and 256 (zero-padded to the 64, 128
+    or 256 instantiation) and contexts whose logits row outgrew shared
+    memory."""
     args = _paged_args(cuda_device, dtype, b, t, h, d, ps, pmax,
                        b + t + d + pmax)
     _assert_paged_close(args, atol)
@@ -163,13 +167,13 @@ def test_paged_kernel_on_two_streams_at_once(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_rejects_what_it_does_not_take(cuda_device):
-    q = torch.zeros(1, 2, 2, 136, device=cuda_device)
-    pages = torch.zeros(17, 16, 2, 136, device=cuda_device)
+    q = torch.zeros(1, 2, 2, 264, device=cuda_device)
+    pages = torch.zeros(17, 16, 2, 264, device=cuda_device)
     table = torch.zeros(1, 8, dtype=torch.int32, device=cuda_device)
     ci = torch.zeros(1, dtype=torch.int32, device=cuda_device)
     before = tfa.paged_flash_attention.launches
     with pytest.raises(ValueError, match="does not take"):
-        tfa.paged_flash_attention(q, pages, pages, table, ci)  # head_dim 136
+        tfa.paged_flash_attention(q, pages, pages, table, ci)  # head_dim 264
     with pytest.raises(ValueError, match="int32"):
         tfa.paged_flash_attention(q, pages, pages, table.long(), ci)
     assert tfa.paged_flash_attention.launches == before

@@ -123,7 +123,9 @@ def test_dot_product_attention_matches_jax_and_shares_mask_value():
     ((1, 2, 12, 64), (1025, 16, 6, 64), (1, 64), False),  # heads differ
     ((1, 2, 8, 96), (65, 16, 8, 96), (1, 64), True),  # head_dim 96
     ((1, 2, 12, 64), (2049, 16, 12, 64), (1, 2048), True),  # 32768 keys
-    ((1, 2, 2, 136), (17, 16, 2, 136), (1, 8), False),  # head_dim > 128
+    ((1, 2, 2, 264), (17, 16, 2, 264), (1, 8), False),  # head_dim > 256
+    ((1, 2, 2, 136), (17, 16, 2, 136), (1, 8), True),  # head_dim 136
+    ((8, 2, 4, 256), (129, 16, 4, 256), (8, 16), True),  # head_dim 256
 ])
 def test_paged_fits(q_shape, pages_shape, table_shape, fits):
     assert tfa.paged_fits(q_shape, pages_shape, table_shape) is fits

@@ -2,7 +2,8 @@
 
 - Entry points run on the card by default: ``device=None`` resolves to
   ``cuda:0`` and, with no CUDA device, raises instead of running on the
-  CPU.
+  CPU, with every option on (int8 KV pages, the prefix cache,
+  speculative decoding with either draft).
 - The port imports neither JAX/flax nor anything of ``distkeras_tpu``:
   checked by importing it in a fresh interpreter, and by scanning the
   package's and ``chip_smoke.py``'s import statements.
@@ -20,6 +21,7 @@ from distkeras_tpu_torch import observability, precision
 from distkeras_tpu_torch.device import resolve_device
 from distkeras_tpu_torch.models import gpt as tgpt
 from distkeras_tpu_torch.serving import (GenerationEngine, KVCachePool,
+                                         ModelDraft, NgramDraft,
                                          PagedKVCachePool)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -45,6 +47,16 @@ def test_default_device_is_cuda_and_raises_without_one(monkeypatch):
                                page_size=16),
     lambda m: KVCachePool(m, 2),
     lambda m: GenerationEngine(m, num_slots=2, prefill_buckets=(16,)),
+    lambda m: PagedKVCachePool(m, 2, page_size=16, kv_dtype="int8"),
+    lambda m: GenerationEngine(m, num_slots=2, prefill_buckets=(16,),
+                               page_size=16, kv_dtype="int8"),
+    lambda m: GenerationEngine(m, num_slots=2, prefill_buckets=(16,),
+                               page_size=16, prefix_cache_bytes=1 << 20),
+    lambda m: GenerationEngine(m, num_slots=2, prefill_buckets=(16,),
+                               draft=NgramDraft(), spec_k=2),
+    lambda m: GenerationEngine(m, num_slots=2, prefill_buckets=(16,),
+                               page_size=16, spec_k=2,
+                               draft=ModelDraft(tgpt.gpt_tiny())),
 ])
 def test_entry_points_do_not_fall_back_to_cpu(monkeypatch, build):
     _no_cuda(monkeypatch)
@@ -70,6 +82,7 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
     code = ("import sys\n"
             "import distkeras_tpu_torch\n"
             "import distkeras_tpu_torch.serving\n"
+            "import distkeras_tpu_torch.serving.kv_cache\n"
             "import distkeras_tpu_torch.utils.bridge\n"
             "import distkeras_tpu_torch.engine\n"
             "import distkeras_tpu_torch.ops.kernels.flash_attention\n"

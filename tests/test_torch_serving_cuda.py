@@ -10,8 +10,11 @@ port is installed:
 
 ``gpt_tiny`` in float32 with TF32 off, seeded weights. Tolerance: the
 engines' greedy tokens equal the argmax of the model's full forward
-(plain attention, no kernel) re-run over each growing prefix; a paged
-call replayed from a graph equals the eager call bitwise.
+(plain attention, no kernel) re-run over each growing prefix, also with
+the prefix cache and with speculative decoding on; the int8 KV engine's
+tokens equal the same engine's with its attention through the plain
+version; a paged call replayed from a graph equals the eager call
+bitwise, and so does a page swap out and back in.
 """
 
 import numpy as np
@@ -21,7 +24,9 @@ import torch
 from distkeras_tpu_torch import telemetry
 from distkeras_tpu_torch.models import gpt as tgpt
 from distkeras_tpu_torch.ops.kernels import flash_attention as tfa
-from distkeras_tpu_torch.serving import GenerationEngine
+from distkeras_tpu_torch.serving import (GenerationEngine, ModelDraft,
+                                         NgramDraft)
+from distkeras_tpu_torch.serving.kv_cache import tree_leaves
 
 pytestmark = pytest.mark.cuda
 
@@ -204,3 +209,140 @@ def test_capture_failure_raises_from_constructor(cuda_device, mode):
     model = _model(cuda_device, cls=_ReadsToHost)
     with pytest.raises(RuntimeError):
         GenerationEngine(model, device=cuda_device, **MODES[mode])
+
+
+#: engines with the options of the prefix cache and speculative decoding
+#: (a draft binds to one engine: each call makes a new one; the model
+#: draft holds the target's weights, so that proposals are accepted)
+OPTIONS = {
+    "prefix": lambda dev: dict(MODES["paged"], prefix_cache_bytes=1 << 24),
+    "spec-ngram": lambda dev: dict(MODES["paged"], draft=NgramDraft(),
+                                   spec_k=3),
+    "spec-model": lambda dev: dict(MODES["paged"], spec_k=2,
+                                   draft=ModelDraft(_model(dev))),
+    "spec-model-rect": lambda dev: dict(KW, spec_k=2,
+                                        draft=ModelDraft(_model(dev))),
+}
+
+
+def _repeating_prompts():
+    """The system prompt alone, then with tails (prefix hits), and
+    prompts that repeat a phrase (n-gram accepts)."""
+    rng = np.random.default_rng(5)
+    system = rng.integers(1, 256, 21).tolist()
+    phrase = rng.integers(1, 256, 5).tolist()
+    return [system] + [system + rng.integers(1, 256, n).tolist()
+                       for n in (3, 30)] + [phrase * 4, phrase * 2 + [9]]
+
+
+@pytest.mark.parametrize("option", sorted(OPTIONS))
+def test_option_engines_greedy_equal_full_forward(cuda_device, option):
+    model = _model(cuda_device)
+    prompts = _repeating_prompts()
+    with GenerationEngine(model, device=cuda_device,
+                          **OPTIONS[option](cuda_device)) as eng:
+        declared = eng.compiled_executables
+        compiles = telemetry.counter("serving.decode.compiles").value
+        results = _serve(eng, prompts[:1]) + _serve(eng, prompts[1:])
+        again = _serve(eng, prompts[1:3])  # full hits under the cache
+        assert eng.compiled_executables == declared
+        assert telemetry.counter("serving.decode.compiles").value \
+            == compiles
+    for a, b in zip(again, results[1:3]):
+        np.testing.assert_array_equal(a, b)
+    with torch.no_grad():
+        for p, tokens in zip(prompts, results):
+            seq = list(p)
+            for tok in tokens.tolist():
+                logits = model(torch.tensor([seq], device=cuda_device))
+                assert tok == int(torch.argmax(logits[0, -1])), (option,
+                                                                 seq)
+                seq.append(tok)
+    if option == "prefix":
+        assert telemetry.counter("serving.decode.prefix.hits").value >= 4
+        assert telemetry.counter(
+            "serving.decode.prefix.full_hits").value >= 2
+    else:
+        assert telemetry.counter("serving.decode.spec.accepted").value > 0
+
+
+def test_int8_engine_equals_its_plain_attention(cuda_device, monkeypatch):
+    """The int8 KV engine on graphs against the same engine with the
+    paged kernel swapped for its plain version: the same tokens."""
+    model = _model(cuda_device)
+    prompts = _prompts()
+    kw = dict(MODES["paged"], kv_dtype="int8")
+    with GenerationEngine(model, device=cuda_device, **kw) as eng:
+        got = _serve(eng, prompts, new=16)
+    plain = lambda *a: tfa.paged_flash_attention_reference(*a)  # noqa
+    plain.launches = plain.captured = 0
+    monkeypatch.setattr(tfa, "paged_flash_attention", plain)
+    with GenerationEngine(model, device=cuda_device, **kw) as eng:
+        want = _serve(eng, prompts, new=16)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_swap_round_trip_bitwise_on_card(cuda_device, kv_dtype):
+    """The engine's swap pair on its graphs: three pages gathered to the
+    host (through the pinned buffers) and scattered back after the pool
+    lost them restore the pool bitwise."""
+    model = _model(cuda_device)
+    with GenerationEngine(model, device=cuda_device, kv_dtype=kv_dtype,
+                          prefix_cache_bytes=1 << 24,
+                          **MODES["paged"]) as eng:
+        rng = np.random.default_rng(2)
+        with torch.cuda.stream(eng.stream):
+            for leaf in tree_leaves(eng.pool.pool):
+                leaf.copy_(torch.from_numpy(
+                    rng.standard_normal(leaf.shape) * 50).to(leaf.dtype))
+        eng.stream.synchronize()
+        before = [x.clone() for x in tree_leaves(eng.pool.pool)]
+        ids = np.full(eng.pool.pages_per_slot, eng.pool.scratch_page,
+                      np.int32)
+        ids[:3] = (2, 9, 5)
+        eng._swap_runs["out"](page_ids=ids)
+        parked = eng._swap_runs["out"].fetch_rows(3)
+        assert all(x.device.type == "cpu" for x in parked)
+        with torch.cuda.stream(eng.stream):
+            for leaf in tree_leaves(eng.pool.pool):
+                leaf[torch.tensor((2, 9, 5), device=cuda_device)] = 0
+        eng._swap_runs["in"](page_ids=ids, **{
+            f"leaf{i}": x for i, x in enumerate(parked)})
+        eng.stream.synchronize()
+        scratch = eng.pool.scratch_page
+        for got, want in zip(tree_leaves(eng.pool.pool), before):
+            assert torch.equal(got[:scratch], want[:scratch])
+
+
+@pytest.mark.parametrize("option", ["int8", "spec-ngram"])
+def test_new_graphs_launch_counts_match_the_trace(cuda_device, option):
+    """Every model call of the int8 and verify graphs launches the paged
+    kernel once a layer, counted per replay, and the profiler's trace
+    holds two paged kernels for each counted call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = _model(cuda_device)
+    kw = (dict(MODES["paged"], kv_dtype="int8") if option == "int8"
+          else OPTIONS[option](cuda_device))
+    count = lambda name: telemetry.counter(  # noqa: E731
+        f"serving.decode.{name}").value
+    with GenerationEngine(model, device=cuda_device, **kw) as eng:
+        runs = list(eng._decode_runs.values()) + list(
+            eng._verify_runs.values())
+        assert all(r.launches == model.num_layers for r in runs)
+        calls0 = count("prefills") + count("steps")
+        tfa.paged_flash_attention.launches = 0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _serve(eng, _repeating_prompts())
+            torch.cuda.synchronize()
+        launches = tfa.paged_flash_attention.launches
+        calls = count("prefills") + count("steps") - calls0
+    assert launches == model.num_layers * calls > 0
+    if option == "spec-ngram":
+        assert count("spec.iterations") > 0
+    traced = sum(e.count for e in prof.key_averages()
+                 if "paged_logits_kernel" in e.key
+                 or "paged_values_kernel" in e.key)
+    assert traced == 2 * launches
