@@ -50,7 +50,8 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    the trace must be two for each paged call counted;
 7. flash   — the three training flash kernels (forward, dq, dk/dv)
    against their plain versions as in phase 3, at the training shape
-   [8, 2048, 12, 64] causal and at two small shapes;
+   [8, 2048, 12, 64] causal, at phase 22's one-shot batch
+   [4, 128, 12, 64] causal and at two small shapes;
 8. train   — the training path: CausalLM at GPT-2-small widths (vocab
    50304, 12 layers x 12 heads x 768, mlp 3072, max_len 2048,
    attention="flash"), bf16 compute with float32 parameters, seeded
@@ -130,7 +131,33 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    2-layer ``ModelDraft`` (gpt_small's vocab, max_len and widths); then
    in bf16 128 such requests, 64 new tokens, 8 in flight, with the
    n-gram draft and without: accept rate, tokens/s, TTFT; 10 graphs (4
-   verify widths) and none under traffic.
+   verify widths) and none under traffic;
+22. wire    — the serving front end: one ``ServingServer`` on 127.0.0.1
+   with a token and a ``RolloutController`` (canary: every batch
+   mirrored, threshold 0) fronting phase 4's ``GenerationEngine`` (bf16,
+   paged) and a ``ServingEngine`` over gpt_small with
+   ``attention="flash"`` (bf16, 128-token int32 rows, buckets (1, 4));
+   the generation engine holds two weight banks and the one-shot engine
+   one, every graph captured in its constructor. (a) Phase 4's long window (128 requests, 64 new tokens)
+   through 8 client threads, each with its own ``ServingClient``, as a
+   closed loop: tokens/s and TTFT (send to first stream frame) beside
+   phase 4's in-process figures of this run; every request's stream
+   frames must equal its final blob; one paged launch a layer a model
+   call. (b) When request 64 is submitted, ``put_weights`` of v1 (v0
+   plus seeded noise, as flax-layout leaves), staged, scored by the
+   canary and promoted on both engines under traffic:
+   ``serving.compiles`` (2) and ``serving.decode.compiles`` (6) must
+   not move; ``rollout.swap_s`` and the live versions are logged. (c) In
+   float32 (TF32 off) at 4 layers of gpt_small's widths, over the wire:
+   4 requests in flight on v0, ``put_weights`` v1, 4 more admitted, then
+   ``put_weights`` v2 while v0 is pinned, which must wait until v0
+   retires; the first 4 give the tokens of an engine built on v0, the
+   next 4 those of one built on v1. (d) 4 ``infer`` rows over the wire
+   agree with the plain forward of the same bf16 weights
+   (``attention="full"``, eager) within 2e-2 * max|ref| (phase 7's bf16
+   bound) and equal ``shadow_forward`` under the live weights bitwise,
+   one flash forward launch a layer a batch; ``stage(v2)`` -> canary -> promote,
+   then ``rollback``: ``infer`` bit-identical to before the promotion.
 
 The last three lines of standard output are the kernels' JSON, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details are
@@ -879,9 +906,10 @@ def phase_profile(dev) -> dict:
 
 # -- phase 7 -----------------------------------------------------------------
 
-#: training shape of the main path, and the two small shapes also checked
-FLASH_CASES = (((8, 2048, 12, 64), True), ((1, 128, 12, 64), True),
-               ((2, 256, 12, 64), False))
+#: training shape of the main path, phase 22's one-shot batch (bucket 4
+#: of 128-token rows), and the small shapes also checked
+FLASH_CASES = (((8, 2048, 12, 64), True), ((4, 128, 12, 64), True),
+               ((1, 128, 12, 64), True), ((2, 256, 12, 64), False))
 
 
 def _flash_bound(name, shape, causal, dtype):
@@ -2227,6 +2255,448 @@ def phase_spec(dev, power_line) -> dict:
     return info
 
 
+# -- phase 22 ----------------------------------------------------------------
+
+#: phase 22's wire traffic: phase 4's long window (SERVE_REQUESTS requests
+#: of 16-128 prompt tokens, SERVE_NEW new tokens) through WIRE_CLIENTS
+#: client threads, each with its own connection (a closed loop); the swap
+#: lands when request WIRE_SWAP_AT is submitted
+WIRE_CLIENTS = 8
+WIRE_SWAP_AT = 64
+#: the float32 version-identity check's depth (gpt_small's widths) and
+#: traffic: WIRE_PINNED requests in flight on v0, WIRE_AFTER admitted on
+#: v1, WIRE_IDENTITY_NEW new tokens each
+WIRE_IDENTITY_LAYERS = 4
+WIRE_PINNED = 4
+WIRE_AFTER = 4
+WIRE_PINNED_NEW = 400
+WIRE_IDENTITY_NEW = 48
+#: seconds each v0 token's stream callback sleeps until v2 is pending
+WIRE_HOLD_S = 0.005
+#: the one-shot engine's rows: 128 tokens, the flash forward's smallest
+#: length
+WIRE_ROW = 128
+WIRE_TOKEN = "chip-smoke"
+#: gpt_small's widths (phase 22's models; depth set by each)
+WIRE_LM = dict(vocab_size=50304, max_len=1024, num_heads=12, width=768,
+               mlp_dim=3072)
+
+
+def _perturbed(state, seed, scale=1e-2):
+    """``state`` plus seeded noise of ``scale`` times each tensor's own
+    standard deviation (1e-2 of 1 for a constant tensor): a new version
+    of the same model, as float32 CPU tensors."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for name, t in state.items():
+        t = t.detach().float().cpu()
+        std = float(t.std()) if t.numel() > 1 and float(t.std()) > 0 else 1.0
+        out[name] = t + scale * std * torch.randn(t.shape, generator=gen)
+    return out
+
+
+def _flash_lm(dtype, seed=0, num_layers=12):
+    """gpt_small's widths with ``attention="flash"`` (the one-shot
+    engine's model)."""
+    from distkeras_tpu_torch.models.gpt import CausalLM, init_params
+
+    return init_params(CausalLM(num_layers=num_layers, dtype=dtype,
+                                attention="flash", **WIRE_LM),
+                       torch.Generator().manual_seed(seed))
+
+
+def _wire_window(address, prompts, new, swap=None) -> dict:
+    """Serve ``prompts`` over the wire: WIRE_CLIENTS threads, each with
+    its own ServingClient, take the next request as theirs completes.
+    Every request's stream frames must concatenate to its final blob (the
+    client raises otherwise; the frames are also collected here). When
+    request ``WIRE_SWAP_AT`` is submitted, ``swap()`` runs on the calling
+    thread while the clients go on. Tokens/s, TTFT (send to first frame)
+    p50 and max."""
+    import threading
+
+    from distkeras_tpu_torch.serving import ServingClient
+
+    lock = threading.Lock()
+    state = {"next": 0}
+    at_swap = threading.Event()
+    ttft, results, errors = {}, {}, []
+
+    def client_loop():
+        cli = ServingClient(address, token=WIRE_TOKEN, timeout=600)
+        try:
+            while True:
+                with lock:
+                    i = state["next"]
+                    if i >= len(prompts):
+                        return
+                    state["next"] = i + 1
+                if i == WIRE_SWAP_AT:
+                    at_swap.set()
+                frames = []
+                t0 = time.perf_counter()
+
+                def on_token(tok, frames=frames, i=i, t0=t0):
+                    if not frames:
+                        ttft[i] = time.perf_counter() - t0
+                    frames.append(tok)
+
+                res = cli.generate(prompts[i], max_new_tokens=new,
+                                   on_token=on_token)
+                assert frames == res.tokens.tolist(), (i, frames, res)
+                results[i] = res
+        except Exception as e:  # surfaced by the caller
+            errors.append(e)
+            at_swap.set()
+        finally:
+            cli.close()
+
+    threads = [threading.Thread(target=client_loop, daemon=True)
+               for _ in range(WIRE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    swap_info = None
+    if swap is not None:
+        assert at_swap.wait(600), "the swap's request never came"
+        swap_info = swap()
+    for t in threads:
+        t.join(timeout=900)
+        assert not t.is_alive(), "a wire client hung"
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    assert len(results) == len(prompts)
+    assert all(r.reason == "length" and r.tokens.size == new
+               for r in results.values())
+    tokens = sum(r.tokens.size for r in results.values())
+    lat = sorted(ttft.values())
+    return {"requests": len(prompts), "new_tokens": tokens, "wall_s": wall,
+            "tokens_per_s": tokens / wall,
+            "ttft_p50_s": statistics.median(lat), "ttft_max_s": lat[-1],
+            "swap": swap_info}
+
+
+def _wire_identity(dev, power_line) -> dict:
+    """(c) In float32 (TF32 off) at WIRE_IDENTITY_LAYERS layers, over the
+    wire to a server fronting the engine: admit WIRE_PINNED requests and
+    wait until each streamed a token; ``put_weights`` v1; admit
+    WIRE_AFTER more and wait likewise; then ``put_weights`` v2 while v0 is
+    still pinned: it must wait (v0 still live once the swap is pending)
+    and return, within its timeout, only after every v0 request retired.
+    Until v2 is pending, each v0 token's stream callback sleeps
+    WIRE_HOLD_S on the scheduler thread, so that v0 is still decoding
+    however long the transfers take. The first requests' tokens must
+    equal those of an engine built on v0 alone, the later ones those of
+    an engine built on v1. No capture anywhere."""
+    import threading
+
+    from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch.models.gpt import CausalLM, init_params
+    from distkeras_tpu_torch.serving import (GenerationEngine, ServingClient,
+                                             ServingEngine, ServingServer)
+    from distkeras_tpu_torch.utils import bridge
+
+    set_tf32(False)
+
+    def lm(state=None):
+        m = CausalLM(num_layers=WIRE_IDENTITY_LAYERS, dtype=torch.float32,
+                     **WIRE_LM)
+        init_params(m, torch.Generator().manual_seed(3))
+        if state is not None:
+            m.load_state_dict(state)
+        return m
+
+    kw = dict(page_size=PAGE, num_slots=SLOTS, prefill_buckets=(32,))
+    v0 = {k: v.clone() for k, v in lm().state_dict().items()}
+    v1, v2 = _perturbed(v0, 31, 0.5), _perturbed(v0, 32, 0.5)
+    rng = np.random.default_rng(33)
+    prompts = [rng.integers(1, 50304, int(n)).tolist()
+               for n in rng.integers(8, 33, WIRE_PINNED + WIRE_AFTER)]
+    first, later = prompts[:WIRE_PINNED], prompts[WIRE_PINNED:]
+    news = (WIRE_PINNED_NEW, WIRE_IDENTITY_NEW)
+    refs = {}
+    for name, state, ps, new in (("v0", v0, first, news[0]),
+                                 ("v1", v1, later, news[1])):
+        with GenerationEngine(lm(state), device=dev, **kw) as ref:
+            refs[name] = [f.result(timeout=600).tokens.tolist() for f in
+                          [ref.generate(p, max_new_tokens=new) for p in ps]]
+    gen = GenerationEngine(lm(v0), device=dev, **kw)
+    one = ServingEngine(_flash_lm(torch.float32, 3, WIRE_IDENTITY_LAYERS),
+                        (WIRE_ROW,), input_dtype=np.int32, buckets=(1,),
+                        device=dev)
+    srv = ServingServer(one, host="127.0.0.1", token=WIRE_TOKEN,
+                        generator=gen)
+    srv.start()
+    address = f"127.0.0.1:{srv.port}"
+    cli = ServingClient(address, token=WIRE_TOKEN, timeout=600)
+    compiles = (telemetry.counter("serving.compiles").value,
+                telemetry.counter("serving.decode.compiles").value)
+    hold = threading.Event()
+    hold.set()
+    put_errors = []
+    try:
+        def admit(ps, new, slow):
+            started = [threading.Event() for _ in ps]
+
+            def stream(tok, e):
+                e.set()
+                if slow and hold.is_set():
+                    time.sleep(WIRE_HOLD_S)
+
+            futs = [gen.generate(p, max_new_tokens=new,
+                                 stream=lambda t, e=e: stream(t, e))
+                    for p, e in zip(ps, started)]
+            assert all(e.wait(600) for e in started), "not admitted"
+            return futs
+
+        pinned = admit(first, news[0], True)
+        cli.put_weights(bridge.state_dict_to_flax(v1), 1, target="generation")
+        live_after_v1 = sorted(gen._versions)
+        after = admit(later, news[1], False)
+
+        def put_v2():
+            c2 = ServingClient(address, token=WIRE_TOKEN, timeout=600)
+            try:
+                c2.put_weights(bridge.state_dict_to_flax(v2), 2,
+                               target="generation")
+            except Exception as e:  # surfaced below
+                put_errors.append(e)
+            finally:
+                c2.close()
+
+        t0 = time.perf_counter()
+        putter = threading.Thread(target=put_v2, daemon=True)
+        putter.start()
+        deadline = time.monotonic() + 120
+        while gen._pending_swap is None and putter.is_alive():
+            assert time.monotonic() < deadline, "v2 never reached the engine"
+            time.sleep(0.005)
+        v0_live_while_pending = 0 in gen._versions and not all(
+            f.done() for f in pinned)
+        hold.clear()
+        putter.join(timeout=120)
+        third_s = time.perf_counter() - t0
+        assert not putter.is_alive(), "the v2 put did not return"
+        if put_errors:
+            raise put_errors[0]
+        assert all(f.done() for f in pinned), "v2 installed while v0 pinned"
+        got_first = [f.result(timeout=600).tokens.tolist() for f in pinned]
+        got_later = [f.result(timeout=600).tokens.tolist() for f in after]
+        version = cli.version()
+    finally:
+        hold.clear()
+        cli.close()
+        srv.stop()
+        one.shutdown()
+        gen.shutdown()
+    assert v0_live_while_pending, "v0 retired before v2 was pending"
+    assert got_first == refs["v0"], (got_first, refs["v0"])
+    assert got_later == refs["v1"], (got_later, refs["v1"])
+    assert live_after_v1 == [0, 1], live_after_v1
+    assert version["decode_model_version"] == 2
+    assert (telemetry.counter("serving.compiles").value,
+            telemetry.counter("serving.decode.compiles").value) == compiles
+    info = {"layers": WIRE_IDENTITY_LAYERS, "pinned": len(first),
+            "after": len(later), "tokens_checked": sum(
+                map(len, got_first + got_later)),
+            "live_after_v1": live_after_v1, "third_put_s": third_s,
+            "decode_live_versions": version["decode_live_versions"]}
+    log(f"[wire] float32 ({WIRE_IDENTITY_LAYERS} layers): {len(first)} "
+        f"requests in flight on v0 and {len(later)} admitted after the swap "
+        f"to v1 give the tokens of engines built on v0 and on v1 "
+        f"({info['tokens_checked']} tokens); live versions {live_after_v1} "
+        f"after the swap; the put of v2 waited while v0 was pinned and "
+        f"returned after {third_s:.3f} s, once v0 retired [{power_line}]")
+    return info
+
+
+def _one_shot_plain(one, rows, live) -> dict:
+    """The one-shot engine's served rows (``live``, flash forward in its
+    bucket graph) against the plain forward of the same weights: a copy
+    of its bank with ``attention="full"``, run eagerly. bf16 within
+    phase 7's bound for bf16 outputs of any scale, 2e-2 * max|ref|."""
+    import copy
+
+    from distkeras_tpu_torch.models.gpt import CausalSelfAttention
+
+    plain = copy.deepcopy(one._bank).eval()
+    for m in plain.modules():
+        if isinstance(m, CausalSelfAttention):
+            m.attention = "full"
+    with torch.no_grad():
+        want = plain(torch.from_numpy(rows).to(one.device)).float().cpu()
+    del plain
+    err = float(np.abs(live - want.numpy()).max())
+    scale = float(want.abs().max())
+    assert err <= 2e-2 * scale, ("one-shot vs plain", err, scale)
+    log(f"[wire] the one-shot engine's {len(rows)} x {WIRE_ROW} rows agree "
+        f"with the plain forward (attention='full', eager) of the same bf16 bank: "
+        f"max |err| {err:.4e} <= 2e-2 x max |ref| {scale:.4f}")
+    return {"max_abs_err": err, "max_abs_ref": scale,
+            "bound": 2e-2 * scale}
+
+
+def phase_wire(dev, power_line, engine_info) -> dict:
+    """Phase 22: rollout and server (module docstring)."""
+    import threading
+
+    from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch.ops.kernels import flash_attention as fa
+    from distkeras_tpu_torch.serving import (CanaryConfig, GenerationEngine,
+                                             RolloutController,
+                                             ServingClient, ServingEngine,
+                                             ServingServer)
+    from distkeras_tpu_torch.utils import bridge
+
+    set_tf32(False)
+    telemetry.reset()
+    t_setup = time.perf_counter()
+    gen = GenerationEngine(_gpt_small_bf16(), device=dev, page_size=PAGE,
+                           **ENGINE_KW)
+    one = ServingEngine(_flash_lm(torch.bfloat16), (WIRE_ROW,),
+                        input_dtype=np.int32, buckets=(1, 4),
+                        max_wait_ms=50.0, device=dev)
+    ctl = RolloutController(engine=one, generator=gen, canary=CanaryConfig(
+        fraction=1.0, min_rows=4, threshold=0.0))
+    srv = ServingServer(one, host="127.0.0.1", token=WIRE_TOKEN,
+                        generator=gen, rollout=ctl)
+    srv.start()
+    address = f"127.0.0.1:{srv.port}"
+    setup_s = time.perf_counter() - t_setup
+    compiles = telemetry.counter("serving.compiles")
+    dcompiles = telemetry.counter("serving.decode.compiles")
+    assert compiles.value == 2 and dcompiles.value == 6, (
+        compiles.value, dcompiles.value)
+    v0 = {k: v.detach().float().cpu() for k, v in gen._params.items()}
+    v1, v2 = _perturbed(v0, 41), _perturbed(v0, 42)
+    rng = np.random.default_rng(43)
+    rows = rng.integers(1, 50304, (4, WIRE_ROW)).astype(np.int32)
+    info = {"setup_s": setup_s, "card": power_line}
+    control = ServingClient(address, token=WIRE_TOKEN, timeout=600)
+    try:
+        # (a) + (b): phase 4's window over the wire, the swap at request 64
+        def swap():
+            t0 = time.perf_counter()
+            put = control.put_weights(bridge.state_dict_to_flax(v1), 1,
+                                      target="both")
+            put_s = time.perf_counter() - t0
+            assert put["ok"] and put["staged"], put
+            score = ctl.evaluate_canary(rows)
+            assert ctl.current_version == 1, ctl.status()
+            return {"put_s": put_s, "total_s": time.perf_counter() - t0,
+                    "agreement": score,
+                    "live_versions": sorted(gen._versions)}
+
+        fa.paged_flash_attention.launches = 0
+        fa.flash_attention_fwd.launches = 0
+        calls0 = sum(telemetry.counter(f"serving.decode.{k}").value
+                     for k in ("prefills", "steps"))
+        batches0 = telemetry.counter("serving.batches").value
+        info["window"] = _wire_window(address, _serving_prompts(),
+                                      SERVE_NEW, swap=swap)
+        calls = sum(telemetry.counter(f"serving.decode.{k}").value
+                    for k in ("prefills", "steps")) - calls0
+        paged = fa.paged_flash_attention.launches
+        assert paged == gen.model.num_layers * calls > 0, (paged, calls)
+        assert compiles.value == 2 and dcompiles.value == 6, "captured late"
+        swap_h = telemetry.histogram("rollout.swap_s", engine="generation")
+        info["window"].update(
+            model_calls=calls, paged_launches=paged,
+            swap_s={"generation": swap_h.stats(),
+                    "serving": telemetry.histogram(
+                        "rollout.swap_s", engine="serving").stats()},
+            flash_fwd_shadow_launches=fa.flash_attention_fwd.launches,
+            shadow_batches=telemetry.counter("serving.batches").value
+            - batches0)
+        w = info["window"]
+        log(f"[wire] {w['requests']} requests x {SERVE_NEW} new tokens over "
+            f"the wire, {WIRE_CLIENTS} clients: {w['tokens_per_s']:.1f} "
+            f"tokens/s, TTFT p50 {w['ttft_p50_s'] * 1e3:.1f} ms (max "
+            f"{w['ttft_max_s'] * 1e3:.1f} ms) in {w['wall_s']:.3f} s; phase "
+            f"4 in process (this run): {engine_info['tokens_per_s']:.1f} "
+            f"tokens/s, TTFT p50 {engine_info['ttft_p50_s'] * 1e3:.1f} ms "
+            f"(max {engine_info['ttft_max_s'] * 1e3:.1f} ms); stream frames "
+            f"== final blob for every request; paged launches {paged} = "
+            f"{gen.model.num_layers} x {calls} model calls [{power_line}]")
+        s = w["swap"]
+        log(f"[wire] swap to v1 at request {WIRE_SWAP_AT}: put_weights "
+            f"{s['put_s']:.3f} s (staged), canary agreement "
+            f"{s['agreement']:.3f} then promote, {s['total_s']:.3f} s in "
+            f"all; rollout.swap_s generation "
+            f"{w['swap_s']['generation'].get('p50', 0):.4f} s, serving "
+            f"{w['swap_s']['serving'].get('p50', 0):.4f} s; live versions "
+            f"{s['live_versions']}; serving.compiles 2 and "
+            f"serving.decode.compiles 6 unmoved [{power_line}]")
+
+        # (d) the one-shot path: infer over the wire against shadow_forward
+        fa.flash_attention_fwd.launches = 0
+        batches0 = telemetry.counter("serving.batches").value
+        live = control.infer(rows)
+        batches = telemetry.counter("serving.batches").value - batches0
+        flash = fa.flash_attention_fwd.launches
+        assert flash == one.model.num_layers * batches > 0, (flash, batches)
+        assert live.shape == (4, WIRE_ROW, 50304) and np.isfinite(live).all()
+        info["plain"] = _one_shot_plain(one, rows, live)
+        shadow = one.shadow_forward(one.params, rows)
+        assert np.array_equal(live, shadow), "infer != shadow_forward"
+        assert ctl.stage(2, v2), ctl.status()
+        score = ctl.evaluate_canary(rows)
+        assert ctl.current_version == 2 and one.model_version == 2
+        promoted = control.infer(rows)
+        assert not np.array_equal(promoted, live)
+        assert ctl.rollback() and one.model_version == 1
+        restored = control.infer(rows)
+        assert np.array_equal(restored, live), "rollback not bit-identical"
+        assert compiles.value == 2 and dcompiles.value == 6
+        # where a swap's time goes: the float32 masters to the card, then
+        # their cast into the bank (timed on the installed masters, so
+        # the live weights keep their bits)
+        t0 = time.perf_counter()
+        staged = one._stage(v2)
+        stage_s = time.perf_counter() - t0
+        del staged
+        staged = one._stage(one.params)
+        bank_bytes = sum(t.numel() * t.element_size()
+                         for t in one._bank.state_dict().values())
+        with one._run_lock:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one._load(staged)
+            load_s = time.perf_counter() - t0
+        staged_bytes = sum(t.numel() * 4 for t in staged.values())
+        del staged
+        info["bank"] = {"bank_bytes": bank_bytes,
+                        "staged_bytes": staged_bytes, "stage_s": stage_s,
+                        "load_s": load_s}
+        log(f"[wire] a swap's parts on the one-shot engine: "
+            f"{staged_bytes / 2**20:.1f} MiB of float32 masters to the "
+            f"card in {stage_s * 1e3:.2f} ms, cast into a "
+            f"{bank_bytes / 2**20:.1f} MiB bank in {load_s * 1e3:.3f} ms "
+            f"[{power_line}]")
+        info["one_shot"] = {"rows": len(rows), "batches": batches,
+                            "flash_fwd_launches": flash,
+                            "canary_agreement": score,
+                            "max_abs_promoted_vs_live": float(
+                                np.abs(promoted - live).max())}
+        log(f"[wire] infer of {len(rows)} x {WIRE_ROW} tokens over the wire "
+            f"== shadow_forward bitwise; flash forward launches {flash} = "
+            f"{one.model.num_layers} x {batches} batches; stage(v2) -> canary {score:.3f} -> "
+            f"promote (max |v2 - v1| {info['one_shot']['max_abs_promoted_vs_live']:.3e}) "
+            f"-> rollback: infer bit-identical to before the promotion "
+            f"[{power_line}]")
+    finally:
+        control.close()
+        srv.stop()
+        one.shutdown()
+        gen.shutdown()
+    del gen, one, ctl
+    torch.cuda.empty_cache()
+    info["identity"] = _wire_identity(dev, power_line)
+    torch.cuda.empty_cache()
+    return info
+
+
 def main() -> int:
     report = {}
     try:
@@ -2273,6 +2743,7 @@ def main() -> int:
         report["prefix"] = phase_prefix(dev, card)
         report["int8_kv"] = phase_int8(dev, card)
         report["spec"] = phase_spec(dev, card)
+        report["wire"] = phase_wire(dev, card, report["engine"])
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         log("[chip_smoke] FAILED")
@@ -2295,6 +2766,8 @@ def main() -> int:
         "library_ms": main_case["library_ms"],
         "ms_source": main_case["ms_source"],
         "shape": "decode b=8 t=2 h=12 d=64 page_size=16 pmax=64 bf16",
+        # phase 22's wire window (zeroed before it, read after it)
+        "launches_wire": report["wire"]["window"]["paged_launches"],
     }]
     train_case = next(c for c in report["flash_cases"]
                       if c["shape"] == [8, 2048, 12, 64]
@@ -2324,6 +2797,10 @@ def main() -> int:
             "ms_source": kk["ms_source"],
             "shape": "b=8 t=2048 h=12 d=64 causal bf16",
         })
+        if name == "flash_attention_fwd":
+            # phase 22's one-shot infer (zeroed before it, read after it)
+            rows[-1]["launches_wire"] = report["wire"]["one_shot"][
+                "flash_fwd_launches"]
     qkv = next(c for c in report["int8_cases"] if c["name"] == "qkv")
     rows.append({
         "name": "int8_matmul_dequant", "route": "cuda",

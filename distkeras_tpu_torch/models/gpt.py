@@ -355,21 +355,36 @@ def init_params(model: CausalLM, generator: torch.Generator) -> CausalLM:
     return model
 
 
-def inference_copy(model: CausalLM) -> CausalLM:
+def inference_copy(model: CausalLM, new: bool = False) -> CausalLM:
     """A copy of ``model`` for serving whose embedding and Dense weights
     are STORED in the compute dtype, so that their casts in ``forward``
     are no-ops: the same function (the float32 -> compute-dtype cast is
     deterministic) without one cast kernel per weight per call. The
     LayerNorms, positions and LM head stay float32. The copy does not
-    follow later updates of ``model``. A float32 model is returned as is
-    (nothing to cast)."""
-    if model.dtype == torch.float32:
+    follow later updates of ``model``; :func:`load_weights` writes new
+    weights into it in place. A float32 model is returned as is (nothing
+    to cast) unless ``new`` asks for a module of its own (a serving
+    engine's weight bank)."""
+    if model.dtype == torch.float32 and not new:
         return model
     out = copy.deepcopy(model)
     for m in out.modules():
         if isinstance(m, (Dense, Embed)):
             m.to(m.compute_dtype)
     return out
+
+
+@torch.no_grad()
+def load_weights(bank: torch.nn.Module, state_dict) -> None:
+    """Copy ``state_dict`` (name -> tensor, the float32 masters of
+    ``model.state_dict()``) into ``bank``'s own tensors IN PLACE, each
+    cast to that tensor's dtype and device (an :func:`inference_copy`
+    stores some in the compute dtype). The tensors keep their addresses,
+    so CUDA graphs captured over ``bank`` run on the new weights; the
+    cast is deterministic, so loading the same masters again gives the
+    same bits. Runs on the current stream."""
+    for name, own in bank.state_dict().items():
+        own.copy_(state_dict[name])
 
 
 def init_cache(model: CausalLM, batch: int,

@@ -30,7 +30,10 @@ as in the JAX module:
 Dispatch: a CUDA tensor goes to the kernel (built on first use by
 :mod:`._build`); a CPU tensor goes to the plain version
 (``*_reference``). A build or launch failure raises; nothing falls back.
-Each kernel wrapper adds one to its ``launches`` count per launch.
+Each kernel wrapper adds one to its ``launches`` count per launch; a call
+recorded into a CUDA graph launches nothing and adds one to its
+``captured`` count instead (the graph's owner adds the calls it captured
+to ``launches`` at each replay).
 """
 
 from __future__ import annotations
@@ -389,7 +392,10 @@ def _launch_flash(part, fn, wrapper, args, shape, causal, device):
     if err != 0:
         msg = getattr(lib, f"flash_attention_{part}_error_string")(err)
         raise RuntimeError(f"{fn} failed: cudaError {err} ({msg.decode()})")
-    wrapper.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        wrapper.captured += 1  # the graph's owner counts each replay
+    else:
+        wrapper.launches += 1
 
 
 def _require_cuda(name, device):
@@ -450,9 +456,9 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True):
     return dk, dv
 
 
-flash_attention_fwd.launches = 0
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
+flash_attention_fwd.launches = flash_attention_fwd.captured = 0
+flash_attention_bwd_dq.launches = flash_attention_bwd_dq.captured = 0
+flash_attention_bwd_dkv.launches = flash_attention_bwd_dkv.captured = 0
 
 
 class _FlashAttention(torch.autograd.Function):

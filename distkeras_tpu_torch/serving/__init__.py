@@ -1,5 +1,9 @@
-"""Generative serving on the port: rectangular or paged KV pool +
-continuous batching, one CUDA graph per declared shape on the card.
+"""Serving on the port: one-shot micro-batched inference
+(``ServingEngine``), generative serving on a rectangular or paged KV pool
+with continuous batching (``GenerationEngine``), one CUDA graph per
+declared shape (in each weight bank) on the card, live weight
+rollout (``RolloutController``) and the socket front end
+(``ServingServer``/``ServingClient``, the JAX package's wire).
 
     from distkeras_tpu_torch.serving import GenerationEngine
 
@@ -10,6 +14,16 @@ continuous batching, one CUDA graph per declared shape on the card.
     # draft=NgramDraft(), spec_k=4 (or draft=ModelDraft(small_model))
     fut = gen.generate(prompt, max_new_tokens=64, stream=print)
     result = fut.result()          # GenerationResult(tokens, reason)
+
+    eng = ServingEngine(CausalLM(attention="flash", ...), (128,),
+                        input_dtype=np.int32, buckets=(1, 4))
+    ctl = RolloutController(engine=eng, generator=gen)
+    srv = ServingServer(eng, host="127.0.0.1", token=secret,
+                        generator=gen, rollout=ctl)
+    srv.start()
+    client = ServingClient(f"127.0.0.1:{srv.port}", token=secret)
+    client.generate(prompt, max_new_tokens=64)
+    client.put_weights(new_state_dict, version=1, target="both")
     gen.shutdown()
 """
 
@@ -21,6 +35,7 @@ from distkeras_tpu_torch.serving.batching import (
     RequestQueue,
 )
 from distkeras_tpu_torch.serving.buckets import DEFAULT_BUCKETS, BucketSpec
+from distkeras_tpu_torch.serving.engine import ServingEngine
 from distkeras_tpu_torch.serving.generation import (
     GenerationEngine,
     GenerationResult,
@@ -35,9 +50,14 @@ from distkeras_tpu_torch.serving.generation import (
 from distkeras_tpu_torch.serving.kv_cache import (KVCachePool,
                                                   PagedKVCachePool,
                                                   PrefixCache)
+from distkeras_tpu_torch.serving.rollout import (CanaryConfig,
+                                                 RolloutController,
+                                                 WeightPublisher)
+from distkeras_tpu_torch.serving.server import ServingClient, ServingServer
 
 __all__ = [
     "BucketSpec",
+    "CanaryConfig",
     "DEFAULT_BUCKETS",
     "DeadlineExceeded",
     "EngineClosed",
@@ -51,6 +71,11 @@ __all__ = [
     "QueueFull",
     "Request",
     "RequestQueue",
+    "RolloutController",
+    "ServingClient",
+    "ServingEngine",
+    "ServingServer",
+    "WeightPublisher",
     "make_decode_fn",
     "make_prefill_fn",
     "make_swap_in_fn",

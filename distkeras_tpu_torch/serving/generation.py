@@ -46,13 +46,26 @@ reserved before the first capture). The engine's graphs share one
 memory pool, since they run in turn. A call
 copies the host arrays into the static inputs, replays the graph, and
 copies to the host only the logits rows the token choice needs, before
-the next replay. A replay adds the paged calls its graph captured to
-``paged_flash_attention.launches``. A capture that fails raises
+the next replay. A replay adds the kernel calls its graph captured
+(paged attention; the flash forward in a
+:class:`~distkeras_tpu_torch.serving.engine.ServingEngine` graph) to each
+wrapper's ``launches``. A capture that fails raises
 out of the constructor; nothing falls back to eager launches. On the
 CPU, used only when the caller names it, a runner calls the step eagerly
 on the same static buffers. :attr:`GenerationEngine.compiled_executables`
 lists the shapes; no other shape can occur, because the ladder covers
 every in-flight count.
+
+**Two weight banks** (live rollout, :mod:`~distkeras_tpu_torch.serving.
+rollout`): the runners above exist once in each of two banks, each a
+serving copy of the model (:func:`~distkeras_tpu_torch.models.gpt.
+inference_copy`), all captured in ``__init__``. A slot pins the version
+it was admitted on; decode groups slots by version and runs each group
+on its bank. :meth:`GenerationEngine.swap_weights` hands the new float32
+masters to the scheduler, which casts them in place into the bank that
+no slot pins, between two iterations, and makes it current: a swap
+never captures. The swap pair of the prefix cache and a draft's runners
+read no swapped weight and exist once.
 
 Backpressure and deadlines keep the JAX package's semantics and typed
 errors: a bounded admission queue (:class:`QueueFull`), page exhaustion
@@ -108,10 +121,19 @@ from distkeras_tpu_torch.serving.buckets import BucketSpec
 from distkeras_tpu_torch.serving.kv_cache import (KVCachePool,
                                                   PagedKVCachePool,
                                                   PrefixCache, tree_leaves)
+from distkeras_tpu_torch.utils import fault
 
 #: token id fed at the decode step's ghost position (its output is
 #: discarded, so any valid id works)
 GHOST_TOKEN = 0
+
+
+def _counted_kernels() -> tuple:
+    """The kernel wrappers a captured graph may call (looked up at each
+    capture, so a wrapper swapped in for a test is the one counted); a
+    replay adds the calls its capture recorded to each one's
+    ``launches``."""
+    return fa.paged_flash_attention, fa.flash_attention_fwd
 
 
 def _default_ladder(num_slots: int) -> Tuple[int, ...]:
@@ -435,8 +457,9 @@ class _StepRunner:
                         for k, v in inputs.items()}
         self._stream = stream
         self._graph = None
-        #: paged-kernel calls one replay makes (counted at the capture)
-        self.launches = 0
+        #: kernel wrapper -> its calls one replay makes (counted at the
+        #: capture)
+        self.launches = {}
         self.out = None
         if stream is None:
             return
@@ -448,14 +471,16 @@ class _StepRunner:
             fn(pool, **self._static)
         stream.synchronize()
         graph = torch.cuda.CUDAGraph()
-        before = fa.paged_flash_attention.captured
+        kernels = _counted_kernels()
+        before = [k.captured for k in kernels]
         # thread_local: other threads' CUDA calls (another engine's
         # scheduler) stay legal while this thread captures
         with torch.cuda.graph(graph, pool=graph_pool, stream=stream,
                               capture_error_mode="thread_local"):
             self.out = fn(pool, **self._static)
         # a capture launches nothing: its calls are counted per replay
-        self.launches = fa.paged_flash_attention.captured - before
+        self.launches = {k: k.captured - b for k, b in zip(kernels, before)
+                         if k.captured > b}
         self._graph = graph
 
     def __call__(self, **arrays) -> torch.Tensor:
@@ -477,7 +502,8 @@ class _StepRunner:
                 self._static[k][:a.shape[0]].copy_(a, non_blocking=True)
             self._copied.record()
             self._graph.replay()
-        fa.paged_flash_attention.launches += self.launches
+        for kernel, n in self.launches.items():
+            kernel.launches += n
         return self.out
 
     def fetch(self, index) -> np.ndarray:
@@ -515,6 +541,23 @@ class _StepRunner:
         self(**self._inputs)
         if self._stream is not None:
             self._stream.synchronize()
+
+
+class _Bank:
+    """One weight bank of a serving engine: a serving copy of the model
+    (:func:`~distkeras_tpu_torch.models.gpt.inference_copy`), the version
+    its weights hold (None before its first swap), the step functions
+    over it and its own runner for every declared shape."""
+
+    __slots__ = ("model", "version", "fns", "prefill", "decode", "verify",
+                 "chunk")
+
+    def __init__(self, model, version):
+        self.model = model
+        self.version = version
+        self.fns = ()
+        self.prefill, self.decode, self.verify = {}, {}, {}
+        self.chunk = None
 
 
 class GenerationResult:
@@ -675,6 +718,7 @@ class GenerationEngine:
         # scheduler thread between iterations (the prefix cache has one
         # owner and no lock)
         self._host_ops: collections.deque = collections.deque()
+        self._swap_runs: dict = {}
         self._cv = threading.Condition()
         self._closed = False
         self._drain = True
@@ -728,7 +772,18 @@ class GenerationEngine:
             self._spec_s_resamples_c = telemetry.counter(
                 "serving.decode.spec.sampled_resamples")
 
-        self._compile_all(gpt.inference_copy(model))
+        # live rollout (serving/rollout.py): the float32 masters of the
+        # current version, and the version each in-flight slot pinned
+        self.model_version = 0
+        self.last_swap_time: Optional[float] = None
+        self._params = dict(model.state_dict())
+        self._versions = {0: 0}            # live version -> bank index
+        self._slot_version: dict = {}      # slot -> version pinned at prefill
+        self._pending_swap = None          # (version, params, staged, ...)
+        self._cur = 0                      # the current version's bank
+        self._banks = [_Bank(gpt.inference_copy(model, new=True), v)
+                       for v in (0, None)]
+        self._compile_all()
         if warmup:
             self._warmup()
         self._thread = threading.Thread(target=self._scheduler_loop,
@@ -744,15 +799,16 @@ class GenerationEngine:
         return _StepRunner(fn, pool, inputs, self.device, self.stream,
                            self._graph_pool)
 
-    def _compile_all(self, serve_model) -> None:
+    def _compile_all(self) -> None:
         """Make exactly one runner per prefill bucket, one per ladder
         entry, one for the chunk width (shared with a bucket of that
-        width), one verify runner per ladder entry (speculative only) and
-        the swap pair (prefix cache only), up front (module docstring),
-        then bind the draft. On a CUDA device each captures its graph on
-        the engine's stream; ``graph_pool_bytes`` is the device memory
-        the runners then hold (the graphs' pools and the static
-        inputs)."""
+        width) and one verify runner per ladder entry (speculative only)
+        in EACH weight bank, and the swap pair (prefix cache only) once,
+        up front (module docstring), then bind the draft. A shape counts
+        once on ``serving.decode.compiles``, whatever the banks. On a
+        CUDA device each captures its graph on the engine's stream;
+        ``graph_pool_bytes`` is the device memory the runners then hold
+        (the graphs' pools and the static inputs)."""
         cuda = self.device.type == "cuda"
         #: the stream every capture and replay of this engine runs on
         self.stream = torch.cuda.Stream(self.device) if cuda else None
@@ -777,50 +833,52 @@ class GenerationEngine:
             fn, self.pool.pool, **inputs)
 
         def declare(runs, key, make, **span):
+            """One declared shape: a runner in each bank from
+            ``make(bank)``, counted once."""
             with telemetry.span("serving.decode.compile", **span):
-                runs[key] = make()
+                for bank in self._banks:
+                    getattr(bank, runs)[key] = make(bank)
             compiles.inc()
 
-        self._prefill_runs = {}
-        self._decode_runs = {}
-        self._verify_runs = {}
-        self._swap_runs = {}
-        self._chunk_run = None
         t_verify = self._spec_k + 1
         if self._paged:
-            step = make_paged_step_fn(serve_model)
-            fn = lambda pool, **kw: step(pool, **kw)[1]  # noqa: E731
+            for bank in self._banks:
+                step = make_paged_step_fn(bank.model)
+                bank.fns = (lambda pool, _step=step, **kw:  # noqa: E731
+                            _step(pool, **kw)[1],)
             spt = self.pool.page_tables[scratch]
-            paged = lambda n, t: runner(  # noqa: E731
-                fn, page_tables=np.tile(spt, (n, 1)),
+            paged = lambda bank, n, t: runner(  # noqa: E731
+                bank.fns[0], page_tables=np.tile(spt, (n, 1)),
                 tokens=np.zeros((n, t), np.int32),
                 lengths=np.zeros(n, np.int32))
             for lb in self._buckets:
-                declare(self._prefill_runs, lb, lambda: paged(1, lb),
-                        prefill=lb)
+                declare("prefill", lb, lambda b: paged(b, 1, lb), prefill=lb)
             if self._chunk is not None:
-                if self._chunk in self._prefill_runs:
+                if self._chunk in self._buckets:
                     # a chunk the width of a bucket is the same shape
-                    self._chunk_run = self._prefill_runs[self._chunk]
+                    for bank in self._banks:
+                        bank.chunk = bank.prefill[self._chunk]
                 else:
                     with telemetry.span("serving.decode.compile",
                                         prefill_chunk=self._chunk):
-                        self._chunk_run = paged(1, self._chunk)
+                        for bank in self._banks:
+                            bank.chunk = paged(bank, 1, self._chunk)
                     compiles.inc()
             for n in self._ladder:
-                declare(self._decode_runs, n, lambda: paged(n, 2), lanes=n)
+                declare("decode", n, lambda b: paged(b, n, 2), lanes=n)
                 if self._spec_k:
-                    declare(self._verify_runs, n,
-                            lambda: paged(n, t_verify), verify=n)
+                    declare("verify", n, lambda b: paged(b, n, t_verify),
+                            verify=n)
             if self._prefix is not None:
-                self._declare_swaps(declare, runner)
+                self._declare_swaps(compiles, runner)
         else:
-            prefill = make_prefill_fn(serve_model)
-            decode = make_decode_fn(serve_model)
-            verify = make_verify_fn(serve_model)
+            for bank in self._banks:
+                bank.fns = (make_prefill_fn(bank.model),
+                            make_decode_fn(bank.model),
+                            make_verify_fn(bank.model))
             for lb in self._buckets:
-                declare(self._prefill_runs, lb, lambda: runner(
-                    prefill, ids=np.zeros((1, lb), np.int32),
+                declare("prefill", lb, lambda b: runner(
+                    b.fns[0], ids=np.zeros((1, lb), np.int32),
                     slot=np.full(1, scratch, np.int64),
                     length=np.full(1, lb, np.int32)), prefill=lb)
             lanes = lambda n, t: dict(  # noqa: E731
@@ -828,11 +886,11 @@ class GenerationEngine:
                 tokens=np.zeros((n, t) if t else n, np.int32),
                 lengths=np.zeros(n, np.int32))
             for n in self._ladder:
-                declare(self._decode_runs, n,
-                        lambda: runner(decode, **lanes(n, 0)), lanes=n)
+                declare("decode", n,
+                        lambda b: runner(b.fns[1], **lanes(n, 0)), lanes=n)
                 if self._spec_k:
-                    declare(self._verify_runs, n, lambda: runner(
-                        verify, **lanes(n, t_verify)), verify=n)
+                    declare("verify", n, lambda b: runner(
+                        b.fns[2], **lanes(n, t_verify)), verify=n)
         if self._draft is not None:
             self._draft.bind(self)
         self.graph_pool_bytes = 0
@@ -842,11 +900,12 @@ class GenerationEngine:
             self.graph_pool_bytes = (torch.cuda.memory_reserved(self.device)
                                      - reserved0)
 
-    def _declare_swaps(self, declare, runner) -> None:
+    def _declare_swaps(self, compiles, runner) -> None:
         """The prefix cache's fixed-shape page pair over ``[pmax]`` page
-        ids (unused ones on the scratch page): ``"out"`` gathers a slot's
-        pages (copied to pinned host memory), ``"in"`` scatters parked
-        pages into a reservation."""
+        ids (unused ones on the scratch page), one pair for both banks
+        (it reads no weight): ``"out"`` gathers a slot's pages (copied to
+        pinned host memory), ``"in"`` scatters parked pages into a
+        reservation."""
         pmax = self.pool.pages_per_slot
         ids = np.full(pmax, self.pool.scratch_page, np.int32)
         leaves = tree_leaves(self.pool.pool)
@@ -856,10 +915,12 @@ class GenerationEngine:
                 for i, a in enumerate(leaves)}
         fn_in = lambda pool, page_ids, **d: swap_in(  # noqa: E731
             pool, page_ids, [d[f"leaf{i}"] for i in range(len(d))])
-        declare(self._swap_runs, "out",
-                lambda: runner(swap_out, page_ids=ids), swap="out")
-        declare(self._swap_runs, "in",
-                lambda: runner(fn_in, page_ids=ids, **data), swap="in")
+        for key, make in (("out", lambda: runner(swap_out, page_ids=ids)),
+                          ("in", lambda: runner(fn_in, page_ids=ids,
+                                                **data))):
+            with telemetry.span("serving.decode.compile", swap=key):
+                self._swap_runs[key] = make()
+            compiles.inc()
 
     def _warmup(self) -> None:
         """Run every shape once against the scratch slot/page (scratch
@@ -869,15 +930,22 @@ class GenerationEngine:
                 run.warm()
 
     def _runners(self):
-        runs = list(self._prefill_runs.values())
-        runs += list(self._decode_runs.values())
-        runs += list(self._verify_runs.values())
-        if self._chunk_run is not None \
-                and self._chunk not in self._prefill_runs:
-            runs.append(self._chunk_run)
+        runs = []
+        for bank in self._banks:
+            runs += list(bank.prefill.values())
+            runs += list(bank.decode.values())
+            runs += list(bank.verify.values())
+            if bank.chunk is not None and self._chunk not in bank.prefill:
+                runs.append(bank.chunk)
         runs += [self._swap_runs[k] for k in ("out", "in")
                  if k in self._swap_runs]
         return runs
+
+    # the current bank's runners (every bank holds the same shapes)
+    _prefill_runs = property(lambda self: self._banks[self._cur].prefill)
+    _decode_runs = property(lambda self: self._banks[self._cur].decode)
+    _verify_runs = property(lambda self: self._banks[self._cur].verify)
+    _chunk_run = property(lambda self: self._banks[self._cur].chunk)
 
     @property
     def compiled_executables(self):
@@ -902,6 +970,140 @@ class GenerationEngine:
             execs["draft_prefill"] = de["prefill"]
             execs["draft_decode"] = de["decode"]
         return execs
+
+    # -- live weight rollout (serving/rollout.py) ----------------------------
+
+    def _bank_of(self, version: int) -> _Bank:
+        return self._banks[self._versions.get(version, self._cur)]
+
+    def swap_weights(self, params, version: int,
+                     timeout: float = 60.0) -> None:
+        """Install ``params`` (a ``state_dict`` of float32 masters, as
+        ``model.state_dict()`` gives) as ``version`` and block until the
+        scheduler applied it. Validation runs on the caller's thread: a
+        torn or mismatched dict raises ValueError with the engine
+        untouched. So does the copy to the device. The scheduler then
+        casts the masters into the weight bank that no in-flight slot
+        pins (an in-place copy into the tensors its CUDA graphs read)
+        between two iterations and makes it current: requests prefilled
+        before keep decoding on their pinned bank, requests admitted
+        after run on the new one. Nothing is captured, so
+        :attr:`compiled_executables` and ``serving.decode.compiles`` do
+        not move. With two banks, a swap that arrives while both are
+        live (the current one and an older one still pinned) waits until
+        the older version's last slot retires; the JAX engine installs
+        it at once (ROADMAP.md Queue C, divergences by design). If that
+        wait outlasts ``timeout``, the swap is withdrawn (the engine
+        stays on its version and a later swap is not refused as
+        pending) and TimeoutError is raised."""
+        from distkeras_tpu_torch.serving.rollout import validate_tree_like
+
+        t0 = time.perf_counter()
+        try:
+            validate_tree_like(params, self._params)
+        except ValueError:
+            telemetry.counter("rollout.torn_swaps_blocked",
+                              engine="generation").inc()
+            raise
+        staged = {k: torch.as_tensor(v).to(self.device)
+                  for k, v in params.items()}
+        if self.stream is not None:
+            torch.cuda.current_stream(self.device).synchronize()
+        done = threading.Event()
+        errbox: list = []
+        pending = (int(version), params, staged, done, errbox)
+        with self._cv:
+            if self._closed:
+                raise EngineClosed("engine is shut down; no weight swaps")
+            if self._pending_swap is not None:
+                raise RuntimeError("a weight swap is already pending")
+            self._pending_swap = pending
+            self._cv.notify_all()
+        if not done.wait(timeout):
+            with self._cv:
+                withdrawn = self._pending_swap is pending
+                if withdrawn:
+                    self._pending_swap = None
+            if withdrawn:
+                raise TimeoutError(f"weight swap to version {version} not "
+                                   f"applied within {timeout}s; withdrawn")
+            done.wait()  # the scheduler took it: the load is under way
+        if errbox:
+            raise errbox[0]
+        dt = time.perf_counter() - t0
+        telemetry.counter("rollout.swaps", engine="generation").inc()
+        telemetry.histogram("rollout.swap_s", engine="generation").record(dt)
+        telemetry.record_event("rollout", action="swap",
+                               engine="generation", version=int(version),
+                               seconds=dt)
+
+    def _apply_pending_swap(self) -> None:
+        """Scheduler-thread half of :meth:`swap_weights`, between two
+        iterations: load the pending version into the bank whose version
+        no slot pins and make it current. Leaves the swap pending while
+        that bank's version is still pinned."""
+        with self._cv:
+            pending = self._pending_swap
+        if pending is None:
+            return
+        self._reclaim_versions()
+        idle = 1 - self._cur
+        if self._banks[idle].version in self._versions:
+            return  # still pinned: retried every iteration until it drains
+        with self._cv:
+            self._pending_swap = None
+        version, params, staged, done, errbox = pending
+        bank = self._banks[idle]
+        try:
+            if self.stream is not None:
+                with torch.cuda.stream(self.stream):
+                    gpt.load_weights(bank.model, staged)
+                self.stream.synchronize()  # ``staged`` may be freed after
+            else:
+                gpt.load_weights(bank.model, staged)
+        except Exception as e:  # the swapper waits on ``done``
+            bank.version = None  # half loaded: no version lives here
+            errbox.append(e)
+            done.set()
+            raise
+        bank.version = version
+        self._versions[version] = idle
+        self._cur = idle
+        self._params = params
+        self.model_version = version
+        self.last_swap_time = time.time()
+        telemetry.gauge("rollout.model_version",
+                        engine="generation").set(version)
+        telemetry.gauge("rollout.last_swap_time",
+                        engine="generation").set(self.last_swap_time)
+        from distkeras_tpu_torch.health import recorder as flight_recorder
+
+        flight_recorder.configure(decode_model_version=int(version))
+        self._reclaim_versions()
+        done.set()
+
+    def _fail_pending_swap(self, err: Exception) -> None:
+        """Unblock a swapper whose swap can no longer be applied
+        (scheduler crash or shutdown) with ``err`` instead of a hang."""
+        with self._cv:
+            pending = self._pending_swap
+            self._pending_swap = None
+        if pending is not None:
+            errbox, done = pending[4], pending[3]
+            errbox.append(err)
+            done.set()
+
+    def _reclaim_versions(self) -> None:
+        """Retire-before-reclaim: a version no in-flight slot pins and
+        that is not current leaves the live set; its bank is then free
+        for the next swap."""
+        pinned = set(self._slot_version.values())
+        pinned.add(self.model_version)
+        for stale in [v for v in self._versions if v not in pinned]:
+            del self._versions[stale]
+            telemetry.counter("rollout.versions_retired").inc()
+            telemetry.record_event("rollout", action="version_retired",
+                                   engine="generation", version=stale)
 
     # -- prefix handoff between engines ------------------------------------
 
@@ -1058,7 +1260,9 @@ class GenerationEngine:
             while True:
                 with self._cv:
                     while not self._dq and not active and not prefilling \
-                            and not self._closed and not self._host_ops:
+                            and not self._closed \
+                            and self._pending_swap is None \
+                            and not self._host_ops:
                         self._cv.wait()
                     if self._closed and not self._drain:
                         pending = list(self._dq)
@@ -1067,8 +1271,11 @@ class GenerationEngine:
                         break
                     if self._closed and not self._dq and not active \
                             and not prefilling:
+                        self._fail_pending_swap(EngineClosed(
+                            "engine is shut down; no weight swaps"))
                         self._fail_host_ops()
                         return
+                self._apply_pending_swap()
                 self._apply_host_ops()
                 self._admit(active, prefilling)
                 self._expire(active, prefilling)
@@ -1096,12 +1303,14 @@ class GenerationEngine:
         self._active_g.set(0)
 
     def _fail_all(self, err, pending, active, prefilling) -> None:
+        self._fail_pending_swap(err)
         self._fail_host_ops()
         for req in (pending + list(active.values())
                     + list(prefilling.values())):
             req.future.set_exception(err)
         for slot in list(active) + list(prefilling):
             self.pool.free(slot)
+        self._slot_version.clear()
 
     def _admit(self, active, prefilling) -> None:
         """Move queued requests into free slots (prefill each). Runs
@@ -1168,6 +1377,10 @@ class GenerationEngine:
         run = self._prefill_runs[lb]
         run(ids=ids, slot=np.full(1, slot, np.int64),
             length=np.full(1, n, np.int32))
+        # pin the version this sequence started on: every later decode
+        # step for this slot runs on the same bank even if a swap lands
+        # mid-generation
+        self._slot_version[slot] = self.model_version
         self._finish_prefill(req, slot, run.fetch(...), t0, tp0, bucket=lb)
 
     def _prefix_start(self, req: _GenRequest, slot: int):
@@ -1179,9 +1392,8 @@ class GenerationEngine:
         n = req.prompt.size
         entry = (self._prefix.lookup(req.prompt)
                  if self._prefix is not None else None)
-        if entry is None:
+        if entry is None or not self._swap_in_entry(slot, entry):
             return 0, None, False
-        self._swap_in_entry(slot, entry)
         if entry.length < n:
             return entry.length, None, True
         if entry.last_logits is not None:
@@ -1227,13 +1439,24 @@ class GenerationEngine:
             self._finish_prefill(req, slot, logits_row, t0, tp0,
                                  ran_prefill=False, prefix_hit=hit)
             return False
+        # pin the version NOW: every chunk (and later decode step) of this
+        # slot runs on the bank it was admitted on, even if a weight swap
+        # lands mid-prefill
+        self._slot_version[slot] = self.model_version
         req.prefill_pos = start
         prefilling[slot] = req
         return True
 
-    def _swap_in_entry(self, slot: int, entry) -> None:
+    def _swap_in_entry(self, slot: int, entry) -> bool:
         """Scatter a parked prefix's pages into ``slot``'s reservation
-        (the swap-in runner; only the entry's pages are copied in)."""
+        (the swap-in runner; only the entry's pages are copied in). The
+        ``"kv.swap_in"`` chaos site models a torn or lost restore: the
+        entry is evicted (never offered again) and the caller prefills
+        from scratch, as in the JAX engine."""
+        if fault.chaos("kv.swap_in") is not None:
+            self._swap_fail_c.inc()
+            self._prefix.evict(entry)
+            return False
         pmax = self.pool.pages_per_slot
         p0 = self.pool.pages_for(entry.length)
         page_ids = np.full(pmax, self.pool.scratch_page, np.int32)
@@ -1242,6 +1465,7 @@ class GenerationEngine:
             f"leaf{i}": leaf for i, leaf in enumerate(tree_leaves(
                 entry.data))})
         self._swapped_in_c.inc(p0)
+        return True
 
     def _capture_prefix(self, slot: int, tokens, last_logits) -> None:
         """Park ``slot``'s first ``len(tokens)`` cells and a copy of
@@ -1266,8 +1490,11 @@ class GenerationEngine:
                         t0: float, tp0: float, ran_prefill: bool = True,
                         **span) -> None:
         """Shared tail of every prefill path (one-shot, chunked, full
-        hit): the first-token pick, TTFT accounting, prefix capture,
-        draft begin, stream."""
+        hit): the version pin, the first-token pick, TTFT accounting,
+        prefix capture, draft begin, stream."""
+        # setdefault: a chunked slot pinned its version at admission and
+        # must not re-pin to a newer one a mid-prefill swap installed
+        version = self._slot_version.setdefault(slot, self.model_version)
         self.pool.lengths[slot] = req.prompt.size
         tok = self._pick_token(req, logits_row)
         now = time.monotonic()
@@ -1278,7 +1505,8 @@ class GenerationEngine:
         if req.trace is not None:
             telemetry.record_trace_span(
                 req.trace, "trace.prefill", tp0,
-                time.perf_counter() - tp0, slot=slot, **span)
+                time.perf_counter() - tp0, slot=slot,
+                model_version=version, **span)
         req.generated.append(tok)
         req.last_token = tok
         if self._prefix is not None:
@@ -1305,16 +1533,18 @@ class GenerationEngine:
             chunk = req.prompt[pos:pos + self._chunk]
             ids = np.zeros((1, self._chunk), np.int32)
             ids[0, :chunk.size] = chunk
-            self._chunk_run(page_tables=self.pool.page_table_row(slot)[None],
-                            tokens=ids, lengths=np.full(1, pos, np.int32))
+            run = self._bank_of(self._slot_version.get(
+                slot, self.model_version)).chunk
+            run(page_tables=self.pool.page_table_row(slot)[None],
+                tokens=ids, lengths=np.full(1, pos, np.int32))
             self._chunk_steps_c.inc()
             req.prefill_pos = pos + chunk.size
             self.pool.lengths[slot] = req.prefill_pos
             if req.prefill_pos >= n:
                 del prefilling[slot]
                 self._finish_prefill(
-                    req, slot, self._chunk_run.fetch((0, n - pos - 1)), t0,
-                    tp0, chunk=self._chunk)
+                    req, slot, run.fetch((0, n - pos - 1)), t0, tp0,
+                    chunk=self._chunk)
                 if self._emit(req, slot) is None:
                     active[slot] = req
                 self._active_g.set(len(active))
@@ -1337,17 +1567,32 @@ class GenerationEngine:
                        cdf.size - 1))
 
     def _decode_step(self, active) -> None:
-        """One scheduler iteration of decode over every active slot: a
-        speculative iteration when every lane's verify block ``[len, len
-        + spec_k]`` stays inside the context window, else plain decode
-        (the tokens are the same either way)."""
-        slots = sorted(active)
-        if self._spec_k and all(
-                self.pool.lengths[s] + self._spec_k < self.max_len
-                for s in slots):
-            self._spec_group(active, slots)
-        else:
-            self._decode_group(active, slots)
+        """One scheduler iteration of decode over every active slot.
+        Slots are grouped BY PINNED VERSION and each group runs on its
+        version's bank (as the JAX engine groups by version: one call
+        shares one set of weights), so a request ends on the version it
+        started on. Steady state is one group; two exist only while a
+        swap's older version drains. Each group is a speculative
+        iteration when every lane's verify block ``[len, len + spec_k]``
+        stays inside the context window, else plain decode (the tokens
+        are the same either way)."""
+        groups: dict = {}
+        for s in sorted(active):
+            groups.setdefault(
+                self._slot_version.get(s, self.model_version), []).append(s)
+        if len(groups) > 1:
+            telemetry.histogram("rollout.version_groups").record(
+                len(groups))
+        for version in sorted(groups):
+            slots = groups[version]
+            bank = self._bank_of(version)
+            if self._spec_k and all(
+                    self.pool.lengths[s] + self._spec_k < self.max_len
+                    for s in slots):
+                self._spec_group(active, slots, bank)
+            else:
+                self._decode_group(active, slots, bank)
+        self._reclaim_versions()
         self._active_g.set(len(active))
 
     def _group_arrays(self, active, slots, lane: int, t: int):
@@ -1363,13 +1608,13 @@ class GenerationEngine:
             lengths[i] = self.pool.lengths[s]
         return slot_ids, tokens, lengths
 
-    def _decode_group(self, active, slots) -> None:
-        """Advance ``slots`` one token in one ladder-padded step. Padded
-        lanes use the scratch slot (length 0; in the paged pool its
-        all-scratch page table)."""
+    def _decode_group(self, active, slots, bank: _Bank) -> None:
+        """Advance ``slots`` one token in one ladder-padded step on
+        ``bank``. Padded lanes use the scratch slot (length 0; in the
+        paged pool its all-scratch page table)."""
         n = len(slots)
         lane = self._ladder.bucket_for(n)
-        run = self._decode_runs[lane]
+        run = bank.decode[lane]
         slot_ids, tokens, lengths = self._group_arrays(active, slots, lane,
                                                        2)
         t0 = time.monotonic()
@@ -1436,7 +1681,7 @@ class GenerationEngine:
                 break
         return emit, resampled
 
-    def _spec_group(self, active, slots) -> None:
+    def _spec_group(self, active, slots, bank: _Bank) -> None:
         """One draft-verify iteration: the draft proposes ``spec_k``
         tokens a lane, ONE verify call (``T = spec_k + 1``) scores them
         all, and the greedy rule emits token i+1 iff proposals 1..i all
@@ -1446,7 +1691,7 @@ class GenerationEngine:
         n = len(slots)
         s = self._spec_k
         lane = self._ladder.bucket_for(n)
-        run = self._verify_runs[lane]
+        run = bank.verify[lane]
         slot_ids, tokens, lengths = self._group_arrays(active, slots, lane,
                                                        s + 1)
         props = self._draft.propose(slots, tokens[:n, 0], lengths[:n], s)
@@ -1533,6 +1778,7 @@ class GenerationEngine:
                 slot, np.concatenate([req.prompt, np.asarray(
                     req.generated[:-1], np.int32)]), req.last_logits)
         self.pool.free(slot)
+        self._slot_version.pop(slot, None)  # unpin: the version may retire
         if self._draft is not None:
             self._draft.release(slot)
         telemetry.counter("serving.decode.retired", reason=reason).inc()
@@ -1555,6 +1801,7 @@ class GenerationEngine:
                 if req.deadline is not None and now > req.deadline:
                     del group[slot]
                     self.pool.free(slot)
+                    self._slot_version.pop(slot, None)
                     if self._draft is not None:
                         self._draft.release(slot)
                     self._expired_c.inc()
@@ -1580,6 +1827,76 @@ class GenerationEngine:
             self._stream_err_c.inc()
             req.stream = None
 
+    # -- health --------------------------------------------------------------
+
+    def health_status(self) -> dict:
+        """Live state for the health plane (the JAX engine's digest)."""
+        with self._cv:
+            depth = len(self._dq)
+            oldest = (time.monotonic() - self._dq[0].t_submit
+                      if self._dq else 0.0)
+        self._depth_g.set(depth)
+        status = {
+            "num_slots": self.pool.num_slots,
+            "slots_active": self.pool.num_active,
+            "slots_free": self.pool.num_free,
+            "queue_depth": depth,
+            "oldest_request_age_s": oldest,
+            "cache_bytes": self.pool.cache_bytes,
+            "prefill_buckets": list(self._buckets.sizes),
+            "decode_ladder": list(self._ladder.sizes),
+            "compiled": {k: list(v) for k, v in
+                         self.compiled_executables.items()},
+            "model_version": self.model_version,
+            "last_swap_time": self.last_swap_time,
+            "live_versions": sorted(self._versions),
+        }
+        if self._paged:
+            status["paged"] = {
+                "page_size": self.pool.page_size,
+                "num_pages": self.pool.num_pages,
+                "pages_in_use": self.pool.pages_in_use,
+                "page_occupancy": (self.pool.pages_in_use
+                                   / self.pool.num_pages),
+                "page_bytes": self.pool.page_bytes,
+                "kv_dtype": self.pool.kv_dtype,
+            }
+            if self.pool.kv_dtype == "int8":
+                status["paged"]["kv_quant_bytes_saved"] = (
+                    self.pool.kv_quant_bytes_saved)
+        if self._chunk is not None:
+            status["chunked_prefill"] = {
+                "prefill_chunk": self._chunk,
+                "admitted": self._chunk_admits_c.value,
+                "chunk_steps": self._chunk_steps_c.value,
+            }
+        if self._sampling:
+            status["sampling"] = {
+                "temperature": self._temperature,
+                "seed": self._seed,
+            }
+        if self._prefix is not None:
+            status["prefix_cache"] = {
+                "entries": len(self._prefix),
+                "bytes": self._prefix.bytes,
+                "budget_bytes": self._prefix.budget_bytes,
+                "hits": self._prefix.hits,
+                "misses": self._prefix.misses,
+                "hit_rate": self._prefix.hit_rate,
+                "evictions": self._prefix.evictions,
+            }
+        if self._spec_k:
+            proposed = self._spec_proposed_c.value
+            accepted = self._spec_accepted_c.value
+            status["speculative"] = {
+                "spec_k": self._spec_k,
+                "proposed": proposed,
+                "accepted": accepted,
+                "accept_rate": accepted / proposed if proposed else 0.0,
+                "sampling": self._sampling,
+            }
+        return status
+
     # -- lifecycle ---------------------------------------------------------
 
     def shutdown(self, drain: bool = True, timeout: float = 60.0) -> None:
@@ -1596,6 +1913,7 @@ class GenerationEngine:
                 self._depth_g.set(0)
             err = EngineClosed(
                 f"scheduler still running after {timeout}s shutdown join")
+            self._fail_pending_swap(err)
             self._fail_host_ops()
             for req in pending:
                 req.future.set_exception(err)

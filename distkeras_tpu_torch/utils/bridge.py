@@ -57,14 +57,20 @@ def flax_to_state_dict(params: Mapping) -> dict:
     return out
 
 
-def state_dict_to_flax(state_dict: Mapping) -> dict:
+def state_dict_to_flax(state_dict: Mapping, shapes_only: bool = False
+                       ) -> dict:
     """Inverse of :func:`flax_to_state_dict`: a nested dict of float32
-    numpy arrays in the flax layout."""
+    numpy arrays in the flax layout. ``shapes_only`` gives read-only
+    zero-stride arrays of the same shapes instead, copying no data (a
+    wire codec's template: only shapes and dtypes are read)."""
     tree: dict = {}
     for name, tensor in state_dict.items():
-        arr = tensor.detach().to("cpu", torch.float32).numpy()
+        if shapes_only:
+            arr = np.broadcast_to(np.float32(0), tuple(tensor.shape))
+        else:
+            arr = tensor.detach().to("cpu", torch.float32).numpy()
         if name == "pos_embed":
-            tree["pos_embed"] = arr.copy()
+            tree["pos_embed"] = arr if shapes_only else arr.copy()
             continue
         parts = name.split(".")
         if parts[0] == "layers":
@@ -83,7 +89,7 @@ def state_dict_to_flax(state_dict: Mapping) -> dict:
         node = tree
         for m in mods:
             node = node.setdefault(m, {})
-        node[key] = np.ascontiguousarray(arr)
+        node[key] = arr if shapes_only else np.ascontiguousarray(arr)
     return tree
 
 

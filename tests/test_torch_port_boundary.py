@@ -3,7 +3,8 @@
 - Entry points run on the card by default: ``device=None`` resolves to
   ``cuda:0`` and, with no CUDA device, raises instead of running on the
   CPU, with every option on (int8 KV pages, the prefix cache,
-  speculative decoding with either draft).
+  speculative decoding with either draft), and so does the one-shot
+  ``ServingEngine``.
 - The port imports neither JAX/flax nor anything of ``distkeras_tpu``:
   checked by importing it in a fresh interpreter, and by scanning the
   package's and ``chip_smoke.py``'s import statements.
@@ -22,7 +23,7 @@ from distkeras_tpu_torch.device import resolve_device
 from distkeras_tpu_torch.models import gpt as tgpt
 from distkeras_tpu_torch.serving import (GenerationEngine, KVCachePool,
                                          ModelDraft, NgramDraft,
-                                         PagedKVCachePool)
+                                         PagedKVCachePool, ServingEngine)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "distkeras_tpu")
@@ -66,6 +67,19 @@ def test_entry_points_do_not_fall_back_to_cpu(monkeypatch, build):
     assert all(p.device.type == "cpu" for p in model.parameters())
 
 
+def test_serving_engine_does_not_fall_back_to_cpu(monkeypatch):
+    """The one-shot engine resolves ``device=None`` to the card and raises
+    without one, before touching the model; ``device="cpu"`` serves."""
+    _no_cuda(monkeypatch)
+    model = tgpt.gpt_tiny()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingEngine(model, (16,), input_dtype="int32", buckets=(1,))
+    assert all(p.device.type == "cpu" for p in model.parameters())
+    with ServingEngine(model, (16,), input_dtype="int32", buckets=(1,),
+                       device="cpu") as eng:
+        assert eng.submit([1] * 16).result(timeout=60).shape == (16, 256)
+
+
 def test_hbm_stats_is_none_on_cpu_and_precision_policies():
     assert observability.hbm_stats(torch.device("cpu")) is None
     assert observability.hbm_stats(None) is None
@@ -88,6 +102,16 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
             "import distkeras_tpu_torch.ops.kernels.flash_attention\n"
             "import distkeras_tpu_torch.models\n"
             "import distkeras_tpu_torch.precision\n"
+            "import distkeras_tpu_torch.serving.engine\n"
+            "import distkeras_tpu_torch.serving.rollout\n"
+            "import distkeras_tpu_torch.serving.server\n"
+            "import distkeras_tpu_torch.parallel.remote_ps\n"
+            "import distkeras_tpu_torch.comms.retry\n"
+            "import distkeras_tpu_torch.utils.fault\n"
+            "import distkeras_tpu_torch.health.recorder\n"
+            "import distkeras_tpu_torch.health.endpoints\n"
+            "import distkeras_tpu_torch.predictors\n"
+            "import distkeras_tpu_torch.evaluators\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(','.join(bad))\n")

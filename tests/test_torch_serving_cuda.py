@@ -1,5 +1,5 @@
-"""The port's GenerationEngine on a card: one CUDA graph per declared
-shape, replayed under traffic.
+"""The port's serving engines on a card: one CUDA graph per declared
+shape (in each weight bank), replayed under traffic.
 
 Skipped without a CUDA device (on the CPU the engine's runners call the
 step eagerly; tests/test_torch_generation_options.py holds that path to
@@ -14,8 +14,13 @@ engines' greedy tokens equal the argmax of the model's full forward
 the prefix cache and with speculative decoding on; the int8 KV engine's
 tokens equal the same engine's with its attention through the plain
 version; a paged call replayed from a graph equals the eager call
-bitwise, and so does a page swap out and back in.
+bitwise, and so does a page swap out and back in. Live weight swaps: a
+bank swap keeps in-flight requests on their pinned version (tokens of
+engines built on each version) and captures nothing; the one-shot
+engine's ``shadow_forward`` equals its live output bitwise.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -331,7 +336,8 @@ def test_new_graphs_launch_counts_match_the_trace(cuda_device, option):
     with GenerationEngine(model, device=cuda_device, **kw) as eng:
         runs = list(eng._decode_runs.values()) + list(
             eng._verify_runs.values())
-        assert all(r.launches == model.num_layers for r in runs)
+        assert all(r.launches == {tfa.paged_flash_attention:
+                                  model.num_layers} for r in runs)
         calls0 = count("prefills") + count("steps")
         tfa.paged_flash_attention.launches = 0
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -346,3 +352,99 @@ def test_new_graphs_launch_counts_match_the_trace(cuda_device, option):
                  if "paged_logits_kernel" in e.key
                  or "paged_values_kernel" in e.key)
     assert traced == 2 * launches
+
+
+def _perturbed(state, seed, scale=0.5):
+    gen = torch.Generator().manual_seed(seed)
+    return {k: v + scale * v.float().std().nan_to_num(1.0)
+            * torch.randn(v.shape, generator=gen).to(v.device)
+            for k, v in state.items()}
+
+
+def test_bank_swap_keeps_pinned_tokens_and_captures_nothing(cuda_device):
+    """Two requests in flight on v0, a swap to v1 (an in-place copy into
+    the idle bank's captured tensors), two more admitted after: the first
+    two give the tokens of an engine built on v0, the others those of an
+    engine built on v1; no graph is captured and no weight tensor moves."""
+    import threading
+
+    v0 = _model(cuda_device).state_dict()
+    v1 = _perturbed(v0, 1)
+    prompts = _prompts()
+    kw = dict(MODES["paged"], slot_ladder=(1, 2, 4), num_slots=4)
+
+    def built_on(state, ps):
+        model = _model(cuda_device)
+        model.load_state_dict(state)
+        with GenerationEngine(model, device=cuda_device, **kw) as eng:
+            return [t.tolist() for t in _serve(eng, ps, new=40)]
+
+    want = built_on(v0, prompts[:2]) + built_on(v1, prompts[2:])
+    assert want[:2] != built_on(v1, prompts[:2])
+    model = _model(cuda_device)
+    with GenerationEngine(model, device=cuda_device, **kw) as eng:
+        compiles = telemetry.counter("serving.decode.compiles").value
+        ptrs = [[t.data_ptr() for t in b.model.state_dict().values()]
+                for b in eng._banks]
+        started = [threading.Event() for _ in prompts]
+        futs = []
+        for i, p in enumerate(prompts):
+            if i == 2:
+                eng.swap_weights(v1, 1)
+                assert sorted(eng._versions) == [0, 1]
+            futs.append(eng.generate(p, max_new_tokens=40, stream=lambda t,
+                                     e=started[i]: e.set()))
+            assert started[i].wait(60)
+        got = [f.result(timeout=300).tokens.tolist() for f in futs]
+        assert telemetry.counter("serving.decode.compiles").value \
+            == compiles
+        assert [[t.data_ptr() for t in b.model.state_dict().values()]
+                for b in eng._banks] == ptrs
+        assert eng.model_version == 1 and sorted(eng._versions) == [1]
+    assert got == want
+
+
+def test_serving_engine_on_card_shadow_equals_live_bitwise(cuda_device):
+    """The one-shot engine over ``attention="flash"`` at 128-token rows:
+    one flash launch a layer a batch, counted per replay; the served rows
+    equal the plain forward of the same weights (``attention="full"``,
+    eager; float32, TF32 off, within 1e-4); shadow_forward equals live
+    output bitwise (live weights and a candidate), a swap captures
+    nothing, and swapping back restores the output bitwise."""
+    from distkeras_tpu_torch.serving import ServingEngine
+
+    model = tgpt.init_params(
+        tgpt.CausalLM(vocab_size=256, max_len=128, num_layers=2,
+                      num_heads=2, width=32, mlp_dim=64,
+                      dtype=torch.float32, attention="flash"),
+        torch.Generator().manual_seed(0)).to(cuda_device)
+    rows = np.random.default_rng(5).integers(0, 256, (4, 128)).astype(
+        np.int32)
+    cand = _perturbed(model.state_dict(), 2)
+    with ServingEngine(model, (128,), input_dtype=np.int32, buckets=(1, 4),
+                       max_wait_ms=50.0, device=cuda_device) as eng:
+        assert telemetry.counter("serving.compiles").value == 2
+        tfa.flash_attention_fwd.launches = 0
+        batches0 = telemetry.counter("serving.batches").value
+        live = np.stack([f.result(60) for f in eng.submit_many(rows)])
+        batches = telemetry.counter("serving.batches").value - batches0
+        assert tfa.flash_attention_fwd.launches == 2 * batches > 0
+        plain = copy.deepcopy(model).eval()
+        for m in plain.modules():
+            if isinstance(m, tgpt.CausalSelfAttention):
+                m.attention = "full"
+        with torch.no_grad():
+            want = plain(torch.from_numpy(rows).to(cuda_device)).cpu()
+        np.testing.assert_allclose(live, want.numpy(), rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(eng.shadow_forward(eng.params, rows),
+                                      live)
+        shadow = eng.shadow_forward(cand, rows)
+        boot = eng.params
+        eng.swap_weights(cand, 1)
+        np.testing.assert_array_equal(
+            np.stack([f.result(60) for f in eng.submit_many(rows)]), shadow)
+        eng.swap_weights(boot, 2)
+        np.testing.assert_array_equal(
+            np.stack([f.result(60) for f in eng.submit_many(rows)]), live)
+        assert telemetry.counter("serving.compiles").value == 2
+        assert eng.compiled_buckets == (1, 4)
