@@ -157,7 +157,34 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    (``attention="full"``, eager) within 2e-2 * max|ref| (phase 7's bf16
    bound) and equal ``shadow_forward`` under the live weights bitwise,
    one flash forward launch a layer a batch; ``stage(v2)`` -> canary -> promote,
-   then ``rollback``: ``infer`` bit-identical to before the promotion.
+   then ``rollback``: ``infer`` bit-identical to before the promotion;
+23. fleet   — a ``FleetRouter`` over several replicas in this process on
+   the card, each a ``GenerationEngine`` of phase 4's shapes with 256 MiB
+   of prefix cache behind its own generation-only ``ServingServer`` on
+   127.0.0.1 (a token; every graph captured in its constructor). (a) bf16
+   gpt_small, roles (prefill, decode), 8 prompts of 16-128 tokens x 32
+   new tokens one at a time: the router's tokens equal one engine's
+   local prefill and decode on the same weights, ``handoffs`` 8 and 8
+   prefix hits on the decode replica; a ``"torn"`` ``fleet.kv_handoff``:
+   the same tokens, ``handoff_failures`` 1, no new import; the status op
+   carries the router's digest; each handoff's time and bytes. (b)
+   float32 (TF32 off), three ``both`` replicas: a warm pass of 12
+   prompts, then 48 requests, 8 in flight; the replica holding the most
+   cache entries is killed (``srv.stop()``, then ``shutdown(drain=False,
+   timeout=10)``) while its first stream is held after its first token:
+   every request completes with the tokens one engine gives alone,
+   ``evictions`` and ``requeued`` >= 1, the victim is out of the digest
+   and its engine freed its graphs, banks and pool (allocated memory
+   before and after the kill). (c) ``push_weights`` of seeded new
+   weights to the live replicas: every reply ok, ``version_skew`` 0,
+   ``model_version`` 1 on each, and the tokens that follow equal an
+   engine's loaded with them. (d) bf16, two ``both`` replicas, phase 4's
+   window through the router from 8 client threads (affinity routing)
+   with a ``MetricStore`` and the default SLO specs installed: tokens/s,
+   TTFT p50/p99, longest gap, affinity hit rate, one paged launch a
+   layer a model call (``launches_fleet`` in the kernels' line); the
+   ``series`` op returns ``serving.decode.*`` rows and ``status`` carries
+   ``alerts``.
 
 The last three lines of standard output are the kernels' JSON, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details are
@@ -2697,6 +2724,483 @@ def phase_wire(dev, power_line, engine_info) -> dict:
     return info
 
 
+
+# -- phase 23 ----------------------------------------------------------------
+
+#: phase 23's replicas: phase 4's engine (page 16, 8 slots, buckets
+#: (32, 128), the decode ladder) with 256 MiB of host memory for its
+#: prefix cache, ~54 prompts of 128 tokens at ~36.9 KB a token in bf16
+FLEET_PREFIX_BYTES = 256 << 20
+FLEET_TOKEN = "chip-smoke-fleet"
+#: (a) prompts sent one at a time through a prefill and a decode replica
+#: (one more goes through a torn handoff), new tokens each
+FLEET_DISAGG = 8
+FLEET_DISAGG_NEW = 32
+#: (b) float32: a warm pass over FLEET_KILL_PROMPTS prompts, then a storm
+#: of FLEET_STORM requests (each prompt in turn), FLEET_CLIENTS in flight
+FLEET_KILL_PROMPTS = 12
+FLEET_STORM = 48
+FLEET_KILL_NEW = 32
+FLEET_CLIENTS = 8
+#: (c) prompts served after the weight push, new tokens each
+FLEET_PUSH_PROMPTS = 4
+
+
+def _fleet_prompts(n, seed):
+    """``n`` seeded prompts of 16-128 tokens in gpt_small's vocabulary."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, 50304, int(k)).tolist()
+            for k in rng.integers(16, 129, size=n)]
+
+
+class _Fleet:
+    """Replicas of one model on ``dev`` behind the port's FleetRouter,
+    in this process: each a GenerationEngine (phase 4's shapes, a prefix
+    cache, every graph captured in its constructor) behind its own
+    generation-only ServingServer on 127.0.0.1:0. Each replica's setup
+    seconds, graph pool and device memory (allocated before and after its
+    construction) are kept."""
+
+    def __init__(self, dev, make_model, roles, **router_kw):
+        from distkeras_tpu_torch.serving import (FleetRouter,
+                                                 GenerationEngine,
+                                                 ServingServer)
+
+        self.router = FleetRouter(token=FLEET_TOKEN, **router_kw)
+        self.replicas = []
+        try:
+            for role in roles:
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                gen = GenerationEngine(
+                    make_model(), device=dev, page_size=PAGE,
+                    prefix_cache_bytes=FLEET_PREFIX_BYTES, **ENGINE_KW)
+                setup_s = time.perf_counter() - t0
+                assert gen.device == dev, gen.device
+                srv = ServingServer(None, host="127.0.0.1",
+                                    token=FLEET_TOKEN, generator=gen,
+                                    router=self.router)
+                torch.cuda.synchronize()
+                rep = {"gen": gen, "srv": srv, "role": role,
+                       "setup_s": setup_s,
+                       "graph_pool_bytes": gen.graph_pool_bytes,
+                       "allocated_bytes": torch.cuda.memory_allocated()
+                       - before}
+                self.replicas.append(rep)
+                srv.start()
+                rep["rid"] = self.router.add_replica(
+                    f"127.0.0.1:{srv.port}", role=role)
+        except BaseException:
+            self.close()
+            raise
+
+    def address(self, i) -> str:
+        return f"127.0.0.1:{self.replicas[i]['srv'].port}"
+
+    def memory(self) -> list:
+        return [{k: rep[k] for k in ("role", "setup_s", "graph_pool_bytes",
+                                     "allocated_bytes")}
+                for rep in self.replicas]
+
+    def close(self):
+        self.router.close()
+        for rep in self.replicas:
+            rep["srv"].stop()
+            rep["gen"].shutdown(drain=False, timeout=30)
+
+
+def _fleet_reference(dev, make_model, prompts, new, state=None) -> list:
+    """Each prompt's tokens from one engine of the replicas' shapes on
+    ``make_model()`` (with ``state`` loaded), served one at a time."""
+    from distkeras_tpu_torch.serving import GenerationEngine
+
+    model = make_model()
+    if state is not None:
+        model.load_state_dict(state)
+    with GenerationEngine(model, device=dev, page_size=PAGE,
+                          **ENGINE_KW) as ref:
+        return [ref.generate(p, max_new_tokens=new).result(
+            timeout=600).tokens.tolist() for p in prompts]
+
+
+def _fleet_disagg(dev, power_line) -> dict:
+    """(a) bf16, roles (prefill, decode), one request at a time."""
+    from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch.serving import ServingClient
+    from distkeras_tpu_torch.utils import fault
+
+    prompts = _fleet_prompts(FLEET_DISAGG + 1, 61)
+    want = _fleet_reference(dev, _gpt_small_bf16, prompts, FLEET_DISAGG_NEW)
+    fleet = _Fleet(dev, _gpt_small_bf16, ("prefill", "decode"))
+    router = fleet.router
+    try:
+        src = router._replicas[fleet.replicas[0]["rid"]].client
+        export, shipped, handoff_s = src.kv_export, [], []
+
+        def counted_export(tokens):
+            header, blobs = export(tokens)
+            shipped.append(sum(len(b) for b in blobs))
+            return header, blobs
+
+        disagg = router._maybe_disaggregate
+
+        def timed_disagg(*args):
+            t0 = time.perf_counter()
+            disagg(*args)
+            handoff_s.append(time.perf_counter() - t0)
+
+        src.kv_export = counted_export
+        router._maybe_disaggregate = timed_disagg
+        imports = telemetry.counter("serving.decode.prefix.imports")
+        got, wall = [], []
+        for p in prompts[:FLEET_DISAGG]:
+            t0 = time.perf_counter()
+            got.append(router.generate(
+                p, max_new_tokens=FLEET_DISAGG_NEW).tokens.tolist())
+            wall.append(time.perf_counter() - t0)
+        d = router.status_digest()
+        hits = fleet.replicas[1]["gen"].health_status()["prefix_cache"][
+            "hits"]
+        assert got == want[:FLEET_DISAGG], "disaggregated tokens differ"
+        assert d["handoffs"] == FLEET_DISAGG, d
+        assert d["handoff_failures"] == 0 and hits == FLEET_DISAGG, (d, hits)
+        n_imports = imports.value
+        fault.inject_chaos("fleet.kv_handoff", "torn")
+        try:
+            torn = router.generate(prompts[-1],
+                                   max_new_tokens=FLEET_DISAGG_NEW)
+        finally:
+            fault.clear_chaos()
+        d = router.status_digest()
+        assert torn.tokens.tolist() == want[-1], "torn handoff tokens differ"
+        assert d["handoffs"] == FLEET_DISAGG, d
+        assert d["handoff_failures"] == 1 and imports.value == n_imports, d
+        cli = ServingClient(fleet.address(1), token=FLEET_TOKEN, timeout=600)
+        try:
+            status = cli.status()
+        finally:
+            cli.close()
+        assert status["fleet"]["handoffs"] == FLEET_DISAGG, status["fleet"]
+        assert set(status["fleet"]["replicas"]) == {"0", "1"}
+        memory = fleet.memory()
+    finally:
+        fleet.close()
+    info = {"requests": FLEET_DISAGG, "new_tokens": FLEET_DISAGG_NEW,
+            "prompt_tokens": [len(p) for p in prompts[:FLEET_DISAGG]],
+            "handoff_bytes": shipped[:FLEET_DISAGG],
+            "handoff_s": handoff_s[:FLEET_DISAGG], "request_s": wall,
+            "decode_prefix_hits": hits, "memory": memory,
+            "card": power_line}
+    n_tok = sum(info["prompt_tokens"])
+    log(f"[fleet] (a) bf16 prefill -> decode, {FLEET_DISAGG} requests of "
+        f"16-128 prompt tokens x {FLEET_DISAGG_NEW} new, one at a time: "
+        f"tokens == one engine's local prefill and decode; handoffs "
+        f"{FLEET_DISAGG}, the decode replica's prefix hits {hits}; a torn "
+        f"handoff: the same tokens, handoff_failures 1, no new import; the "
+        f"status op carries the digest. A handoff (generate of 1 token on "
+        f"the prefill replica, kv_export, kv_handoff): median "
+        f"{statistics.median(info['handoff_s']) * 1e3:.1f} ms, "
+        f"{sum(shipped[:FLEET_DISAGG]) / n_tok / 1e3:.1f} KB a prompt "
+        f"token ({statistics.median(shipped[:FLEET_DISAGG]) / 2**20:.2f} "
+        f"MiB median); a request end to end median "
+        f"{statistics.median(wall) * 1e3:.1f} ms [{power_line}]")
+    for rep in memory:
+        log(f"[fleet] (a) {rep['role']} replica: setup {rep['setup_s']:.2f} "
+            f"s, graph pool {rep['graph_pool_bytes'] / 2**20:.1f} MiB, "
+            f"{rep['allocated_bytes'] / 2**20:.1f} MiB allocated")
+    return info
+
+
+def _fleet_kill(dev, power_line) -> dict:
+    """(b) float32 with TF32 off: three ``both`` replicas, a warm pass, a
+    storm with the replica holding the most cache entries killed while
+    its first stream is held after its first token; then (c) a weight
+    push to the survivors."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from distkeras_tpu_torch.models.gpt import gpt_small, init_params
+
+    set_tf32(False)
+
+    def make():
+        return init_params(gpt_small(dtype=torch.float32),
+                           torch.Generator().manual_seed(7))
+
+    prompts = _fleet_prompts(FLEET_KILL_PROMPTS, 71)
+    want = _fleet_reference(dev, make, prompts, FLEET_KILL_NEW)
+    fleet = _Fleet(dev, make, ("both", "both", "both"))
+    router = fleet.router
+    info = {"card": power_line}
+    try:
+        for p, w in zip(prompts, want):
+            assert router.generate(p, max_new_tokens=FLEET_KILL_NEW
+                                   ).tokens.tolist() == w, "warm pass"
+        entries = [rep["gen"].health_status()["prefix_cache"]["entries"]
+                   for rep in fleet.replicas]
+        victim = int(np.argmax(entries))
+        gen = fleet.replicas[victim]["gen"]
+        streaming, resume = threading.Event(), threading.Event()
+        generate = gen.generate
+
+        def held(prompt, stream=None, **kw):
+            def on_token(tok):
+                if not streaming.is_set():
+                    streaming.set()  # the victim's first stream
+                    assert resume.wait(600)
+                stream(tok)
+            return generate(prompt, stream=on_token, **kw)
+
+        gen.generate = held
+        evict, evicted_at = router._evict, []
+
+        def timed_evict(rep, reason):
+            evicted_at.append(time.perf_counter())
+            evict(rep, reason)
+
+        router._evict = timed_evict
+        sent = [prompts[i % len(prompts)] for i in range(FLEET_STORM)]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=FLEET_CLIENTS) as pool:
+            futs = [pool.submit(router.generate, p,
+                                max_new_tokens=FLEET_KILL_NEW) for p in sent]
+            assert streaming.wait(600), "no stream reached the victim"
+            torch.cuda.synchronize()
+            mem_before = torch.cuda.memory_allocated()
+            t_kill = time.perf_counter()
+            fleet.replicas[victim]["srv"].stop()
+            killer = threading.Thread(target=gen.shutdown, kwargs=dict(
+                drain=False, timeout=10))
+            killer.start()
+            deadline = time.monotonic() + 60
+            while not gen._closed:
+                assert time.monotonic() < deadline, "the kill did not land"
+                time.sleep(0.001)
+            resume.set()
+            killer.join(timeout=60)
+            assert not killer.is_alive(), "the victim's scheduler hung"
+            kill_s = time.perf_counter() - t_kill
+            torch.cuda.synchronize()
+            mem_after = torch.cuda.memory_allocated()
+            results = [f.result(timeout=900) for f in futs]
+        storm_s = time.perf_counter() - t0
+        t_done = time.perf_counter()
+        got = [r.tokens.tolist() for r in results]
+        wrong = [i for i, (g, p) in enumerate(zip(got, sent))
+                 if g != want[prompts.index(p)]]
+        if wrong:
+            i = wrong[0]
+            w = want[prompts.index(sent[i])]
+            at = next(k for k, (a, b) in enumerate(zip(got[i], w)) if a != b)
+            model = make().to(dev).eval()
+            with torch.no_grad():
+                logits = model(torch.tensor([sent[i] + w[:at]],
+                                            device=dev))[0, -1]
+            top2 = torch.topk(logits, 2)
+            log(f"[fleet] (b) request {i} differs at token {at}: got "
+                f"{got[i][at]}, one replica alone {w[at]}; full-forward "
+                f"top-2 {top2.indices.tolist()} margin "
+                f"{float(top2.values[0] - top2.values[1]):.3e}")
+            raise AssertionError(f"{len(wrong)} requests differ: {wrong}")
+        d = router.status_digest()
+        assert d["evictions"] >= 1 and d["requeued"] >= 1, d
+        assert str(fleet.replicas[victim]["rid"]) not in d["replicas"], d
+        assert gen.released and gen.pool.pool is None
+        assert all(run._graph is None and not run._static
+                   for run in gen._runners())
+        assert all(bank.model is None for bank in gen._banks)
+        torch.cuda.empty_cache()
+        info["kill"] = {
+            "victim": victim, "entries": entries,
+            "requests": FLEET_STORM, "failed": 0, "lost": 0,
+            "evictions": d["evictions"], "requeued": d["requeued"],
+            "kill_s": kill_s,
+            "kill_to_evict_s": evicted_at[0] - t_kill if evicted_at else None,
+            "kill_to_done_s": t_done - t_kill, "storm_s": storm_s,
+            "allocated_before_kill": mem_before,
+            "allocated_after_kill": mem_after,
+            "reserved_after_empty_cache": torch.cuda.memory_reserved(),
+            "memory": fleet.memory()}
+        k = info["kill"]
+        log(f"[fleet] (b) float32: {FLEET_STORM} requests x "
+            f"{FLEET_KILL_NEW} new tokens, {FLEET_CLIENTS} in flight over 3 "
+            f"replicas; replica {victim} (cache entries {entries}) killed "
+            f"with a stream in flight: 0 failed, 0 lost, every request's "
+            f"tokens == one replica alone; evictions {d['evictions']}, "
+            f"requeued {d['requeued']}; the kill took {kill_s * 1e3:.1f} ms, "
+            f"the router evicted "
+            f"{(k['kill_to_evict_s'] or 0) * 1e3:.1f} ms after it, the storm "
+            f"ended {k['kill_to_done_s']:.3f} s after it ({storm_s:.3f} s in "
+            f"all); allocated {mem_before / 2**20:.1f} MiB before the kill, "
+            f"{mem_after / 2**20:.1f} MiB after (the victim's graphs, banks "
+            f"and pool freed) [{power_line}]")
+
+        # (c) a push of new weights to every live replica
+        survivor = next(rep["gen"] for i, rep in enumerate(fleet.replicas)
+                        if i != victim)
+        v1 = _perturbed(survivor._params, 81)
+        t0 = time.perf_counter()
+        out = router.push_weights(v1, version=1, target="generation")
+        push_s = time.perf_counter() - t0
+        assert len(out) == 2 and all(r.get("ok") for r in out.values()), out
+        d = router.status_digest()
+        assert d["version_skew"] == 0, d
+        assert [r["model_version"] for r in d["replicas"].values()] == [1, 1]
+        after = _fleet_prompts(FLEET_PUSH_PROMPTS, 91)
+        got = [router.generate(p, max_new_tokens=FLEET_KILL_NEW
+                               ).tokens.tolist() for p in after]
+    finally:
+        fleet.close()
+    assert got == _fleet_reference(dev, make, after, FLEET_KILL_NEW,
+                                   state=v1), "tokens after the push"
+    info["push"] = {"replies": {str(k): v for k, v in out.items()},
+                    "push_s": push_s, "version_skew": 0,
+                    "prompts_checked": len(after)}
+    log(f"[fleet] (c) push_weights v1 to the 2 live replicas in "
+        f"{push_s:.3f} s: every reply ok, version_skew 0, model_version 1 "
+        f"on each; {len(after)} prompts after it == an engine loaded with "
+        f"v1 [{power_line}]")
+    return info
+
+
+def _fleet_window(router, prompts, new) -> dict:
+    """Phase 4's closed loop through ``router``: FLEET_CLIENTS threads
+    take the next request as theirs completes. Tokens/s, TTFT (call to
+    first token) p50 and p99, and the longest gap between two tokens
+    arriving at any client."""
+    import threading
+
+    lock = threading.Lock()
+    state = {"next": 0}
+    ttft, results, errors, arrivals = {}, {}, [], []
+
+    def client_loop():
+        try:
+            while True:
+                with lock:
+                    i = state["next"]
+                    if i >= len(prompts):
+                        return
+                    state["next"] = i + 1
+                t0 = time.perf_counter()
+
+                def on_token(tok, i=i, t0=t0):
+                    now = time.perf_counter()
+                    arrivals.append(now)
+                    ttft.setdefault(i, now - t0)
+
+                results[i] = router.generate(prompts[i], max_new_tokens=new,
+                                             on_token=on_token)
+        except Exception as e:  # surfaced by the caller
+            errors.append(e)
+
+    threads = [threading.Thread(target=client_loop, daemon=True)
+               for _ in range(FLEET_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+        assert not t.is_alive(), "a fleet client hung"
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    assert len(results) == len(prompts)
+    assert all(r.reason == "length" and r.tokens.size == new
+               for r in results.values())
+    tokens = sum(r.tokens.size for r in results.values())
+    lat = sorted(ttft.values())
+    gaps = np.diff([t0] + sorted(arrivals))
+    return {"requests": len(prompts), "new_tokens": tokens, "wall_s": wall,
+            "tokens_per_s": tokens / wall,
+            "ttft_p50_s": statistics.median(lat),
+            "ttft_p99_s": float(np.percentile(lat, 99)),
+            "max_gap_ms": float(gaps.max()) * 1e3}
+
+
+def _fleet_rates(dev, power_line, wire_info, engine_info) -> dict:
+    """(d) bf16: phase 4's window through the router over two ``both``
+    replicas with affinity routing, a MetricStore and the default SLO
+    specs installed; the paged launches counted per replay."""
+    from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch.health import slo, timeseries
+    from distkeras_tpu_torch.health.endpoints import HealthClient
+    from distkeras_tpu_torch.ops.kernels import flash_attention as fa
+    from distkeras_tpu_torch.serving import ServingClient
+
+    fleet = _Fleet(dev, _gpt_small_bf16, ("both", "both"))
+    router = fleet.router
+    store = timeseries.install_store(timeseries.MetricStore(interval_s=0.5))
+    judge = slo.install_engine(slo.SloEngine(slo.default_specs()))
+    try:
+        store.start()
+        judge.start(interval=0.5)
+        calls = lambda: sum(  # noqa: E731
+            telemetry.counter(f"serving.decode.{k}").value
+            for k in ("prefills", "steps"))
+        fa.paged_flash_attention.launches = 0
+        calls0 = calls()
+        window = _fleet_window(router, _serving_prompts(), SERVE_NEW)
+        launches = fa.paged_flash_attention.launches
+        n_calls = calls() - calls0
+        layers = fleet.replicas[0]["gen"].model.num_layers
+        assert launches == layers * n_calls > 0, (launches, n_calls)
+        store.stop()
+        judge.stop()
+        store.collect()
+        judge.evaluate_once()
+        with HealthClient(fleet.address(0), token=FLEET_TOKEN) as hc:
+            names = sorted({r["name"] for r in hc.series(max_points=4)})
+        decode = [n for n in names if n.startswith("serving.decode.")]
+        assert decode, names
+        cli = ServingClient(fleet.address(1), token=FLEET_TOKEN, timeout=600)
+        try:
+            status = cli.status()
+        finally:
+            cli.close()
+        assert isinstance(status.get("alerts"), list), sorted(status)
+        d = router.status_digest()
+        memory = fleet.memory()
+    finally:
+        store.stop()
+        judge.stop()
+        timeseries.install_store(None)
+        slo.install_engine(None)
+        fleet.close()
+    window.update(paged_launches=launches, model_calls=n_calls,
+                  affinity=d["affinity"], requests_routed=d["requests"],
+                  series_decode=decode, alerts=status["alerts"],
+                  memory=memory, card=power_line)
+    w = window
+    log(f"[fleet] (d) bf16: {w['requests']} requests x {SERVE_NEW} new "
+        f"tokens through the router over 2 replicas, {FLEET_CLIENTS} "
+        f"clients: {w['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{w['ttft_p50_s'] * 1e3:.1f} ms, p99 {w['ttft_p99_s'] * 1e3:.1f} "
+        f"ms, longest gap {w['max_gap_ms']:.1f} ms, affinity hit rate "
+        f"{d['affinity']['hit_rate']:.3f}; paged launches {launches} = "
+        f"{layers} x {n_calls} model calls; phase 22 over the wire (this "
+        f"run): {wire_info['window']['tokens_per_s']:.1f} tokens/s, phase 4 "
+        f"in process: {engine_info['tokens_per_s']:.1f}; series op: "
+        f"{len(decode)} serving.decode.* series; status alerts "
+        f"{[a['slo'] for a in status['alerts']]} [{power_line}]")
+    return window
+
+
+def phase_fleet(dev, power_line, wire_info, engine_info) -> dict:
+    """Phase 23: the serving fleet (module docstring)."""
+    from distkeras_tpu_torch import telemetry
+
+    telemetry.reset()
+    info = {"disagg": _fleet_disagg(dev, power_line)}
+    torch.cuda.empty_cache()
+    info.update(_fleet_kill(dev, power_line))
+    torch.cuda.empty_cache()
+    info["rates"] = _fleet_rates(dev, power_line, wire_info, engine_info)
+    torch.cuda.empty_cache()
+    return info
+
+
 def main() -> int:
     report = {}
     try:
@@ -2744,6 +3248,8 @@ def main() -> int:
         report["int8_kv"] = phase_int8(dev, card)
         report["spec"] = phase_spec(dev, card)
         report["wire"] = phase_wire(dev, card, report["engine"])
+        report["fleet"] = phase_fleet(dev, card, report["wire"],
+                                      report["engine"])
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         log("[chip_smoke] FAILED")
@@ -2768,6 +3274,8 @@ def main() -> int:
         "shape": "decode b=8 t=2 h=12 d=64 page_size=16 pmax=64 bf16",
         # phase 22's wire window (zeroed before it, read after it)
         "launches_wire": report["wire"]["window"]["paged_launches"],
+        # phase 23's routed window (zeroed before it, read after it)
+        "launches_fleet": report["fleet"]["rates"]["paged_launches"],
     }]
     train_case = next(c for c in report["flash_cases"]
                       if c["shape"] == [8, 2048, 12, 64]

@@ -96,9 +96,18 @@ def handle_health_op(op: str, header: dict,
     if op == "recent-spans":
         return {"spans": reg.recent_spans(int(header.get("limit", 100)))}
     if op == "series":
-        # the time-series store (health/timeseries.py) is not ported yet
-        # (ROADMAP.md Queue A, item 17): the JAX reply with no store
-        return {"series": []}
+        # time-series history (DESIGN.md §24): the installed MetricStore's
+        # tiered rings, optionally filtered to one metric name. Lazy
+        # import keeps this module import-light (docstring contract).
+        from distkeras_tpu_torch.health import timeseries
+
+        store = timeseries.get_store()
+        if store is None:
+            return {"series": []}
+        return {"series": store.rows(
+            name=header.get("name"),
+            tier=str(header.get("tier", "raw")),
+            max_points=int(header.get("max_points", 120)))}
     if op == "status":
         now = time.time()
         snap = reg.snapshot()
@@ -142,11 +151,20 @@ def handle_health_op(op: str, header: dict,
             cov = gauges.get("profile.op.coverage")
             if cov is not None:
                 status["roofline_coverage"] = round(cov, 4)
-        # SLO judgement (health/slo.py) and trends (health/timeseries.py)
-        # are not ported yet (ROADMAP.md Queue A, item 17): the digest is
-        # the JAX one with neither an SLO engine nor a trend monitor
-        # installed (no alerts, no "trends" key)
-        status["alerts"] = []
+        # SLO judgement (health/slo.py): active alerts of the installed
+        # engine ride the digest so `watch` and the CLI see breaches live.
+        # Lazy import keeps this module import-light (docstring contract).
+        from distkeras_tpu_torch.health import slo as slo_mod
+
+        status["alerts"] = slo_mod.active_alerts()
+        # trend judgement (health/timeseries.py, DESIGN.md §24): active
+        # long-horizon trends (leaks/stalls/drift) of the installed
+        # monitor ride the digest next to the instantaneous alerts
+        from distkeras_tpu_torch.health import timeseries as ts_mod
+
+        trends = ts_mod.active_trends()
+        if trends:
+            status["trends"] = trends
         rec = telemetry.get_recorder()
         if rec is not None and hasattr(rec, "last_dump_path"):
             status["recorder"] = {
@@ -177,7 +195,7 @@ class HealthClient:
     def __init__(self, address: str, token: Optional[str] = None,
                  timeout: float = 10.0, follow: bool = True):
         from distkeras_tpu_torch.parallel.remote_ps import (recv_message,
-                                                      send_message)
+                                                            send_message)
 
         self._send, self._recv = send_message, recv_message
         self.address = address

@@ -195,10 +195,14 @@ class FlightRecorder:
             status = handle_health_op("status", {})
         except Exception as e:  # pragma: no cover - defensive
             status = {"error": f"{type(e).__name__}: {e}"}
-        # the time-series store and trend monitor (health/timeseries.py)
-        # are not ported yet (ROADMAP.md Queue A, item 17): a bundle
-        # carries what the JAX package's does with neither installed
-        series, trends = [], []
+        try:  # installed MetricStore history + active trends (§24)
+            from distkeras_tpu_torch.health import timeseries
+
+            store = timeseries.get_store()
+            series = store.rows(max_points=60) if store is not None else []
+            trends = timeseries.active_trends()
+        except Exception:  # pragma: no cover - defensive
+            series, trends = [], []
         return {
             "kind": "postmortem",
             "reason": reason,

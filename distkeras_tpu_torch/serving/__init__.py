@@ -2,8 +2,9 @@
 (``ServingEngine``), generative serving on a rectangular or paged KV pool
 with continuous batching (``GenerationEngine``), one CUDA graph per
 declared shape (in each weight bank) on the card, live weight
-rollout (``RolloutController``) and the socket front end
-(``ServingServer``/``ServingClient``, the JAX package's wire).
+rollout (``RolloutController``), the socket front end
+(``ServingServer``/``ServingClient``, the JAX package's wire) and the
+routed fleet over several servers (``FleetRouter``).
 
     from distkeras_tpu_torch.serving import GenerationEngine
 
@@ -24,6 +25,11 @@ rollout (``RolloutController``) and the socket front end
     client = ServingClient(f"127.0.0.1:{srv.port}", token=secret)
     client.generate(prompt, max_new_tokens=64)
     client.put_weights(new_state_dict, version=1, target="both")
+
+    router = FleetRouter()          # replicas: servers as above
+    router.add_replica(f"127.0.0.1:{srv.port}", role="both")
+    router.generate(prompt, max_new_tokens=64)
+    router.close()
     gen.shutdown()
 """
 
@@ -36,6 +42,7 @@ from distkeras_tpu_torch.serving.batching import (
 )
 from distkeras_tpu_torch.serving.buckets import DEFAULT_BUCKETS, BucketSpec
 from distkeras_tpu_torch.serving.engine import ServingEngine
+from distkeras_tpu_torch.serving.fleet import FleetOverloaded, FleetRouter
 from distkeras_tpu_torch.serving.generation import (
     GenerationEngine,
     GenerationResult,
@@ -61,6 +68,8 @@ __all__ = [
     "DEFAULT_BUCKETS",
     "DeadlineExceeded",
     "EngineClosed",
+    "FleetOverloaded",
+    "FleetRouter",
     "GenerationEngine",
     "GenerationResult",
     "KVCachePool",

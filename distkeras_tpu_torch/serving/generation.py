@@ -391,6 +391,13 @@ class ModelDraft:
         return {"prefill": tuple(sorted(self._prefill_runs)),
                 "decode": tuple(sorted(self._decode_runs))}
 
+    def free_device(self) -> None:
+        """Free the draft's graphs and cache (its engine shut down)."""
+        for run in (*self._prefill_runs.values(),
+                    *self._decode_runs.values()):
+            run.free()
+        self._cache = None
+
     def begin(self, slot: int, prompt, first_token: int) -> None:
         del first_token  # arrives as last_tokens at the next propose
         prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -541,6 +548,15 @@ class _StepRunner:
         self(**self._inputs)
         if self._stream is not None:
             self._stream.synchronize()
+
+    def free(self) -> None:
+        """Drop the graph, its output and the static inputs: the runner
+        cannot be called again. The caller has synchronized the stream
+        after the last replay."""
+        if self._graph is not None:
+            self._graph.reset()
+        self._graph = self.out = self._fn = self._pool = None
+        self._static, self._host = {}, {}
 
 
 class _Bank:
@@ -722,6 +738,8 @@ class GenerationEngine:
         self._cv = threading.Condition()
         self._closed = False
         self._drain = True
+        #: True once the scheduler exited and freed the device state
+        self.released = False
 
         self._admitted_c = telemetry.counter("serving.decode.admitted")
         self._rejected_c = telemetry.counter("serving.decode.rejected")
@@ -1253,6 +1271,12 @@ class GenerationEngine:
     # -- scheduler ---------------------------------------------------------
 
     def _scheduler_loop(self) -> None:
+        try:
+            self._schedule()
+        finally:
+            self._free_device()
+
+    def _schedule(self) -> None:
         active = {}      # slot -> _GenRequest (decoding)
         prefilling = {}  # slot -> _GenRequest (chunked prefill cursor)
         pending: list = []
@@ -1301,6 +1325,31 @@ class GenerationEngine:
         self._fail_all(EngineClosed("engine shut down without draining"),
                        pending, active, prefilling)
         self._active_g.set(0)
+
+    def _free_device(self) -> None:
+        """Free the engine's device state once its scheduler, the only
+        thread that replays its graphs, has made its last call (drained,
+        shut down without draining, or failed): every runner's graph,
+        output and static inputs, the draft's, both weight banks and the
+        KV pool, so the graphs' memory pool goes back to the allocator
+        with the last graph. Its stream is synchronized first, so no
+        replay of this engine is in flight; other engines' streams and
+        pools are not touched. ``released`` is then True and
+        ``compiled_executables`` still names the declared shapes. The
+        freed blocks go back to the caching allocator; returning them
+        to the device (``torch.cuda.empty_cache()``) is the caller's
+        call."""
+        if self.stream is not None:
+            self.stream.synchronize()
+        for run in self._runners():
+            run.free()
+        if self._draft is not None and hasattr(self._draft, "free_device"):
+            self._draft.free_device()
+        for bank in self._banks:
+            bank.model, bank.fns = None, ()
+        self.pool.pool = None
+        self._graph_pool = None
+        self.released = True
 
     def _fail_all(self, err, pending, active, prefilling) -> None:
         self._fail_pending_swap(err)

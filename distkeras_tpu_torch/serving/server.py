@@ -51,8 +51,9 @@ and installs ``bridge.flax_to_state_dict(tree)``, so a JAX
 installs on a JAX server. KV blobs carry torch's dtype names, which are
 numpy's (and ml_dtypes') for float32, int8 and bfloat16.
 
-``router=`` is accepted and stored as in JAX; its fleet router
-(``serving/fleet.py``) is ROADMAP.md Queue A, item 7b.
+``router=``: a :class:`~distkeras_tpu_torch.serving.fleet.FleetRouter`
+(or JAX's) whose ``status_digest()`` the ``status`` op carries under
+``"fleet"``, as in JAX.
 """
 
 from __future__ import annotations
@@ -122,16 +123,21 @@ class ServingServer:
     RolloutController` (``rollout``: ``weights_put`` stages through it).
 
     ``token``: shared secret required in every request header; None
-    disables auth (loopback development only).
+    disables auth (loopback development only). ``engine=None`` makes a
+    generation-only server (a fleet replica): ``infer`` and a
+    ``weights_put`` aimed at the one-shot engine are refused as
+    ``bad_request``, and ``status``/``version`` carry the generation
+    engine's fields only (the JAX server needs an engine).
     """
 
-    def __init__(self, engine: ServingEngine, host: str = "0.0.0.0",
+    def __init__(self, engine: Optional[ServingEngine],
+                 host: str = "0.0.0.0",
                  port: int = 0, token: Optional[str] = None,
                  generator=None, rollout=None, router=None):
         self.engine = engine
         self.generator = generator
         self.rollout = rollout
-        #: stored as in JAX; the fleet router is not ported yet (item 7b)
+        #: a fleet router whose digest rides the ``status`` op
         self.router = router
         self.token = token
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -155,7 +161,7 @@ class ServingServer:
             self._sock.close()
         except OSError:
             pass
-        if shutdown_engine:
+        if shutdown_engine and self.engine is not None:
             self.engine.shutdown(drain=True)
 
     def _accept_loop(self):
@@ -222,7 +228,8 @@ class ServingServer:
             extra = {
                 "service": "serving",
                 "port": self.port,
-                **self.engine.health_status(),
+                **(self.engine.health_status()
+                   if self.engine is not None else {}),
             }
             if self.generator is not None:
                 extra["decode"] = self.generator.health_status()
@@ -251,6 +258,10 @@ class ServingServer:
         if self.generator is None:
             raise ValueError("no generation engine mounted on this server")
 
+    def _require_engine(self):
+        if self.engine is None:
+            raise ValueError("no one-shot engine mounted on this server")
+
     def _weights_put(self, conn, header: dict, blobs: list):
         """Decode a published flax-layout weight tree and install its
         ``state_dict``: through the mounted RolloutController (canary and
@@ -263,6 +274,8 @@ class ServingServer:
             raise ValueError(f"unknown weights_put target {target!r}")
         if target != "serving":
             self._require_generator()
+        if target != "generation":
+            self._require_engine()
         like = self.engine.params if target == "serving" \
             else self.generator._params
         template = bridge.state_dict_to_flax(like, shapes_only=True)
@@ -281,10 +294,10 @@ class ServingServer:
     def _version(self) -> dict:
         """What every engine on this server serves right now (plus the
         controller's state when mounted)."""
-        out = {
-            "model_version": self.engine.model_version,
-            "last_swap_time": self.engine.last_swap_time,
-        }
+        out = {}
+        if self.engine is not None:
+            out["model_version"] = self.engine.model_version
+            out["last_swap_time"] = self.engine.last_swap_time
         if self.generator is not None:
             out["decode_model_version"] = self.generator.model_version
             out["decode_live_versions"] = sorted(self.generator._versions)
@@ -293,6 +306,7 @@ class ServingServer:
         return out
 
     def _infer(self, conn, header: dict, blobs: list):
+        self._require_engine()
         if len(blobs) != 1:
             raise ValueError(f"infer expects 1 blob, got {len(blobs)}")
         shape = tuple(int(d) for d in header["shape"])

@@ -15,9 +15,11 @@ service, or deliver a torn weight publish. Like :func:`apply`, the hooks
 consume deterministic ``after``/``count`` budgets, so the paths behind
 them are exercised by scripted injection instead of timing luck. The
 sites the port passes through today are ``"rollout.publish"``
-(:class:`~distkeras_tpu_torch.serving.rollout.WeightPublisher`) and
+(:class:`~distkeras_tpu_torch.serving.rollout.WeightPublisher`),
 ``"kv.swap_in"`` (the prefix cache's page restore in
-:class:`~distkeras_tpu_torch.serving.generation.GenerationEngine`).
+:class:`~distkeras_tpu_torch.serving.generation.GenerationEngine`) and
+``"fleet.kv_handoff"`` (the prefill -> decode page shipment in
+:class:`~distkeras_tpu_torch.serving.fleet.FleetRouter`).
 """
 
 from __future__ import annotations
@@ -141,7 +143,7 @@ def inject_chaos(site: str, action: str, after: int = 0,
     that identify as that shard (coordinator-kill drills arm
     ``shard=0``); passes from other shards neither fire nor consume the
     ``after``/``count`` budget. Sites (the JAX package's list; the
-    port passes through the two its module docstring names):
+    port passes through the three its module docstring names):
 
     - ``"remote_ps.send"`` — client request egress
       (:meth:`RemoteParameterServer._roundtrip`): ``reset`` raises before

@@ -110,6 +110,11 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
             "import distkeras_tpu_torch.utils.fault\n"
             "import distkeras_tpu_torch.health.recorder\n"
             "import distkeras_tpu_torch.health.endpoints\n"
+            "import distkeras_tpu_torch.health\n"
+            "import distkeras_tpu_torch.health.cli\n"
+            "import distkeras_tpu_torch.health.collector\n"
+            "import distkeras_tpu_torch.health.timeseries\n"
+            "import distkeras_tpu_torch.serving.fleet\n"
             "import distkeras_tpu_torch.predictors\n"
             "import distkeras_tpu_torch.evaluators\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in "

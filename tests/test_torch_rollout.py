@@ -165,6 +165,17 @@ def test_canary_agreement_equals_jax_evaluator(versions):
     assert telemetry.counter("rollout.rejections").value == 1
 
 
+def _wait_pending(gen, th):
+    """Poll until the swap that thread ``th`` started is pending in
+    ``gen`` (or ``th`` ended). A held step released before that would
+    end, let the scheduler decode one more token and block on the next
+    permit, and the swap would wait behind it."""
+    deadline = time.monotonic() + 60
+    while gen._pending_swap is None and th.is_alive():
+        assert time.monotonic() < deadline, "the swap never became pending"
+        time.sleep(0.001)
+
+
 def test_timed_out_swap_is_withdrawn_and_rollback_follows(versions):
     """A generator swap that outlasts its timeout while v0 pins the idle
     bank is withdrawn: the generator stays on v1 with nothing pending,
@@ -200,6 +211,7 @@ def test_timed_out_swap_is_withdrawn_and_rollback_follows(versions):
         pinned = gen.generate(PROMPT, max_new_tokens=12, stream=pinned_stream)
         assert started.wait(60)
         th, box = in_thread(ctl.stage, 1, v1)
+        _wait_pending(gen, th)
         permits.release()  # the step in flight ends; v1 applies
         th.join(timeout=60)
         assert box == [True] and sorted(gen._versions) == [0, 1]
@@ -390,6 +402,7 @@ def test_third_version_waits_for_the_pinned_one(versions):
         assert started.wait(60)
         swaps = [threading.Thread(target=eng.swap_weights, args=(v1, 1))]
         swaps[0].start()
+        _wait_pending(eng, swaps[0])
         permits.release()  # the step in flight ends; v1 applies
         swaps[0].join(timeout=60)
         assert not swaps[0].is_alive() and sorted(eng._versions) == [0, 1]

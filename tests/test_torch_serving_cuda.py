@@ -17,7 +17,10 @@ version; a paged call replayed from a graph equals the eager call
 bitwise, and so does a page swap out and back in. Live weight swaps: a
 bank swap keeps in-flight requests on their pinned version (tokens of
 engines built on each version) and captures nothing; the one-shot
-engine's ``shadow_forward`` equals its live output bitwise.
+engine's ``shadow_forward`` equals its live output bitwise. The fleet:
+two replicas on the card behind the port's router give, disaggregated,
+one engine's local tokens; a replica killed with a stream in flight
+re-queues it onto the other, and frees its graphs and pool.
 """
 
 import copy
@@ -448,3 +451,116 @@ def test_serving_engine_on_card_shadow_equals_live_bitwise(cuda_device):
             np.stack([f.result(60) for f in eng.submit_many(rows)]), live)
         assert telemetry.counter("serving.compiles").value == 2
         assert eng.compiled_buckets == (1, 4)
+
+
+class _CardFleet:
+    """``roles`` replicas on the card behind the port's router, each a
+    generation-only ServingServer on 127.0.0.1:0 over a paged,
+    prefix-caching engine."""
+
+    def __init__(self, dev, roles, **router_kw):
+        from distkeras_tpu_torch.serving import FleetRouter, ServingServer
+
+        self.router = FleetRouter(**router_kw)
+        self.replicas = []
+        try:
+            for role in roles:
+                gen = GenerationEngine(
+                    _model(dev), device=dev, prefix_cache_bytes=1 << 24,
+                    **MODES["paged"])
+                srv = ServingServer(None, host="127.0.0.1", generator=gen,
+                                    router=self.router)
+                self.replicas.append({"gen": gen, "srv": srv})
+                srv.start()
+                self.replicas[-1]["rid"] = self.router.add_replica(
+                    f"127.0.0.1:{srv.port}", role=role)
+        except BaseException:
+            self.close()
+            raise
+
+    def close(self):
+        self.router.close()
+        for rep in self.replicas:
+            rep["srv"].stop()
+            rep["gen"].shutdown(drain=False, timeout=30)
+
+
+def _local_tokens(dev, prompts, new):
+    with GenerationEngine(_model(dev), device=dev, **MODES["paged"]) as eng:
+        return [t.tolist() for t in _serve(eng, prompts, new=new)]
+
+
+def test_fleet_disaggregated_tokens_equal_local_on_card(cuda_device):
+    """A prefill and a decode replica on cuda:0, one request at a time:
+    the router's tokens equal one engine's local prefill and decode, each
+    request a full prefix hit on the decode replica."""
+    prompts = _prompts((9, 40, 17, 33))
+    want = _local_tokens(cuda_device, prompts, 12)
+    fleet = _CardFleet(cuda_device, ("prefill", "decode"))
+    try:
+        tfa.paged_flash_attention.launches = 0
+        got = [fleet.router.generate(p, max_new_tokens=12).tokens.tolist()
+               for p in prompts]
+        assert tfa.paged_flash_attention.launches > 0
+        d = fleet.router.status_digest()
+        pc = fleet.replicas[1]["gen"].health_status()["prefix_cache"]
+    finally:
+        fleet.close()
+    assert got == want
+    assert d["handoffs"] == len(prompts) and d["handoff_failures"] == 0
+    assert pc["hits"] == len(prompts)
+
+
+def test_fleet_kill_requeues_and_frees_the_victim_on_card(cuda_device):
+    """Two replicas on cuda:0; one is killed while its stream is held
+    after the first token: that request re-queues onto the other and
+    gives the local tokens; the victim's graphs and pool are freed while
+    the survivor goes on replaying."""
+    import threading
+    import time
+
+    prompts = _prompts((9, 40, 17, 33))
+    want = _local_tokens(cuda_device, prompts, 12)
+    fleet = _CardFleet(cuda_device, ("both", "both"))
+    try:
+        victim = fleet.replicas[0]["gen"]
+        streaming, resume = threading.Event(), threading.Event()
+        generate = victim.generate
+
+        def held(prompt, stream=None, **kw):
+            def on_token(tok):
+                if not streaming.is_set():
+                    streaming.set()
+                    assert resume.wait(60)
+                stream(tok)
+            return generate(prompt, stream=on_token, **kw)
+
+        victim.generate = held
+        box = []
+        th = threading.Thread(target=lambda: box.append(
+            fleet.router.generate(prompts[0], max_new_tokens=12)))
+        th.start()  # least-loaded: replica 0 takes the first request
+        assert streaming.wait(60)
+        fleet.replicas[0]["srv"].stop()
+        killer = threading.Thread(target=victim.shutdown,
+                                  kwargs=dict(drain=False, timeout=30))
+        killer.start()
+        deadline = time.monotonic() + 60
+        while not victim._closed:
+            assert time.monotonic() < deadline
+            time.sleep(0.001)
+        resume.set()
+        killer.join(timeout=60)
+        th.join(timeout=120)
+        assert not th.is_alive() and not killer.is_alive()
+        got = [box[0].tokens.tolist()] + [
+            fleet.router.generate(p, max_new_tokens=12).tokens.tolist()
+            for p in prompts[1:]]
+        d = fleet.router.status_digest()
+        assert victim.released and victim.pool.pool is None
+        assert all(run._graph is None for run in victim._runners())
+    finally:
+        fleet.close()
+    assert got == want
+    assert d["evictions"] == 1 and d["requeued"] == 1
+    assert list(d["replicas"]) == [str(fleet.replicas[1]["rid"])]
