@@ -186,6 +186,38 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    ``series`` op returns ``serving.decode.*`` rows and ``status`` carries
    ``alerts``.
 
+24. train-core — the training core through the public trainer API
+   (``distkeras_tpu_torch.trainers``, the substrate's replica loop,
+   the strategies), one ``[train-core]`` line a part. (a) ``bench.py``'s
+   configuration: ``ADAG(resnet50_nf(), worker_optimizer="sgd",
+   learning_rate=0.05, num_workers=1, batch_size=128,
+   communication_window=16, metrics=())`` over 3 rounds of seeded uint8
+   224^2 images (1,000 classes) streamed with ``staging_rounds=1``
+   (pinned buffers, side-stream copies, the prefetch thread): each
+   round's wall time, samples/s over rounds 2-3, the median local step
+   (CUDA events), peak memory and a round against 16 x phase 15's step;
+   finite losses and a center that moved. (b) K = 4 replicas of
+   resnet50_nf() on the card (``parallelism_factor=4``, batch 32, window
+   4, one round): the new center within 1e-6 (relative to each leaf's
+   largest magnitude) of the start plus the sum of every worker's
+   ``(w - c) / window`` taken in float64 on the card, the replicas apart
+   before the pull, peak memory. (c) The flow of
+   ``examples/mnist_mlp.py`` (``synthetic_mnist(n=8192)``, its
+   ``Pipeline``, momentum at lr 0.3, batch 64, 3 epochs, window 4) with
+   K = 4 for every trainer of the zoo, then ``ModelClassifier`` and
+   ``AccuracyEvaluator``: each accuracy and wall time. EAMSGD takes no
+   worker optimizer (both packages refuse one); DOWNPOUR, DynSGD, AEASGD
+   and EAMSGD do not converge at K = 4 with these kwargs (nor do the JAX
+   package's: the example runs one worker on a one-chip host), so they
+   also run at a window of 1 (DOWNPOUR, DynSGD) and rho 0.5 (AEASGD,
+   EAMSGD); accuracy above 0.5 is asserted for Single, Averaging,
+   Ensemble, ADAG and those four; ADAG's and EAMSGD's (rho 0.5)
+   first-epoch loss histories within 1e-3 relative of the same runs on
+   the host's CPU (TF32 off). (d) ``ADAG(resnet50())`` (GroupNorm) in
+   bf16, K = 2, batch 32, window 2, one round: the GroupNorm forward and
+   backward kernels launched 53 x K x window times each
+   (``launches_train_core`` in the kernels' line), finite losses.
+
 The last three lines of standard output are the kernels' JSON, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details are
 also written to ``chiprun_out/chip_smoke.json``.
@@ -3201,6 +3233,332 @@ def phase_fleet(dev, power_line, wire_info, engine_info) -> dict:
     return info
 
 
+# -- phase 24 -----------------------------------------------------------------
+
+CORE_B, CORE_WINDOW, CORE_ROUNDS = 128, 16, 3
+CORE_K_B, CORE_K_WINDOW, CORE_K = 32, 4, 4
+CORE_GN_B, CORE_GN_WINDOW, CORE_GN_K = 32, 2, 2
+MNIST_N, MNIST_K = 8192, 4
+
+
+def _images(rows, seed):
+    """Seeded uint8 NHWC 224^2 images and one-hot labels over 1000
+    classes, as a port ``Dataset`` (made in bulk: one draw of bytes)."""
+    from distkeras_tpu_torch.data.dataset import Dataset
+
+    rng = np.random.default_rng(seed)
+    x = np.frombuffer(rng.bytes(rows * 224 * 224 * 3), np.uint8).reshape(
+        rows, 224, 224, 3)
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, rows)]
+    return Dataset.from_arrays(features=x, label=y)
+
+
+def _nf_model(seed):
+    from distkeras_tpu_torch.models.resnet import init_params, resnet50_nf
+
+    return init_params(resnet50_nf(), torch.Generator().manual_seed(seed))
+
+
+class _RoundClock:
+    """Wraps a trainer's epoch function and its strategy's local step:
+    the wall time of each epoch call (one round a call under
+    ``staging_rounds=1``, synchronized) and each local step's device
+    time between CUDA events (read after the run)."""
+
+    def __init__(self, trainer):
+        from distkeras_tpu_torch.parallel import substrate
+
+        self.calls, self.steps = [], []
+        orig_build, orig_step = substrate.build_epoch_fn, \
+            trainer.strategy.local_step
+
+        def build(*args, **kwargs):
+            fn = orig_build(*args, **kwargs)
+
+            def timed(*a):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a)
+                torch.cuda.synchronize()
+                self.calls.append(time.perf_counter() - t0)
+                return out
+
+            return timed
+
+        def step(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig_step(*args, **kwargs)
+            end.record()
+            self.steps.append((start, end))
+            return out
+
+        self._restore = (substrate, orig_build)
+        substrate.build_epoch_fn = build
+        trainer.strategy.local_step = step
+
+    def close(self):
+        substrate, orig_build = self._restore
+        substrate.build_epoch_fn = orig_build
+
+    def step_ms(self):
+        return [a.elapsed_time(b) for a, b in self.steps]
+
+
+def _core_bench(dev, power_line, nf_info) -> dict:
+    """(a) bench.py's configuration through the public trainer: ADAG over
+    resnet50_nf() at full width, sgd(0.05), batch 128, window 16, one
+    worker, 3 rounds of seeded uint8 224^2 images streamed with
+    ``staging_rounds=1`` (pinned buffers, side-stream copies, prefetch)."""
+    from distkeras_tpu_torch import ADAG
+
+    ds = _images(CORE_ROUNDS * CORE_WINDOW * CORE_B, seed=11)
+    trainer = ADAG(_nf_model(seed=10), worker_optimizer="sgd",
+                   learning_rate=0.05, num_workers=1, batch_size=CORE_B,
+                   communication_window=CORE_WINDOW, metrics=(),
+                   staging_rounds=1)
+    start = {n: p.detach().to(dev, copy=True)
+             for n, p in trainer.model.named_parameters()}
+    clock = _RoundClock(trainer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        params = trainer.train(ds)
+    finally:
+        clock.close()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [h["loss"] for h in trainer.get_history()]
+    rounds = clock.calls
+    steps = clock.step_ms()
+    steady = rounds[1:]
+    per_step = nf_info["step_s"][-1]
+    info = {"round_s": rounds, "wall_s": wall,
+            "samples_per_s": CORE_WINDOW * CORE_B * len(steady) / sum(steady),
+            "median_step_ms": statistics.median(steps),
+            "step_ms": steps, "peak_bytes": peak, "losses": losses,
+            "round_over_phase15": statistics.median(steady)
+            / (CORE_WINDOW * per_step),
+            "phase15_step_s": per_step,
+            "center_moved": max((params[n].float() - start[n].float())
+                                .abs().max().item() for n in start),
+            "card": power_line, "card_after": smi_sample()}
+    log(f"[train-core] (a) ADAG(resnet50_nf(), sgd 0.05, batch {CORE_B}, "
+        f"window {CORE_WINDOW}, 1 worker) over {CORE_ROUNDS} rounds of "
+        f"uint8 224^2 streamed one round a chunk: rounds "
+        f"{', '.join(f'{x:.3f}' for x in rounds)} s, "
+        f"{info['samples_per_s']:.1f} samples/s over rounds 2-3, median "
+        f"local step {info['median_step_ms']:.1f} ms (device events), a "
+        f"round {info['round_over_phase15']:.2f}x 16 x phase 15's step "
+        f"({per_step * 1e3:.1f} ms), peak {peak / 2**30:.2f} GiB, losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, center moved "
+        f"{info['center_moved']:.3e} [{power_line}; after: "
+        f"{info['card_after']}]")
+    assert len(losses) == CORE_ROUNDS * CORE_WINDOW
+    assert all(math.isfinite(x) for x in losses), losses
+    assert info["center_moved"] > 0, info
+    del trainer, params, start, ds
+    torch.cuda.empty_cache()
+    return info
+
+
+def _core_fold(dev, power_line) -> dict:
+    """(b) K = 4 replicas of resnet50_nf() on one card: one ADAG round,
+    batch 32, window 4; the new center against the start plus the sum of
+    each worker's (w - c) / window taken in float64."""
+    from distkeras_tpu_torch import ADAG
+
+    ds = _images(CORE_K * CORE_K_WINDOW * CORE_K_B, seed=12)
+    trainer = ADAG(_nf_model(seed=13), worker_optimizer="sgd",
+                   learning_rate=0.05, num_workers=1,
+                   parallelism_factor=CORE_K, batch_size=CORE_K_B,
+                   communication_window=CORE_K_WINDOW, metrics=())
+    # the float64 reference, accumulated as the commits come: start +
+    # sum_k (w_k - c) / window (one float64 copy of the model on the card)
+    ref, heads, orig_commit = {}, [], trainer.strategy.commit
+
+    def commit(carry, center, window):
+        with torch.no_grad():
+            for n, w in carry.params.items():
+                c = center[n].double()
+                ref.setdefault(n, c.clone()).add_((w.double() - c) / window)
+        heads.append(carry.params["head.weight"].detach().clone())
+        return orig_commit(carry, center, window)
+
+    trainer.strategy.commit = commit
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = trainer.train(ds)
+    peak = torch.cuda.max_memory_allocated(dev)
+    assert len(heads) == CORE_K, len(heads)
+    worst = max((params[n].double() - r).abs().max().item()
+                / max(r.abs().max().item(), 1e-30) for n, r in ref.items())
+    apart = min((heads[i] - heads[j]).abs().max().item()
+                for i in range(CORE_K) for j in range(i + 1, CORE_K))
+    n_params = sum(p.numel() for p in params.values())
+    losses = [h["loss"] for h in trainer.get_history()]
+    info = {"max_rel_err": worst, "min_replica_gap": apart,
+            "peak_bytes": peak, "params": n_params, "losses": losses,
+            "card": power_line}
+    log(f"[train-core] (b) ADAG K={CORE_K} replicas of resnet50_nf() on "
+        f"one card (batch {CORE_K_B}, window {CORE_K_WINDOW}, one round): "
+        f"new center vs float64 start + sum (w_k - c) / window: max "
+        f"relative error {worst:.2e} (bound 1e-6); replicas apart before "
+        f"the pull (min max|w_i - w_j| of the head {apart:.3e}); peak "
+        f"{peak / 2**30:.2f} GiB for {CORE_K} x {n_params / 1e6:.1f} M "
+        f"float32 params ({CORE_K * n_params * 4 / 2**30:.2f} GiB; the "
+        f"peak includes the check's float64 copy, "
+        f"{n_params * 8 / 2**30:.2f} GiB) [{power_line}]")
+    assert worst <= 1e-6, info
+    assert apart > 0, info
+    assert all(math.isfinite(x) for x in losses), losses
+    del trainer, params, ref, heads, ds
+    torch.cuda.empty_cache()
+    return info
+
+
+def _mnist_data():
+    from distkeras_tpu_torch import (MinMaxTransformer, OneHotTransformer,
+                                     Pipeline, synthetic_mnist)
+
+    return Pipeline([
+        MinMaxTransformer(o_min=-1.0, o_max=1.0),
+        OneHotTransformer(10, input_col="label_index", output_col="label"),
+    ]).transform(synthetic_mnist(n=MNIST_N))
+
+
+#: (label, trainer, kwargs over the example's): the example's own kwargs
+#: for every trainer (EAMSGD refuses worker_optimizer, in both
+#: packages), then the four exchanging trainers that do not converge at
+#: K = 4 with them, at a window of 1 (DOWNPOUR, DynSGD) or rho 0.5
+#: (AEASGD, EAMSGD)
+MNIST_RUNS = (
+    ("single", "SingleTrainer", {}), ("averaging", "AveragingTrainer", {}),
+    ("ensemble", "EnsembleTrainer", {}), ("downpour", "DOWNPOUR", {}),
+    ("adag", "ADAG", {}), ("dynsgd", "DynSGD", {}), ("aeasgd", "AEASGD", {}),
+    ("eamsgd", "EAMSGD", {"worker_optimizer": None}),
+    ("downpour_w1", "DOWNPOUR", {"communication_window": 1}),
+    ("dynsgd_w1", "DynSGD", {"communication_window": 1}),
+    ("aeasgd_rho0.5", "AEASGD", {"rho": 0.5}),
+    ("eamsgd_rho0.5", "EAMSGD", {"rho": 0.5, "worker_optimizer": None}),
+)
+#: runs whose accuracy must exceed 0.5
+MNIST_CONVERGE = ("single", "averaging", "ensemble", "adag", "downpour_w1",
+                  "dynsgd_w1", "aeasgd_rho0.5", "eamsgd_rho0.5")
+
+
+def _mnist_run(name, over, device, num_epoch, data, start):
+    import distkeras_tpu_torch as dk
+    from distkeras_tpu_torch.models import mnist_mlp
+
+    kw = dict(worker_optimizer="momentum", learning_rate=0.3, batch_size=64,
+              num_epoch=num_epoch, device=device)
+    if name != "SingleTrainer":
+        kw.update(num_workers=1, parallelism_factor=MNIST_K,
+                  communication_window=4)
+    kw.update(over)
+    if kw["worker_optimizer"] is None:
+        del kw["worker_optimizer"]
+    model = mnist_mlp()
+    model.load_state_dict(start)
+    trainer = getattr(dk, name)(model, **kw)
+    t0 = time.perf_counter()
+    params = trainer.train(data, shuffle=True)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if name == "EnsembleTrainer":
+        params = params[0]
+    scored = dk.ModelClassifier(model, params, batch_size=512,
+                                device=device).predict(data)
+    acc = dk.AccuracyEvaluator("prediction", "label_index").evaluate(scored)
+    return acc, wall, [h["loss"] for h in trainer.get_history()]
+
+
+def _core_mnist(dev, power_line) -> dict:
+    """(c) the twin of examples/mnist_mlp.py on the card: every trainer
+    of the zoo, K = 4 replicas, then ModelClassifier + AccuracyEvaluator;
+    ADAG's and EAMSGD's (rho 0.5) first-epoch losses against the same run
+    on the host's CPU (TF32 off)."""
+    from distkeras_tpu_torch.models import mnist_mlp
+    from distkeras_tpu_torch.models.mlp import init_params
+
+    set_tf32(False)
+    data = _mnist_data()
+    start = init_params(mnist_mlp(),
+                        torch.Generator().manual_seed(16)).state_dict()
+    runs = {}
+    for label, name, over in MNIST_RUNS:
+        acc, wall, losses = _mnist_run(name, over, dev, 3, data, start)
+        runs[label] = {"accuracy": acc, "wall_s": wall,
+                       "last_loss": losses[-1]}
+    witness = {}
+    for label, name, over in (("adag", "ADAG", {}),
+                              ("eamsgd_rho0.5", "EAMSGD",
+                               {"rho": 0.5, "worker_optimizer": None})):
+        _, _, card = _mnist_run(name, over, dev, 1, data, start)
+        _, _, host = _mnist_run(name, over, "cpu", 1, data, start)
+        witness[label] = {"steps": len(card), "max_rel": max(
+            abs(a - b) / abs(b) for a, b in zip(card, host))}
+        assert len(card) == len(host) > 0, witness
+    info = {"runs": runs, "witness": witness, "card": power_line}
+    log(f"[train-core] (c) the mnist_mlp example's flow, {MNIST_N} rows, "
+        f"K={MNIST_K}, 3 epochs (accuracy, wall s): "
+        + "; ".join(f"{k} {v['accuracy']:.4f} {v['wall_s']:.2f}"
+                    for k, v in runs.items())
+        + "; first-epoch losses card vs host CPU, max relative difference: "
+        + ", ".join(f"{k} {v['max_rel']:.2e} over {v['steps']} steps"
+                    for k, v in witness.items()) + " (bound 1e-3)")
+    assert all(w["max_rel"] <= 1e-3 for w in witness.values()), witness
+    for label in MNIST_CONVERGE:
+        assert runs[label]["accuracy"] > 0.5, (label, runs[label])
+    return info
+
+
+def _core_groupnorm(dev, power_line) -> dict:
+    """(d) the GroupNorm kernels under a trainer: ADAG over resnet50()
+    (GroupNorm) in bf16, K = 2 replicas, batch 32, window 2, one round;
+    53 forward and 53 backward launches a local step."""
+    from distkeras_tpu_torch import ADAG
+    from distkeras_tpu_torch.ops.kernels import groupnorm as gn
+
+    ds = _images(CORE_GN_K * CORE_GN_WINDOW * CORE_GN_B, seed=14)
+    trainer = ADAG(_resnet_model("gn", torch.bfloat16, seed=15),
+                   worker_optimizer="sgd", learning_rate=0.05,
+                   num_workers=1, parallelism_factor=CORE_GN_K,
+                   batch_size=CORE_GN_B, communication_window=CORE_GN_WINDOW,
+                   metrics=())
+    kernels = (gn.group_norm_fwd, gn.group_norm_bwd)
+    for kernel in kernels:
+        kernel.launches = 0
+    trainer.train(ds)
+    launches = {k.__name__: k.launches for k in kernels}
+    losses = [h["loss"] for h in trainer.get_history()]
+    want = 53 * CORE_GN_K * CORE_GN_WINDOW
+    info = {"launches": launches, "expected": want, "losses": losses,
+            "card": power_line}
+    log(f"[train-core] (d) ADAG(resnet50() GroupNorm, bf16, K="
+        f"{CORE_GN_K}, batch {CORE_GN_B}, window {CORE_GN_WINDOW}): "
+        f"GroupNorm launches {launches} (53 x K x window = {want}), losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)}")
+    assert all(n == want for n in launches.values()), info
+    assert all(math.isfinite(x) for x in losses), losses
+    del trainer, ds
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_train_core(dev, power_line, nf_info) -> dict:
+    """Phase 24: the training core on the card (module docstring)."""
+    info = {"bench": _core_bench(dev, power_line, nf_info),
+            "fold": _core_fold(dev, power_line),
+            "mnist": _core_mnist(dev, power_line),
+            "groupnorm": _core_groupnorm(dev, power_line)}
+    return info
+
+
 def main() -> int:
     report = {}
     try:
@@ -3250,6 +3608,7 @@ def main() -> int:
         report["wire"] = phase_wire(dev, card, report["engine"])
         report["fleet"] = phase_fleet(dev, card, report["wire"],
                                       report["engine"])
+        report["train_core"] = phase_train_core(dev, card, report["nf"])
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         log("[chip_smoke] FAILED")
@@ -3340,6 +3699,10 @@ def main() -> int:
             "bound_ms": kk["bound_ms"], "bound_by": kk["bound_by"],
             "library_ms": kk["library_ms"], "ms_source": kk["ms_source"],
             "shape": "ResNet-50 stem [128, 12544, 64] G=32 bf16",
+            # phase 24 (d): resnet50() under ADAG (zeroed before, read
+            # after)
+            "launches_train_core": report["train_core"]["groupnorm"][
+                "launches"][name],
         })
     kernels = {"kernels": rows}
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -5,7 +5,28 @@ by slice in PyTorch for NVIDIA Hopper (``sm_90a``), with hand-written
 kernels where the JAX package wrote Pallas kernels for the TPU. It imports
 ``torch`` and never ``jax`` or anything of ``distkeras_tpu``.
 
-The first slice is paged generative serving of a causal LM::
+dist-keras's own flow, preprocess -> train -> predict -> evaluate, with
+the same names as the JAX package (only the placement differs)::
+
+    from distkeras_tpu_torch import (ADAG, AccuracyEvaluator,
+                                     MinMaxTransformer, ModelClassifier,
+                                     OneHotTransformer, Pipeline,
+                                     synthetic_mnist)
+    from distkeras_tpu_torch.models import mnist_mlp
+
+    ds = Pipeline([MinMaxTransformer(o_min=-1.0, o_max=1.0),
+                   OneHotTransformer(10, input_col="label_index",
+                                     output_col="label")]).transform(
+        synthetic_mnist(n=8192))
+    model = mnist_mlp()
+    trainer = ADAG(model, worker_optimizer="momentum", learning_rate=0.3,
+                   batch_size=64, num_epoch=3, num_workers=1,
+                   parallelism_factor=4, communication_window=4)
+    params = trainer.train(ds, shuffle=True)
+    scored = ModelClassifier(model, params).predict(ds)
+    acc = AccuracyEvaluator("prediction", "label_index").evaluate(scored)
+
+Paged generative serving of a causal LM::
 
     from distkeras_tpu_torch.models.gpt import gpt_small, init_params
     from distkeras_tpu_torch.serving import GenerationEngine
@@ -15,26 +36,48 @@ The first slice is paged generative serving of a causal LM::
     with GenerationEngine(model, page_size=16, num_slots=8) as eng:
         result = eng.generate(prompt, max_new_tokens=32).result()
 
-The second slice is training a causal LM through the step engine, with
-the flash-attention kernels forward and backward::
-
-    from distkeras_tpu_torch import engine
-    from distkeras_tpu_torch.models.gpt import CausalLM, init_params
-    from distkeras_tpu_torch.ops import optimizers
-
-    model = init_params(CausalLM(vocab_size=50304, attention="flash"),
-                        torch.Generator().manual_seed(0))
-    tx = optimizers.get("adamw", 1e-3)
-    state = engine.create_train_state(model, tx)
-    step = engine.make_train_step(model, "masked_lm", tx)
-    state, metrics = step(state, {"features": ids, "labels": labels})
-
 Entry points run on ``cuda:0`` unless the caller passes ``device="cpu"``
 (see :func:`distkeras_tpu_torch.device.resolve_device`).
 
-Importing this package is light: submodules load on first use.
+Importing this package is light: the names below load their modules on
+first use.
 """
+
+import importlib
 
 __version__ = "0.1.0"
 
-__all__ = ["__version__"]
+_EXPORTS = {
+    "Dataset": "data.dataset", "synthetic_mnist": "data.dataset",
+    "AccuracyEvaluator": "evaluators",
+    "CanaryAgreementEvaluator": "evaluators", "Evaluator": "evaluators",
+    "LossEvaluator": "evaluators",
+    "ModelClassifier": "predictors", "ModelPredictor": "predictors",
+    "Predictor": "predictors",
+    "PRECISION_POLICIES": "precision", "PrecisionPolicy": "precision",
+    "ServingEngine": "serving.engine",
+    "DenseTransformer": "transformers",
+    "LabelIndexTransformer": "transformers",
+    "MinMaxTransformer": "transformers", "OneHotTransformer": "transformers",
+    "Pipeline": "transformers", "ReshapeTransformer": "transformers",
+    "Transformer": "transformers",
+    "ADAG": "trainers", "AEASGD": "trainers", "DOWNPOUR": "trainers",
+    "AveragingTrainer": "trainers", "DistributedTrainer": "trainers",
+    "DynSGD": "trainers", "EAMSGD": "trainers",
+    "EnsembleTrainer": "trainers", "PjitTrainer": "trainers",
+    "SingleTrainer": "trainers", "Trainer": "trainers",
+    "telemetry": None,
+}
+
+__all__ = sorted(_EXPORTS) + ["__version__"]
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    module = _EXPORTS[name]
+    if module is None:
+        return importlib.import_module(f"{__name__}.{name}")
+    value = getattr(importlib.import_module(f"{__name__}.{module}"), name)
+    globals()[name] = value
+    return value

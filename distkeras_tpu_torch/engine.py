@@ -12,12 +12,15 @@ PyTorch idiom where the JAX package is functional:
 - gradient functions take a batch (and a ``torch.Generator``) and read
   the parameters from the module; gradients come back as a dict of
   name -> tensor in the parameters' dtype (float32), as JAX returns them
-  in the params' dtype;
+  in the params' dtype. Their ``functional=True`` form takes the
+  parameters as a name -> tensor dict first, the JAX signature, and runs
+  the one module on them through ``torch.func.functional_call`` (the
+  substrate's K replicas share one module that way);
 - there is no ``jit``: steps run eagerly (CUDA graphs are later work);
 - the per-step dropout key becomes a ``torch.Generator`` seeded from
   ``dropout_seed`` and the step (and, under accumulation, the
-  microbatch). No ported model draws from it yet (``CausalLM`` has no
-  dropout);
+  microbatch), passed to models whose ``forward`` takes a ``generator``
+  (the MLP and the CIFAR CNN);
 - ``precision=``: a policy with a loss scale other than 1 (``"int8"``,
   ``"fp8-sim"``) scales the loss before ``autograd.grad`` and unscales
   the gradients in float32 after; the step reads the live scale from an
@@ -32,6 +35,8 @@ arrays; the step moves it to the module's device.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import inspect
 from typing import Callable, Optional
 
 import torch
@@ -41,6 +46,7 @@ from distkeras_tpu_torch import precision as precision_lib
 from distkeras_tpu_torch.device import resolve_device
 from distkeras_tpu_torch.ops import losses as losses_lib
 from distkeras_tpu_torch.ops.optimizers import OptimizerFactory
+from distkeras_tpu_torch.utils import rng
 from distkeras_tpu_torch.utils.trees import global_norm
 
 Batch = dict
@@ -80,16 +86,6 @@ def to_device(batch: Batch, device) -> Batch:
             for key, value in batch.items()}
 
 
-def _seeded(seed: int, index: int) -> int:
-    """A 63-bit seed derived from ``seed`` and ``index`` (the JAX
-    package's ``fold_in``, not its bits)."""
-    return (seed * 0x9E3779B97F4A7C15 + index + 1) % (1 << 63)
-
-
-def _generator(seed: int, device) -> torch.Generator:
-    return torch.Generator(device=device).manual_seed(seed)
-
-
 def _loss_scaling(precision):
     """``(policy, (pre, post))`` when the policy scales the loss, else
     ``(policy, None)``: f32 and bf16 have scale 1 and run no scaling code,
@@ -100,14 +96,30 @@ def _loss_scaling(precision):
     return policy, precision_lib.scale_grads_fn(policy)
 
 
-def make_loss_fn(model: nn.Module, loss) -> Callable:
-    """``(batch, generator=None) -> (scalar loss, logits)``, resolving
-    Keras-style loss names. No ported module sows auxiliary losses, so
-    the objective is the loss alone."""
-    loss_fn = losses_lib.get(loss)
+def _takes_generator(model: nn.Module) -> bool:
+    """Whether ``model.forward`` takes a ``generator`` (the dropout
+    models do; the step engine then passes each step's)."""
+    return "generator" in inspect.signature(model.forward).parameters
 
-    def compute(batch: Batch, generator: Optional[torch.Generator] = None):
-        logits = model(batch["features"])
+
+def make_loss_fn(model: nn.Module, loss) -> Callable:
+    """``(batch, generator=None, params=None) -> (scalar loss, logits)``,
+    resolving Keras-style loss names. With ``params`` (a name -> tensor
+    dict) the forward runs on those tensors through
+    ``torch.func.functional_call`` instead of the module's own; a model
+    whose ``forward`` takes a ``generator`` gets this one. No ported
+    module sows auxiliary losses, so the objective is the loss alone."""
+    loss_fn = losses_lib.get(loss)
+    with_generator = _takes_generator(model)
+
+    def compute(batch: Batch, generator: Optional[torch.Generator] = None,
+                params: Optional[dict] = None):
+        kwargs = {"generator": generator} if with_generator else {}
+        if params is None:
+            logits = model(batch["features"], **kwargs)
+        else:
+            logits = torch.func.functional_call(
+                model, params, (batch["features"],), kwargs)
         return loss_fn(logits, batch["labels"]), logits
 
     return compute
@@ -147,34 +159,44 @@ def compute_metric(name: str, logits: torch.Tensor,
     return finalize_metric(compute_metric_terms(name, logits, labels))
 
 
-def _grads(model: nn.Module, loss_val: torch.Tensor) -> dict:
-    names, params = zip(*model.named_parameters())
-    grads = torch.autograd.grad(loss_val, params, allow_unused=True,
+def _grads(params: dict, loss_val: torch.Tensor) -> dict:
+    names, tensors = zip(*params.items())
+    grads = torch.autograd.grad(loss_val, tensors, allow_unused=True,
                                 materialize_grads=True)
     return dict(zip(names, grads))
 
 
-def make_grad_fn(model: nn.Module, loss, precision=None) -> Callable:
+def make_grad_fn(model: nn.Module, loss, precision=None,
+                 functional: bool = False) -> Callable:
     """``(batch, generator=None, loss_scale=None) -> ((loss, logits),
-    grads)``: the building block a strategy applies its optimizer after.
-    Under a loss-scaling ``precision`` the gradients are those of the
-    loss times ``loss_scale`` (the policy's scale when None), unscaled in
-    float32; ``loss`` is the unscaled loss."""
+    grads)``: the building block a strategy applies its optimizer after,
+    over the module's parameters. ``functional=True`` gives the form over
+    an explicit name -> tensor dict, ``(params, batch, generator=None,
+    loss_scale=None)``, the JAX package's signature: the forward runs on
+    those tensors (``torch.func.functional_call`` of the one module) and
+    the gradients are theirs. Under a loss-scaling ``precision`` the
+    gradients are those of the loss times ``loss_scale`` (the policy's
+    scale when None), unscaled in float32; ``loss`` is the unscaled
+    loss."""
     compute_loss = make_loss_fn(model, loss)
     policy, scaling = _loss_scaling(precision)
 
-    def grad_fn(batch: Batch, generator: Optional[torch.Generator] = None,
+    def grad_on(params: Optional[dict], batch: Batch,
+                generator: Optional[torch.Generator] = None,
                 loss_scale=None):
-        loss_val, logits = compute_loss(batch, generator)
+        wrt = dict(model.named_parameters()) if params is None else params
+        loss_val, logits = compute_loss(batch, generator, params)
         if scaling is None:
-            grads = _grads(model, loss_val)
+            grads = _grads(wrt, loss_val)
         else:
             scale = policy.loss_scale if loss_scale is None else loss_scale
-            grads = scaling[1](_grads(model, scaling[0](loss_val, scale)),
+            grads = scaling[1](_grads(wrt, scaling[0](loss_val, scale)),
                                scale)
         return (loss_val.detach(), logits.detach()), grads
 
-    return grad_fn
+    if functional:
+        return grad_on
+    return functools.partial(grad_on, None)
 
 
 def _split_microbatches(batch: Batch, k: int) -> Batch:
@@ -193,7 +215,7 @@ def _split_microbatches(batch: Batch, k: int) -> Batch:
 
 def make_accum_grad_fn(model: nn.Module, loss, accum_steps: int,
                        metric_names: tuple = (),
-                       precision=None) -> Callable:
+                       precision=None, functional: bool = False) -> Callable:
     """Gradient accumulation with :func:`make_grad_fn`'s contract:
     ``(batch, generator=None) -> ((loss, terms), grads)``. The
     ``[k*m, ...]`` batch runs as k microbatches of m rows in order; their
@@ -211,25 +233,26 @@ def make_accum_grad_fn(model: nn.Module, loss, accum_steps: int,
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     metric_names = tuple(metric_names)
 
-    def grad_fn(batch: Batch, generator: Optional[torch.Generator] = None,
+    def grad_on(params: Optional[dict], batch: Batch,
+                generator: Optional[torch.Generator] = None,
                 loss_scale=None):
         scale = None if scaling is None else (
             policy.loss_scale if loss_scale is None else loss_scale)
         micro = _split_microbatches(batch, k)
-        params = dict(model.named_parameters())
-        device = _device_of(model)
+        wrt = dict(model.named_parameters()) if params is None else params
+        device = next(iter(wrt.values())).device
         loss_sum = torch.zeros((), dtype=torch.float32, device=device)
         terms = {name: (torch.zeros((), device=device),
                         torch.zeros((), device=device))
                  for name in metric_names}
         grad_sum = {n: torch.zeros_like(p, dtype=torch.float32)
-                    for n, p in params.items()}
+                    for n, p in wrt.items()}
         for i in range(k):
             batch_i = {key: x[i] for key, x in micro.items()}
-            gen_i = None if generator is None else _generator(
-                _seeded(generator.initial_seed(), i), generator.device)
-            loss_i, logits = compute_loss(batch_i, gen_i)
-            grads = _grads(model, loss_i if scale is None
+            gen_i = None if generator is None else rng.generator(
+                rng.fold_in(generator.initial_seed(), i), generator.device)
+            loss_i, logits = compute_loss(batch_i, gen_i, params)
+            grads = _grads(wrt, loss_i if scale is None
                            else scaling[0](loss_i, scale))
             with torch.no_grad():
                 for name in metric_names:
@@ -241,10 +264,12 @@ def make_accum_grad_fn(model: nn.Module, loss, accum_steps: int,
                 loss_sum = loss_sum + loss_i.detach().float()
         if scale is not None:
             grad_sum = scaling[1](grad_sum, scale)
-        grads = {n: (g / k).to(params[n].dtype) for n, g in grad_sum.items()}
+        grads = {n: (g / k).to(wrt[n].dtype) for n, g in grad_sum.items()}
         return (loss_sum / k, terms), grads
 
-    return grad_fn
+    if functional:
+        return grad_on
+    return functools.partial(grad_on, None)
 
 
 def _make_step_body(model: nn.Module, loss, with_grad_norm: bool,
@@ -267,7 +292,8 @@ def _make_step_body(model: nn.Module, loss, with_grad_norm: bool,
     def one_step(state: TrainState, batch: Batch):
         device = _device_of(state.model)
         batch = to_device(batch, device)
-        generator = _generator(_seeded(dropout_seed, state.step), device)
+        generator = rng.generator(rng.fold_in(dropout_seed, state.step),
+                                  device)
         (loss_val, aux), grads = grad_fn(
             batch, generator,
             loss_scale=precision_lib.current_scale(state.opt_state))

@@ -1,10 +1,10 @@
 """Optimizers by Keras-style name (port of ``distkeras_tpu/ops/optimizers.py``).
 
 The JAX package resolves names to optax transformations; the port
-resolves them to ``torch.optim`` classes set to optax's DEFAULTS, which
-are not torch's. :func:`get` returns a factory, ``params ->
-torch.optim.Optimizer`` (a torch optimizer binds to its parameters, so
-the train state builds it from the module's):
+resolves them to ``torch.optim`` optimizers with optax's DEFAULTS and
+arithmetic, which are not torch's. :func:`get` returns a factory,
+``params -> torch.optim.Optimizer`` (a torch optimizer binds to its
+parameters, so the train state builds it from the module's):
 
 - ``sgd``/``momentum``/``nesterov``: ``torch.optim.SGD`` with
   ``dampening=0``, whose ``buf = g + momentum * buf`` and nesterov
@@ -15,13 +15,17 @@ the train state builds it from the module's):
   defaults to 1e-2). torch scales ``p`` by ``1 - lr * wd`` before the
   Adam step, optax adds ``wd * p`` to the Adam direction before the
   ``-lr`` scale: both take ``p`` before the step, so the update is the
-  same.
+  same;
+- ``adadelta``: ``torch.optim.Adadelta`` with optax's rho 0.9 and eps
+  1e-6 (torch's defaults too) and the given learning rate (torch
+  defaults to 1.0); its ``sqrt(E[dx²] + eps) / sqrt(E[g²] + eps) * g``
+  is optax's ``scale_by_adadelta``;
+- ``adagrad``, ``rmsprop``, ``nadam``, ``lamb``: the classes below,
+  because torch's classes of those names compute something else.
 
-torch computes the bias corrections in float64 where optax takes them in
-float32: at lr 1e-3 the updates differ by about 1e-8.
-
-The other names of the JAX registry (adagrad, rmsprop, adadelta, nadam,
-lamb) raise NotImplementedError.
+torch computes Adam's bias corrections in float64 where optax takes them
+in float32: at lr 1e-3 the updates differ by about 1e-8. The classes
+below take them in float32, as optax.
 """
 
 from __future__ import annotations
@@ -35,7 +39,166 @@ import torch
 #: is built with
 OptimizerFactory = Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]
 
-_NOT_PORTED = ("adagrad", "rmsprop", "adadelta", "nadam", "lamb")
+
+def _f32_pow(base: float, count: int) -> torch.Tensor:
+    """``base ** count`` in float32, as optax's bias correction traces it
+    (a weak-typed Python float to an int32 counter's power)."""
+    return torch.pow(torch.tensor(base, dtype=torch.float32),
+                     torch.tensor(float(count), dtype=torch.float32))
+
+
+def _bias_correction(moment: torch.Tensor, decay: float,
+                     count: int) -> torch.Tensor:
+    """optax's ``tree_bias_correction``: ``moment / (1 - decay**count)``
+    with the correction in float32, cast to the moment's dtype."""
+    correction = 1 - _f32_pow(decay, count)
+    return moment / correction.to(moment.device, moment.dtype)
+
+
+class _OptaxOptimizer(torch.optim.Optimizer):
+    """Shared loop: for every parameter with a gradient, lazily build its
+    state with :meth:`_init_state` and apply ``p += -lr * u`` where
+    :meth:`_direction` gives ``u`` (optax's ``scale_by_learning_rate``
+    then ``apply_updates``)."""
+
+    def _init_state(self, p: torch.Tensor, group: dict) -> dict:
+        raise NotImplementedError
+
+    def _direction(self, p, g, state, group) -> torch.Tensor:
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state.update(self._init_state(p, group))
+                u = self._direction(p, p.grad, state, group)
+                p.add_(-group["lr"] * u)
+        return loss
+
+
+class Adagrad(_OptaxOptimizer):
+    """optax's ``adagrad``: ``chain(scale_by_rss(0.1, 1e-7),
+    scale_by_learning_rate(lr))``. The accumulator starts at
+    ``initial_accumulator_value`` (0.1; torch's ``Adagrad`` starts at 0)
+    and the step is ``g * rsqrt(sum + eps)``, eps INSIDE the root and 0
+    where the sum is 0 (torch adds eps outside the root)."""
+
+    def __init__(self, params, lr: float = 0.01,
+                 initial_accumulator_value: float = 0.1, eps: float = 1e-7):
+        super().__init__(params, dict(
+            lr=lr, initial_accumulator_value=initial_accumulator_value,
+            eps=eps))
+
+    def _init_state(self, p, group):
+        return {"sum_of_squares": torch.full_like(
+            p, group["initial_accumulator_value"])}
+
+    def _direction(self, p, g, state, group):
+        total = g * g + state["sum_of_squares"]
+        state["sum_of_squares"] = total
+        inv_sqrt = torch.where(total > 0, torch.rsqrt(total + group["eps"]),
+                               torch.zeros((), dtype=total.dtype,
+                                           device=total.device))
+        return inv_sqrt * g
+
+
+class RMSprop(_OptaxOptimizer):
+    """optax's ``rmsprop`` (not centered, no momentum): ``nu = (1 -
+    decay) * g² + decay * nu`` from ``initial_scale`` 0, then ``g *
+    rsqrt(nu + eps)`` with eps INSIDE the root (``eps_in_sqrt=True``;
+    torch's ``RMSprop`` adds eps outside it, and its decay default is
+    0.99 where optax's is 0.9)."""
+
+    def __init__(self, params, lr: float = 0.01, decay: float = 0.9,
+                 eps: float = 1e-8, initial_scale: float = 0.0):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps,
+                                      initial_scale=initial_scale))
+
+    def _init_state(self, p, group):
+        return {"nu": torch.full_like(p, group["initial_scale"])}
+
+    def _direction(self, p, g, state, group):
+        decay = group["decay"]
+        nu = (1 - decay) * (g * g) + decay * state["nu"]
+        state["nu"] = nu
+        return torch.rsqrt(nu + group["eps"]) * g
+
+
+def _adam_moments(g, state, b1, b2):
+    """optax's ``update_moment`` for both Adam moments; returns the new
+    count."""
+    state["mu"] = (1 - b1) * g + b1 * state["mu"]
+    state["nu"] = (1 - b2) * (g * g) + b2 * state["nu"]
+    state["count"] += 1
+    return state["count"]
+
+
+class NAdam(_OptaxOptimizer):
+    """optax's ``nadam`` (``adam(nesterov=True)``): Adam moments, then
+    ``mu_hat = b1 * mu / (1 - b1**(t+1)) + (1 - b1) * g / (1 - b1**t)``
+    and ``mu_hat / (sqrt(nu / (1 - b2**t)) + eps)``. torch's ``NAdam``
+    uses Dozat's momentum-decay schedule instead, so it is not used."""
+
+    def __init__(self, params, lr: float = 0.01, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 eps_root: float = 0.0):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
+                                      eps_root=eps_root))
+
+    def _init_state(self, p, group):
+        return {"count": 0, "mu": torch.zeros_like(p),
+                "nu": torch.zeros_like(p)}
+
+    def _direction(self, p, g, state, group):
+        b1, b2 = group["b1"], group["b2"]
+        t = _adam_moments(g, state, b1, b2)
+        mu_hat = (b1 * _bias_correction(state["mu"], b1, t + 1)
+                  + (1 - b1) * _bias_correction(g, b1, t))
+        nu_hat = _bias_correction(state["nu"], b2, t)
+        return mu_hat / (torch.sqrt(nu_hat + group["eps_root"])
+                         + group["eps"])
+
+
+class Lamb(_OptaxOptimizer):
+    """optax's ``lamb``: ``chain(scale_by_adam(b1, b2, eps=1e-6),
+    add_decayed_weights(weight_decay), scale_by_trust_ratio(),
+    scale_by_learning_rate(lr))``. The Adam direction ``u`` plus ``wd *
+    p`` is scaled per parameter tensor by ``||p|| / ||u||``, or by 1 where
+    either norm is 0 (optax's zero-norm rule). torch has no LAMB."""
+
+    def __init__(self, params, lr: float = 0.01, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-6, eps_root: float = 0.0,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps,
+                                      eps_root=eps_root,
+                                      weight_decay=weight_decay))
+
+    def _init_state(self, p, group):
+        return {"count": 0, "mu": torch.zeros_like(p),
+                "nu": torch.zeros_like(p)}
+
+    def _direction(self, p, g, state, group):
+        b1, b2 = group["b1"], group["b2"]
+        t = _adam_moments(g, state, b1, b2)
+        mu_hat = _bias_correction(state["mu"], b1, t)
+        nu_hat = _bias_correction(state["nu"], b2, t)
+        u = mu_hat / (torch.sqrt(nu_hat + group["eps_root"]) + group["eps"])
+        u = u + group["weight_decay"] * p
+        param_norm = torch.linalg.vector_norm(p)
+        update_norm = torch.linalg.vector_norm(u)
+        zero_norm = (param_norm == 0.0) | (update_norm == 0.0)
+        ratio = torch.where(zero_norm, torch.ones_like(param_norm),
+                            param_norm / update_norm)
+        return u * ratio
 
 
 def get(optimizer: Union[str, OptimizerFactory],
@@ -59,8 +222,11 @@ def get(optimizer: Union[str, OptimizerFactory],
         return functools.partial(torch.optim.AdamW, lr=learning_rate,
                                  betas=(0.9, 0.999), eps=1e-8,
                                  weight_decay=1e-4)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer {optimizer!r} is not ported yet (ROADMAP.md Queue "
-            f"A, item 9, the step engine's optimizer registry)")
+    if name == "adadelta":
+        return functools.partial(torch.optim.Adadelta, lr=learning_rate,
+                                 rho=0.9, eps=1e-6, foreach=False)
+    classes = {"adagrad": Adagrad, "rmsprop": RMSprop, "nadam": NAdam,
+               "lamb": Lamb}
+    if name in classes:
+        return functools.partial(classes[name], lr=learning_rate)
     raise ValueError(f"Unknown optimizer {optimizer!r}")

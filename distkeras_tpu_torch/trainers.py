@@ -1,0 +1,702 @@
+"""The trainer API (port of ``distkeras_tpu/trainers.py``): ``Trainer``
+and its zoo, ``SingleTrainer``, ``AveragingTrainer``, ``EnsembleTrainer``
+and the exchanging family ``DOWNPOUR``, ``ADAG``, ``DynSGD``, ``AEASGD``,
+``EAMSGD``, with the JAX package's constructor kwargs and validation
+messages.
+
+Execution: a worker is one of K logical replicas on a
+:class:`~distkeras_tpu_torch.parallel.mesh.Mesh` of this process's
+devices (``cuda:0`` by default; ``parallelism_factor=K`` stacks K
+replicas on it), run by :mod:`~distkeras_tpu_torch.parallel.substrate`;
+the center is a tensor dict on the mesh's first device.
+
+Where the port differs from the JAX package, by design:
+
+- ``train()`` starts from the weights the module holds (load flax
+  params with :mod:`~distkeras_tpu_torch.utils.bridge` to start where
+  JAX starts); the JAX trainer initializes from ``jax.random.key(seed)``.
+  ``EnsembleTrainer`` gives member ``k`` a fresh init from ``(seed,
+  k)``. ``train()`` returns the trained parameters as a name -> tensor
+  dict and loads them into ``trainer.model``;
+- placement: the mesh comes from ``resolve_device`` (``cuda:0``, raising
+  without a card) unless the caller passes ``mesh=`` or ``device=``
+  (the one added kwarg; ``device="cpu"`` runs on the host);
+- what is not ported raises NotImplementedError naming its ROADMAP.md
+  Queue A item: ``mode="host_async"`` (item 13, with ``data_service=``,
+  ``ps_shards``, ``ps_standby`` and ``ps_placement``), checkpoints and
+  resume (items 8 and 12), ``PjitTrainer`` (item 16), and a ``precision=``
+  that would re-stamp a built model (item 12). A ``GlobalShards`` pool
+  (item 16) raises ValueError as JAX's ``_reject_global_shards`` does.
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+import sys
+import time
+import warnings
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from distkeras_tpu_torch import engine, telemetry
+from distkeras_tpu_torch import precision as precision_lib
+from distkeras_tpu_torch.data.dataset import Dataset
+from distkeras_tpu_torch.device import resolve_device
+from distkeras_tpu_torch.ops import losses as losses_lib
+from distkeras_tpu_torch.ops import optimizers as opt_lib
+from distkeras_tpu_torch.parallel import mesh as mesh_lib
+from distkeras_tpu_torch.telemetry import span
+from distkeras_tpu_torch.utils import rng
+from distkeras_tpu_torch.utils.trees import tree_mean
+
+#: the JAX package's ``parallel/elastic.py`` placement policies
+PLACEMENT_POLICIES = ("process0", "spread")
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md Queue A, {item})")
+
+
+def _params_of(model: torch.nn.Module) -> dict:
+    return {n: p.detach() for n, p in model.named_parameters()}
+
+
+@torch.no_grad()
+def _load(model: torch.nn.Module, params: dict) -> None:
+    for n, p in model.named_parameters():
+        p.copy_(params[n])
+
+
+class Trainer:
+    """Base trainer: the model, loss, worker optimizer, and the
+    training-time and history bookkeeping."""
+
+    def __init__(self, model, loss: Union[str, object] =
+                 "categorical_crossentropy",
+                 worker_optimizer: Union[str, object] = "sgd",
+                 learning_rate: float = 0.01,
+                 metrics: Sequence[str] = ("accuracy",),
+                 features_col: str = "features", label_col: str = "label",
+                 batch_size: int = 32, num_epoch: int = 1, seed: int = 0,
+                 loss_weights=None,
+                 checkpoint_dir: Optional[str] = None,
+                 telemetry_path: Optional[str] = None,
+                 precision: Optional[str] = None,
+                 weight_publisher=None, device=None):
+        self.model = model
+        #: optional serving/rollout.py WeightPublisher: trained snapshots
+        #: are published per sync epoch and at the end of training
+        self.weight_publisher = weight_publisher
+        self.loss = loss
+        base_loss = losses_lib.get(loss)  # fail fast on unknown names
+        # one scalar weight scaling the (single-output) loss; anything
+        # else is rejected rather than silently dropped
+        if loss_weights is not None:
+            ws = list(np.ravel(loss_weights)) \
+                if isinstance(loss_weights, (list, tuple, np.ndarray)) \
+                else [loss_weights]
+            if len(ws) != 1 or isinstance(ws[0], bool) or \
+                    not isinstance(ws[0], (int, float, np.number)):
+                raise ValueError(
+                    f"loss_weights={loss_weights!r}: models here are "
+                    f"single-output, so exactly ONE numeric weight is "
+                    f"meaningful (a scalar or one-element list)")
+            w = float(ws[0])
+            self.loss = lambda logits, labels: w * base_loss(logits, labels)
+        self.loss_weights = loss_weights
+        self.worker_optimizer = worker_optimizer
+        self.learning_rate = learning_rate
+        self.metrics = tuple(metrics)
+        self.features_col = features_col
+        self.label_col = label_col
+        self.batch_size = int(batch_size)
+        self.num_epoch = int(num_epoch)
+        self.seed = int(seed)
+        if checkpoint_dir is not None:
+            raise _not_ported(
+                "checkpoint_dir= (trainer checkpoints and resume)",
+                "items 8 and 12: utils/serialization.py and checkpoint.py")
+        self.checkpoint_dir = None
+        self.telemetry_path = telemetry_path
+        if telemetry_path is not None:
+            telemetry.flush_at_exit(telemetry_path)
+        self.tx = opt_lib.get(worker_optimizer, learning_rate)
+        # mixed precision: validate early; the model must already carry
+        # the policy (re-stamping is item 12); the optimizer is
+        # guard-wrapped only when the policy scales the loss
+        self.precision = precision_lib.validate_precision(precision)
+        if self.precision is not None:
+            self.model = precision_lib.apply_to_model(self.model,
+                                                      self.precision)
+            policy = precision_lib.get_policy(self.precision)
+            if policy.loss_scale != 1.0:
+                self.tx = precision_lib.overflow_guard(self.tx, policy)
+        self.device = device
+        self.params = None
+        self.history: list[dict] = []
+        self.training_time: float = 0.0
+
+    # -- bookkeeping (record_training_time parity) -------------------------
+    def _start(self):
+        telemetry.set_process_index(0)
+        from distkeras_tpu_torch.health import recorder as flight_recorder
+
+        dump_dir = None
+        if self.telemetry_path is not None:
+            dump_dir = os.path.dirname(self.telemetry_path) or "."
+        flight_recorder.configure(
+            dump_dir=dump_dir,
+            trainer=type(self).__name__,
+            precision=self.precision,
+            worker_optimizer=str(self.worker_optimizer),
+            batch_size=self.batch_size,
+            codec=str(getattr(self, "codec", None)),
+            num_workers=getattr(self, "num_workers", 1))
+        self.model.train()
+        self._t0 = time.perf_counter()
+
+    def _stop(self, device):
+        self.training_time = time.perf_counter() - self._t0
+        telemetry.gauge("trainer.training_time_s").set(self.training_time)
+        if self.weight_publisher is not None and self.params is not None:
+            self.weight_publisher.publish(self.params)
+        from distkeras_tpu_torch import observability
+
+        observability.hbm_stats(device)
+        if self.telemetry_path is not None:
+            self.dump_telemetry(self.telemetry_path)
+
+    # -- telemetry ----------------------------------------------------------
+    def get_telemetry(self) -> dict:
+        """Snapshot of the process registry (empty when uninstalled)."""
+        reg = telemetry.get_registry()
+        return reg.snapshot() if reg is not None else {}
+
+    def dump_telemetry(self, path: str) -> Optional[str]:
+        reg = telemetry.get_registry()
+        return reg.dump_jsonl(path) if reg is not None else None
+
+    def get_training_time(self) -> float:
+        return self.training_time
+
+    def get_history(self) -> list[dict]:
+        return self.history
+
+    def get_averaged_history(self) -> dict:
+        """Mean of each metric over the recorded steps."""
+        if not self.history:
+            return {}
+        keys = self.history[0].keys()
+        return {k: float(np.mean([h[k] for h in self.history])) for k in keys}
+
+    # -- shared plumbing ----------------------------------------------------
+    @staticmethod
+    def _reject_global_shards(dataset, trainer_name: str):
+        """A ``GlobalShards`` pool (it re-deals shard files to hosts each
+        epoch) needs several processes, which the port does not run."""
+        if hasattr(dataset, "epoch_dataset"):
+            raise ValueError(
+                f"{trainer_name} does not support GlobalShards (cross-host "
+                f"shard re-dealing, ROADMAP.md Queue A, item 16); pass a "
+                f"Dataset — e.g. Dataset.from_files")
+
+    def _check_trainable(self, dataset: Dataset, effective_batch: int):
+        if len(dataset) < effective_batch:
+            raise ValueError(
+                f"Dataset has {len(dataset)} rows but one step needs "
+                f"{effective_batch}; no full batch can be formed "
+                f"(static-shape batching drops the ragged tail)")
+
+    #: whole-epoch-resident staging above this estimate warns to use the
+    #: chunked knob (staging_rounds / staging_steps) instead
+    _RESIDENT_WARN_BYTES = 4 << 30
+
+    def _resident_bytes(self, dataset: Dataset) -> int:
+        try:
+            return sum(
+                np.dtype(dataset[c].dtype).itemsize *
+                int(np.prod(dataset[c].shape))
+                for c in (self.features_col, self.label_col))
+        except Exception:
+            return 0
+
+    def _warn_if_large_resident(self, dataset: Dataset, knob: str):
+        total = self._resident_bytes(dataset)
+        if total > self._RESIDENT_WARN_BYTES:
+            warnings.warn(
+                f"Staging the whole epoch device-resident "
+                f"(~{total / 2**30:.1f} GiB). Pass {knob}= to bound device "
+                f"data memory to O(chunk) with background prefetch.",
+                RuntimeWarning, stacklevel=3)
+
+    @staticmethod
+    def _epoch_chunk_stream(staged, make_gen, resident: bool):
+        """``(chunks, staged)``: ``resident=True`` materializes the
+        generator once and reuses it every epoch; otherwise chunks stream
+        through a depth-1 background prefetch (double buffering)."""
+        if staged is not None:
+            return staged, staged
+        gen = make_gen()
+        if resident:
+            staged = list(gen)
+            return staged, staged
+        from distkeras_tpu_torch.data.prefetch import prefetch
+
+        return prefetch(gen, depth=1), None
+
+    @staticmethod
+    def _check_resume(resume: bool):
+        if resume:
+            raise _not_ported(
+                "resume=True (trainer checkpoints)",
+                "items 8 and 12: utils/serialization.py and checkpoint.py")
+
+    def train(self, dataset: Dataset, shuffle: bool = False,
+              resume: bool = False):
+        raise NotImplementedError
+
+
+class DistributedTrainer(Trainer):
+    """Base of every multi-replica trainer: the JAX package's kwargs
+    (``master_port`` accepted and ignored, as there), ``mode="sync"``
+    only. ``strategy_name`` selects the update algebra
+    (:mod:`~distkeras_tpu_torch.parallel.strategies`)."""
+
+    strategy_name: str = "downpour"
+
+    def __init__(self, model, loss="categorical_crossentropy",
+                 worker_optimizer="sgd", learning_rate: float = 0.01,
+                 metrics=("accuracy",), features_col="features",
+                 label_col="label", batch_size: int = 32, num_epoch: int = 1,
+                 num_workers: Optional[int] = None,
+                 communication_window: int = 5,
+                 parallelism_factor: int = 1,
+                 master_port: Optional[int] = None,  # parity no-op
+                 mesh=None, seed: int = 0, mode: str = "sync",
+                 loss_weights=None,
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_folds: Optional[int] = None,
+                 staging_rounds: Optional[int] = None,
+                 data_layout: str = "replicated",
+                 devices=None,
+                 telemetry_path: Optional[str] = None,
+                 codec: str = "raw",
+                 comms_overlap: bool = False,
+                 health=None,
+                 accum_steps: int = 1,
+                 precision: Optional[str] = None,
+                 bucket_bytes: Optional[int] = None,
+                 ps_shards: int = 1,
+                 ps_placement: str = "process0",
+                 ps_standby: bool = False,
+                 weight_publisher=None,
+                 data_service=None,
+                 device=None,
+                 **strategy_kwargs):
+        super().__init__(model, loss, worker_optimizer, learning_rate,
+                         metrics, features_col, label_col, batch_size,
+                         num_epoch, seed, loss_weights=loss_weights,
+                         checkpoint_dir=checkpoint_dir,
+                         telemetry_path=telemetry_path,
+                         precision=precision,
+                         weight_publisher=weight_publisher, device=device)
+        if mode not in ("sync", "host_async"):
+            raise ValueError(f"mode must be 'sync' or 'host_async', "
+                             f"got {mode!r}")
+        self.mode = mode
+        self.parallelism_factor = int(parallelism_factor)
+        if self.parallelism_factor < 1:
+            raise ValueError("parallelism_factor must be >= 1")
+        if mode == "host_async":
+            raise _not_ported(
+                "mode='host_async' (thread-per-worker against a live "
+                "parameter server, with its data_service=, ps_shards, "
+                "ps_placement and ps_standby)",
+                "item 13: the true-async PS plane")
+        if devices is not None:
+            raise ValueError(
+                "devices= is a host_async knob; sync mode places "
+                "workers via the mesh")
+        if mesh is None:
+            mesh = mesh_lib.make_mesh(
+                num_workers,
+                devices=None if device is None else [resolve_device(device)])
+        self.mesh = mesh
+        # K logical workers = factor x mesh devices; each device runs
+        # `factor` stacked replicas (see substrate.build_epoch_fn)
+        self.num_workers = (self.mesh.shape[mesh_lib.WORKER_AXIS]
+                            * self.parallelism_factor)
+        if checkpoint_folds is not None:
+            raise ValueError(
+                "checkpoint_folds is the host_async snapshot cadence; sync "
+                "mode checkpoints at epoch boundaries (checkpoint_dir alone)")
+        self.checkpoint_folds = None
+        if data_layout not in ("replicated", "host_sharded"):
+            raise ValueError(
+                f"data_layout must be 'replicated' (every process holds the "
+                f"full dataset) or 'host_sharded' (each process's dataset "
+                f"holds ONLY its own workers' rows), got {data_layout!r}")
+        # one process: host_sharded is the replicated case
+        self.data_layout = data_layout
+        if data_service is not None:
+            raise ValueError(
+                "data_service= streams lease-driven rounds to "
+                "host_async worker threads; sync mode stages from a "
+                "local Dataset — use mode='host_async'")
+        self.data_service = None
+        self.communication_window = int(communication_window)
+        # None: stage the whole epoch device-resident; an int bounds
+        # staging memory to O(staging_rounds), prefetched on a thread
+        self.staging_rounds = staging_rounds
+        self.strategy = self._make_strategy(**strategy_kwargs)
+        if codec != "raw" or comms_overlap:
+            raise ValueError(
+                "codec/comms_overlap tune the host_async parameter-server "
+                "exchange; sync mode folds commits in-graph (no wire)")
+        self.codec = codec
+        self.comms_overlap = False
+        self.ps_shards = int(ps_shards)
+        if self.ps_shards < 1:
+            raise ValueError(f"ps_shards must be >= 1, got {ps_shards}")
+        if self.ps_shards > 1:
+            raise ValueError(
+                "ps_shards shards the host_async parameter service; sync "
+                "mode has no parameter server to shard")
+        if ps_placement not in PLACEMENT_POLICIES:
+            raise ValueError(f"ps_placement must be one of "
+                             f"{PLACEMENT_POLICIES}, got {ps_placement!r}")
+        if ps_placement != "process0" or ps_standby:
+            raise ValueError(
+                "ps_placement/ps_standby configure the host_async "
+                "parameter-service fleet; sync mode has no parameter "
+                "server to place or fail over")
+        self.ps_placement = ps_placement
+        self.ps_standby = False
+        from distkeras_tpu_torch import health as health_lib
+
+        self.health = health_lib.resolve(health)
+        self.accum_steps = int(accum_steps)
+        if self.accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+        if self.batch_size % self.accum_steps != 0:
+            raise ValueError(
+                f"accum_steps={self.accum_steps} must divide "
+                f"batch_size={self.batch_size}: each step is a scan over "
+                f"accum_steps equal microbatches (unequal microbatches would "
+                f"break the mean-loss equivalence — see NUMERICS.md)")
+        if bucket_bytes is not None:
+            bucket_bytes = int(bucket_bytes)
+            if bucket_bytes <= 0:
+                raise ValueError(
+                    f"bucket_bytes must be positive, got {bucket_bytes}")
+        self.bucket_bytes = bucket_bytes
+        self.num_updates = 0
+        self.staleness_history: list[float] = []
+
+    def _make_strategy(self, **kw):
+        from distkeras_tpu_torch.parallel import strategies
+
+        return strategies.get(self.strategy_name,
+                              learning_rate=self.learning_rate, **kw)
+
+    def _init_carries(self, center_params: dict):
+        from distkeras_tpu_torch.parallel import substrate
+
+        return substrate.init_center_and_carries(
+            center_params, self.tx, self.strategy, self.mesh,
+            self.num_workers)
+
+    def _record(self, ms: dict, rounds: int):
+        """Flatten (workers, rounds, window) metrics into worker-averaged
+        per-step history plus the staleness bookkeeping."""
+        stal = ms.pop("staleness")  # (workers, rounds)
+        self.staleness_history.extend(
+            float(s) for s in stal.mean(axis=0).reshape(-1))
+        w, r, win = ms["loss"].shape
+        wd = getattr(self, "_watchdog", None)  # sync-path health checks:
+        for ri in range(r):                    # post-epoch, on the worker-
+            for si in range(win):              # mean loss stream
+                step = {k: float(v[:, ri, si].mean()) for k, v in ms.items()}
+                self.history.append(step)
+                if wd is not None:
+                    wd.observe_loss(step["loss"])
+        if wd is not None:
+            wd.notify_progress()
+        if self.strategy.exchanges:  # PS clock: only real commits count
+            self.num_updates += rounds * self.num_workers
+
+    def _setup_state(self, dataset: Dataset):
+        """(center, carries), all replicas starting from the module's
+        weights."""
+        return self._init_carries(_params_of(self.model))
+
+    def train(self, dataset: Dataset, shuffle: bool = False,
+              resume: bool = False):
+        from distkeras_tpu_torch.parallel import substrate
+
+        self._reject_global_shards(dataset, type(self).__name__)
+        self._check_resume(resume)
+        self._start()
+        n_shards = self.num_workers
+        self._check_trainable(
+            dataset, self.batch_size * self.communication_window * n_shards)
+        if self.staging_rounds is None:
+            self._warn_if_large_resident(dataset, "staging_rounds")
+        # the one module skeleton the replicas' tensors run through
+        self.model.to(self.mesh.home)
+        with span("trainer.init"):
+            center, carries = self._setup_state(dataset)
+        # built once per trainer: every argument is fixed at construction
+        if getattr(self, "_epoch_fn", None) is None:
+            with span("trainer.compile"):
+                self._epoch_fn = substrate.build_epoch_fn(
+                    self.model, self.loss, self.tx, self.strategy, self.mesh,
+                    self.num_workers, self.communication_window, self.metrics,
+                    dropout_seed=self.seed, accum_steps=self.accum_steps,
+                    precision=self.precision,
+                    bucket_bytes=self.bucket_bytes)
+        epoch_fn = self._epoch_fn
+        self.history = []
+        self.staleness_history = []
+        # fresh watchdog per train(); sync mode sees post-epoch means only
+        self._watchdog = self.health.make_watchdog() \
+            if self.health is not None else None
+        round_offset = 0
+        self.num_updates = 0
+        staged = None  # shuffle=False + whole-epoch staging: stage once
+        for epoch in range(self.num_epoch):
+            with span("trainer.stage"):
+                chunks, staged = self._epoch_chunk_stream(
+                    staged,
+                    lambda: substrate.stage_epoch_chunks(
+                        (dataset.shuffle(self.seed + epoch)
+                         if shuffle else dataset).repartition(n_shards),
+                        self.features_col, self.label_col, self.batch_size,
+                        self.communication_window, self.mesh,
+                        chunk_rounds=self.staging_rounds),
+                    resident=not shuffle and self.staging_rounds is None)
+            with span("trainer.epoch"):
+                pending = []
+                for data, rounds in chunks:
+                    center, carries, ms = epoch_fn(center, carries, data,
+                                                   round_offset)
+                    round_offset += rounds
+                    pending.append((ms, rounds))
+                for ms, rounds in pending:
+                    self._record({k: v.cpu().numpy() for k, v in ms.items()},
+                                 rounds)
+            if self.weight_publisher is not None:
+                self.weight_publisher.publish(dict(center),
+                                              clock=round_offset)
+        self._center, self._carries = center, carries
+        with span("trainer.finalize"):
+            self.params = self._finalize(center, carries)
+            _load(self.model, self._model_params())
+        self._stop(self.mesh.home)
+        return self.params
+
+    def _model_params(self) -> dict:
+        """What ``trainer.model`` holds after training."""
+        return self.params
+
+    def _finalize(self, center: dict, carries: list):
+        """The exchanging trainers return the center variable."""
+        return {n: x.detach() for n, x in center.items()}
+
+
+class DOWNPOUR(DistributedTrainer):
+    """Async data-parallel SGD with windowed delta push/pull."""
+
+    strategy_name = "downpour"
+
+
+class ADAG(DistributedTrainer):
+    """DOWNPOUR with accumulated-gradient normalization, the reference's
+    flagship algorithm."""
+
+    strategy_name = "adag"
+
+
+class DynSGD(DistributedTrainer):
+    """Staleness-aware async SGD: commits scaled by 1/(staleness+1)."""
+
+    strategy_name = "dynsgd"
+
+
+class AEASGD(DistributedTrainer):
+    """Async elastic-averaging SGD. Extra kwargs: rho (elastic
+    coefficient)."""
+
+    strategy_name = "aeasgd"
+
+    def __init__(self, model, rho: float = 5.0, **kw):
+        super().__init__(model, rho=rho, **kw)
+
+
+class EAMSGD(DistributedTrainer):
+    """Elastic averaging with Nesterov momentum on the local replicas.
+    Extra kwargs: rho, momentum. The local step is the explicit Nesterov
+    rule, so a non-default ``worker_optimizer`` is rejected rather than
+    silently ignored."""
+
+    strategy_name = "eamsgd"
+
+    def __init__(self, model, rho: float = 5.0, momentum: float = 0.9, **kw):
+        opt = kw.get("worker_optimizer", "sgd")
+        if opt != "sgd":
+            raise ValueError(
+                f"EAMSGD ignores worker_optimizer (its local step is the "
+                f"explicit Nesterov rule v ← μv − η∇f(w + μv); see "
+                f"NUMERICS.md), so worker_optimizer={opt!r} would silently "
+                f"not be what you asked for. Leave it at the default, or "
+                f"use AEASGD if you want an optax worker optimizer.")
+        super().__init__(model, rho=rho, momentum=momentum, **kw)
+
+
+class AveragingTrainer(DistributedTrainer):
+    """Train K isolated replicas on K shards and return the arithmetic
+    mean of their weights (summed in worker order, then scaled by
+    1/K)."""
+
+    strategy_name = "independent"
+
+    @torch.no_grad()
+    def _finalize(self, center: dict, carries: list):
+        return tree_mean([{n: x.detach().to(self.mesh.home)
+                           for n, x in c.params.items()} for c in carries])
+
+
+class EnsembleTrainer(DistributedTrainer):
+    """Train K isolated models and return all K parameter dicts (a list);
+    ``trainer.model`` holds the first. Member ``k`` starts from a fresh
+    init drawn from ``(seed, k)`` (the model module's ``init_params`` if
+    it has one, else each layer's ``reset_parameters``) and trains on its
+    own shard."""
+
+    strategy_name = "independent"
+
+    def _member_params(self) -> list:
+        init = getattr(sys.modules[type(self.model).__module__],
+                       "init_params", None)
+        members = []
+        for k in range(self.num_workers):
+            clone = copy.deepcopy(self.model).to("cpu")
+            seed = rng.fold_in(self.seed, k)
+            if init is not None:
+                init(clone, rng.generator(seed))
+            else:
+                with torch.random.fork_rng(devices=[]):
+                    torch.manual_seed(seed)
+                    for m in clone.modules():
+                        if hasattr(m, "reset_parameters"):
+                            m.reset_parameters()
+            members.append(_params_of(clone))
+        return members
+
+    def _setup_state(self, dataset: Dataset):
+        from distkeras_tpu_torch.parallel import substrate
+
+        members = self._member_params()
+        factor = self.num_workers // self.mesh.shape[mesh_lib.WORKER_AXIS]
+        carries = [self.strategy.init_carry(
+            p, self.tx, device=mesh_lib.worker_device(self.mesh, k, factor))
+            for k, p in enumerate(members)]
+        center = mesh_lib.put_replicated(members[0], self.mesh)
+        return center, carries
+
+    def _finalize(self, center: dict, carries: list):
+        return [{n: x.detach() for n, x in c.params.items()}
+                for c in carries]
+
+    def _model_params(self) -> dict:
+        return self.params[0]
+
+
+class PjitTrainer(Trainer):
+    """The JAX package's GSPMD data (x tensor) parallel trainer: not
+    ported (ROADMAP.md Queue A, item 16)."""
+
+    def __init__(self, *args, **kwargs):
+        raise _not_ported("PjitTrainer (GSPMD data x tensor parallelism)",
+                          "item 16: parallel/tensor.py and collectives")
+
+
+class SingleTrainer(Trainer):
+    """One replica, plain minibatch SGD (the reference's SingleTrainer),
+    through ``engine.make_epoch_fn``. ``staging_steps=None`` stages the
+    whole epoch on the device once and reuses it every epoch; an int
+    bounds device data memory to O(staging_steps) chunks prefetched on a
+    thread."""
+
+    def __init__(self, *args, staging_steps: Optional[int] = None,
+                 accum_steps: int = 1, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.staging_steps = staging_steps
+        self.accum_steps = int(accum_steps)
+        if self.accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+        if self.batch_size % self.accum_steps != 0:
+            raise ValueError(
+                f"accum_steps={self.accum_steps} must divide "
+                f"batch_size={self.batch_size}: each step is a scan over "
+                f"accum_steps equal microbatches")
+        self._device = resolve_device(self.device)
+
+    def train(self, dataset: Dataset, shuffle: bool = False,
+              resume: bool = False):
+        from distkeras_tpu_torch.parallel import substrate
+
+        self._reject_global_shards(dataset, "SingleTrainer")
+        self._check_resume(resume)
+        self._start()
+        if shuffle:
+            dataset = dataset.shuffle(self.seed)
+        self._check_trainable(dataset, self.batch_size)
+        if self.staging_steps is None:
+            self._warn_if_large_resident(dataset, "staging_steps")
+        with span("trainer.init"):
+            state = engine.create_train_state(self.model, self.tx,
+                                              device=self._device)
+        if getattr(self, "_epoch_fn", None) is None:
+            with span("trainer.compile"):
+                self._epoch_fn = engine.make_epoch_fn(
+                    self.model, self.loss, self.tx, metrics=self.metrics,
+                    dropout_seed=self.seed, accum_steps=self.accum_steps,
+                    precision=self.precision)
+        epoch_fn = self._epoch_fn
+        staged = None
+        device_history = []  # device tensors; read once at the end
+        for _ in range(self.num_epoch):
+            with span("trainer.stage"):
+                # one shard at window 1 on a one-device mesh: each chunk
+                # is (steps, 1, 1, batch, ...), viewed as (steps, batch, ...)
+                chunks, staged = self._epoch_chunk_stream(
+                    staged,
+                    lambda: (data for data, _ in
+                             substrate.stage_epoch_chunks(
+                                 [dataset], self.features_col,
+                                 self.label_col, self.batch_size, 1,
+                                 mesh_lib.Mesh([self._device]),
+                                 chunk_rounds=self.staging_steps)),
+                    resident=self.staging_steps is None)
+            with span("trainer.epoch"):
+                for data in chunks:
+                    data.wait()
+                    state, ms = epoch_fn(state, {
+                        key: cols[0][:, 0, 0] for key, cols in data.items()})
+                    device_history.append(ms)
+        with span("trainer.finalize"):
+            self.history = []
+            for ms in device_history:
+                host = {k: v.cpu().numpy() for k, v in ms.items()}
+                steps = len(next(iter(host.values())))
+                self.history.extend({k: float(v[i]) for k, v in host.items()}
+                                    for i in range(steps))
+            self.params = {n: p.clone() for n, p in
+                           _params_of(state.model).items()}
+        self._stop(self._device)
+        return self.params

@@ -1,5 +1,5 @@
-"""Weights across frameworks: a flax ``CausalLM`` or ``ResNet`` param tree
-<-> the port's ``state_dict``.
+"""Weights across frameworks: a flax ``CausalLM``, ``ResNet``, ``MLP`` or
+``CIFARConvNet`` param tree <-> the port's ``state_dict``.
 
 The flax side is a nested mapping of numpy arrays (convert a JAX tree
 with ``jax.tree.map(np.asarray, params)`` first; this module imports no
@@ -13,7 +13,10 @@ JAX). The rules:
 - CausalLM: ``layer_{i}/{ln1, attn/{qkv, out}, ln2, mlp/{fc1, fc2}}`` <->
   ``layers.{i}.<same path with dots>``; ``ln_final``, ``lm_head``;
 - ResNet: module names are kept (``conv_stem``, ``norm_stem``,
-  ``stage{i}_block{j}/{conv1, norm1, ..., proj, norm_proj}``, ``head``).
+  ``stage{i}_block{j}/{conv1, norm1, ..., proj, norm_proj}``, ``head``);
+- MLP (``dense_{i}``, ``head``) and CIFARConvNet (``conv_{i}a``,
+  ``conv_{i}b``, ``dense``, ``head``) keep theirs too; the CNN flattens
+  its last feature map in NHWC order, so its dense kernel is flax's.
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ def _flatten(tree: Mapping, prefix=()):
 
 
 def flax_to_state_dict(params: Mapping) -> dict:
-    """flax ``CausalLM`` or ``ResNet`` params (numpy leaves) -> a
+    """flax params of any model above (numpy leaves) -> a
     ``state_dict`` of float32 CPU tensors for the port's model
     (``load_state_dict`` casts to each parameter's dtype and device)."""
     out = {}

@@ -390,9 +390,12 @@ def test_adamw_keeps_optax_defaults_not_torch_ones():
 
 
 def test_optimizer_registry_raises_for_what_is_not_ported():
+    """Every name of the JAX registry is ported now (the last five are
+    held to optax in test_torch_optimizers.py); a name the JAX registry
+    does not know raises ValueError, as there."""
     for name in ("adagrad", "rmsprop", "adadelta", "nadam", "lamb"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            topt.get(name)
+        opt = topt.get(name)([torch.nn.Parameter(torch.ones(1))])
+        assert isinstance(opt, torch.optim.Optimizer)
     with pytest.raises(ValueError, match="Unknown optimizer"):
         topt.get("sgdw")
     factory = topt.get("sgd", 0.1)

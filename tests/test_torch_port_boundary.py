@@ -92,6 +92,34 @@ def test_hbm_stats_is_none_on_cpu_and_precision_policies():
         precision.resolve("fp64", torch.float32)
 
 
+def test_trainers_do_not_fall_back_to_cpu(monkeypatch):
+    """A trainer or a predictor resolves its mesh (or its device) to the
+    card and raises without one; ``device="cpu"`` or a CPU mesh runs on
+    the host."""
+    from distkeras_tpu_torch import (ADAG, AveragingTrainer, ModelClassifier,
+                                     ModelPredictor, SingleTrainer)
+    from distkeras_tpu_torch.models import MLP
+    from distkeras_tpu_torch.parallel import mesh as mesh_lib
+
+    _no_cuda(monkeypatch)
+    for build in (lambda: ADAG(MLP(features=(4,))),
+                  lambda: AveragingTrainer(MLP(features=(4,)),
+                                           parallelism_factor=2),
+                  lambda: SingleTrainer(MLP(features=(4,))),
+                  lambda: mesh_lib.make_mesh(1),
+                  lambda: ModelClassifier(MLP(features=(4,))),
+                  lambda: ModelPredictor(MLP(features=(4,)),
+                                         MLP(features=(4,)).state_dict())):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    assert ADAG(MLP(features=(4,)), device="cpu").mesh.home.type == "cpu"
+    mesh = mesh_lib.make_mesh(devices=["cpu", "cpu"])
+    assert ADAG(MLP(features=(4,)), mesh=mesh).num_workers == 2
+    for kw in (dict(device="cpu"), dict(mesh=mesh_lib.make_mesh(
+            devices=["cpu"]))):
+        assert ModelClassifier(MLP(features=(4,)), **kw).device.type == "cpu"
+
+
 def test_import_pulls_in_no_jax_and_no_reference_package():
     code = ("import sys\n"
             "import distkeras_tpu_torch\n"
@@ -117,6 +145,19 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
             "import distkeras_tpu_torch.serving.fleet\n"
             "import distkeras_tpu_torch.predictors\n"
             "import distkeras_tpu_torch.evaluators\n"
+            "import distkeras_tpu_torch.trainers\n"
+            "import distkeras_tpu_torch.parallel.substrate\n"
+            "import distkeras_tpu_torch.parallel.strategies\n"
+            "import distkeras_tpu_torch.parallel.mesh\n"
+            "import distkeras_tpu_torch.parameter_servers\n"
+            "import distkeras_tpu_torch.data\n"
+            "import distkeras_tpu_torch.transformers\n"
+            "import distkeras_tpu_torch.utils.rng\n"
+            "from distkeras_tpu_torch import (ADAG, DOWNPOUR, DynSGD, AEASGD,"
+            " EAMSGD, AveragingTrainer, EnsembleTrainer, SingleTrainer,"
+            " Pipeline, MinMaxTransformer, OneHotTransformer,"
+            " ModelClassifier, AccuracyEvaluator, synthetic_mnist,"
+            " Dataset)\n"
             f"bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(','.join(bad))\n")

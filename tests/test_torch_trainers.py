@@ -1,0 +1,376 @@
+"""The port's trainer zoo against the JAX package's trainers.
+
+Every trainer (DOWNPOUR, ADAG, DynSGD, AEASGD, EAMSGD, Averaging,
+Ensemble, Single) trains ``MLP(features=(16,))`` on
+``synthetic_mnist(n=512)`` for 2 epochs, shuffled, in both packages
+from the same start: JAX initializes from ``jax.random.key(0)`` and the
+port's module is loaded with those params through the bridge (Ensemble's
+K members with JAX's K inits). JAX runs K = 4 workers on 4 virtual CPU
+devices, the port K = 4 replicas on ``device="cpu"``
+(``parallelism_factor=4``). Bounds: final parameters rtol 1e-4 / atol
+1e-5, every history entry rtol 1e-4 / atol 1e-5, ``staleness_history``
+and ``num_updates`` equal. The JAX runs are built once a module.
+
+Then: Averaging on identical shards equals Single; Ensemble returns K
+distinct models; each sync-mode validation of
+``tests/test_distributed_trainers.py`` raises the JAX package's
+exception class in both packages; each path that is not ported raises
+NotImplementedError naming its ROADMAP.md Queue A item; and the twin of
+``examples/mnist_mlp.py`` at ``n=1024`` (each exchanging trainer at the
+example's kwargs; EAMSGD, which refuses ``worker_optimizer`` in both
+packages, at its default) scores within 0.5 percentage points of JAX's
+accuracy.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import distkeras_tpu as jdk
+import distkeras_tpu_torch as tdk
+from distkeras_tpu.models.mlp import MLP as JMLP
+from distkeras_tpu_torch.models.mlp import MLP
+from distkeras_tpu_torch.utils import bridge
+
+K = 4
+COMMON = dict(learning_rate=0.05, batch_size=16, num_epoch=2)
+ZOO = {  # name -> (extra kwargs, worker optimizer)
+    "DOWNPOUR": ({}, "momentum"),
+    "ADAG": ({"staging_rounds": 1}, "sgd"),
+    "DynSGD": ({}, "sgd"),
+    "AEASGD": ({"rho": 1.0}, "sgd"),
+    "EAMSGD": ({"rho": 1.0, "momentum": 0.9}, "sgd"),
+    "AveragingTrainer": ({}, "sgd"),
+    "EnsembleTrainer": ({}, "sgd"),
+    "SingleTrainer": ({}, "adagrad"),
+}
+
+
+def _flax(params):
+    return jax.tree.map(np.asarray, params)
+
+
+def _ensemble_inits():
+    keys = jax.random.split(jax.random.key(0), K)
+    sample = np.zeros((1, 784), np.float32)
+    return [_flax(JMLP(features=(16,)).init(k, sample)["params"])
+            for k in keys]
+
+
+@pytest.fixture(scope="module")
+def jax_zoo():
+    """name -> (trainer, final params as flax numpy trees)."""
+    ds = jdk.synthetic_mnist(n=512)
+    out = {}
+    for name, (extra, opt) in ZOO.items():
+        kw = dict(COMMON, worker_optimizer=opt, **extra)
+        if name != "SingleTrainer":
+            kw.update(num_workers=K, communication_window=3)
+        trainer = getattr(jdk, name)(JMLP(features=(16,)), **kw)
+        params = trainer.train(ds, shuffle=True)
+        out[name] = (trainer, [_flax(p) for p in params]
+                     if isinstance(params, list) else _flax(params))
+    return out
+
+
+def _start():
+    sample = np.zeros((1, 784), np.float32)
+    return _flax(JMLP(features=(16,)).init(jax.random.key(0),
+                                           sample)["params"])
+
+
+def _port_trainer(name, **over):
+    extra, opt = ZOO[name]
+    kw = dict(COMMON, worker_optimizer=opt, device="cpu", **extra)
+    if name != "SingleTrainer":
+        kw.update(num_workers=1, parallelism_factor=K,
+                  communication_window=3)
+    kw.update(over)
+    model = bridge.load_flax_params(MLP(features=(16,)), _start())
+    return getattr(tdk, name)(model, **kw)
+
+
+def _close_tree(port_params, flax_params):
+    got = bridge.state_dict_to_flax(port_params)
+    for mod, leaves in flax_params.items():
+        for leaf, want in leaves.items():
+            np.testing.assert_allclose(got[mod][leaf], want, rtol=1e-4,
+                                       atol=1e-5, err_msg=f"{mod}/{leaf}")
+
+
+@pytest.mark.parametrize("name", sorted(ZOO))
+def test_trainer_matches_jax(jax_zoo, name, monkeypatch):
+    jtrainer, jparams = jax_zoo[name]
+    trainer = _port_trainer(name)
+    if name == "EnsembleTrainer":
+        inits = [bridge.flax_to_state_dict(p) for p in _ensemble_inits()]
+        monkeypatch.setattr(trainer, "_member_params", lambda: inits)
+    params = trainer.train(tdk.synthetic_mnist(n=512), shuffle=True)
+    if name == "EnsembleTrainer":
+        assert isinstance(params, list) and len(params) == K
+        for p, jp in zip(params, jparams):
+            _close_tree(p, jp)
+    else:
+        _close_tree(params, jparams)
+    assert len(trainer.history) == len(jtrainer.history) > 0
+    for got, want in zip(trainer.history, jtrainer.history):
+        assert set(got) == set(want)
+        for key in want:
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-4,
+                                       atol=1e-5, err_msg=key)
+    if name != "SingleTrainer":
+        assert trainer.staleness_history == jtrainer.staleness_history
+        assert trainer.num_updates == jtrainer.num_updates
+    # the trained weights are what trainer.model now holds
+    held = params[0] if name == "EnsembleTrainer" else params
+    for n, p in trainer.model.named_parameters():
+        assert torch.equal(p.detach(), held[n])
+    assert trainer.get_training_time() > 0
+
+
+def test_averaging_identical_shards_equals_single():
+    """NUMERICS invariant 6: identical shards -> the mean is each
+    replica."""
+    block = tdk.synthetic_mnist(n=128, seed=2)
+    tiled = tdk.Dataset.concat([block] * K)
+    kw = dict(learning_rate=0.05, batch_size=32, num_epoch=1, metrics=(),
+              device="cpu")
+    start = MLP(features=(16,)).state_dict()
+    avg = tdk.AveragingTrainer(MLP(features=(16,)), num_workers=1,
+                               parallelism_factor=K, communication_window=1,
+                               **kw)
+    avg.model.load_state_dict(start)
+    single = tdk.SingleTrainer(MLP(features=(16,)), **kw)
+    single.model.load_state_dict(start)
+    p_avg, p_single = avg.train(tiled), single.train(block)
+    for n in p_avg:
+        torch.testing.assert_close(p_avg[n], p_single[n], rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_ensemble_returns_k_distinct_models():
+    t = tdk.EnsembleTrainer(MLP(features=(16,)), num_workers=1,
+                            parallelism_factor=K, communication_window=2,
+                            batch_size=16, device="cpu")
+    models = t.train(tdk.synthetic_mnist(n=512, seed=3))
+    assert isinstance(models, list) and len(models) == K
+    assert not torch.allclose(models[0]["dense_0.weight"],
+                              models[1]["dense_0.weight"])
+
+
+def test_dynsgd_staleness_rotates_and_retrain_resets_bookkeeping():
+    t = tdk.DynSGD(MLP(features=(16,)), num_workers=1, parallelism_factor=8,
+                   communication_window=2, batch_size=16, device="cpu")
+    ds = tdk.synthetic_mnist(n=1024, seed=1)
+    t.train(ds)
+    # mean staleness over a full rotation is (K-1)/2 every round
+    assert np.allclose(t.staleness_history, 3.5)
+    first = (len(t.get_history()), t.num_updates, len(t.staleness_history))
+    t.train(ds)
+    assert (len(t.get_history()), t.num_updates,
+            len(t.staleness_history)) == first
+    assert set(t.get_averaged_history()) == {"loss", "accuracy"}
+
+
+def test_dropout_model_trains_and_is_reproducible():
+    ds = tdk.synthetic_mnist(n=1024, seed=4)
+
+    def run():
+        torch.manual_seed(0)
+        t = tdk.DOWNPOUR(MLP(features=(32,), dropout_rate=0.3),
+                         num_workers=1, parallelism_factor=4,
+                         communication_window=2, batch_size=16,
+                         device="cpu")
+        t.train(ds)
+        return [h["loss"] for h in t.get_history()]
+
+    a, b = run(), run()
+    assert a == b and np.isfinite(a[-1])
+
+
+# -- validation: the JAX package's exception class, in both packages -------
+
+def _jmodel():
+    return JMLP(features=(8,))
+
+
+def _tmodel():
+    return MLP(features=(8,))
+
+
+SYNC_ERRORS = [  # (trainer, kwargs, exception, message fragment)
+    ("ADAG", dict(data_layout="bogus"), ValueError, "data_layout"),
+    ("EAMSGD", dict(worker_optimizer="adam"), ValueError,
+     "worker_optimizer"),
+    ("DOWNPOUR", dict(rho=2.0), TypeError, "does not take"),
+    ("AEASGD", dict(momentum=0.5), TypeError, "does not take"),
+    ("DOWNPOUR", dict(mode="bogus"), ValueError, "mode"),
+    ("DOWNPOUR", dict(parallelism_factor=0), ValueError,
+     "parallelism_factor"),
+    ("DOWNPOUR", dict(devices=["x"]), ValueError, "devices="),
+    ("DOWNPOUR", dict(checkpoint_folds=2), ValueError, "checkpoint_folds"),
+    ("DOWNPOUR", dict(data_service="localhost:1"), ValueError,
+     "data_service"),
+    ("DOWNPOUR", dict(codec="int8"), ValueError, "codec"),
+    ("DOWNPOUR", dict(comms_overlap=True), ValueError, "comms_overlap"),
+    ("DOWNPOUR", dict(ps_shards=0), ValueError, "ps_shards"),
+    ("DOWNPOUR", dict(ps_shards=2), ValueError, "ps_shards"),
+    ("DOWNPOUR", dict(ps_placement="moon"), ValueError, "ps_placement"),
+    ("DOWNPOUR", dict(ps_placement="spread"), ValueError, "ps_placement"),
+    ("DOWNPOUR", dict(ps_standby=True), ValueError, "ps_standby"),
+    ("DOWNPOUR", dict(accum_steps=0), ValueError, "accum_steps"),
+    ("DOWNPOUR", dict(accum_steps=3), ValueError, "accum_steps"),
+    ("DOWNPOUR", dict(bucket_bytes=0), ValueError, "bucket_bytes"),
+    ("DOWNPOUR", dict(loss_weights=[1.0, 2.0]), ValueError, "loss_weights"),
+    ("DOWNPOUR", dict(loss="hinge"), ValueError, "Unknown loss"),
+    ("DOWNPOUR", dict(worker_optimizer="sgdw"), ValueError,
+     "Unknown optimizer"),
+    ("DOWNPOUR", dict(health="shout"), ValueError, "health policy"),
+]
+
+
+@pytest.mark.parametrize("name,kw,exc,match", SYNC_ERRORS)
+def test_sync_validation_raises_like_jax(name, kw, exc, match):
+    base = dict(batch_size=16)
+    with pytest.raises(exc, match=match):
+        getattr(jdk, name)(_jmodel(), num_workers=2, **base, **kw)
+    place = dict(num_workers=1, parallelism_factor=2, device="cpu")
+    place.update(kw)
+    with pytest.raises(exc, match=match):
+        getattr(tdk, name)(_tmodel(), **base, **place)
+
+
+def test_dataset_too_small_and_master_port_like_jax():
+    for pkg, model, place in ((jdk, _jmodel(), dict(num_workers=8)),
+                              (tdk, _tmodel(), dict(num_workers=1,
+                                                    parallelism_factor=8,
+                                                    device="cpu"))):
+        t = pkg.DOWNPOUR(model, batch_size=32, communication_window=2,
+                         **place)
+        with pytest.raises(ValueError, match="rows but one step needs"):
+            t.train(pkg.synthetic_mnist(n=100, seed=0))
+        assert pkg.DOWNPOUR(model, master_port=5000, **place).num_workers \
+            == 8
+
+
+NOT_PORTED = [  # (build, item)
+    (lambda: tdk.DOWNPOUR(_tmodel(), num_workers=1, device="cpu",
+                          mode="host_async"), "item 13"),
+    (lambda: tdk.DOWNPOUR(_tmodel(), num_workers=1, device="cpu",
+                          mode="host_async", data_service="h:1"),
+     "item 13"),
+    (lambda: tdk.DOWNPOUR(_tmodel(), num_workers=1, device="cpu",
+                          mode="host_async", ps_shards=2), "item 13"),
+    (lambda: tdk.DOWNPOUR(_tmodel(), num_workers=1, device="cpu",
+                          mode="host_async", ps_standby=True), "item 13"),
+    (lambda: tdk.DOWNPOUR(_tmodel(), num_workers=1, device="cpu",
+                          mode="host_async", ps_placement="spread"),
+     "item 13"),
+    (lambda: tdk.ADAG(_tmodel(), num_workers=1, device="cpu",
+                      checkpoint_dir="/nonexistent"), "items 8 and 12"),
+    (lambda: tdk.SingleTrainer(_tmodel(), device="cpu",
+                               checkpoint_dir="/nonexistent"),
+     "items 8 and 12"),
+    (lambda: tdk.ADAG(_tmodel(), num_workers=1, device="cpu").train(
+        tdk.synthetic_mnist(n=256), resume=True), "items 8 and 12"),
+    (lambda: tdk.SingleTrainer(_tmodel(), device="cpu").train(
+        tdk.synthetic_mnist(n=256), resume=True), "items 8 and 12"),
+    (lambda: tdk.PjitTrainer(_tmodel()), "item 16"),
+    (lambda: tdk.ADAG(_tmodel(), num_workers=1, device="cpu",
+                      precision="bf16"), "item 12"),
+    (lambda: tdk.AccuracyEvaluator(across_processes=True), "item 16"),
+    (lambda: tdk.LossEvaluator(across_processes=True), "item 16"),
+]
+
+
+@pytest.mark.parametrize("case", range(len(NOT_PORTED)))
+def test_unported_paths_name_their_item(case):
+    build, item = NOT_PORTED[case]
+    with pytest.raises(NotImplementedError, match=item):
+        build()
+
+
+def test_global_shards_are_refused():
+    class Pool:  # what a GlobalShards offers a trainer
+        def epoch_dataset(self, epoch):
+            raise AssertionError("not reached")
+
+    for t in (tdk.ADAG(_tmodel(), num_workers=1, device="cpu"),
+              tdk.SingleTrainer(_tmodel(), device="cpu")):
+        with pytest.raises(ValueError, match="GlobalShards"):
+            t.train(Pool())
+
+
+# -- the twin of examples/mnist_mlp.py -------------------------------------
+
+def _example_flow(pkg, trainer_name, model, place, score_place):
+    raw = pkg.synthetic_mnist(n=1024)
+    ds = pkg.Pipeline([
+        pkg.MinMaxTransformer(o_min=-1.0, o_max=1.0),
+        pkg.OneHotTransformer(10, input_col="label_index",
+                              output_col="label"),
+    ]).transform(raw)
+    # EAMSGD refuses worker_optimizer in both packages (its local step is
+    # its own Nesterov rule), so it runs at the default
+    opt = {} if trainer_name == "EAMSGD" else {"worker_optimizer": "momentum"}
+    trainer = getattr(pkg, trainer_name)(
+        model, learning_rate=0.3, batch_size=64, num_epoch=3,
+        communication_window=4, **opt, **place)
+    params = trainer.train(ds, shuffle=True)
+    scored = pkg.ModelClassifier(model, params, batch_size=512,
+                                 **score_place).predict(ds)
+    return pkg.AccuracyEvaluator("prediction", "label_index").evaluate(
+        scored)
+
+
+@pytest.mark.parametrize("name", ["ADAG", "DOWNPOUR", "DynSGD", "AEASGD",
+                                  "EAMSGD"])
+def test_mnist_example_twin_matches_jax_accuracy(name):
+    from distkeras_tpu.models import mnist_mlp as jmnist_mlp
+    from distkeras_tpu_torch.models import mnist_mlp
+
+    start = _flax(jmnist_mlp().init(jax.random.key(0),
+                                    jnp.zeros((1, 784)))["params"])
+    jacc = _example_flow(jdk, name, jmnist_mlp(), dict(num_workers=K), {})
+    tacc = _example_flow(tdk, name,
+                         bridge.load_flax_params(mnist_mlp(), start),
+                         dict(num_workers=1, parallelism_factor=K,
+                              device="cpu"), dict(device="cpu"))
+    print(f"{name}: port {tacc:.4f}, JAX {jacc:.4f}")
+    assert abs(tacc - jacc) <= 0.005, (tacc, jacc)
+
+
+@pytest.mark.parametrize("name", ["ADAG", "SingleTrainer"])
+def test_train_starts_from_the_module_weights(name):
+    """The port trains from the weights the module holds (the JAX
+    trainer initializes from ``jax.random.key(seed)``): at learning rate
+    0 the result is the module's weights, whatever the seed."""
+    model = MLP(features=(8,))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    place = dict(device="cpu", learning_rate=0.0, batch_size=16, seed=5)
+    if name != "SingleTrainer":
+        place.update(num_workers=1, parallelism_factor=2,
+                     communication_window=2)
+    params = getattr(tdk, name)(model, **place).train(
+        tdk.synthetic_mnist(n=256))
+    for n, p in before.items():
+        assert torch.equal(params[n], p)
+
+
+def test_host_sharded_layout_is_the_replicated_case_in_one_process():
+    ds = tdk.synthetic_mnist(n=512)
+    start = MLP(features=(8,)).state_dict()
+
+    def run(layout):
+        model = MLP(features=(8,))
+        model.load_state_dict(start)
+        t = tdk.ADAG(model, num_workers=1, parallelism_factor=2,
+                     communication_window=2, batch_size=16, device="cpu",
+                     data_layout=layout)
+        return t.train(ds), [h["loss"] for h in t.history]
+
+    (p_rep, h_rep), (p_hs, h_hs) = run("replicated"), run("host_sharded")
+    assert h_rep == h_hs
+    assert all(torch.equal(p_rep[n], p_hs[n]) for n in p_rep)
