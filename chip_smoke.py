@@ -217,6 +217,25 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    bf16, K = 2, batch 32, window 2, one round: the GroupNorm forward and
    backward kernels launched 53 x K x window times each
    (``launches_train_core`` in the kernels' line), finite losses.
+25. measure — the measurement plane (``observability``, ``profiling``,
+   ``bench_torch.py``): ``calibrate_peak`` at 16384^2, 8192^2 and 4096^2
+   (the first inside ``observability.CAL_BAND``); ``count_flops`` of one
+   call on the card equal to the same call's on the host's CPU (the
+   kernels report their formulas, the plain versions run as aten ops)
+   for a 2-layer gpt_small-width flash step (rows 1-3), its int8 step
+   (row 5), a resnet50() GroupNorm step at b=2 (rows 6-7) and a paged
+   decode call (row 4); ``capture_op_times`` over three calls and
+   ``build_report`` (op inventory against its source view: coverage) of
+   phase 8's step, phase 12's, phase 14's, and a round of phase 24 (a)'s
+   configuration (one round), with phase 6's capture of a graphed
+   window of phase 4's engine (graph replays dispatch no op: no
+   roofline): busy share, top kernels, top roofline rows, and each
+   path's hand-written kernels named in its trace;
+   ``bench_torch.run`` at 2 rounds with its MFU;
+26. checkpoint — ``ADAG(resnet50_nf())`` with K = 2 replicas (momentum),
+   batch 32, window 2, 2 epochs of one round: the run that saves epoch 0
+   and the run resumed from it end on the uninterrupted run's
+   parameters bit for bit (cuDNN deterministic, TF32 off).
 
 The last three lines of standard output are the kernels' JSON, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details are
@@ -239,10 +258,29 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): HBM bytes/s and
-# FLOP/s by operand type
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+#: operand type -> the peak-table column of ``observability.PEAK_FLOPS``
+PEAK_COLUMNS = {torch.bfloat16: "bf16", torch.float32: "f32",
+                torch.int8: "int8"}
+
+
+def peak_flops(dtype) -> float:
+    """The card's published dense peak for an operand type
+    (``observability.device_peak_flops``, NVIDIA's data sheet)."""
+    from distkeras_tpu_torch import observability
+
+    peak = observability.device_peak_flops(torch.device("cuda", 0),
+                                           PEAK_COLUMNS[dtype])
+    assert peak is not None, "the peak table does not know this card"
+    return peak
+
+
+def hbm_bytes_per_s() -> float:
+    """The card's published HBM rate (``roofline.HBM_BANDWIDTH``)."""
+    from distkeras_tpu_torch.profiling import roofline
+
+    rate = roofline.device_hbm_bandwidth(torch.device("cuda", 0))
+    assert rate is not None, "the bandwidth table does not know this card"
+    return rate
 
 # gpt_small paged serving geometry (the engine phase uses the same)
 H, D, PAGE, PMAX, SLOTS = 12, 64, 16, 64, 8
@@ -277,20 +315,6 @@ def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def device_kernels(prof) -> list:
-    """The device kernels of a torch.profiler run: the CUDA entries of
-    ``key_averages()``, less the user annotations the profiler mirrors
-    onto the device timeline (ranges such as torch.optim's
-    ``Optimizer.step#AdamW.step``, also recorded on the host), which
-    enclose kernels already counted and would count their time twice."""
-    from torch.autograd import DeviceType
-
-    events = prof.key_averages()
-    host = {e.key for e in events if e.device_type == DeviceType.CPU}
-    return [e for e in events
-            if e.device_type == DeviceType.CUDA and e.key not in host]
 
 
 #: card cycles of the spin that ``device_ms`` queues ahead of the timed
@@ -499,13 +523,13 @@ def _bound(b, t, dtype, ci, h=H, d=D, pmax=PMAX):
     kv_bytes = 2 * sum(keys) * h * d * item
     io_bytes = 2 * b * t * h * d * item + b * pmax * 4 + b * 4
     flops = 4 * d * h * pairs
-    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = (kv_bytes + io_bytes) / hbm_bytes_per_s() * 1e3
+    t_ops = flops / peak_flops(dtype) * 1e3
     full_bytes = 2 * b * pmax * PAGE * h * d * item + io_bytes
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": kv_bytes + io_bytes, "flops": flops,
-            "bound_full_pool_ms": full_bytes / HBM_BYTES_PER_S * 1e3}
+            "bound_full_pool_ms": full_bytes / hbm_bytes_per_s() * 1e3}
 
 
 #: the speculative phase's verify width (spec_k) and ladder
@@ -893,42 +917,41 @@ TRACE_NEW = 16
 
 
 def _traced_serve(eng, tag) -> dict:
-    """The traced run's traffic under torch.profiler: the device's busy
-    share, its time by kernel, and the kernels a model call (a graph
-    replay) put on the device: all of them, and the paged kernel's two,
-    beside the paged calls the wrapper counted (zeroed just before, read
-    just after)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """The traced run's traffic under torch.profiler
+    (``profiling.capture_op_times``): the device's busy share, its time
+    by kernel, and the kernels a model call (a graph replay) put on the
+    device: all of them, and the paged kernel's two, beside the paged
+    calls the wrapper counted (zeroed just before, read just after)."""
     from distkeras_tpu_torch.ops.kernels import flash_attention as fa
+    from distkeras_tpu_torch.profiling import capture_op_times
 
     rng = np.random.default_rng(4)
     prompts = [rng.integers(1, 50304, 100).tolist()
                for _ in range(TRACE_REQUESTS)]
     fa.paged_flash_attention.launches = 0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        n_calls = _serve_window(eng, prompts, TRACE_NEW)["model_calls"]
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    served = {}
+    table = capture_op_times(
+        lambda: served.update(_serve_window(eng, prompts, TRACE_NEW)),
+        steps=1)
+    assert table.available, table.note
     counted = fa.paged_flash_attention.launches
-    kernels = device_kernels(prof)
-    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    paged = sum(e.count for e in kernels
-                if "paged_logits_kernel" in e.key
-                or "paged_values_kernel" in e.key)
+    n_calls = served["model_calls"]
+    wall, busy_s = table.wall_s, table.total()
+    launches = int(sum(table.counts.values()))
+    paged = int(sum(n for k, n in table.counts.items()
+                    if "paged_logits_kernel" in k
+                    or "paged_values_kernel" in k))
     info = {"wall_s": wall, "device_busy_s": busy_s,
-            "device_busy_share": busy_s / wall,
-            "kernel_launches": sum(e.count for e in kernels),
+            "device_busy_share": table.busy_share,
+            "wrapper_ms": {k: v * 1e3 for k, v in table.kernels().items()},
+            "kernel_launches": launches,
             "model_calls": n_calls, "paged_calls_counted": counted,
             "paged_kernels_traced": paged,
-            "kernels_per_call": sum(e.count for e in kernels) / n_calls,
+            "kernels_per_call": launches / n_calls,
             "paged_kernels_per_call": paged / n_calls,
-            "top_kernels": [{"name": e.key[:90], "count": e.count,
-                             "device_ms": e.self_device_time_total / 1e3}
-                            for e in top]}
+            "top_kernels": [{"name": k[:90], "count": int(n),
+                             "device_ms": sec * 1e3}
+                            for k, sec, n in table.top(10)]}
     log(f"[{tag}] traced serving run: wall {wall * 1e3:.1f} ms, device busy "
         f"{busy_s * 1e3:.1f} ms ({100 * info['device_busy_share']:.1f}%), "
         f"{info['kernel_launches']} kernels on the device in {n_calls} "
@@ -992,12 +1015,12 @@ def _flash_bound(name, shape, causal, dtype):
     in_ops, f32_ops = {"fwd": (4 * d, 0), "dq": (4 * d, 2 * d),
                        "dkv": (4 * d, 4 * d)}[name]
     split = 3 if dtype == torch.bfloat16 and f32_ops else 0
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_bytes = moved / hbm_bytes_per_s() * 1e3
     if split:
-        t_ops = (in_ops + split * f32_ops) * pairs / PEAK_FLOPS[dtype] * 1e3
+        t_ops = (in_ops + split * f32_ops) * pairs / peak_flops(dtype) * 1e3
     else:
-        t_ops = (in_ops * pairs / PEAK_FLOPS[dtype]
-                 + f32_ops * pairs / PEAK_FLOPS[torch.float32]) * 1e3
+        t_ops = (in_ops * pairs / peak_flops(dtype)
+                 + f32_ops * pairs / peak_flops(torch.float32)) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": moved, "flops": (in_ops + f32_ops) * pairs,
@@ -1228,42 +1251,40 @@ def phase_train_witness(dev, flash_losses) -> dict:
 
 def phase_train_profile(state, step, batch, tag="train-profile") -> dict:
     """One more train step (a train phase's state and batch) under
-    torch.profiler: device busy share and device time by kernel."""
-    from torch.profiler import ProfilerActivity, profile
+    torch.profiler (``profiling.capture_op_times``): device busy share and
+    device time by kernel."""
+    from distkeras_tpu_torch.profiling import capture_op_times
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(state, batch)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = device_kernels(prof)
-    busy_s = sum(e.self_device_time_total for e in kernels) / 1e6
-    gn = [e for e in kernels if "gn_fwd_kernel" in e.key
-          or "gn_bwd_kernel" in e.key]
-    int8 = [e for e in kernels if "int8_matmul" in e.key]
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:25]
+    table = capture_op_times(lambda: step(state, batch)[1], steps=1)
+    assert table.available, table.note
+    wall, busy_s = table.wall_s, table.total()
+
+    def part(*names):
+        keys = [k for k in table.seconds if any(n in k for n in names)]
+        return (sum(table.seconds[k] for k in keys) * 1e3,
+                int(sum(table.counts[k] for k in keys)))
+
+    gn_ms, gn_n = part("gn_fwd_kernel", "gn_bwd_kernel")
+    int8_ms, int8_n = part("int8_matmul")
     info = {"wall_s": wall, "device_busy_s": busy_s,
-            "device_busy_share": busy_s / wall,
-            "kernel_launches": sum(e.count for e in kernels),
-            "groupnorm_device_ms": sum(e.self_device_time_total
-                                       for e in gn) / 1e3,
-            "groupnorm_kernel_launches": sum(e.count for e in gn),
-            "int8_device_ms": sum(e.self_device_time_total
-                                  for e in int8) / 1e3,
-            "int8_kernel_launches": sum(e.count for e in int8),
-            "top_kernels": [{"name": e.key[:90], "count": e.count,
-                             "device_ms": e.self_device_time_total / 1e3}
-                            for e in top]}
+            "device_busy_share": table.busy_share,
+            "kernel_launches": int(sum(table.counts.values())),
+            "groupnorm_device_ms": gn_ms,
+            "groupnorm_kernel_launches": gn_n,
+            "int8_device_ms": int8_ms,
+            "int8_kernel_launches": int8_n,
+            "top_kernels": [{"name": k[:90], "count": int(n),
+                             "device_ms": sec * 1e3}
+                            for k, sec, n in table.top(25)]}
     log(f"[{tag}] one traced step: wall {wall * 1e3:.1f} ms, device "
         f"busy {busy_s * 1e3:.1f} ms ({100 * info['device_busy_share']:.1f}%)"
         f", {info['kernel_launches']} kernel launches")
-    if gn:
+    if gn_n:
         log(f"[{tag}] GroupNorm kernels: {info['groupnorm_device_ms']:.3f} "
             f"device ms over {info['groupnorm_kernel_launches']} launches "
             f"({100 * info['groupnorm_device_ms'] / 1e3 / busy_s:.1f}% of "
             f"the busy time)")
-    if int8:
+    if int8_n:
         log(f"[{tag}] int8 product: {info['int8_device_ms']:.3f} device ms "
             f"over {info['int8_kernel_launches']} launches")
     for k in info["top_kernels"]:
@@ -1318,7 +1339,6 @@ def phase_train_identity(dev) -> dict:
 INT8_CASES = (("qkv", 768, 2304), ("out", 768, 768), ("fc1", 768, 3072),
               ("fc2", 3072, 768))
 INT8_M = 16384
-PEAK_INT8_OPS = 1979e12
 
 
 def _int8_bound(m, k, n, out_dtype):
@@ -1327,8 +1347,8 @@ def _int8_bound(m, k, n, out_dtype):
     int8 tensor-core peak."""
     out_item = torch.finfo(out_dtype).bits // 8
     moved = m * k + n * k + m * n * out_item + 4
-    t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * m * n * k / PEAK_INT8_OPS * 1e3
+    t_bytes = moved / hbm_bytes_per_s() * 1e3
+    t_ops = 2 * m * n * k / peak_flops(torch.int8) * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": moved, "ops": 2 * m * n * k}
@@ -1556,7 +1576,7 @@ def _gn_bound(shape, dtype, backward):
     stats = b * 2 * GN_GROUPS * 4
     moved = (3 * tensor + c * 4 + stats + 2 * b * c * 4 if backward
              else 2 * tensor + 2 * c * 4 + stats)
-    return {"bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+    return {"bound_ms": moved / hbm_bytes_per_s() * 1e3, "bound_by": "bytes",
             "bytes": moved}
 
 
@@ -3559,6 +3579,372 @@ def phase_train_core(dev, power_line, nf_info) -> dict:
     return info
 
 
+# -- phase 25 -----------------------------------------------------------------
+
+#: calibration shapes (chained [n, n] bf16 products by an identity)
+CAL_SIZES = (16384, 8192, 4096)
+#: count-parity shapes: gpt_small widths at 2 layers, batch x seq; the
+#: GroupNorm resnet50() batch at 224^2
+PARITY_LAYERS, PARITY_B, PARITY_T, PARITY_GN_B = 2, 2, 128, 2
+#: steps a traced capture covers
+MEASURE_STEPS = 3
+#: rounds of bench_torch's configuration in phase 25 (1 warm-up, 2 timed)
+MEASURE_BENCH_ROUNDS = 2
+
+
+def _calibration_sweep(power_line) -> list:
+    """``observability.calibrate_peak`` at each CAL_SIZES shape; the
+    default shape's ratio must land in ``CAL_BAND``."""
+    from distkeras_tpu_torch import observability
+
+    rows = []
+    for size in CAL_SIZES:
+        cal = observability.calibrate_peak(size=size)
+        rows.append({"size": size, **cal})
+        log(f"[measure] calibration {size}^2 bf16 x 64 chained: "
+            f"{cal['achieved'] / 1e12:.2f} TFLOP/s = {cal['ratio']:.4f} of "
+            f"{cal['peak'] / 1e12:.0f} [{power_line}]")
+    band = observability.CAL_BAND
+    assert band[0] <= rows[0]["ratio"] <= band[1], (rows[0], band)
+    return rows
+
+
+def _grad_step(model, loss, batch):
+    """One forward and backward of ``model`` on ``batch`` (a closure)."""
+    from distkeras_tpu_torch import engine
+
+    grad_fn = engine.make_grad_fn(model, loss, precision=model.precision)
+    return lambda: grad_fn(batch)
+
+
+def _count_pair(dev, tag, make, make_inputs) -> dict:
+    """``count_flops`` of one call on the card (the kernels report their
+    formulas) and on the host's CPU (their plain versions run as aten
+    ops): the two must be equal."""
+    from distkeras_tpu_torch import observability
+    from distkeras_tpu_torch.ops.kernels import accounting
+
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        fn = make(where, make_inputs(where))
+        kernels = {}
+        with accounting.listen(lambda c: kernels.__setitem__(
+                c.name, kernels.get(c.name, 0) + 1)):
+            out[str(where.type)] = observability.count_flops(fn)
+        out[f"{where.type}_kernel_calls"] = kernels
+        out[f"{where.type}_s"] = time.perf_counter() - t0
+    log(f"[measure] count parity {tag}: card {out['cuda']:.6g} FLOPs "
+        f"(kernels {out['cuda_kernel_calls']}), CPU {out['cpu']:.6g} "
+        f"(plain versions); {out['cuda_s']:.1f} s on the card, "
+        f"{out['cpu_s']:.1f} s on the CPU")
+    assert out["cuda"] == out["cpu"] > 0, out
+    assert out["cuda_kernel_calls"] and not out["cpu_kernel_calls"], out
+    return out
+
+
+def _count_parity(dev) -> dict:
+    """Each kernel path's FLOPs at a short size, card against CPU."""
+    from distkeras_tpu_torch.models.gpt import CausalLM, init_params
+    from distkeras_tpu_torch.ops.kernels import flash_attention as fa
+
+    set_tf32(False)
+
+    def lm(precision):
+        def make(where, batch):
+            model = init_params(CausalLM(
+                vocab_size=50304, max_len=2048, num_layers=PARITY_LAYERS,
+                num_heads=12, width=768, mlp_dim=3072, dtype=torch.bfloat16,
+                attention="flash", precision=precision),
+                torch.Generator().manual_seed(0)).to(where)
+            return _grad_step(model, "masked_lm", batch)
+        return make
+
+    lm_batch = lambda where: {k: torch.from_numpy(v).to(where) for k, v in
+                              _lm_batch(PARITY_B, PARITY_T, 1).items()}
+
+    def gn(where, batch):
+        # float32: the count is the shapes', and the host's CPU runs a
+        # float32 ResNet-50 faster than a bf16 one
+        model = _resnet_model("gn", torch.float32, 0).to(where)
+        return _grad_step(model, "categorical_crossentropy", batch)
+
+    gn_batch = lambda where: {k: torch.from_numpy(v).to(where) for k, v in
+                              _image_batch(PARITY_GN_B, 1).items()}
+    paged_in = lambda where: [x.to(where) for x in _paged_inputs(
+        8, 2, torch.bfloat16, np.random.default_rng(0), "cpu")]
+    out = {"flash": _count_pair(dev, "gpt_small x2 flash (rows 1-3)",
+                                lm(None), lm_batch),
+           "int8": _count_pair(dev, "gpt_small x2 int8 (row 5)",
+                               lm("int8"), lm_batch),
+           "groupnorm": _count_pair(dev, "resnet50() b=2 (rows 6-7)", gn,
+                                    gn_batch),
+           "paged": _count_pair(dev, "paged decode b=8 t=2 (row 4)",
+                                lambda where, x: lambda:
+                                fa.paged_flash_attention(*x), paged_in)}
+    assert set(out["flash"]["cuda_kernel_calls"]) == {
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv"}, out["flash"]
+    assert "int8_matmul_dequant" in out["int8"]["cuda_kernel_calls"], out
+    assert set(out["groupnorm"]["cuda_kernel_calls"]) == {
+        "group_norm_fwd", "group_norm_bwd"}, out["groupnorm"]
+    torch.cuda.empty_cache()
+    return out
+
+
+def _measure_path(dev, tag, step_fn, expect, dtype="bf16",
+                  steps=MEASURE_STEPS, warm=True) -> dict:
+    """``capture_op_times`` over MEASURE_STEPS calls of ``step_fn`` (warmed
+    up), the op inventory and its source view of one more call, and
+    ``build_report``: busy share, top five rows, coverage. The capture
+    must name each wrapper of ``expect``."""
+    from distkeras_tpu_torch.profiling import (build_report, capture_op_times,
+                                               op_inventory,
+                                               source_inventory)
+
+    t0 = time.perf_counter()
+    if warm:
+        step_fn()
+    table = capture_op_times(step_fn, steps=steps)
+    t_capture = time.perf_counter() - t0
+    assert table.available, table.note
+    kernels = table.kernels()
+    info = {"busy_share": table.busy_share, "wall_s": table.wall_s,
+            "device_s": table.total(),
+            "kernels_ms": {k: v * 1e3 for k, v in kernels.items()},
+            "top_kernels": [{"name": k[:90], "device_ms": sec * 1e3,
+                             "count": n} for k, sec, n in table.top(5)]}
+    if expect is not None:
+        inventory = op_inventory(step_fn)
+        # with no kernel launched the source view is the inventory itself
+        source = source_inventory(step_fn) if any(
+            r.opcode == "kernel" for r in inventory.rows) else inventory
+        report = build_report(inventory, dtype=dtype, device=dev,
+                              measured=table.measured(),
+                              modeled_flops=source.total_flops)
+        assert report.available, report.note
+        info.update(coverage=report.coverage,
+                    inventory_s=time.perf_counter() - t0 - t_capture,
+                    inventory_flops=inventory.total_flops,
+                    source_flops=source.total_flops,
+                    kernel_rows=sum(r.opcode == "kernel"
+                                    for r in inventory.rows),
+                    measured_share=report.measured_share,
+                    report=[r.to_row() for r in report.top()[:5]])
+    log(f"[measure] {tag}: {steps} traced calls, device busy "
+        f"{100 * table.busy_share:.1f}% of {table.wall_s * 1e3:.1f} ms a "
+        f"call; hand-written kernels (device ms a call) "
+        f"{ {k: round(v, 4) for k, v in info['kernels_ms'].items()} }"
+        + (f"; coverage {info['coverage']:.6f} ({info['kernel_rows']} "
+           f"kernel rows, {info['inventory_flops']:.6g} of "
+           f"{info['source_flops']:.6g} FLOPs), measured share "
+           f"{info['measured_share']:.3f}" if "coverage" in info else "")
+        + f"; capture {t_capture:.1f} s"
+        + (f", inventories {info['inventory_s']:.1f} s"
+           if "inventory_s" in info else ""))
+    for k in info["top_kernels"]:
+        log(f"[measure]   {k['device_ms']:9.3f} ms  x{k['count']:<7.1f} "
+            f"{k['name']}")
+    for r in info.get("report", ()):
+        log(f"[measure]   roofline {r['op'][:48]:<48} {r['bound']:>8} "
+            f"share {r['share']:.4f} {r['flops'] / 1e9:9.2f} GFLOP "
+            f"{r['bytes'] / 1e6:9.2f} MB {'*' if r['measured'] else ' '}"
+            f"{r['fix']}")
+    for name in expect or ():
+        assert name in kernels, (tag, name, sorted(table.seconds))
+    return info
+
+
+def _measure_paths(dev, serving_profile) -> dict:
+    """Phase 8's GPT step, phase 12's int8 step and phase 14's GroupNorm
+    step (three steps each) and a round of phase 24 (a)'s configuration,
+    each captured and reported; the graphed serving window is phase 6's
+    capture (``serving_profile``)."""
+    import bench_torch
+    from distkeras_tpu_torch import engine
+    from distkeras_tpu_torch.ops import optimizers
+
+    out = {}
+    t0 = time.perf_counter()
+    mark = lambda what: log(f"[measure] {what} at "
+                            f"{time.perf_counter() - t0:.1f} s")
+    set_tf32(False)
+    model = _train_model(12, "flash", torch.bfloat16, seed=0)
+    tx = optimizers.get("adamw", 1e-3)
+    box = [engine.create_train_state(model, tx, device=dev)]
+    step = engine.make_train_step(model, "masked_lm", tx)
+    batch = engine.to_device(_lm_batch(TRAIN_B, TRAIN_T, seed=1), dev)
+
+    def train_step():
+        box[0], metrics = step(box[0], batch)
+        return metrics
+
+    mark("gpt step built")
+    out["gpt"] = _measure_path(dev, "gpt bf16 step (phase 8)", train_step,
+                               ("flash_attention_fwd",
+                                "flash_attention_bwd_dq",
+                                "flash_attention_bwd_dkv"))
+    del model, box, step
+    torch.cuda.empty_cache()
+    _, state, step, batch, _ = _int8_train_run(dev, "int8", 1)
+    box = [state]
+
+    def int8_step():
+        box[0], metrics = step(box[0], batch)
+        return metrics
+
+    mark("int8 step built")
+    out["int8"] = _measure_path(dev, "gpt int8 step (phase 12)", int8_step,
+                                ("int8_matmul_dequant",
+                                 "flash_attention_fwd"))
+    del state, box, step
+    torch.cuda.empty_cache()
+    _, state, step, batch, _ = _resnet_run(dev, "gn", 1)
+    box = [state]
+
+    def gn_step():
+        box[0], metrics = step(box[0], batch)
+        return metrics
+
+    mark("groupnorm step built")
+    out["groupnorm"] = _measure_path(dev, "resnet50() GroupNorm step "
+                                     "(phase 14)", gn_step,
+                                     ("group_norm_fwd", "group_norm_bwd"))
+    del state, box, step
+    torch.cuda.empty_cache()
+    # the graphed serving window: phase 6's capture of phase 4's engine
+    # (a second trace of a 128-request window costs ~65 s of the
+    # profiler's own processing)
+    out["serving"] = {
+        "busy_share": serving_profile["device_busy_share"],
+        "wall_s": serving_profile["wall_s"],
+        "kernels_ms": serving_profile["wrapper_ms"],
+        "top_kernels": serving_profile["top_kernels"][:5]}
+    serving = out["serving"]
+    log(f"[measure] graphed serving window (phase 6's capture of phase 4's "
+        f"engine): device busy {100 * serving['busy_share']:.1f}%; "
+        f"hand-written kernels (device ms) "
+        f"{ {k: round(v, 4) for k, v in serving['kernels_ms'].items()} }")
+    assert "paged_flash_attention" in serving["kernels_ms"], serving
+    b = bench_torch.build(batch_size=CORE_B, image_side=224,
+                          window=CORE_WINDOW, rounds=1, num_classes=1000,
+                          tiny=False, device=dev)
+    cell = {"center": b["center"], "carries": b["carries"], "round": 0}
+
+    def core_round():
+        cell["center"], cell["carries"], metrics = b["epoch_fn"](
+            cell["center"], cell["carries"], b["data"], cell["round"])
+        cell["round"] += 1
+        return metrics
+
+    mark("round built")
+    out["core"] = _measure_path(dev, "ADAG(resnet50_nf()) round (phase 24 "
+                                "(a))", core_round, (), steps=1)
+    del b, cell
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_measure(dev, power_line, serving_profile) -> dict:
+    """Phase 25, the measurement plane: the calibration sweep, count
+    parity card against CPU on each kernel path, captures and roofline
+    reports of the kernel paths and the training core, and
+    ``bench_torch.run`` at MEASURE_BENCH_ROUNDS rounds with its MFU."""
+    import bench_torch
+    from distkeras_tpu_torch import observability
+
+    t0 = time.perf_counter()
+    info = {"calibration": _calibration_sweep(power_line)}
+    log(f"[measure] calibration done at {time.perf_counter() - t0:.1f} s")
+    info["counts"] = _count_parity(dev)
+    log(f"[measure] count parity done at {time.perf_counter() - t0:.1f} s")
+    info["paths"] = _measure_paths(dev, serving_profile)
+    log(f"[measure] captures done at {time.perf_counter() - t0:.1f} s")
+    bench = bench_torch.run(**dict(bench_torch.CONFIGS[0],
+                                   rounds=MEASURE_BENCH_ROUNDS),
+                            device=dev, warmup=1, timed=2)
+    info["bench"] = bench
+    log(f"[measure] bench_torch.run at {MEASURE_BENCH_ROUNDS} rounds: "
+        f"{bench['samples_per_sec']:.1f} samples/s, MFU {bench['mfu']:.4f} "
+        f"of the bf16 peak ({bench['flops_per_call']:.6g} FLOPs a call; "
+        f"calls {', '.join(f'{t:.3f}' for t in bench['call_s'])} s; "
+        f"calibration {info['calibration'][0]['ratio']:.4f} in "
+        f"{observability.CAL_BAND}) [{power_line}]")
+    assert bench["mfu"] is not None and 0 < bench["mfu"] < 1, bench
+    torch.cuda.empty_cache()
+    info["seconds"] = time.perf_counter() - t0
+    log(f"[measure] phase 25 took {info['seconds']:.1f} s")
+    return info
+
+
+# -- phase 26 -----------------------------------------------------------------
+
+CKPT_B, CKPT_WINDOW, CKPT_K = 32, 2, 2
+
+
+def phase_checkpoint(dev, power_line) -> dict:
+    """Phase 26: ``ADAG(resnet50_nf())`` with K = 2 replicas on the card
+    (momentum, so each carry holds optimizer state), 2 epochs of one round
+    each: the run that saves epoch 0 and the run resumed from it end on
+    the uninterrupted run's parameters, bit for bit (cuDNN deterministic,
+    TF32 off)."""
+    import tempfile
+
+    from distkeras_tpu_torch import ADAG
+    from distkeras_tpu_torch.checkpoint import Checkpointer
+
+    t0 = time.perf_counter()
+    set_tf32(False)
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    ds = _images(CKPT_K * CKPT_WINDOW * CKPT_B, seed=21)
+    os.makedirs(OUT_DIR, exist_ok=True)
+
+    def trainer(epochs, directory):
+        return ADAG(_nf_model(seed=20), worker_optimizer="momentum",
+                    learning_rate=0.05, parallelism_factor=CKPT_K,
+                    batch_size=CKPT_B, communication_window=CKPT_WINDOW,
+                    num_epoch=epochs, metrics=(), checkpoint_dir=directory)
+
+    try:
+        full = trainer(2, None).train(ds)
+        with tempfile.TemporaryDirectory(dir=OUT_DIR) as d:
+            t0 = time.perf_counter()
+            trainer(1, d).train(ds)
+            save_s = time.perf_counter() - t0
+            ckpt = Checkpointer(d, items=("state", "carries"))
+            steps, items = ckpt.all_steps(), ckpt.step_items()
+            size = sum(os.path.getsize(os.path.join(d, "0", n))
+                       for n in os.listdir(os.path.join(d, "0")))
+            resumed_t = trainer(2, d)
+            resumed = resumed_t.train(ds, resume=True)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
+    diff = max((full[n].float() - resumed[n].float()).abs().max().item()
+               for n in full)
+    equal = all(torch.equal(full[n], resumed[n]) for n in full)
+    info = {"steps": steps, "items": items, "step_bytes": size,
+            "first_run_s": save_s, "resumed_history": len(
+                resumed_t.get_history()), "bitwise": equal,
+            "max_abs_diff": diff, "card": power_line,
+            "seconds": time.perf_counter() - t0}
+    log(f"[checkpoint] ADAG(resnet50_nf()) K={CKPT_K}, batch {CKPT_B}, "
+        f"window {CKPT_WINDOW}, momentum: epoch 0 saved as steps {steps} "
+        f"(items {items}, {size / 2**20:.1f} MiB), the first run "
+        f"{save_s:.2f} s; resumed at epoch 1 ({info['resumed_history']} "
+        f"steps): bitwise {equal}, max |diff| {diff:.3e} against the "
+        f"uninterrupted run; phase 26 took {info['seconds']:.1f} s "
+        f"[{power_line}]")
+    assert steps == [0] and items == ["carries", "state"], info
+    assert equal, info
+    del full, resumed, resumed_t, ds
+    torch.cuda.empty_cache()
+    return info
+
+
 def main() -> int:
     report = {}
     try:
@@ -3609,6 +3995,8 @@ def main() -> int:
         report["fleet"] = phase_fleet(dev, card, report["wire"],
                                       report["engine"])
         report["train_core"] = phase_train_core(dev, card, report["nf"])
+        report["measure"] = phase_measure(dev, card, report["profile"])
+        report["checkpoint"] = phase_checkpoint(dev, card)
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         log("[chip_smoke] FAILED")

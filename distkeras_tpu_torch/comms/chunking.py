@@ -1,6 +1,5 @@
 """Chunked zero-copy buffer encoding for large leaves (port of
-``distkeras_tpu/comms/chunking.py``; its file egress, ``write_buffers``,
-comes with serialization, ROADMAP.md Queue A, item 8).
+``distkeras_tpu/comms/chunking.py``).
 
 The helpers expose leaves as ``memoryview``s over their existing storage
 and hand them to the socket in bounded chunks, so the only copies left
@@ -45,5 +44,18 @@ def send_buffers(sock, buffers: Sequence, chunk_bytes: int = DEFAULT_CHUNK_BYTES
     for buf in buffers:
         for chunk in iter_chunks(buf, chunk_bytes):
             sock.sendall(chunk)
+            total += len(chunk)
+    return total
+
+
+def write_buffers(fileobj, buffers: Sequence,
+                  chunk_bytes: int = DEFAULT_CHUNK_BYTES) -> int:
+    """File counterpart of :func:`send_buffers` (checkpoint and
+    serialization egress): stream buffers to ``fileobj.write`` without
+    joining them."""
+    total = 0
+    for buf in buffers:
+        for chunk in iter_chunks(buf, chunk_bytes):
+            fileobj.write(chunk)
             total += len(chunk)
     return total

@@ -62,6 +62,9 @@ class CIFARConvNet(nn.Module):
         self.normalize_uint8 = normalize_uint8
         self.precision = precision
         self.dtype = precision_lib.resolve(precision, dtype)
+        # the remaining constructor kwargs, kept for serialize_model
+        self.dense_width, self.num_classes = int(dense_width), int(num_classes)
+        self.image_size, self.in_channels = int(image_size), int(in_channels)
         cin, side = in_channels, image_size
         for i, ch in enumerate(self.channels):
             setattr(self, f"conv_{i}a",

@@ -296,6 +296,7 @@ class CausalLM(nn.Module):
         self.num_heads = num_heads
         self.width = width
         self.mlp_dim = mlp_dim
+        self.attention, self.remat = attention, remat
         self.precision = precision
         #: compute dtype of the embedding and the blocks' Dense layers
         self.dtype = precision_lib.resolve(precision, dtype)

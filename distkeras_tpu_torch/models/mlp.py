@@ -52,6 +52,7 @@ class MLP(nn.Module):
         self.dropout_rate = float(dropout_rate)
         self.precision = precision
         self.dtype = precision_lib.resolve(precision, dtype)
+        self.in_features = int(in_features)
         width = int(in_features)
         for i, out in enumerate(self.features):
             setattr(self, f"dense_{i}",

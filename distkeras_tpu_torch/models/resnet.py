@@ -289,6 +289,10 @@ class ResNet(nn.Module):
                 f"item 10, models/remat.py)")
         if norm not in ("gn", "nf"):
             raise ValueError(f"norm must be 'gn' or 'nf', got {norm!r}")
+        # the constructor kwargs, kept for serialize_model
+        self.stage_sizes, self.block = tuple(stage_sizes), block
+        self.num_classes, self.width = int(num_classes), int(width)
+        self.remat, self.in_channels = remat, int(in_channels)
         self.norm = norm
         self.normalize_uint8 = normalize_uint8
         self.space_to_depth = space_to_depth

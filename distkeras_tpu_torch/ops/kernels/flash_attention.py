@@ -43,6 +43,7 @@ import ctypes
 import torch
 
 from distkeras_tpu_torch.ops.attention import MASK_VALUE, dot_product_attention
+from distkeras_tpu_torch.ops.kernels import accounting
 
 #: keys a CTA of the paged kernel covers (a split), by choice of the
 #: wrapper; must match csrc/paged_attention.cu (multiples of its 64-key
@@ -119,6 +120,24 @@ def paged_flash_attention_reference(q, k_pages, v_pages, page_table,
     key_pos = torch.arange(max_len, device=q.device)
     mask = key_pos[None, None, None, :] <= pos[:, None, :, None]
     return dot_product_attention(q, k, v, mask=mask)
+
+
+def paged_flops(q_shape, max_len: int) -> float:
+    """FLOPs of one call, the plain version's count: q.k and p.v over
+    every position of each row's page table."""
+    b, t, h, d = q_shape
+    return accounting.attention_flops(b, t, max_len, h, d, 2)
+
+
+def paged_bytes(q, k_pages, page_table, cache_index) -> int:
+    """Bytes of one call: q and the output, the page table and cursors,
+    and the K and V pages the table names (what the plain version
+    gathers)."""
+    b, _, h, d = q.shape
+    kv = 2 * b * page_table.shape[1] * k_pages.shape[1] * h * d \
+        * k_pages.element_size()
+    return 2 * accounting.tensor_bytes(q) + kv + accounting.tensor_bytes(
+        page_table, cache_index)
 
 
 def _check(q, k_pages, v_pages, page_table, cache_index):
@@ -234,6 +253,12 @@ def paged_flash_attention(q, k_pages, v_pages, page_table, cache_index):
         paged_flash_attention.captured += 1
     else:
         paged_flash_attention.launches += 1
+    if accounting.active():
+        accounting.note(
+            "paged_flash_attention", paged_flops(q.shape, max_len),
+            paged_bytes(q, k_pages, page_table, cache_index),
+            (q, k_pages, v_pages, page_table, cache_index),
+            paged_flash_attention_reference)
     return out
 
 
@@ -398,6 +423,26 @@ def _launch_flash(part, fn, wrapper, args, shape, causal, device):
         wrapper.launches += 1
 
 
+#: products a (batch, head) of each training kernel (accounting)
+FLASH_PRODUCTS = {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 3,
+                  "flash_attention_bwd_dkv": 4}
+
+
+def flash_flops(name: str, q_shape) -> float:
+    """FLOPs of one call of a training kernel, the plain version's
+    count: its ``[t, t] x d`` products over the whole square, masked
+    causal blocks included (the JAX package's count of the same call)."""
+    b, t, h, d = q_shape
+    return accounting.attention_flops(b, t, t, h, d, FLASH_PRODUCTS[name])
+
+
+def _note_flash(name, inputs, outputs, plain):
+    q = inputs[0]
+    accounting.note(name, flash_flops(name, q.shape),
+                    accounting.tensor_bytes(*inputs, *outputs), inputs,
+                    plain)
+
+
 def _require_cuda(name, device):
     if device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {device}")
@@ -417,6 +462,9 @@ def flash_attention_fwd(q, k, v, causal: bool = True):
                   (_DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(),
                    v.data_ptr(), out.data_ptr(), lse.data_ptr()),
                   q.shape, causal, q.device)
+    if accounting.active():
+        _note_flash("flash_attention_fwd", (q, k, v), (out, lse),
+                    lambda *a: flash_attention_reference(*a, causal))
     return out, lse
 
 
@@ -435,6 +483,10 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, causal: bool = True):
                    v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                    delta.data_ptr(), dq.data_ptr()),
                   q.shape, causal, q.device)
+    if accounting.active():
+        _note_flash("flash_attention_bwd_dq",
+                    (q, k, v, dout, lse, delta), (dq,),
+                    lambda *a: flash_attention_bwd_dq_reference(*a, causal))
     return dq
 
 
@@ -453,6 +505,10 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, causal: bool = True):
                    v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                    delta.data_ptr(), dk.data_ptr(), dv.data_ptr()),
                   q.shape, causal, q.device)
+    if accounting.active():
+        _note_flash("flash_attention_bwd_dkv",
+                    (q, k, v, dout, lse, delta), (dk, dv),
+                    lambda *a: flash_attention_bwd_dkv_reference(*a, causal))
     return dk, dv
 
 

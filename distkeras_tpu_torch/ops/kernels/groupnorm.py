@@ -37,6 +37,8 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from distkeras_tpu_torch.ops.kernels import accounting
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: threads and shared memory a CTA, first choice: a tile row holds at
 #: most CTA_THREADS load chunks
@@ -335,6 +337,13 @@ def group_norm_fwd(x, gamma, beta, groups: int, eps: float = 1e-6):
             p.threads, eps, stream)
     _raise_on(err, lib, "forward")
     group_norm_fwd.launches += 1
+    if accounting.active():
+        # no product: the plain version's FlopCounterMode count is 0
+        accounting.note(
+            "group_norm_fwd", 0.0,
+            accounting.tensor_bytes(x, gamma, beta, y, stats),
+            (x, gamma, beta),
+            lambda *a: group_norm_fwd_reference(*a, groups, eps))
     return y, stats
 
 
@@ -369,6 +378,13 @@ def group_norm_bwd(x, gamma, stats, dy, groups: int):
             p.threads, 1.0 / (hw * (c // groups)), stream)
     _raise_on(err, lib, "backward")
     group_norm_bwd.launches += 1
+    if accounting.active():
+        accounting.note(
+            "group_norm_bwd", 0.0,
+            accounting.tensor_bytes(x, gamma, stats, dy, dx, dgamma_p,
+                                    dbeta_p),
+            (x, gamma, stats, dy),
+            lambda *a: group_norm_bwd_reference(*a, groups))
     return dx, dgamma_p, dbeta_p
 
 

@@ -33,6 +33,8 @@ from typing import NamedTuple
 
 import torch
 
+from distkeras_tpu_torch.ops.kernels import accounting
+
 _OUT_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel's tile (output rows, output columns, int8 of K a stage),
 #: ring stages, threads a CTA (a producer and two consumer warpgroups)
@@ -186,6 +188,11 @@ def int8_matmul_dequant(qx, qw, sxw, out_dtype=torch.float32):
             f"int8 matmul kernel launch failed: cudaError {err} "
             f"({lib.int8_matmul_error_string(err).decode()})")
     int8_matmul_dequant.launches += 1
+    if accounting.active():
+        accounting.note(
+            "int8_matmul_dequant", accounting.matmul_flops(m, n, k),
+            accounting.tensor_bytes(qx, qw, sxw, out), (qx, qw, sxw),
+            lambda *a: int8_matmul_dequant_reference(*a, out_dtype))
     return out
 
 

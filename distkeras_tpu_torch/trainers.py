@@ -21,12 +21,16 @@ Where the port differs from the JAX package, by design:
 - placement: the mesh comes from ``resolve_device`` (``cuda:0``, raising
   without a card) unless the caller passes ``mesh=`` or ``device=``
   (the one added kwarg; ``device="cpu"`` runs on the host);
+- checkpoints (``checkpoint_dir=``, ``resume=True``) are DKTP2 steps
+  of :mod:`~distkeras_tpu_torch.checkpoint`, not Orbax's: a carry's
+  ``torch.optim`` state and the counters come back with the weights, so
+  a resumed run continues the uninterrupted one bit for bit;
 - what is not ported raises NotImplementedError naming its ROADMAP.md
   Queue A item: ``mode="host_async"`` (item 13, with ``data_service=``,
-  ``ps_shards``, ``ps_standby`` and ``ps_placement``), checkpoints and
-  resume (items 8 and 12), ``PjitTrainer`` (item 16), and a ``precision=``
-  that would re-stamp a built model (item 12). A ``GlobalShards`` pool
-  (item 16) raises ValueError as JAX's ``_reject_global_shards`` does.
+  ``ps_shards``, ``ps_standby`` and ``ps_placement``), ``PjitTrainer``
+  (item 16), and a ``precision=`` that would re-stamp a built model
+  (item 12). A ``GlobalShards`` pool (item 16) raises ValueError as JAX's
+  ``_reject_global_shards`` does.
 """
 
 from __future__ import annotations
@@ -69,6 +73,67 @@ def _params_of(model: torch.nn.Module) -> dict:
 def _load(model: torch.nn.Module, params: dict) -> None:
     for n, p in model.named_parameters():
         p.copy_(params[n])
+
+
+def _tensor(value) -> torch.Tensor:
+    """A restored leaf as a tensor (numpy leaves copied: they are views
+    of the container's bytes)."""
+    return value if isinstance(value, torch.Tensor) \
+        else torch.from_numpy(np.array(value))
+
+
+def _leaves(tree, prefix=()):
+    """``[(path, leaf)]`` of a nested dict."""
+    if isinstance(tree, dict):
+        out = []
+        for key in sorted(tree):
+            out += _leaves(tree[key], prefix + (key,))
+        return out
+    return [(prefix, tree)]
+
+
+def _carry_tree(carry) -> dict:
+    """A strategy carry as a checkpoint tree: its parameters, its
+    optimizer's state and its strategy tensors (EAMSGD's velocity)."""
+    from distkeras_tpu_torch.checkpoint import optimizer_tree
+
+    tree = {"params": {n: p.detach() for n, p in carry.params.items()},
+            "opt": optimizer_tree(carry.opt_state)}
+    if isinstance(carry.extra, dict):
+        tree["extra"] = dict(carry.extra)
+    return tree
+
+
+@torch.no_grad()
+def _load_carry(carry, tree: dict) -> None:
+    """Put a :func:`_carry_tree` back into ``carry``, in place (its
+    optimizer stays bound to its tensors)."""
+    from distkeras_tpu_torch.checkpoint import load_optimizer_tree
+
+    for n, p in carry.params.items():
+        p.copy_(_tensor(tree["params"][n]))
+    load_optimizer_tree(carry.opt_state, tree.get("opt", {}))
+    if isinstance(carry.extra, dict):
+        for n, v in carry.extra.items():
+            carry.extra[n] = _tensor(tree["extra"][n]).to(v.device, v.dtype)
+
+
+def _train_state_tree(state) -> dict:
+    """A :class:`~distkeras_tpu_torch.engine.TrainState` as a tree."""
+    from distkeras_tpu_torch.checkpoint import optimizer_tree
+
+    return {"params": _params_of(state.model),
+            "opt": optimizer_tree(state.opt_state),
+            "step": np.asarray(state.step, np.int64)}
+
+
+def _load_train_state(state, tree: dict):
+    from distkeras_tpu_torch.checkpoint import load_optimizer_tree
+
+    _load(state.model, {n: _tensor(v) for n, v in tree["params"].items()})
+    load_optimizer_tree(state.opt_state, tree.get("opt", {}))
+    return engine.TrainState(step=int(tree["step"]), model=state.model,
+                             opt_state=state.opt_state)
 
 
 class Trainer:
@@ -116,11 +181,7 @@ class Trainer:
         self.batch_size = int(batch_size)
         self.num_epoch = int(num_epoch)
         self.seed = int(seed)
-        if checkpoint_dir is not None:
-            raise _not_ported(
-                "checkpoint_dir= (trainer checkpoints and resume)",
-                "items 8 and 12: utils/serialization.py and checkpoint.py")
-        self.checkpoint_dir = None
+        self.checkpoint_dir = checkpoint_dir
         self.telemetry_path = telemetry_path
         if telemetry_path is not None:
             telemetry.flush_at_exit(telemetry_path)
@@ -140,13 +201,51 @@ class Trainer:
         self.history: list[dict] = []
         self.training_time: float = 0.0
 
+    # -- checkpointing (per epoch; the reference had none) -------------------
+    def _checkpointer(self, items=None):
+        if self.checkpoint_dir is None:
+            return None
+        from distkeras_tpu_torch.checkpoint import Checkpointer
+
+        return Checkpointer(self.checkpoint_dir, items=items)
+
+    @staticmethod
+    def _check_fresh_dir(ckpt) -> None:
+        """A checkpoint directory that holds steps with ``resume=False``
+        is an error: keeping them would let a crash retry resume the
+        stale run, and deleting them would destroy that run's
+        checkpoints."""
+        if ckpt.latest_step() is not None:
+            raise ValueError(
+                f"checkpoint_dir {ckpt.directory!r} already contains "
+                f"steps {ckpt.all_steps()} but resume=False. Pass "
+                "resume=True to continue that run, point checkpoint_dir "
+                "at a fresh directory, or clear it explicitly "
+                "(distkeras_tpu_torch.checkpoint.Checkpointer(dir).clear())")
+
+    @staticmethod
+    def _maybe_resume(ckpt, resume: bool):
+        """``(saved tree or None, start_epoch)``: the latest epoch
+        checkpoint if asked and present. History is not checkpointed: a
+        resumed trainer's history covers the epochs it ran."""
+        if ckpt is None:
+            return None, 0
+        if not resume:
+            Trainer._check_fresh_dir(ckpt)
+            return None, 0
+        step = ckpt.latest_step()
+        if step is None:
+            return None, 0
+        return ckpt.restore(step=step), step + 1
+
     # -- bookkeeping (record_training_time parity) -------------------------
     def _start(self):
         telemetry.set_process_index(0)
         from distkeras_tpu_torch.health import recorder as flight_recorder
 
-        dump_dir = None
-        if self.telemetry_path is not None:
+        # crash bundles land where the crash checkpoint does
+        dump_dir = self.checkpoint_dir
+        if dump_dir is None and self.telemetry_path is not None:
             dump_dir = os.path.dirname(self.telemetry_path) or "."
         flight_recorder.configure(
             dump_dir=dump_dir,
@@ -247,13 +346,6 @@ class Trainer:
         from distkeras_tpu_torch.data.prefetch import prefetch
 
         return prefetch(gen, depth=1), None
-
-    @staticmethod
-    def _check_resume(resume: bool):
-        if resume:
-            raise _not_ported(
-                "resume=True (trainer checkpoints)",
-                "items 8 and 12: utils/serialization.py and checkpoint.py")
 
     def train(self, dataset: Dataset, shuffle: bool = False,
               resume: bool = False):
@@ -434,12 +526,98 @@ class DistributedTrainer(Trainer):
         weights."""
         return self._init_carries(_params_of(self.model))
 
+    def _resume_elastic(self, ckpt, center, carries, resume: bool):
+        """Topology-aware resume: ``(center, carries, counters,
+        start_epoch)``, counters = [round_offset, num_updates,
+        saved_num_workers].
+
+        The same worker count (read from the step's manifests, no array
+        data): a full restore of the center, every carry's parameters,
+        optimizer state and strategy tensors, and the counters, so the
+        run continues bit for bit. A different worker count: the center
+        and counters only, every replica re-initialized from it, with a
+        warning (worker-local state is discarded). Strategies that never
+        exchange (Averaging, Ensemble) refuse: their training lives in
+        the replicas."""
+        zero = np.zeros((3,), np.int64)
+        if ckpt is None:
+            return center, carries, zero, 0
+        if not resume:
+            self._check_fresh_dir(ckpt)
+            return center, carries, zero, 0
+        step = ckpt.latest_step()
+        if step is None:
+            return center, carries, zero, 0
+        names = ckpt.step_items(step)
+        if "state" not in names or "carries" not in names:
+            raise ValueError(
+                f"checkpoint step {step} in {ckpt.directory!r} has items "
+                f"{names}, not the state+carries pair this trainer writes; "
+                f"it was written by a different mode/trainer (a "
+                f"SingleTrainer saves one 'default' item). Resume it with "
+                f"the trainer it was written by.")
+        saved = ckpt.metadata(step, item="carries")
+        saved_workers = len(saved)
+
+        def parse_counters(raw) -> np.ndarray:
+            out = zero.copy()
+            got = np.asarray(raw).ravel()
+            out[:min(3, len(got))] = got[:3]
+            if len(got) < 3:
+                out[2] = saved_workers
+            return out
+
+        if saved_workers == self.num_workers:
+            # a strategy change is a clear error before any data is read
+            def shapes(tree):
+                return sorted(tuple(m.shape) for _, m in _leaves(
+                    {k: tree.get(k, {}) for k in ("params", "extra")}))
+
+            current = [_carry_tree(c) for c in carries]
+            if [shapes(saved[str(k)]) for k in range(saved_workers)] != [
+                    shapes(c) for c in current]:
+                raise ValueError(
+                    f"checkpoint step {step} matches "
+                    f"num_workers={saved_workers} but its carry structure "
+                    f"does not match this trainer's strategy "
+                    f"({self.strategy.name!r}); resuming needs the strategy "
+                    f"the checkpoint was written with")
+            snap = ckpt.restore(step=step)
+            center = {n: _tensor(x).to(self.mesh.home)
+                      for n, x in snap["state"]["center"].items()}
+            for k, carry in enumerate(carries):
+                _load_carry(carry, snap["carries"][str(k)])
+            return (center, carries,
+                    parse_counters(snap["state"]["counters"]), step + 1)
+        if not self.strategy.exchanges:
+            raise ValueError(
+                f"Cannot elastically resume {type(self).__name__} across a "
+                f"topology change (checkpoint: {saved_workers} workers, "
+                f"trainer: {self.num_workers}): with the "
+                f"{self.strategy.name!r} strategy the training state lives "
+                f"in the per-worker replicas (the center never moves), so "
+                f"a center-only restore would discard the training. Resume "
+                f"with num_workers={saved_workers}.")
+        warnings.warn(
+            f"ELASTIC RESUME: checkpoint step {step} was written by a "
+            f"{saved_workers}-worker run; this trainer has "
+            f"{self.num_workers}. Restoring the CENTER + counters only "
+            f"and re-initializing every worker replica from the restored "
+            f"center — worker-local state (elastic replicas, momenta, "
+            f"optimizer slots) is discarded, so the continuation is a "
+            f"documented trajectory break from the uninterrupted run.",
+            RuntimeWarning, stacklevel=3)
+        state = ckpt.restore(step=step, items=("state",))["state"]
+        new_center = {n: _tensor(x) for n, x in state["center"].items()}
+        new_center, new_carries = self._init_carries(new_center)
+        return (new_center, new_carries, parse_counters(state["counters"]),
+                step + 1)
+
     def train(self, dataset: Dataset, shuffle: bool = False,
               resume: bool = False):
         from distkeras_tpu_torch.parallel import substrate
 
         self._reject_global_shards(dataset, type(self).__name__)
-        self._check_resume(resume)
         self._start()
         n_shards = self.num_workers
         self._check_trainable(
@@ -450,6 +628,11 @@ class DistributedTrainer(Trainer):
         self.model.to(self.mesh.home)
         with span("trainer.init"):
             center, carries = self._setup_state(dataset)
+        # the carries are their own item: a topology-change resume reads
+        # the small state item alone
+        ckpt = self._checkpointer(items=("state", "carries"))
+        center, carries, counters, start_epoch = self._resume_elastic(
+            ckpt, center, carries, resume)
         # built once per trainer: every argument is fixed at construction
         if getattr(self, "_epoch_fn", None) is None:
             with span("trainer.compile"):
@@ -465,10 +648,10 @@ class DistributedTrainer(Trainer):
         # fresh watchdog per train(); sync mode sees post-epoch means only
         self._watchdog = self.health.make_watchdog() \
             if self.health is not None else None
-        round_offset = 0
-        self.num_updates = 0
+        round_offset = int(counters[0])
+        self.num_updates = int(counters[1])
         staged = None  # shuffle=False + whole-epoch staging: stage once
-        for epoch in range(self.num_epoch):
+        for epoch in range(start_epoch, self.num_epoch):
             with span("trainer.stage"):
                 chunks, staged = self._epoch_chunk_stream(
                     staged,
@@ -489,6 +672,15 @@ class DistributedTrainer(Trainer):
                 for ms, rounds in pending:
                     self._record({k: v.cpu().numpy() for k, v in ms.items()},
                                  rounds)
+            if ckpt is not None:
+                # counters[2] records the topology, so a later resume sees
+                # a worker-count change before it reads any carry
+                ckpt.save(epoch, {
+                    "state": {"center": center,
+                              "counters": np.array(
+                                  [round_offset, self.num_updates,
+                                   self.num_workers], np.int64)},
+                    "carries": [_carry_tree(c) for c in carries]})
             if self.weight_publisher is not None:
                 self.weight_publisher.publish(dict(center),
                                               clock=round_offset)
@@ -651,7 +843,6 @@ class SingleTrainer(Trainer):
         from distkeras_tpu_torch.parallel import substrate
 
         self._reject_global_shards(dataset, "SingleTrainer")
-        self._check_resume(resume)
         self._start()
         if shuffle:
             dataset = dataset.shuffle(self.seed)
@@ -661,6 +852,10 @@ class SingleTrainer(Trainer):
         with span("trainer.init"):
             state = engine.create_train_state(self.model, self.tx,
                                               device=self._device)
+        ckpt = self._checkpointer()
+        snap, start_epoch = self._maybe_resume(ckpt, resume)
+        if snap is not None:
+            state = _load_train_state(state, snap)
         if getattr(self, "_epoch_fn", None) is None:
             with span("trainer.compile"):
                 self._epoch_fn = engine.make_epoch_fn(
@@ -670,7 +865,7 @@ class SingleTrainer(Trainer):
         epoch_fn = self._epoch_fn
         staged = None
         device_history = []  # device tensors; read once at the end
-        for _ in range(self.num_epoch):
+        for epoch in range(start_epoch, self.num_epoch):
             with span("trainer.stage"):
                 # one shard at window 1 on a one-device mesh: each chunk
                 # is (steps, 1, 1, batch, ...), viewed as (steps, batch, ...)
@@ -689,6 +884,8 @@ class SingleTrainer(Trainer):
                     state, ms = epoch_fn(state, {
                         key: cols[0][:, 0, 0] for key, cols in data.items()})
                     device_history.append(ms)
+            if ckpt is not None:
+                ckpt.save(epoch, _train_state_tree(state))
         with span("trainer.finalize"):
             self.history = []
             for ms in device_history:

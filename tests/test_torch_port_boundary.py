@@ -5,9 +5,13 @@
   CPU, with every option on (int8 KV pages, the prefix cache,
   speculative decoding with either draft), and so does the one-shot
   ``ServingEngine``.
-- The port imports neither JAX/flax nor anything of ``distkeras_tpu``:
-  checked by importing it in a fresh interpreter, and by scanning the
-  package's and ``chip_smoke.py``'s import statements.
+- The port imports neither JAX/flax/ml_dtypes nor anything of
+  ``distkeras_tpu``: checked by importing it in a fresh interpreter, and
+  by scanning the package's, ``chip_smoke.py``'s and
+  ``bench_torch.py``'s import statements.
+- The measurement plane measures nothing on the CPU as if it were the
+  card: with no card, the capture and the calibration decline, and the
+  runners and ``bench_torch.py`` refuse unless asked for the host.
 """
 
 import ast
@@ -26,7 +30,8 @@ from distkeras_tpu_torch.serving import (GenerationEngine, KVCachePool,
                                          PagedKVCachePool, ServingEngine)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "distkeras_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes",
+             "distkeras_tpu")
 
 
 def _no_cuda(monkeypatch):
@@ -153,6 +158,12 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
             "import distkeras_tpu_torch.data\n"
             "import distkeras_tpu_torch.transformers\n"
             "import distkeras_tpu_torch.utils.rng\n"
+            "import distkeras_tpu_torch.observability\n"
+            "import distkeras_tpu_torch.profiling\n"
+            "import distkeras_tpu_torch.checkpoint\n"
+            "import distkeras_tpu_torch.utils.serialization\n"
+            "import distkeras_tpu_torch.benchmarks\n"
+            "import bench_torch\n"
             "from distkeras_tpu_torch import (ADAG, DOWNPOUR, DynSGD, AEASGD,"
             " EAMSGD, AveragingTrainer, EnsembleTrainer, SingleTrainer,"
             " Pipeline, MinMaxTransformer, OneHotTransformer,"
@@ -174,6 +185,7 @@ def _port_sources():
             if name.endswith(".py"):
                 yield os.path.join(dirpath, name)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "bench_torch.py")
     for script in ("ab_driver.py", "groupnorm_ab.py", "int8_ab.py",
                    "serving_ab.py"):
         yield os.path.join(REPO, script)
@@ -194,3 +206,28 @@ def test_no_forbidden_import_statement_in_port_or_chip_smoke():
                 continue
             for name in names:
                 assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_measurement_plane_does_not_measure_the_cpu_without_a_card(
+        monkeypatch, capsys):
+    """With no card: the capture returns ``available=False`` without
+    running the step, the calibration returns None, a runner prints an
+    error line and exits 1, and ``bench_torch.py`` exits 1 with no
+    result; each measures the host only when asked with ``--device cpu``
+    (the runners' smoke shapes, ``bench_torch.py --tiny``)."""
+    from distkeras_tpu_torch.benchmarks import run_config
+    from distkeras_tpu_torch.profiling import capture_op_times
+
+    sys.path.insert(0, REPO)
+    import bench_torch
+
+    _no_cuda(monkeypatch)
+    ran = []
+    assert not capture_op_times(lambda: ran.append(1)).available
+    assert ran == []
+    assert observability.calibrate_peak() is None
+    assert observability.device_peak_flops() is None
+    assert run_config.main(["3"]) == 1
+    assert '"error"' in capsys.readouterr().out
+    assert bench_torch.main([]) == 1
+    assert capsys.readouterr().out == ""
