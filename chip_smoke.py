@@ -235,7 +235,28 @@ Phases (each asserts; any failure exits non-zero and prints no result):
 26. checkpoint — ``ADAG(resnet50_nf())`` with K = 2 replicas (momentum),
    batch 32, window 2, 2 epochs of one round: the run that saves epoch 0
    and the run resumed from it end on the uninterrupted run's
-   parameters bit for bit (cuDNN deterministic, TF32 off).
+   parameters bit for bit (cuDNN deterministic, TF32 off);
+27. async — the true-async plane (``mode="host_async"``, worker threads
+   against a live parameter server): (a) ``ADAG(resnet50_nf())`` at
+   bench.py's configuration (sgd 0.05, batch 128, window 16, uint8
+   224^2) with K = 1 and 2 threads, three windows a worker: samples/s
+   over the steady windows beside phase 24 (a)'s, staleness mean/p95/max,
+   the median window, pull and commit times from telemetry, peak memory;
+   the loss falls, every scheduled window commits; (b) the fold witness:
+   K = 4 DynSGD threads (batch 32, window 4), every fold's
+   ``(delta, weight)`` accumulated in float64 as it lands, the final
+   center within 1e-6 of it; (c) a K = 1 MNIST-MLP run on the card and on
+   the host's CPU, centers within 1e-5; (d) ``codec="int8"`` with
+   ``comms_overlap=True`` (ADAG K = 2): bytes a commit raw and int8,
+   every window commits; (e) ``ADAG(resnet50())`` GroupNorm K = 2: the
+   GroupNorm kernels launched 53 x K x window x windows times, plus 53
+   by the runner's one-row FLOPs count (``launches_async`` in the
+   kernels' line); (f) DynSGD over a 2-shard
+   fleet with a standby on loopback, the coordinator chaos-killed mid-run:
+   zero lost windows, one promotion, the kill-to-promotion time, the
+   fleet's clock the run's; (g) ``checkpoint_folds`` snapshots, then
+   ``resume=True`` from the snapshot's center (bitwise) and clock; (h)
+   the staleness-vs-wall-clock twin at a small grid.
 
 The last three lines of standard output are the kernels' JSON, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details are
@@ -3945,6 +3966,504 @@ def phase_checkpoint(dev, power_line) -> dict:
     return info
 
 
+# -- phase 27 -----------------------------------------------------------------
+
+#: (a) bench.py's configuration under mode="host_async"
+ASYNC_B, ASYNC_WINDOW, ASYNC_WINDOWS = 128, 16, 3
+ASYNC_KS = (1, 2)
+#: (b) the fold witness; (d) the int8 wire; (e) GroupNorm; (f) the
+#: fleet; (g) snapshots: (workers, batch, window, windows a worker)
+WITNESS = (4, 32, 4, 2)
+WIRE = (2, 128, 16, 2)
+ASYNC_GN = (2, 32, 2, 1)
+FLEET = (2, 32, 4, 12)
+SNAP = (2, 32, 2, 2)
+#: (f)'s coordinator lease (s) and the op the chaos kill lands on
+FLEET_LEASE_S, FLEET_KILL_AFTER = 1.0, 6
+#: (c) the MNIST MLP, card against the CPU
+ASYNC_MNIST_N, ASYNC_MNIST_B = 2048, 64
+#: (h) the staleness twin's grid
+TWIN = dict(strategies=["adag", "dynsgd"], windows=[1, 4], workers=[2],
+            n_train=4096, n_heldout=1024, batch_size=32, epochs=2)
+
+
+def _learnable_images(rows, seed, side=224):
+    """Seeded uint8 NHWC images whose brightness encodes one of ten
+    classes (the first ten of 1000 one-hot labels), so that a few windows
+    of SGD lower the loss."""
+    from distkeras_tpu_torch.data.dataset import Dataset
+
+    rng = np.random.default_rng(seed)
+    cls = rng.integers(0, 10, rows)
+    noise = np.frombuffer(rng.bytes(rows * side * side * 3), np.uint8)
+    x = (noise.reshape(rows, side, side, 3) // 4
+         + (cls * 19).astype(np.uint8)[:, None, None, None])
+    y = np.zeros((rows, 1000), np.float32)
+    y[np.arange(rows), cls] = 1.0
+    return Dataset.from_arrays(features=x, label=y)
+
+
+class _WindowClock:
+    """Records ``perf_counter`` at every window's heartbeat (one a
+    committed window, after its fold) while installed."""
+
+    def __init__(self):
+        from distkeras_tpu_torch.health import heartbeat
+
+        self.marks = []
+        self._cls = heartbeat.HeartbeatPublisher
+        self._orig = self._cls.publish
+        marks = self.marks
+
+        def publish(pub, worker, clock, staleness, window_s):
+            marks.append((time.perf_counter(), int(worker)))
+            return self._orig(pub, worker, clock, staleness, window_s)
+
+        self._cls.publish = publish
+
+    def close(self):
+        self._cls.publish = self._orig
+
+    def steady_rate(self, samples_a_window) -> float:
+        """Samples/s over the windows each worker committed after its
+        first: from the last first-window mark to the last mark."""
+        firsts = {}
+        for t, w in self.marks:
+            firsts.setdefault(w, t)
+        t0 = max(firsts.values())
+        later = [t for t, _ in self.marks if t > t0]
+        return samples_a_window * len(later) / (max(later) - t0)
+
+
+def _hist_p50(name, workers) -> list:
+    from distkeras_tpu_torch import telemetry
+
+    return [telemetry.histogram(name, worker=w).stats()["p50"]
+            for w in range(workers)]
+
+
+def _async_trainer(cls_name, model, k, b, window, dev, **kw):
+    import distkeras_tpu_torch as dk
+
+    return getattr(dk, cls_name)(
+        model, mode="host_async", num_workers=k, worker_optimizer="sgd",
+        learning_rate=0.05, batch_size=b, communication_window=window,
+        metrics=(), device=dev, **kw)
+
+
+def _async_bench(dev, power_line, core_info) -> dict:
+    """(a) ``ADAG(resnet50_nf())`` in ``mode="host_async"`` at bench.py's
+    configuration, K = 1 and 2 threads, three windows a worker."""
+    from distkeras_tpu_torch import telemetry
+
+    out = {}
+    for k in ASYNC_KS:
+        ds = _learnable_images(k * ASYNC_WINDOWS * ASYNC_WINDOW * ASYNC_B,
+                               seed=30 + k)
+        trainer = _async_trainer("ADAG", _nf_model(seed=10), k, ASYNC_B,
+                                 ASYNC_WINDOW, dev)
+        telemetry.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        clock = _WindowClock()
+        t0 = time.perf_counter()
+        try:
+            trainer.train(ds)
+        finally:
+            clock.close()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = [h["loss"] for h in trainer.get_history()]
+        stal = np.asarray(trainer.staleness_history, np.float64)
+        info = {
+            "workers": k, "wall_s": wall,
+            "samples_per_s": clock.steady_rate(ASYNC_WINDOW * ASYNC_B),
+            "commits": trainer.num_updates,
+            "windows_scheduled": k * ASYNC_WINDOWS,
+            "staleness": {"mean": float(stal.mean()),
+                          "p95": float(np.percentile(stal, 95)),
+                          "max": float(stal.max())},
+            "window_s_p50": _hist_p50("host_async.window_s", k),
+            "pull_s_p50": _hist_p50("host_async.pull_s", k),
+            "commit_s_p50": _hist_p50("host_async.commit_s", k),
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "first_loss": losses[0],
+            "last_window_loss": float(np.mean(losses[-ASYNC_WINDOW:])),
+            "card": power_line}
+        log(f"[async] (a) ADAG(resnet50_nf()) host_async K={k} (sgd 0.05, "
+            f"batch {ASYNC_B}, window {ASYNC_WINDOW}, {ASYNC_WINDOWS} windows "
+            f"a worker): {info['samples_per_s']:.1f} samples/s over the "
+            f"steady windows (phase 24 (a), sync K=1: "
+            f"{core_info['samples_per_s']:.1f}); staleness mean "
+            f"{info['staleness']['mean']:.2f} p95 "
+            f"{info['staleness']['p95']:.2f} max "
+            f"{info['staleness']['max']:.0f}; median window "
+            f"{statistics.median(info['window_s_p50']):.3f} s, pull "
+            f"{statistics.median(info['pull_s_p50']) * 1e3:.2f} ms, commit "
+            f"{statistics.median(info['commit_s_p50']) * 1e3:.2f} ms; "
+            f"commits {info['commits']} of {info['windows_scheduled']}; peak "
+            f"{info['peak_bytes'] / 2**30:.2f} GiB; loss "
+            f"{info['first_loss']:.4f} -> {info['last_window_loss']:.4f} "
+            f"[{power_line}]")
+        assert all(math.isfinite(x) for x in losses), losses
+        assert info["last_window_loss"] < info["first_loss"], info
+        assert info["commits"] == info["windows_scheduled"], info
+        out[f"k{k}"] = info
+        del trainer, ds
+        torch.cuda.empty_cache()
+    return out
+
+
+def _async_witness(dev, power_line) -> dict:
+    """(b) K = 4 DynSGD threads over ``resnet50_nf()``: every fold's
+    ``(delta, weight)`` accumulated in float64 on the card as it lands
+    (under one lock, so in fold order); the final center against it."""
+    import threading
+
+    from distkeras_tpu_torch.ops import optimizers
+    from distkeras_tpu_torch.parallel import host_async, strategies
+
+    k, b, window, windows = WITNESS
+    model = _nf_model(seed=13).to(dev)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    strategy = strategies.get("dynsgd", learning_rate=0.05)
+    ps = host_async.server_for(strategy, {n: x.clone()
+                                          for n, x in start.items()})
+    ref = {n: x.double() for n, x in start.items()}
+    lock, log_, orig = threading.Lock(), [], ps.commit_ex
+
+    def commit_ex(delta, last_update=0, weight=None):
+        with lock:
+            at_fold, w = orig(delta, last_update=last_update, weight=weight)
+            w32 = float(np.float32(w))
+            with torch.no_grad():
+                for n, r in ref.items():
+                    r.add_(delta[n].double(), alpha=w32)
+            log_.append((at_fold, w))
+        return at_fold, w
+
+    ps.commit_ex = commit_ex
+    ds = _learnable_images(k * windows * window * b, seed=33)
+    shards = host_async.stage_worker_shards(ds.repartition(k), "features",
+                                            "label", b, window)
+    runner = host_async.HostAsyncRunner(
+        model, "categorical_crossentropy", optimizers.get("sgd", 0.05),
+        strategy, window, devices=[dev])
+    center, _, stal, clock = runner.run(start, [shards], ps=ps)
+    worst = max((center[n].double() - r).abs().max().item()
+                / max(r.abs().max().item(), 1e-30) for n, r in ref.items())
+    weights = sorted({w for _, w in log_})
+    info = {"folds": len(log_), "clock": clock, "max_rel_err": worst,
+            "weights": weights, "staleness": stal, "card": power_line}
+    log(f"[async] (b) DynSGD K={k} threads over resnet50_nf() (batch {b}, "
+        f"window {window}, {windows} windows a worker): {len(log_)} folds "
+        f"at weights {', '.join(f'{w:.4f}' for w in weights)}; final center "
+        f"vs the float64 replay of the logged (delta, weight): max relative "
+        f"error {worst:.2e} (bound 1e-6) [{power_line}]")
+    assert [a for a, _ in log_] == list(range(k * windows)), log_
+    assert clock == k * windows, info
+    assert worst <= 1e-6, info
+    del runner, center, ref, start, model, ps
+    torch.cuda.empty_cache()
+    return info
+
+
+def _async_card_vs_cpu(dev, power_line) -> dict:
+    """(c) a K = 1 host_async MNIST-MLP run on the card and on the host
+    from the same seed (TF32 off): the centers within 1e-5."""
+    from distkeras_tpu_torch import synthetic_mnist
+    from distkeras_tpu_torch.models import mnist_mlp
+    from distkeras_tpu_torch.models.mlp import init_params
+
+    set_tf32(False)
+    start = init_params(mnist_mlp(),
+                        torch.Generator().manual_seed(17)).state_dict()
+    ds = synthetic_mnist(n=ASYNC_MNIST_N)
+    runs = []
+    for where in (dev, torch.device("cpu")):
+        model = mnist_mlp()
+        model.load_state_dict(start)
+        t = _async_trainer("ADAG", model, 1, ASYNC_MNIST_B, 4, where)
+        runs.append((t.train(ds), t.num_updates))
+    (card, n_card), (cpu, n_cpu) = runs
+    diff = max((card[n].cpu() - cpu[n]).abs().max().item() for n in cpu)
+    info = {"max_abs_diff": diff, "commits": n_card, "card": power_line}
+    log(f"[async] (c) ADAG(mnist_mlp()) host_async K=1, {ASYNC_MNIST_N} "
+        f"rows, batch {ASYNC_MNIST_B}, window 4: card vs host CPU centers "
+        f"max |diff| {diff:.3e} (bound 1e-5) after {n_card} commits")
+    assert n_card == n_cpu > 0 and diff <= 1e-5, info
+    return info
+
+
+def _async_wire(dev, power_line) -> dict:
+    """(d) ``codec="int8"`` with ``comms_overlap=True``: ADAG K = 2 over
+    ``resnet50_nf()``; the bytes a commit, raw against int8, read from
+    the codec's own compression histogram over the run's commits."""
+    from distkeras_tpu_torch import telemetry
+
+    k, b, window, windows = WIRE
+    ds = _learnable_images(k * windows * window * b, seed=34)
+    trainer = _async_trainer("ADAG", _nf_model(seed=10), k, b, window, dev,
+                             codec="int8", comms_overlap=True)
+    raw = sum(p.numel() * p.element_size()
+              for p in trainer.model.parameters())
+    telemetry.reset()
+    t0 = time.perf_counter()
+    trainer.train(ds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ratio = telemetry.histogram("comms.compress_ratio", op="commit",
+                                path="local").stats()
+    losses = [h["loss"] for h in trainer.get_history()]
+    info = {"commits": trainer.num_updates,
+            "windows_scheduled": k * windows, "raw_bytes": raw,
+            "int8_bytes": raw / (ratio["sum"] / ratio["count"]),
+            "ratio_commits": ratio["count"], "wall_s": wall,
+            "staleness": trainer.staleness_history, "card": power_line}
+    log(f"[async] (d) ADAG(resnet50_nf()) K={k}, codec int8, comms overlap "
+        f"(batch {b}, window {window}, {windows} windows a worker): a commit "
+        f"{raw / 2**20:.2f} MiB raw, {info['int8_bytes'] / 2**20:.2f} MiB "
+        f"int8 ({info['ratio_commits']} commits encoded); commits "
+        f"{info['commits']} of {info['windows_scheduled']}; staleness "
+        f"{info['staleness']}; {wall:.2f} s [{power_line}]")
+    assert info["commits"] == info["windows_scheduled"], info
+    assert info["ratio_commits"] == info["commits"], info
+    assert all(math.isfinite(x) for x in losses), losses
+    del trainer, ds
+    torch.cuda.empty_cache()
+    return info
+
+
+def _async_groupnorm(dev, power_line) -> dict:
+    """(e) ``ADAG(resnet50())`` (GroupNorm, bf16) host_async K = 2: the
+    GroupNorm kernels launched 53 x K x window x windows times each by
+    the workers, plus 53 each by the runner's one-row FLOPs count for the
+    per-window MFU series (a forward and backward before the workers
+    start)."""
+    from distkeras_tpu_torch.ops.kernels import groupnorm as gn
+
+    k, b, window, windows = ASYNC_GN
+    ds = _learnable_images(k * windows * window * b, seed=35)
+    trainer = _async_trainer("ADAG", _resnet_model("gn", torch.bfloat16,
+                                                   seed=15),
+                             k, b, window, dev)
+    kernels = (gn.group_norm_fwd, gn.group_norm_bwd)
+    for kernel in kernels:
+        kernel.launches = 0
+    trainer.train(ds)
+    launches = {kk.__name__: kk.launches for kk in kernels}
+    want = 53 * k * window * windows + 53
+    losses = [h["loss"] for h in trainer.get_history()]
+    info = {"launches": launches, "expected": want, "losses": losses,
+            "commits": trainer.num_updates, "card": power_line}
+    log(f"[async] (e) ADAG(resnet50() GroupNorm, bf16) host_async K={k}, "
+        f"batch {b}, window {window}: GroupNorm launches {launches} (53 x K "
+        f"x window x windows + 53 for the MFU count = {want}), commits "
+        f"{info['commits']}")
+    assert all(n == want for n in launches.values()), info
+    assert all(math.isfinite(x) for x in losses), losses
+    del trainer, ds
+    torch.cuda.empty_cache()
+    return info
+
+
+def _async_fleet(dev, power_line) -> dict:
+    """(f) DynSGD K = 2 over ``make_ps_fleet(..., 2, standby=True)`` and a
+    ``ShardedRemoteParameterServer`` on loopback, the centers'
+    shards on the card; the coordinator chaos-killed mid-run (the JAX
+    package's ``tests/test_failover.py:314`` scenario): zero lost
+    windows, one promotion, the fleet's clock the run's."""
+    from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch.comms import RetryPolicy
+    from distkeras_tpu_torch.ops import optimizers
+    from distkeras_tpu_torch.parallel import elastic, failover, host_async
+    from distkeras_tpu_torch.parallel import strategies
+    from distkeras_tpu_torch.parameter_servers import DynSGDParameterServer
+    from distkeras_tpu_torch.utils import fault
+
+    k, b, window, windows = FLEET
+    model = _nf_model(seed=13).to(dev)
+    like = {n: p.detach().clone() for n, p in model.named_parameters()}
+    telemetry.reset()
+    services = elastic.make_ps_fleet(
+        lambda part: DynSGDParameterServer([x.clone() for x in part]),
+        like, 2, host="127.0.0.1", standby=True,
+        coord_lease_s=FLEET_LEASE_S)
+    marks = {}
+    orig_kill = services[0].kill
+
+    def kill(reason="chaos"):
+        marks.setdefault("kill", time.perf_counter())
+        orig_kill(reason)
+
+    services[0].kill = kill
+    standby = services[-1].standby
+    orig_promote = standby._promote_locked
+
+    def promote(reason):
+        marks.setdefault("promote", time.perf_counter())
+        orig_promote(reason)
+
+    standby._promote_locked = promote
+    fleet = elastic.ShardedRemoteParameterServer(
+        [s.advertised for s in services if not s.is_standby], like,
+        standby=services[-1].advertised,
+        retry=RetryPolicy(max_retries=2, base_s=0.01, max_s=0.05),
+        op_timeout=30.0)
+    ds = _learnable_images(k * windows * window * b, seed=36)
+    shards = host_async.stage_worker_shards(ds.repartition(k), "features",
+                                            "label", b, window)
+    runner = host_async.HostAsyncRunner(
+        model, "categorical_crossentropy", optimizers.get("sgd", 0.05),
+        strategies.get("dynsgd", learning_rate=0.05), window, devices=[dev],
+        max_degraded_windows=windows)
+    fault.inject_chaos("remote_ps.server.handle", "kill",
+                       after=FLEET_KILL_AFTER, count=1, shard=0)
+
+    def counter(name):
+        snap = telemetry.get_registry().snapshot()["counters"]
+        return sum(v for key, v in snap.items()
+                   if key.split("{", 1)[0] == name)
+
+    try:
+        t0 = time.perf_counter()
+        _, hist, stal, clock = runner.run(like, [shards], ps=fleet)
+        wall = time.perf_counter() - t0
+        fleet_clock = fleet.num_updates
+        info = {"windows": len(runner.merged_windows),
+                "windows_scheduled": k * windows, "clock": clock,
+                "fleet_clock": fleet_clock,
+                "promotions": counter("elastic.failover.promotions"),
+                "kills": counter("elastic.failover.kills"),
+                "resolves": counter("elastic.failover.resolves"),
+                "degraded_windows": counter("host_async.degraded_windows"),
+                "kill_to_promotion_s": (marks["promote"] - marks["kill"]
+                                        if len(marks) == 2 else None),
+                "gaps": standby.gaps, "wall_s": wall,
+                "lease_s": FLEET_LEASE_S, "card": power_line}
+    finally:
+        fault.clear_chaos()
+        fleet.close()
+        for svc in services:
+            if svc.replicator is not None:
+                svc.replicator.close(timeout=0.5)
+            svc.stop()
+    log(f"[async] (f) DynSGD K={k} over a 2-shard fleet + standby on "
+        f"loopback (resnet50_nf(), batch {b}, window {window}, {windows} "
+        f"windows a worker), coordinator chaos-killed at its op "
+        f"{FLEET_KILL_AFTER + 1}: windows {info['windows']} of "
+        f"{info['windows_scheduled']}, promotions {info['promotions']}, "
+        f"kill -> promotion {info['kill_to_promotion_s']} s (lease "
+        f"{FLEET_LEASE_S} s), degraded windows {info['degraded_windows']}, "
+        f"replay gaps {info['gaps']}, clock {clock} (fleet {fleet_clock}), "
+        f"{wall:.2f} s [{power_line}]")
+    assert info["windows"] == info["windows_scheduled"], info
+    assert info["promotions"] == 1 and info["kills"] == 1, info
+    assert marks["kill"] < marks["promote"], info
+    assert fleet_clock == clock, info
+    assert all(math.isfinite(h["loss"]) for h in hist), hist
+    assert failover.DEFAULT_COORD_LEASE_S > FLEET_LEASE_S
+    del runner, model, like
+    torch.cuda.empty_cache()
+    return info
+
+
+def _async_snapshots(dev, power_line) -> dict:
+    """(g) ``checkpoint_folds=K`` with ``checkpoint_dir``, then
+    ``resume=True``: the resumed run starts from the snapshot's center
+    (bitwise) and clock, and continues the clock."""
+    import tempfile
+
+    from distkeras_tpu_torch.checkpoint import Checkpointer
+    from distkeras_tpu_torch.parallel import host_async
+
+    k, b, window, windows = SNAP
+    ds = _learnable_images(k * windows * window * b, seed=37)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    seen = {}
+    orig = host_async.HostAsyncRunner.run
+
+    def spy(runner, init_params, *a, **kw):
+        seen["center"] = {n: x.detach().clone()
+                          for n, x in init_params.items()}
+        seen["start_clock"] = kw.get("start_clock")
+        return orig(runner, init_params, *a, **kw)
+
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as d:
+        first = _async_trainer("DynSGD", _nf_model(seed=20), k, b, window,
+                               dev, checkpoint_dir=d, checkpoint_folds=k)
+        first.train(ds)
+        ckpt = Checkpointer(d)
+        steps = ckpt.all_steps()
+        step = ckpt.latest_step()
+        snap = ckpt.restore(step=step)
+        host_async.HostAsyncRunner.run = spy
+        try:
+            resumed = _async_trainer("DynSGD", _nf_model(seed=21), k, b,
+                                     window, dev, checkpoint_dir=d,
+                                     checkpoint_folds=k)
+            resumed.train(ds, resume=True)
+        finally:
+            host_async.HostAsyncRunner.run = orig
+        bitwise = all(torch.equal(seen["center"][n].cpu(),
+                                  torch.as_tensor(np.array(x)))
+                      for n, x in snap["center"].items())
+        info = {"steps": steps, "snapshot_clock": int(snap["clock"][0]),
+                "first_clock": first.num_updates,
+                "resumed_start_clock": seen["start_clock"],
+                "resumed_clock": resumed.num_updates,
+                "latest_after": ckpt.latest_step(), "bitwise": bitwise,
+                "card": power_line}
+    log(f"[async] (g) DynSGD(resnet50_nf()) K={k} with checkpoint_folds={k}: "
+        f"snapshots at clocks {steps}; resume=True started at clock "
+        f"{seen['start_clock']} from the snapshot's center (bitwise "
+        f"{bitwise}) and ended at {info['resumed_clock']} (latest snapshot "
+        f"{info['latest_after']})")
+    assert info["snapshot_clock"] == step == info["first_clock"], info
+    assert info["resumed_start_clock"] == step, info
+    assert info["resumed_clock"] == step + k * windows, info
+    assert bitwise, info
+    return info
+
+
+def _async_twin(dev, power_line) -> dict:
+    """(h) the staleness-vs-wall-clock twin at a small grid."""
+    from distkeras_tpu_torch.benchmarks import staleness_tradeoff
+
+    result = staleness_tradeoff.sweep(device=dev, **TWIN)
+    for p in result["points"]:
+        log(f"[async] (h) {p['mode']:10s} {p['strategy']:6s} "
+            f"K={p['num_workers']} w={p['window']}: staleness mean "
+            f"{p['staleness_mean']} p95 {p['staleness_p95']} max "
+            f"{p['staleness_max']}, {p['samples_per_sec']} samples/s, "
+            f"held-out loss {p['curve'][0]['heldout_loss']} -> "
+            f"{p['final_heldout_loss']}, {p['total_wall_s']} s")
+        if p["mode"] == "sync":
+            k = p["num_workers"]
+            assert p["staleness_mean"] == (k - 1) / 2, p
+        assert p["commits"] == p["epochs"] * p["rounds_per_epoch"] * \
+            p["num_workers"], p
+        assert math.isfinite(p["final_heldout_loss"]), p
+    result["card"] = power_line
+    return result
+
+
+def phase_async(dev, power_line, core_info) -> dict:
+    """Phase 27: the true-async plane on the card (module docstring)."""
+    t0 = time.perf_counter()
+    info = {"bench": _async_bench(dev, power_line, core_info),
+            "witness": _async_witness(dev, power_line),
+            "card_vs_cpu": _async_card_vs_cpu(dev, power_line),
+            "wire": _async_wire(dev, power_line),
+            "groupnorm": _async_groupnorm(dev, power_line),
+            "fleet": _async_fleet(dev, power_line),
+            "snapshots": _async_snapshots(dev, power_line),
+            "twin": _async_twin(dev, power_line)}
+    info["seconds"] = time.perf_counter() - t0
+    log(f"[async] phase 27 took {info['seconds']:.1f} s [{power_line}]")
+    return info
+
+
 def main() -> int:
     report = {}
     try:
@@ -3997,6 +4516,8 @@ def main() -> int:
         report["train_core"] = phase_train_core(dev, card, report["nf"])
         report["measure"] = phase_measure(dev, card, report["profile"])
         report["checkpoint"] = phase_checkpoint(dev, card)
+        report["async"] = phase_async(dev, card,
+                                      report["train_core"]["bench"])
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         log("[chip_smoke] FAILED")
@@ -4091,6 +4612,9 @@ def main() -> int:
             # after)
             "launches_train_core": report["train_core"]["groupnorm"][
                 "launches"][name],
+            # phase 27 (e): resnet50() under host_async K = 2 (zeroed
+            # before, read after)
+            "launches_async": report["async"]["groupnorm"]["launches"][name],
         })
     kernels = {"kernels": rows}
     os.makedirs(OUT_DIR, exist_ok=True)

@@ -10,8 +10,8 @@ over the existing remote_ps framing (op ``telemetry_put``), the collector
 on the coordinator shard (shard 0) buffers them, and readers get one
 merged, pid-tagged row stream (op ``telemetry_merged``, the health CLI,
 ``telemetry_summary --merge``, the merged Chrome trace). The port's
-parameter-server plane, which mounts those two ops, is ROADMAP.md Queue
-A, item 13; until it lands the collector is fed in process.
+:class:`~distkeras_tpu_torch.parallel.remote_ps.ParameterServerService`
+mounts those two ops.
 
 Backpressure rules (the collector must never threaten the run it
 observes):

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -66,6 +67,7 @@ _WIDE_BYTES = 512
 _MIN_BYTES = 64
 
 _lib = None
+_count_lock = threading.Lock()
 
 
 class Plan(NamedTuple):
@@ -336,7 +338,8 @@ def group_norm_fwd(x, gamma, beta, groups: int, eps: float = 1e-6):
             p.cols, p.rows, p.tiles, p.cluster, int(p.path == "stream"),
             p.threads, eps, stream)
     _raise_on(err, lib, "forward")
-    group_norm_fwd.launches += 1
+    with _count_lock:  # worker threads of the async plane launch at once
+        group_norm_fwd.launches += 1
     if accounting.active():
         # no product: the plain version's FlopCounterMode count is 0
         accounting.note(
@@ -377,7 +380,8 @@ def group_norm_bwd(x, gamma, stats, dy, groups: int):
             p.cols, p.rows, p.tiles, p.cluster, int(p.path == "stream"),
             p.threads, 1.0 / (hw * (c // groups)), stream)
     _raise_on(err, lib, "backward")
-    group_norm_bwd.launches += 1
+    with _count_lock:
+        group_norm_bwd.launches += 1
     if accounting.active():
         accounting.note(
             "group_norm_bwd", 0.0,

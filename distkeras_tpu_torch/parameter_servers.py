@@ -6,10 +6,14 @@ The trainer zoo's sync path does not go through this class: the
 substrate folds each round's commits itself
 (:mod:`distkeras_tpu_torch.parallel.substrate`). It exists for API
 parity, for the golden tests that apply the reference's commits one at
-a time, and as the host-side fold the true-async plane (ROADMAP.md Queue
-A, item 13) will mount on. The center is a name -> tensor dict on the
-server's device (the device of the tensors it was given); a lock orders
-the folds, as the reference's ``threading.Lock`` did.
+a time, and as the host-side fold the true-async plane
+(:mod:`distkeras_tpu_torch.parallel.host_async`, behind
+:mod:`~distkeras_tpu_torch.parallel.remote_ps`'s service) runs on. The
+center is a name -> tensor dict on the server's device (the device of
+the tensors it was given); a lock orders
+the folds, as the reference's ``threading.Lock`` did. Any tree of
+tensors works (a nested flax-layout dict, or one fleet shard's list of
+leaves): the fold maps over its leaves in the JAX package's order.
 """
 
 from __future__ import annotations
@@ -18,24 +22,26 @@ import threading
 import time
 from typing import Callable, Union
 
+import numpy as np
 import torch
 
 from distkeras_tpu_torch import telemetry
+from distkeras_tpu_torch.utils.trees import tree_leaves, tree_map
 
 
-def _fold(center: dict, delta: dict, weight: float) -> dict:
+def _fold(center, delta, weight: float):
     """``c + (w * d)`` per leaf with ``w`` rounded to float32 and each
     scaled delta cast to its center leaf's dtype (a codec may deliver
     deltas in a lower precision; the center keeps its own)."""
     w = torch.tensor(weight, dtype=torch.float32)
-    return {n: c + (w * delta[n]).to(c.dtype) for n, c in center.items()}
+    return tree_map(lambda c, d: c + (w * d).to(c.dtype), center, delta)
 
 
 class ParameterServer:
     """Base: holds the center variable and an update counter."""
 
-    def __init__(self, params: dict):
-        self.center_variable = dict(params)
+    def __init__(self, params):
+        self.center_variable = _own(params)
         self.num_updates = 0
         # deployment counter, NOT the training clock: bumped by a
         # WeightPublisher when a snapshot of this center is published
@@ -43,9 +49,9 @@ class ParameterServer:
         self.model_version = 0
         self._lock = threading.Lock()
 
-    def initialize(self, params: dict) -> None:
+    def initialize(self, params) -> None:
         with self._lock:
-            self.center_variable = dict(params)
+            self.center_variable = _own(params)
             self.num_updates = 0
 
     def pull(self):
@@ -134,13 +140,16 @@ class ParameterServer:
                           time.perf_counter() - t0)
         return gap
 
-    def _to_center_device(self, tree: dict) -> dict:
+    def _to_center_device(self, tree):
         """Bring a worker's delta to the center's device (the hop the
-        reference's executor-to-driver TCP send was)."""
-        if not self.center_variable:
+        reference's executor-to-master TCP send was); a decoded wire
+        tree (numpy leaves) goes through pinned memory."""
+        from distkeras_tpu_torch.utils.transfer import to_device
+
+        leaves = tree_leaves(self.center_variable)
+        if not leaves:
             return tree
-        device = next(iter(self.center_variable.values())).device
-        return {n: torch.as_tensor(x).to(device) for n, x in tree.items()}
+        return to_device(tree, leaves[0].device)
 
     # reference lifecycle names (no socket to start or stop)
     def start(self) -> None:
@@ -148,6 +157,14 @@ class ParameterServer:
 
     def stop(self) -> None:
         pass
+
+
+def _own(params):
+    """The server's own reference to a tree: a dict is copied shallowly
+    (a caller's later key changes do not reach the center); numpy leaves
+    become tensors."""
+    return tree_map(lambda x: x if isinstance(x, torch.Tensor)
+                    else torch.from_numpy(np.array(x)), params)
 
 
 class DeltaParameterServer(ParameterServer):

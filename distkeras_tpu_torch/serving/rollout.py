@@ -93,8 +93,15 @@ def _torn_copy(tree) -> dict:
 class WeightPublisher:
     """Trainer-side half of the rollout plane: stamps a monotone
     ``model_version`` onto weight snapshots and hands them to subscribers
-    (in-process controllers). The parameter-server leg (``ps=``) is not
-    ported yet (ROADMAP.md Queue A, item 11).
+    (in-process controllers) and/or the parameter server
+    (``ps.set_model_version``: remote controllers see the version on
+    their next pull).
+
+    With ``ps=`` (a local :class:`~distkeras_tpu_torch.parameter_servers.
+    ParameterServer` or a :class:`~distkeras_tpu_torch.parallel.
+    remote_ps.RemoteParameterServer`), ``publish(params=None)`` pulls the
+    live center and hands it to subscribers as tensors on ``device``
+    (``cuda:0`` unless the caller passes ``device="cpu"``).
 
     The publish path is a chaos site (``"rollout.publish"``,
     :mod:`distkeras_tpu_torch.utils.fault`): ``drop`` loses the publish
@@ -102,13 +109,13 @@ class WeightPublisher:
     half-serialized tree that subscriber-side validation must refuse.
     """
 
-    def __init__(self, ps=None, start_version: int = 0):
+    def __init__(self, ps=None, start_version: int = 0, device=None):
+        self.ps = ps
+        self.device = None
         if ps is not None:
-            raise NotImplementedError(
-                "WeightPublisher(ps=...) needs the parameter server, which "
-                "is not ported yet (ROADMAP.md Queue A, item 11); publish "
-                "with ps=None to in-process subscribers")
-        self.ps = None
+            from distkeras_tpu_torch.device import resolve_device
+
+            self.device = resolve_device(device)
         self.version = int(start_version)
         self._subscribers: list[Callable] = []
         self._lock = threading.Lock()
@@ -118,8 +125,9 @@ class WeightPublisher:
         self._subscribers.append(callback)
 
     def publish(self, params=None, clock=None) -> Optional[int]:
-        """Publish a snapshot as the next version. Returns the published
-        version, or None when chaos dropped the publish."""
+        """Publish a snapshot as the next version. ``params=None`` pulls
+        the live center from ``self.ps``. Returns the published version,
+        or None when chaos dropped the publish."""
         from distkeras_tpu_torch.utils import fault
 
         act = fault.chaos("rollout.publish")
@@ -130,8 +138,15 @@ class WeightPublisher:
         if act is not None and act.action == "delay":
             time.sleep(act.delay_s)
         if params is None:
-            raise ValueError("publish(params=None) needs a ps to "
-                             "snapshot the center from")
+            if self.ps is None:
+                raise ValueError("publish(params=None) needs a ps to "
+                                 "snapshot the center from")
+            from distkeras_tpu_torch.utils.transfer import to_device
+
+            params, pulled_clock = self.ps.pull()
+            params = to_device(params, self.device)
+            if clock is None:
+                clock = pulled_clock
         if act is not None and act.action == "torn":
             # half-serialized delivery: structurally valid, leaf shapes
             # wrong — every subscriber's swap validation must refuse it
@@ -139,6 +154,8 @@ class WeightPublisher:
         with self._lock:
             self.version += 1
             version = self.version
+        if self.ps is not None:
+            self.ps.set_model_version(version)
         telemetry.counter("rollout.publishes").inc()
         telemetry.record_event("rollout", action="publish",
                                version=version, clock=clock)

@@ -25,12 +25,19 @@ Where the port differs from the JAX package, by design:
   of :mod:`~distkeras_tpu_torch.checkpoint`, not Orbax's: a carry's
   ``torch.optim`` state and the counters come back with the weights, so
   a resumed run continues the uninterrupted one bit for bit;
+- ``mode="host_async"`` runs ``num_workers`` threads against a live
+  parameter server in this process
+  (:mod:`~distkeras_tpu_torch.parallel.host_async`); worker ``k`` runs on
+  ``devices[k % D]`` (default ``[cuda:0]``, or ``[device]``).
+  ``ps_shards``, ``ps_placement`` and ``ps_standby`` are validated as in
+  the JAX package, which also runs one in-process server in a single
+  process; snapshots ``{"center", "clock"}`` are DKTP2 steps every
+  ``checkpoint_folds`` commits, and ``resume=True`` continues the clock;
 - what is not ported raises NotImplementedError naming its ROADMAP.md
-  Queue A item: ``mode="host_async"`` (item 13, with ``data_service=``,
-  ``ps_shards``, ``ps_standby`` and ``ps_placement``), ``PjitTrainer``
-  (item 16), and a ``precision=`` that would re-stamp a built model
-  (item 12). A ``GlobalShards`` pool (item 16) raises ValueError as JAX's
-  ``_reject_global_shards`` does.
+  Queue A item: ``data_service=`` and any run over several processes
+  (item 16), ``PjitTrainer`` (item 16), and a ``precision=`` that would
+  re-stamp a built model (item 12). A ``GlobalShards`` pool (item 16)
+  raises ValueError as JAX's ``_reject_global_shards`` does.
 """
 
 from __future__ import annotations
@@ -52,12 +59,10 @@ from distkeras_tpu_torch.device import resolve_device
 from distkeras_tpu_torch.ops import losses as losses_lib
 from distkeras_tpu_torch.ops import optimizers as opt_lib
 from distkeras_tpu_torch.parallel import mesh as mesh_lib
+from distkeras_tpu_torch.parallel.elastic import PLACEMENT_POLICIES
 from distkeras_tpu_torch.telemetry import span
 from distkeras_tpu_torch.utils import rng
 from distkeras_tpu_torch.utils.trees import tree_mean
-
-#: the JAX package's ``parallel/elastic.py`` placement policies
-PLACEMENT_POLICIES = ("process0", "spread")
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -404,29 +409,48 @@ class DistributedTrainer(Trainer):
         if self.parallelism_factor < 1:
             raise ValueError("parallelism_factor must be >= 1")
         if mode == "host_async":
-            raise _not_ported(
-                "mode='host_async' (thread-per-worker against a live "
-                "parameter server, with its data_service=, ps_shards, "
-                "ps_placement and ps_standby)",
-                "item 13: the true-async PS plane")
-        if devices is not None:
-            raise ValueError(
-                "devices= is a host_async knob; sync mode places "
-                "workers via the mesh")
-        if mesh is None:
-            mesh = mesh_lib.make_mesh(
-                num_workers,
-                devices=None if device is None else [resolve_device(device)])
-        self.mesh = mesh
-        # K logical workers = factor x mesh devices; each device runs
-        # `factor` stacked replicas (see substrate.build_epoch_fn)
-        self.num_workers = (self.mesh.shape[mesh_lib.WORKER_AXIS]
-                            * self.parallelism_factor)
-        if checkpoint_folds is not None:
+            # thread-per-worker against a live PS; no mesh involved
+            if mesh is not None:
+                raise ValueError(
+                    "mesh and mode='host_async' are contradictory: async "
+                    "workers are host threads, not mesh replicas")
+            self.mesh = None
+            if num_workers is None:
+                raise ValueError("host_async mode needs explicit num_workers")
+            # host threads oversubscribe a device natively; the factor
+            # multiplies the thread count (reference: partitions per worker)
+            self.num_workers = int(num_workers) * self.parallelism_factor
+            # worker k runs on devices[k % D]
+            self.devices = [resolve_device(d) for d in devices] if devices \
+                else [resolve_device(device)]
+        else:
+            if devices is not None:
+                raise ValueError(
+                    "devices= is a host_async knob; sync mode places "
+                    "workers via the mesh")
+            if mesh is None:
+                mesh = mesh_lib.make_mesh(
+                    num_workers, devices=None if device is None
+                    else [resolve_device(device)])
+            self.mesh = mesh
+            self.devices = None
+            # K logical workers = factor x mesh devices; each device runs
+            # `factor` stacked replicas (see substrate.build_epoch_fn)
+            self.num_workers = (self.mesh.shape[mesh_lib.WORKER_AXIS]
+                                * self.parallelism_factor)
+        if checkpoint_folds is not None and mode != "host_async":
             raise ValueError(
                 "checkpoint_folds is the host_async snapshot cadence; sync "
                 "mode checkpoints at epoch boundaries (checkpoint_dir alone)")
-        self.checkpoint_folds = None
+        if checkpoint_folds is not None and checkpoint_dir is None:
+            raise ValueError(
+                "checkpoint_folds sets the snapshot cadence but "
+                "checkpoint_dir is None — there is nowhere to save; pass "
+                "checkpoint_dir too (silently taking no snapshots would "
+                "defeat the fault tolerance you asked for)")
+        # host_async snapshot cadence (commits between snapshots); one
+        # full round of folds (num_workers) when left None
+        self.checkpoint_folds = checkpoint_folds
         if data_layout not in ("replicated", "host_sharded"):
             raise ValueError(
                 f"data_layout must be 'replicated' (every process holds the "
@@ -435,39 +459,60 @@ class DistributedTrainer(Trainer):
         # one process: host_sharded is the replicated case
         self.data_layout = data_layout
         if data_service is not None:
-            raise ValueError(
-                "data_service= streams lease-driven rounds to "
-                "host_async worker threads; sync mode stages from a "
-                "local Dataset — use mode='host_async'")
+            if mode != "host_async":
+                raise ValueError(
+                    "data_service= streams lease-driven rounds to "
+                    "host_async worker threads; sync mode stages from a "
+                    "local Dataset — use mode='host_async'")
+            if data_layout != "replicated":
+                raise ValueError(
+                    "data_service replaces the data_layout contracts (the "
+                    "coordinator leases ranges to every worker wherever "
+                    "it runs); leave data_layout='replicated'")
+            raise _not_ported(
+                "data_service= (the streaming data plane's lease-driven "
+                "rounds, data/service.py)",
+                "item 16: the data service and the cross-process plane")
         self.data_service = None
         self.communication_window = int(communication_window)
         # None: stage the whole epoch device-resident; an int bounds
         # staging memory to O(staging_rounds), prefetched on a thread
         self.staging_rounds = staging_rounds
         self.strategy = self._make_strategy(**strategy_kwargs)
-        if codec != "raw" or comms_overlap:
+        if mode == "host_async" and not self.strategy.exchanges:
+            raise ValueError(
+                "host_async mode requires an exchanging strategy "
+                "(DOWNPOUR/ADAG/DynSGD/AEASGD/EAMSGD)")
+        from distkeras_tpu_torch import comms as comms_lib
+
+        comms_lib.get_codec(codec)  # validate the name at construction
+        if mode != "host_async" and (codec != "raw" or comms_overlap):
             raise ValueError(
                 "codec/comms_overlap tune the host_async parameter-server "
                 "exchange; sync mode folds commits in-graph (no wire)")
         self.codec = codec
-        self.comms_overlap = False
+        self.comms_overlap = bool(comms_overlap)
+        # the sharded parameter-server fleet and its failover: in one
+        # process the JAX package validates these and runs one
+        # in-process server; so does the port
         self.ps_shards = int(ps_shards)
         if self.ps_shards < 1:
             raise ValueError(f"ps_shards must be >= 1, got {ps_shards}")
-        if self.ps_shards > 1:
+        if self.ps_shards > 1 and mode != "host_async":
             raise ValueError(
                 "ps_shards shards the host_async parameter service; sync "
                 "mode has no parameter server to shard")
         if ps_placement not in PLACEMENT_POLICIES:
             raise ValueError(f"ps_placement must be one of "
                              f"{PLACEMENT_POLICIES}, got {ps_placement!r}")
-        if ps_placement != "process0" or ps_standby:
+        if mode != "host_async" and (ps_placement != "process0"
+                                     or ps_standby):
             raise ValueError(
                 "ps_placement/ps_standby configure the host_async "
                 "parameter-service fleet; sync mode has no parameter "
                 "server to place or fail over")
         self.ps_placement = ps_placement
-        self.ps_standby = False
+        self.ps_standby = bool(ps_standby)
         from distkeras_tpu_torch import health as health_lib
 
         self.health = health_lib.resolve(health)
@@ -618,6 +663,8 @@ class DistributedTrainer(Trainer):
         from distkeras_tpu_torch.parallel import substrate
 
         self._reject_global_shards(dataset, type(self).__name__)
+        if self.mode == "host_async":
+            return self._train_host_async(dataset, shuffle, resume)
         self._start()
         n_shards = self.num_workers
         self._check_trainable(
@@ -689,6 +736,100 @@ class DistributedTrainer(Trainer):
             self.params = self._finalize(center, carries)
             _load(self.model, self._model_params())
         self._stop(self.mesh.home)
+        return self.params
+
+    def _train_host_async(self, dataset: Dataset, shuffle: bool,
+                          resume: bool = False):
+        """True wall-clock asynchrony: a thread per worker against a live
+        parameter server (:mod:`~distkeras_tpu_torch.parallel.host_async`);
+        staleness is real scheduling, not the substrate's rotation.
+
+        There is no epoch barrier: the center and the server clock are
+        snapshot every ``checkpoint_folds`` commits (default one round,
+        ``num_workers`` folds). ``resume=True`` restores the latest
+        snapshot: workers restart their data passes from the beginning,
+        pull the restored center and continue its clock."""
+        from distkeras_tpu_torch.health import recorder as flight_recorder
+        from distkeras_tpu_torch.parallel import host_async
+
+        mesh_lib.check_single_process("mode='host_async'")
+        self._start()
+        self._check_trainable(
+            dataset,
+            self.batch_size * self.communication_window * self.num_workers)
+        home = self.devices[0]
+        self.model.to(home)
+
+        def stage(ds):
+            return host_async.stage_worker_shards(
+                ds.repartition(self.num_workers), self.features_col,
+                self.label_col, self.batch_size, self.communication_window)
+
+        with span("trainer.init"):
+            init_params = _params_of(self.model)
+        start_clock = 0
+        ckpt = self._checkpointer()
+        if ckpt is not None:
+            snap, _ = self._maybe_resume(ckpt, resume)
+            if snap is not None:
+                init_params = {n: _tensor(x).to(home)
+                               for n, x in snap["center"].items()}
+                start_clock = int(np.asarray(snap["clock"]).ravel()[0])
+        if shuffle:
+            # workers cross epoch boundaries without barriers, so every
+            # epoch's shards are staged host-resident up front
+            per_epoch = self._resident_bytes(dataset)
+            if per_epoch * self.num_epoch > self._RESIDENT_WARN_BYTES:
+                warnings.warn(
+                    f"host_async with per-epoch re-staging holds every "
+                    f"epoch's shards host-resident "
+                    f"(~{per_epoch * self.num_epoch / 2**30:.1f} GiB for "
+                    f"{self.num_epoch} epochs). For large datasets use "
+                    f"mode='sync' with staging_rounds= (O(chunk) memory).",
+                    RuntimeWarning, stacklevel=3)
+            with span("trainer.stage"):
+                epoch_shards = [stage(dataset.shuffle(self.seed + e))
+                                for e in range(self.num_epoch)]
+        else:
+            with span("trainer.stage"):
+                epoch_shards = [stage(dataset)] * self.num_epoch
+        if getattr(self, "_async_runner", None) is None:
+            with span("trainer.compile"):
+                self._async_runner = host_async.HostAsyncRunner(
+                    self.model, self.loss, self.tx, self.strategy,
+                    self.communication_window, self.metrics, self.seed,
+                    devices=self.devices, codec=self.codec,
+                    overlap=self.comms_overlap,
+                    accum_steps=self.accum_steps, precision=self.precision)
+        runner = self._async_runner
+        watchdog = None
+        if self.health is not None:
+            # fresh per train(): trip state must not leak across runs
+            watchdog = self.health.make_watchdog()
+            runner.straggler = self.health.make_straggler_detector()
+        folds = (self.checkpoint_folds or self.num_workers) \
+            if ckpt is not None else 0
+        try:
+            with span("trainer.epoch"):  # workers cross epoch boundaries
+                params, history, staleness, num_updates = runner.run(
+                    init_params, epoch_shards, checkpointer=ckpt,
+                    checkpoint_folds=folds, start_clock=start_clock,
+                    watchdog=watchdog)
+        except BaseException:
+            flight_recorder.auto_dump("trainer_exception")
+            raise
+        with span("trainer.finalize"):
+            if ckpt is not None and \
+                    num_updates > (ckpt.latest_step() or 0):
+                ckpt.save(num_updates,
+                          {"center": params,
+                           "clock": np.array([num_updates], np.int64)})
+            self.history = history
+            self.staleness_history = staleness
+            self.num_updates = num_updates
+            self.params = {n: x.detach() for n, x in params.items()}
+            _load(self.model, self.params)
+        self._stop(home)
         return self.params
 
     def _model_params(self) -> dict:

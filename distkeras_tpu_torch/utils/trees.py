@@ -83,3 +83,62 @@ def tree_cast(tree: Tree, dtype: torch.dtype) -> dict:
     """Cast floating leaves to ``dtype``; integer leaves stay as they are."""
     return {n: x.to(dtype) if x.is_floating_point() else x
             for n, x in tree.items()}
+
+
+# -- nested trees: the JAX package's pytree order ---------------------------
+# The wire and the parameter-server fleet move whole trees: nested
+# mappings (flax params, state dicts), lists (one shard's leaves) and
+# tuples. These flatten in the order ``jax.tree`` flattens them (mapping
+# keys sorted at every level, sequences in order), so both packages put
+# the same leaf in the same wire slot.
+
+def tree_flatten(tree) -> tuple:
+    """``(leaves, treedef)``: the leaves in jax's order and the structure
+    :func:`tree_unflatten` rebuilds from it. Mappings, lists and tuples
+    are nodes; everything else is a leaf."""
+    leaves: list = []
+
+    def walk(node):
+        if isinstance(node, Mapping):
+            keys = sorted(node)
+            return ("dict", tuple(keys), tuple(walk(node[k]) for k in keys))
+        if isinstance(node, (list, tuple)):
+            return (type(node), None, tuple(walk(x) for x in node))
+        leaves.append(node)
+        return None
+
+    return leaves, walk(tree)
+
+
+def tree_unflatten(treedef, leaves):
+    """Inverse of :func:`tree_flatten`."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return next(it)
+        kind, keys, children = node
+        if kind == "dict":
+            return {k: build(c) for k, c in zip(keys, children)}
+        return kind(build(c) for c in children)
+
+    out = build(treedef)
+    if next(it, it) is not it:
+        raise ValueError("more leaves than the tree structure holds")
+    return out
+
+
+def tree_leaves(tree) -> list:
+    return tree_flatten(tree)[0]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of
+    ``rest``, which must share its structure), structure kept."""
+    leaves, treedef = tree_flatten(tree)
+    others = [tree_flatten(t) for t in rest]
+    for other_leaves, other_def in others:
+        if other_def != treedef:
+            raise ValueError("tree structures differ")
+    return tree_unflatten(treedef, [
+        fn(x, *(o[0][i] for o in others)) for i, x in enumerate(leaves)])

@@ -12,6 +12,11 @@
 - The measurement plane measures nothing on the CPU as if it were the
   card: with no card, the capture and the calibration decline, and the
   runners and ``bench_torch.py`` refuse unless asked for the host.
+- The true-async plane likewise: ``HostAsyncRunner``, the five exchanging
+  trainers in ``mode="host_async"`` (also with each lossy codec),
+  ``WeightPublisher(ps=...)`` and the staleness twin resolve to
+  ``cuda:0``, raise without a card, and run on the host with
+  ``device="cpu"``.
 """
 
 import ast
@@ -125,6 +130,50 @@ def test_trainers_do_not_fall_back_to_cpu(monkeypatch):
         assert ModelClassifier(MLP(features=(4,)), **kw).device.type == "cpu"
 
 
+def _async_builds():
+    from distkeras_tpu_torch import trainers
+    from distkeras_tpu_torch.benchmarks import staleness_tradeoff
+    from distkeras_tpu_torch.models import MLP
+    from distkeras_tpu_torch.ops import optimizers
+    from distkeras_tpu_torch.parallel import host_async, strategies
+    from distkeras_tpu_torch.parameter_servers import DeltaParameterServer
+    from distkeras_tpu_torch.serving.rollout import WeightPublisher
+
+    def trainer(name, **kw):
+        return lambda **place: getattr(trainers, name)(
+            MLP(features=(4,)), mode="host_async", num_workers=2, **kw,
+            **place)
+
+    builds = {name: trainer(name) for name in
+              ("DOWNPOUR", "ADAG", "DynSGD", "AEASGD", "EAMSGD")}
+    builds.update({f"ADAG-{c}": trainer("ADAG", codec=c)
+                   for c in ("f16", "bf16", "int8")})
+    builds["HostAsyncRunner"] = lambda **place: host_async.HostAsyncRunner(
+        MLP(features=(4,)), "categorical_crossentropy",
+        optimizers.get("sgd", 0.1), strategies.get("adag"), 2, **place)
+    builds["WeightPublisher"] = lambda **place: WeightPublisher(
+        ps=DeltaParameterServer({"w": torch.zeros(2)}), **place)
+    builds["staleness_tradeoff"] = lambda **place: staleness_tradeoff.sweep(
+        strategies=["adag"], windows=[1], workers=[2], modes=["host_async"],
+        n_train=128, n_heldout=32, batch_size=16, epochs=1, **place)
+    return builds
+
+
+@pytest.mark.parametrize("name", sorted(_async_builds()))
+def test_async_plane_does_not_fall_back_to_cpu(monkeypatch, name):
+    build = _async_builds()[name]
+    with monkeypatch.context() as m:
+        _no_cuda(m)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    built = build(device="cpu")
+    devices = getattr(built, "devices", None) or [getattr(
+        built, "device", None)]
+    if isinstance(built, dict):  # the twin's result
+        devices = [torch.device(built["protocol"]["platform"])]
+    assert [torch.device(d).type for d in devices] == ["cpu"] * len(devices)
+
+
 def test_import_pulls_in_no_jax_and_no_reference_package():
     code = ("import sys\n"
             "import distkeras_tpu_torch\n"
@@ -163,6 +212,13 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
             "import distkeras_tpu_torch.checkpoint\n"
             "import distkeras_tpu_torch.utils.serialization\n"
             "import distkeras_tpu_torch.benchmarks\n"
+            "import distkeras_tpu_torch.benchmarks.staleness_tradeoff\n"
+            "import distkeras_tpu_torch.comms\n"
+            "import distkeras_tpu_torch.comms.codec\n"
+            "import distkeras_tpu_torch.parallel.host_async\n"
+            "import distkeras_tpu_torch.parallel.elastic\n"
+            "import distkeras_tpu_torch.parallel.failover\n"
+            "import distkeras_tpu_torch.utils.transfer\n"
             "import bench_torch\n"
             "from distkeras_tpu_torch import (ADAG, DOWNPOUR, DynSGD, AEASGD,"
             " EAMSGD, AveragingTrainer, EnsembleTrainer, SingleTrainer,"

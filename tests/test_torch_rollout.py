@@ -138,8 +138,34 @@ def test_publish_chaos_drop_delay_torn(versions):
     assert telemetry.counter("rollout.publish_dropped").value == 1
     assert telemetry.counter("rollout.torn_swaps_blocked",
                              engine="controller").value == 1
-    with pytest.raises(NotImplementedError, match="item 11"):
-        WeightPublisher(ps=object())
+    # the parameter-server leg: publish(params=None) pulls the live
+    # center of a port service and stamps each publish on it
+    from distkeras_tpu_torch.parallel.remote_ps import (
+        ParameterServerService, RemoteParameterServer)
+    from distkeras_tpu_torch.parameter_servers import DeltaParameterServer
+
+    center = {n: torch.as_tensor(x).clone() for n, x in v1.items()}
+    svc = ParameterServerService(DeltaParameterServer(center), center,
+                                 host="127.0.0.1")
+    svc.start()
+    client = RemoteParameterServer(f"127.0.0.1:{svc.port}", center,
+                                   op_timeout=10.0)
+    try:
+        client.commit({n: torch.ones_like(x) for n, x in center.items()})
+        pub = WeightPublisher(ps=client, device="cpu")
+        got = []
+        pub.subscribe(lambda v, p, c: got.append((v, p, c)))
+        for want in (1, 2):
+            assert pub.publish() == want
+            assert client.model_version == svc.ps.model_version == want
+        (v, params, clock), = got[:1]
+        assert (v, clock) == (1, 1)
+        for n, x in center.items():
+            assert params[n].device.type == "cpu"
+            assert torch.equal(params[n], x + 1)
+    finally:
+        client.close()
+        svc.stop()
 
 
 def test_canary_agreement_equals_jax_evaluator(versions):

@@ -15,7 +15,11 @@ Then: Averaging on identical shards equals Single; Ensemble returns K
 distinct models; each sync-mode validation of
 ``tests/test_distributed_trainers.py`` raises the JAX package's
 exception class in both packages; each path that is not ported raises
-NotImplementedError naming its ROADMAP.md Queue A item; and the twin of
+NotImplementedError naming its ROADMAP.md Queue A item;
+``mode="host_async"`` runs in one process as JAX's does (a K = 2 run's
+commit count, history length and staleness count equal JAX's; the fleet
+kwargs ``ps_shards``, ``ps_standby`` and ``ps_placement`` are accepted
+with JAX's attributes); and the twin of
 ``examples/mnist_mlp.py`` at ``n=1024`` (each exchanging trainer at the
 example's kwargs; EAMSGD, which refuses ``worker_optimizer`` in both
 packages, at its default) scores within 0.5 percentage points of JAX's
@@ -256,18 +260,11 @@ def test_dataset_too_small_and_master_port_like_jax():
 
 
 NOT_PORTED = [  # (build, item)
-    (lambda: tdk.DOWNPOUR(_tmodel(), num_workers=1, device="cpu",
-                          mode="host_async"), "item 13"),
+    # host_async runs in one process (item 13 is ported); the streaming
+    # data plane that feeds it across processes is item 16
     (lambda: tdk.DOWNPOUR(_tmodel(), num_workers=1, device="cpu",
                           mode="host_async", data_service="h:1"),
-     "item 13"),
-    (lambda: tdk.DOWNPOUR(_tmodel(), num_workers=1, device="cpu",
-                          mode="host_async", ps_shards=2), "item 13"),
-    (lambda: tdk.DOWNPOUR(_tmodel(), num_workers=1, device="cpu",
-                          mode="host_async", ps_standby=True), "item 13"),
-    (lambda: tdk.DOWNPOUR(_tmodel(), num_workers=1, device="cpu",
-                          mode="host_async", ps_placement="spread"),
-     "item 13"),
+     "item 16"),
     # checkpoints and resume (items 8 and 12) are ported: these four
     # cases now hold other paths that still raise
     (lambda: tdk.SingleTrainer(_tmodel(), device="cpu", precision="bf16"),
@@ -291,6 +288,42 @@ def test_unported_paths_name_their_item(case):
     build, item = NOT_PORTED[case]
     with pytest.raises(NotImplementedError, match=item):
         build()
+
+
+def test_host_async_plain_run_counts_like_jax():
+    """DOWNPOUR ``mode="host_async"`` with K = 2 threads: every scheduled
+    window commits once, in both packages (the clock counts commits, the
+    history holds every step, one staleness sample a commit), and the
+    loss is finite. Thread interleaving differs between runs, so values
+    are not compared; the K = 1 runner is held to JAX's in
+    tests/test_torch_host_async.py."""
+    kw = dict(mode="host_async", num_workers=2, batch_size=16,
+              communication_window=2, learning_rate=0.05,
+              worker_optimizer="sgd", metrics=("accuracy",))
+    out = {}
+    for pkg, model, place in ((jdk, _jmodel(), {}),
+                              (tdk, _tmodel(), dict(device="cpu"))):
+        t = pkg.DOWNPOUR(model, **kw, **place)
+        t.train(pkg.synthetic_mnist(n=256))
+        out[pkg.__name__] = (t.num_updates, len(t.get_history()),
+                             len(t.staleness_history),
+                             sorted(t.get_history()[0]))
+        assert all(np.isfinite(h["loss"]) for h in t.get_history())
+    assert out["distkeras_tpu"] == out["distkeras_tpu_torch"] == (
+        8, 16, 8, ["accuracy", "loss"])
+
+
+@pytest.mark.parametrize("kw", [dict(ps_shards=2), dict(ps_standby=True),
+                                dict(ps_placement="spread")])
+def test_host_async_fleet_kwargs_accepted_like_jax(kw):
+    """In one process the JAX trainer validates the fleet kwargs and runs
+    one in-process server; the port keeps the same attributes."""
+    attrs = ("ps_shards", "ps_standby", "ps_placement", "num_workers",
+             "mode", "codec", "comms_overlap")
+    j = jdk.DOWNPOUR(_jmodel(), mode="host_async", num_workers=2, **kw)
+    t = tdk.DOWNPOUR(_tmodel(), mode="host_async", num_workers=2,
+                     device="cpu", **kw)
+    assert [getattr(t, a) for a in attrs] == [getattr(j, a) for a in attrs]
 
 
 def test_global_shards_are_refused():

@@ -10,7 +10,8 @@
 - ``RetryPolicy``: the same delays for one seed, the same refusals;
 - ``fault``: the same ``inject``/``apply`` and ``inject_chaos``/``chaos``
   sequences;
-- the raw codec, and the lossy codecs raising with their ROADMAP item;
+- ``get_codec``: the four names resolve as JAX's do (name, lossiness,
+  raw's round trip), an unknown name raises ValueError in both;
 - the health plane: the ``status`` digest and a flight-recorder bundle
   carry JAX's keys with no SLO engine and no time-series store.
 
@@ -164,16 +165,25 @@ def test_fault_sequences_equal_jax():
 
 
 def test_raw_codec_and_unported_codecs():
+    """Every codec name resolves as the JAX package's does (the lossy
+    ones are ported now; their bytes are held to JAX's in
+    tests/test_torch_codecs.py)."""
+    from distkeras_tpu import comms as jcomms
+
     raw = codec.get_codec("raw")
     assert codec.get_codec(raw) is raw
     a = np.arange(12, dtype=np.float32).reshape(3, 4)
     np.testing.assert_array_equal(
         raw.decode(bytes(raw.encode(a)), (3, 4), np.float32), a)
-    for name in ("int8", "f16", "bf16"):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            codec.get_codec(name)
-    with pytest.raises(ValueError, match="Unknown codec"):
-        codec.get_codec("zstd")
+    assert codec.available_codecs() == jcomms.available_codecs()
+    for name in ("raw", "int8", "f16", "bf16"):
+        mine, theirs = codec.get_codec(name), jcomms.get_codec(name)
+        assert (type(mine).__name__, mine.name, mine.lossy) == \
+            (type(theirs).__name__, theirs.name, theirs.lossy)
+        assert codec.get_codec(mine) is mine
+    for mod in (codec, jcomms):
+        with pytest.raises(ValueError, match="Unknown codec"):
+            mod.get_codec("zstd")
 
 
 def test_health_status_and_bundle_carry_jax_keys(tmp_path):
