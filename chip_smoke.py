@@ -32,7 +32,9 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    and longest gap), then three windows of 128 requests of 16-128
    prompt tokens and 64 new tokens each, 8 in flight (a closed loop):
    tokens/s a window and their spread, TTFT, the longest gap between two
-   token emissions and the garbage collector's time in each window;
+   token emissions and the garbage collector's time in each window (each
+   collection's generation, start and length, and ``gc.get_stats()``,
+   logged after the window);
    every declared shape (2 buckets, 4 ladder widths) is captured as a
    CUDA graph in the constructor (the capture time is in ``setup_s``,
    the graphs' memory in ``graph_pool_bytes``) and only replayed after:
@@ -51,7 +53,8 @@ Phases (each asserts; any failure exits non-zero and prints no result):
 7. flash   — the three training flash kernels (forward, dq, dk/dv)
    against their plain versions as in phase 3, at the training shape
    [8, 2048, 12, 64] causal, at phase 22's one-shot batch
-   [4, 128, 12, 64] causal and at two small shapes;
+   [4, 128, 12, 64] causal, at two small shapes and at phase 28 (d)'s
+   MoE classifier [16, 256, 12, 64] non-causal;
 8. train   — the training path: CausalLM at GPT-2-small widths (vocab
    50304, 12 layers x 12 heads x 768, mlp 3072, max_len 2048,
    attention="flash"), bf16 compute with float32 parameters, seeded
@@ -73,7 +76,8 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    parameters after one SGD step;
 11. int8    — the int8 kernel against its plain version, bitwise, at the
    four products of a GPT-2-small block at 8 x 2048 rows (qkv, out, fc1,
-   fc2; bf16 output), with its time, the plain version's,
+   fc2; bf16 output) and of a BERT-base block at config 4's 32 x 128
+   rows, with its time, the plain version's,
    ``torch._int_mm`` plus the scale multiply, its bound and its time over
    the bound, and its schedule (the C entry's, which must equal
    ``int8_matmul.plan``);
@@ -257,6 +261,27 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    fleet's clock the run's; (g) ``checkpoint_folds`` snapshots, then
    ``resume=True`` from the snapshot's center (bitwise) and clock; (h)
    the staleness-vs-wall-clock twin at a small grid.
+28. encoders — the encoder families at full width, TF32 off. (a)
+   ``python -m distkeras_tpu_torch.benchmarks 4 --full``'s configuration
+   through the runner (BERT-base MLM under DynSGD, adam 1e-4, window 2,
+   batch 32 x 128 int16 ids, 3 epochs of 2,048 rows, one worker):
+   samples/s, steps, MFU against the bf16 peak, the timed run's loss
+   falling. (b) ``bert_base(precision="int8")`` with
+   ``overflow_guard(adamw(1e-4))``, 3 steps on config 4's batch: the int8
+   kernel launched 49 times a step (12 x 4 + ``mlm_dense``), losses within
+   2e-2 relative of the bf16 model's from the same weights and not equal
+   at step 1 (phase 12's witness bound). (c) ``vit_base()`` at 224^2,
+   b=64 uint8 images, adamw(1e-4), bf16, 5 steps: images/s, the loss
+   falling. (d) ``MoEClassifier`` (4 layers, 12 heads, 8 experts, mlp
+   3072, capacity 2.0, ``attention="flash"``) on [16, 256, 768] bf16
+   features, 4 adamw(1e-4) steps: each flash kernel launched 4 times a
+   step (``launches_encoders``), the sown aux term > 0 and in the
+   objective; the same steps through ``attention="xla"``. (e) Remat:
+   phase 8's GPT step (gpt_small widths, [8, 2048], flash) and (c)'s ViT
+   step under ``"blocks"`` against ``"none"``: gradients (bitwise or
+   not, reported) within 1e-3 of each leaf's largest magnitude, lower
+   peak memory, and the flash forward launched 24 times instead of 12
+   (``launches_remat``).
 
 The last three lines of standard output are the kernels' JSON, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details are
@@ -725,7 +750,8 @@ def _serve_window(eng, prompts, new, tokens=None) -> dict:
     calls = lambda: sum(telemetry.counter(f"serving.decode.{name}").value
                         for name in (prefill, "steps"))
     free = threading.Semaphore(SLOTS)
-    submit, first, emits, gc_runs = {}, {}, [], []
+    submit, first, emits, gc_runs, collections = {}, {}, [], [], []
+    t0 = time.perf_counter()
 
     def on_token(i):
         def stream(tok):
@@ -736,6 +762,11 @@ def _serve_window(eng, prompts, new, tokens=None) -> dict:
 
     def on_gc(phase, info):
         gc_runs.append(time.perf_counter())
+        if phase == "stop":
+            collections.append({"generation": info["generation"],
+                                "collected": info["collected"],
+                                "at_s": gc_runs[-2] - t0,
+                                "ms": (gc_runs[-1] - gc_runs[-2]) * 1e3})
 
     calls0 = calls()
     gc.callbacks.append(on_gc)
@@ -753,6 +784,14 @@ def _serve_window(eng, prompts, new, tokens=None) -> dict:
     finally:
         gc.callbacks.remove(on_gc)
     n_calls = calls() - calls0
+    # each collection's generation, read after the window (logging inside
+    # the callback would add to the stalls it looks for)
+    gc_stats = gc.get_stats()
+    if collections:
+        log(f"[gc] {len(collections)} collections in the window: " + ", ".join(
+            f"gen {c['generation']} at {c['at_s']:.2f} s {c['ms']:.1f} ms "
+            f"({c['collected']} freed)" for c in collections)
+            + f"; gc.get_stats() {gc_stats}")
     assert all(r.reason == "length" and r.tokens.size == new
                for r in results), results
     if tokens is not None:
@@ -769,7 +808,8 @@ def _serve_window(eng, prompts, new, tokens=None) -> dict:
             "max_gap_ms": float(gaps[at]) * 1e3,
             "max_gap_at_s": ([t0] + emits)[at] - t0,
             "gc_s": sum(b - a for a, b in zip(gc_runs[::2], gc_runs[1::2])),
-            "gc_runs": len(gc_runs) // 2}
+            "gc_runs": len(gc_runs) // 2, "gc_collections": collections,
+            "gc_stats": gc_stats}
 
 
 def _serve_windows(eng) -> dict:
@@ -1010,9 +1050,11 @@ def phase_profile(dev) -> dict:
 # -- phase 7 -----------------------------------------------------------------
 
 #: training shape of the main path, phase 22's one-shot batch (bucket 4
-#: of 128-token rows), and the small shapes also checked
+#: of 128-token rows), the small shapes also checked, and phase 28 (d)'s
+#: MoE classifier (non-causal)
 FLASH_CASES = (((8, 2048, 12, 64), True), ((4, 128, 12, 64), True),
-               ((1, 128, 12, 64), True), ((2, 256, 12, 64), False))
+               ((1, 128, 12, 64), True), ((2, 256, 12, 64), False),
+               ((16, 256, 12, 64), False))
 
 
 def _flash_bound(name, shape, causal, dtype):
@@ -1158,12 +1200,13 @@ def phase_flash_kernels(dev) -> list:
 TRAIN_B, TRAIN_T = 8, 2048
 
 
-def _train_model(num_layers, attention, dtype, seed, precision=None):
+def _train_model(num_layers, attention, dtype, seed, precision=None,
+                 remat="none"):
     from distkeras_tpu_torch.models.gpt import CausalLM, init_params
 
     model = CausalLM(vocab_size=50304, max_len=2048, num_layers=num_layers,
                      num_heads=12, width=768, mlp_dim=3072, dtype=dtype,
-                     attention=attention, precision=precision)
+                     attention=attention, precision=precision, remat=remat)
     return init_params(model, torch.Generator().manual_seed(seed))
 
 
@@ -1360,6 +1403,10 @@ def phase_train_identity(dev) -> dict:
 INT8_CASES = (("qkv", 768, 2304), ("out", 768, 768), ("fc1", 768, 3072),
               ("fc2", 3072, 768))
 INT8_M = 16384
+#: BERT-base's four products at config 4's 32 x 128 tokens (phase 28 (b))
+INT8_BERT_CASES = (("bert_qkv", 768, 2304), ("bert_out", 768, 768),
+                   ("bert_fc1", 768, 3072), ("bert_fc2", 3072, 768))
+INT8_BERT_M = 4096
 
 
 def _int8_bound(m, k, n, out_dtype):
@@ -1377,16 +1424,18 @@ def _int8_bound(m, k, n, out_dtype):
 
 def phase_int8_kernel(dev) -> list:
     """The int8 kernel against its plain version at the four products
-    of the int8 train path (bf16 output, as the path writes it), bitwise;
-    with its time, the plain version's, ``torch._int_mm`` plus the scale
-    multiply (the library yardstick) and the bound."""
+    of the int8 train path (bf16 output, as the path writes it) and at
+    BERT-base's four at 4,096 rows, bitwise; with its time, the plain
+    version's, ``torch._int_mm`` plus the scale multiply (the library
+    yardstick) and the bound."""
     from distkeras_tpu_torch.ops.kernels import int8_matmul as i8
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     cases = []
-    for name, k, n in INT8_CASES:
+    for name, k, n, m in ([(*c, INT8_M) for c in INT8_CASES]
+                          + [(*c, INT8_BERT_M) for c in INT8_BERT_CASES]):
         rng = np.random.default_rng(k + n)
-        qx = torch.from_numpy(rng.integers(-127, 128, (INT8_M, k))
+        qx = torch.from_numpy(rng.integers(-127, 128, (m, k))
                               .astype(np.int8)).to(dev)
         qw = torch.from_numpy(rng.integers(-127, 128, (n, k))
                               .astype(np.int8)).to(dev)
@@ -1400,8 +1449,8 @@ def phase_int8_kernel(dev) -> list:
         assert torch.isfinite(got.float()).all()
         err = (got.float() - want.float()).abs().max().item()
         lib_err = (lib.float() - want.float()).abs().max().item()
-        plan = i8.kernel_plan(INT8_M, n, k, out_dtype, dev)
-        assert plan == i8.plan(INT8_M, n, k, out_dtype, sms), plan
+        plan = i8.kernel_plan(m, n, k, out_dtype, dev)
+        assert plan == i8.plan(m, n, k, out_dtype, sms), plan
         ms, call_ms, source = _timed(
             lambda i: i8.int8_matmul_dequant(qx, qw, sxw, out_dtype), 30)
         plain_ms, _, _ = _timed(
@@ -1409,16 +1458,16 @@ def phase_int8_kernel(dev) -> list:
                                                        out_dtype), 6)
         lib_ms, _, _ = _timed(lambda i: (torch._int_mm(qx, qw.t()).float()
                                          * sxw).to(out_dtype), 30)
-        case = {"name": name, "m": INT8_M, "k": k, "n": n,
+        case = {"name": name, "m": m, "k": k, "n": n,
                 "out_dtype": "bfloat16", "bitwise_equal": torch.equal(
                     got, want), "max_abs_err": err,
                 "library_max_abs_err": lib_err, "ms": ms, "call_ms": call_ms,
                 "ms_source": source, "plain_ms": plain_ms,
-                "library_ms": lib_ms, **_int8_bound(INT8_M, k, n, out_dtype),
+                "library_ms": lib_ms, **_int8_bound(m, k, n, out_dtype),
                 "plan": plan._asdict()}
         case["x_bound"] = ms / case["bound_ms"]
         cases.append(case)
-        log(f"[int8] {name} [{INT8_M}, {k}] x [{n}, {k}] -> bf16: bitwise "
+        log(f"[int8] {name} [{m}, {k}] x [{n}, {k}] -> bf16: bitwise "
             f"{case['bitwise_equal']} (max abs err {err:.3e}; _int_mm "
             f"{lib_err:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"_int_mm + scale {lib_ms:.4f} ms ({source}; with the host "
@@ -4464,6 +4513,318 @@ def phase_async(dev, power_line, core_info) -> dict:
     return info
 
 
+# -- phase 28 ----------------------------------------------------------------
+
+#: config 4's batch and sequence (BERT-base MLM)
+ENC_B, ENC_T = 32, 128
+ENC_STEPS = 3
+VIT_B = 64
+MOE_SHAPE = (16, 256, 768)
+MOE_STEPS = 4
+
+
+def _bert_batch(vocab, seed):
+    """Config 4's staging: int16 ids, 15% of positions labelled with
+    their own id, the rest -1."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(1, vocab, (ENC_B, ENC_T)).astype(np.int16)
+    labels = np.where(rng.random((ENC_B, ENC_T)) < 0.15, ids, -1)
+    return {"features": ids, "labels": labels.astype(np.int16)}
+
+
+def _vit_batch(seed):
+    rng = np.random.default_rng(seed)
+    x = np.frombuffer(rng.bytes(VIT_B * 224 * 224 * 3), np.uint8).reshape(
+        VIT_B, 224, 224, 3).copy()  # writable, for torch.as_tensor
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, VIT_B)]
+    return {"features": x, "labels": y}
+
+
+def _moe_batch(seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(MOE_SHAPE).astype(
+        np.float32)).to(torch.bfloat16)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, MOE_SHAPE[0])]
+    return {"features": x, "labels": y}
+
+
+def _enc_model(name, seed=0, **kw):
+    from distkeras_tpu_torch.models import bert, moe, transformer, vit
+
+    make = {"bert": bert.bert_base, "vit": vit.vit_base,
+            "moe": lambda **k: moe.MoEClassifier(
+                10, num_layers=4, num_heads=12, num_experts=8, mlp_dim=3072,
+                capacity_factor=2.0, width=768, **k)}[name]
+    return transformer.init_params(make(**kw),
+                                   torch.Generator().manual_seed(seed))
+
+
+def _enc_steps(dev, model, batch, loss, steps, lr=1e-4, precision=None,
+               kernels=()):
+    """``steps`` adamw(``lr``) steps of the step engine on one batch
+    (``overflow_guard`` where the policy scales the loss): losses, each
+    step's wall (ending in a sync), the kernels' launches (zeroed just
+    before the first step, read just after the last) and peak memory."""
+    from distkeras_tpu_torch import engine
+    from distkeras_tpu_torch import precision as precision_lib
+    from distkeras_tpu_torch.ops import optimizers
+
+    tx = optimizers.get("adamw", lr)
+    policy = precision_lib.get_policy(precision)
+    if policy is not None and policy.loss_scale != 1.0:
+        tx = precision_lib.overflow_guard(tx, policy)
+    state = engine.create_train_state(model, tx, device=dev)
+    step = engine.make_train_step(model, loss, tx, precision=precision)
+    batch = engine.to_device(batch, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for kernel in kernels:
+        kernel.launches = 0
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, out = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(out["loss"]))
+    info = {"losses": losses, "step_s": times,
+            "launches": {k.__name__: k.launches for k in kernels},
+            "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    del state, step
+    return info
+
+
+def _enc_config4(dev, power_line) -> dict:
+    """(a) ``python -m distkeras_tpu_torch.benchmarks 4 --full``'s
+    configuration through the runner: BERT-base MLM under DynSGD
+    (adam 1e-4, window 2, batch 32 x 128 int16 ids, 3 epochs of 2,048
+    rows, one worker)."""
+    from distkeras_tpu_torch.benchmarks import run_config
+
+    set_tf32(False)
+    t0 = time.perf_counter()
+    out = run_config.config_4(True, device=dev)
+    out["phase_s"] = time.perf_counter() - t0
+    out["card"] = power_line
+    log(f"[encoders] (a) config 4 (bert-base MLM, DynSGD, batch 32 x 128, "
+        f"3 epochs of 2048): {out['samples_per_sec']} samples/s over "
+        f"{out['steps']} steps in {out['wall_s']} s, MFU {out.get('mfu')} "
+        f"(bf16 peak), loss {out['first_loss']} -> {out['final_loss']} "
+        f"({out['phase_s']:.1f} s with the warm-up run) [{power_line}]")
+    assert "mfu" in out and out["mfu"] > 0, out
+    assert out["steps"] == 3 * 2048 // 32, out
+    assert math.isfinite(out["final_loss"]) and \
+        out["final_loss"] < out["first_loss"], out
+    return out
+
+
+def _enc_int8(dev, power_line) -> dict:
+    """(b) ``bert_base(precision="int8")``: ENC_STEPS steps, every encoder
+    Dense and ``mlm_dense`` through the int8 kernel (12 x 4 + 1 launches a
+    step); the bf16 model from the same weights within phase 12's witness
+    bound (2e-2 relative) and not equal at step 1."""
+    from distkeras_tpu_torch.ops.kernels import int8_matmul as i8
+
+    set_tf32(False)
+    batch = _bert_batch(30592, seed=4)
+    run = _enc_steps(dev, _enc_model("bert", precision="int8"), batch,
+                     "masked_lm", ENC_STEPS, precision="int8",
+                     kernels=(i8.int8_matmul_dequant,))
+    torch.cuda.empty_cache()
+    bf16 = _enc_steps(dev, _enc_model("bert"), batch, "masked_lm",
+                      ENC_STEPS)
+    torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                               bf16["losses"])]
+    info = {"int8": run, "bf16": bf16, "rel_diff": rel,
+            "card": power_line}
+    log(f"[encoders] (b) bert-base int8: losses "
+        f"{', '.join(f'{x:.5f}' for x in run['losses'])}, steps "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in run['step_s'])} ms, launches "
+        f"{run['launches']}; bf16 from the same weights "
+        f"{', '.join(f'{x:.5f}' for x in bf16['losses'])} (steps "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in bf16['step_s'])} ms); "
+        f"relative {', '.join(f'{x:.2e}' for x in rel)} (bound 2e-2, step 1 "
+        f"must differ)")
+    assert all(math.isfinite(x) for x in run["losses"]), info
+    assert run["launches"]["int8_matmul_dequant"] == 49 * ENC_STEPS, info
+    assert max(rel) <= 2e-2 and rel[0] > 0, info
+    return info
+
+
+def _enc_vit(dev, power_line) -> dict:
+    """(c) ``vit_base()`` at 224^2, b=64, adamw(1e-4), bf16: 5 steps of
+    the step engine on one batch of uint8 images (normalized on the
+    device); the loss falls below the first step's."""
+    set_tf32(False)
+    run = _enc_steps(dev, _enc_model("vit"), _vit_batch(5),
+                     "categorical_crossentropy", 5)
+    torch.cuda.empty_cache()
+    median_s = statistics.median(run["step_s"][1:])
+    run.update(images_per_s=VIT_B / median_s, median_step_s=median_s,
+               card=power_line)
+    log(f"[encoders] (c) vit-base b={VIT_B} 224^2 uint8, adamw(1e-4): "
+        f"losses {', '.join(f'{x:.4f}' for x in run['losses'])}; median "
+        f"step {median_s * 1e3:.1f} ms ({run['images_per_s']:.0f} images/s), "
+        f"peak {run['peak_bytes'] / 2**30:.2f} GiB")
+    assert all(math.isfinite(x) for x in run["losses"]), run
+    assert min(run["losses"][1:]) < run["losses"][0], run
+    return run
+
+
+def _enc_moe(dev, power_line) -> dict:
+    """(d) The MoE classifier (4 layers, 12 heads, 8 experts, mlp 3072,
+    capacity 2.0, attention="flash") on [16, 256, 768] bf16 features:
+    MOE_STEPS adamw(1e-4) steps with rows 1-3 launched 4 times each a
+    step; the sown aux term > 0 and in the objective; the same steps
+    with attention="xla" within phase 8's 1e-3 relative."""
+    from distkeras_tpu_torch import engine
+    from distkeras_tpu_torch.models import aux_losses
+    from distkeras_tpu_torch.ops import losses as losses_lib
+    from distkeras_tpu_torch.ops.kernels import flash_attention as fa
+
+    set_tf32(False)
+    batch = _moe_batch(6)
+    model = _enc_model("moe", attention="flash").to(dev)
+    on_dev = engine.to_device(batch, dev)
+    with torch.no_grad():
+        with aux_losses.collect() as terms:
+            logits = model(on_dev["features"])
+        objective, _ = engine.make_loss_fn(
+            model, "categorical_crossentropy")(on_dev)
+        bare = losses_lib.get("categorical_crossentropy")(logits,
+                                                          on_dev["labels"])
+    aux = float(sum(terms))
+    in_objective = float(objective) - float(bare)
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    run = _enc_steps(dev, model, batch, "categorical_crossentropy",
+                     MOE_STEPS, kernels=kernels)
+    del model, logits, on_dev
+    torch.cuda.empty_cache()
+    xla = _enc_steps(dev, _enc_model("moe", attention="xla"), batch,
+                     "categorical_crossentropy", MOE_STEPS)
+    torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"],
+                                               xla["losses"])]
+    info = {"flash": run, "xla": xla, "rel_diff": rel, "aux": aux,
+            "aux_in_objective": in_objective, "aux_terms": len(terms),
+            "card": power_line}
+    log(f"[encoders] (d) moe classifier flash: losses "
+        f"{', '.join(f'{x:.5f}' for x in run['losses'])}, steps "
+        f"{', '.join(f'{x * 1e3:.1f}' for x in run['step_s'])} ms, launches "
+        f"{run['launches']}; xla {', '.join(f'{x:.5f}' for x in xla['losses'])}"
+        f" (steps {', '.join(f'{x * 1e3:.1f}' for x in xla['step_s'])} ms), "
+        f"relative {', '.join(f'{x:.2e}' for x in rel)} (bound 1e-3); aux "
+        f"{aux:.6f} over {len(terms)} blocks, objective - loss "
+        f"{in_objective:.6f}")
+    assert all(n == 4 * MOE_STEPS for n in run["launches"].values()), info
+    assert len(terms) == 4 and aux > 0, info
+    assert abs(in_objective - aux) <= 1e-3 * max(1.0, aux), info
+    assert max(rel) <= 1e-3, info
+    return info
+
+
+def _grad_run(dev, model, batch, loss, kernels):
+    """One forward and backward of ``engine.make_grad_fn`` after one
+    untimed warm-up call: loss, gradients (moved to the host), the
+    kernels' launches, the wall time, peak memory and the memory
+    allocated before the call."""
+    from distkeras_tpu_torch import engine
+
+    model.to(dev)
+    batch = engine.to_device(batch, dev)
+    grad_fn = engine.make_grad_fn(model, loss)
+    grad_fn(batch)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for kernel in kernels:
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    (value, _), grads = grad_fn(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    out = {"loss": float(value), "wall_s": wall, "peak_bytes": peak,
+           "activation_bytes": peak - base,
+           "launches": {k.__name__: k.launches for k in kernels}}
+    host = {k: g.float().cpu() for k, g in grads.items()}
+    del grads, grad_fn, batch
+    model.cpu()
+    torch.cuda.empty_cache()
+    return out, host
+
+
+def _remat_pair(dev, make, batch, loss, kernels) -> dict:
+    runs, grads = {}, {}
+    for policy in ("none", "blocks"):
+        runs[policy], grads[policy] = _grad_run(dev, make(policy), batch,
+                                                loss, kernels)
+    rel = max(((grads["blocks"][k] - g).abs().max()
+               / g.abs().max().clamp(min=1e-30)).item()
+              for k, g in grads["none"].items())
+    return {**runs, "bitwise": all(torch.equal(grads["blocks"][k], g)
+                                   for k, g in grads["none"].items()),
+            "max_rel_grad_diff": rel,
+            "activation_ratio": runs["blocks"]["activation_bytes"]
+            / runs["none"]["activation_bytes"],
+            "peak_ratio": runs["blocks"]["peak_bytes"]
+            / runs["none"]["peak_bytes"]}
+
+
+def _enc_remat(dev, power_line) -> dict:
+    """(e) ``remat="blocks"`` against ``"none"`` on phase 8's GPT step
+    (gpt_small widths, 12 layers, [8, 2048], flash, bf16) and (c)'s ViT
+    step: gradients bitwise where they are (reported), else within phase
+    8's 1e-3 relative of each leaf's largest magnitude; peak memory lower
+    under ``"blocks"``; the flash forward launched 24 times a step
+    instead of 12 (the backward kernels 12 either way)."""
+    from distkeras_tpu_torch.ops.kernels import flash_attention as fa
+
+    set_tf32(False)
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    gpt = _remat_pair(
+        dev, lambda r: _train_model(12, "flash", torch.bfloat16, seed=0,
+                                    remat=r),
+        _lm_batch(TRAIN_B, TRAIN_T, seed=1), "masked_lm", kernels)
+    vit = _remat_pair(dev, lambda r: _enc_model("vit", remat=r),
+                      _vit_batch(5), "categorical_crossentropy", ())
+    info = {"gpt": gpt, "vit": vit, "card": power_line}
+    for name, pair in (("gpt", gpt), ("vit", vit)):
+        log(f"[encoders] (e) remat {name}: loss {pair['none']['loss']:.6f} / "
+            f"{pair['blocks']['loss']:.6f} (none / blocks), grads bitwise "
+            f"{pair['bitwise']} (max relative {pair['max_rel_grad_diff']:.2e}"
+            f", bound 1e-3), peak {pair['none']['peak_bytes'] / 2**30:.2f} / "
+            f"{pair['blocks']['peak_bytes'] / 2**30:.2f} GiB (activations "
+            f"{pair['activation_ratio']:.3f}x, peak {pair['peak_ratio']:.3f}x)"
+            f", fwd+bwd {pair['none']['wall_s'] * 1e3:.1f} / "
+            f"{pair['blocks']['wall_s'] * 1e3:.1f} ms, launches "
+            f"{pair['none']['launches']} / {pair['blocks']['launches']}")
+        assert pair["max_rel_grad_diff"] <= 1e-3, info
+        assert pair["blocks"]["peak_bytes"] < pair["none"]["peak_bytes"], info
+    assert gpt["none"]["loss"] == gpt["blocks"]["loss"], info
+    assert gpt["none"]["launches"] == {
+        "flash_attention_fwd": 12, "flash_attention_bwd_dq": 12,
+        "flash_attention_bwd_dkv": 12}, info
+    assert gpt["blocks"]["launches"]["flash_attention_fwd"] == 24, info
+    return info
+
+
+def phase_encoders(dev, power_line) -> dict:
+    t0 = time.perf_counter()
+    out = {"config4": _enc_config4(dev, power_line)}
+    torch.cuda.empty_cache()
+    out["int8"] = _enc_int8(dev, power_line)
+    out["vit"] = _enc_vit(dev, power_line)
+    out["moe"] = _enc_moe(dev, power_line)
+    out["remat"] = _enc_remat(dev, power_line)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[encoders] phase 28 in {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     report = {}
     try:
@@ -4518,6 +4879,7 @@ def main() -> int:
         report["checkpoint"] = phase_checkpoint(dev, card)
         report["async"] = phase_async(dev, card,
                                       report["train_core"]["bench"])
+        report["encoders"] = phase_encoders(dev, card)
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         log("[chip_smoke] FAILED")
@@ -4577,6 +4939,12 @@ def main() -> int:
             # phase 22's one-shot infer (zeroed before it, read after it)
             rows[-1]["launches_wire"] = report["wire"]["one_shot"][
                 "flash_fwd_launches"]
+        # phase 28 (d): the MoE classifier's steps, non-causal; (e): phase
+        # 8's step under remat="blocks" (each zeroed before, read after)
+        enc = report["encoders"]
+        rows[-1]["launches_encoders"] = enc["moe"]["flash"]["launches"][name]
+        rows[-1]["launches_remat"] = enc["remat"]["gpt"]["blocks"][
+            "launches"][name]
     qkv = next(c for c in report["int8_cases"] if c["name"] == "qkv")
     rows.append({
         "name": "int8_matmul_dequant", "route": "cuda",
@@ -4589,6 +4957,10 @@ def main() -> int:
         "library_ms": qkv["library_ms"], "ms_source": qkv["ms_source"],
         "x_bound": qkv["x_bound"],
         "shape": "qkv: int8 [16384, 768] x [2304, 768] -> bf16",
+        # phase 28 (b): bert_base(precision="int8") steps (zeroed before,
+        # read after)
+        "launches_encoders": report["encoders"]["int8"]["int8"]["launches"][
+            "int8_matmul_dequant"],
     })
     stem = next(c for c in report["gn_cases"]
                 if c["shape"] == [128, 12544, 64]

@@ -4,8 +4,8 @@ one JSON line a config, through the port's public trainers.
   1 mnist-mlp-adag       MLP, ADAG single-worker
   2 cifar-cnn-downpour   CIFARConvNet, DOWNPOUR
   3 resnet50-aeasgd      ResNet-50 (norm-free), AEASGD elastic averaging
-  4 bert-dynsgd          BERT MLM, DynSGD   (not ported: Queue A item 14)
-  5 vit-pjit             ViT, PjitTrainer   (not ported: items 14 and 16)
+  4 bert-dynsgd          BERT MLM, DynSGD
+  5 vit-pjit             ViT, PjitTrainer   (not ported: item 16)
 
 Usage::
 
@@ -18,7 +18,8 @@ smoke shapes use (``--full`` is the card's benchmark scale). A line
 holds samples/s, steps, wall seconds and the final loss and, on a card
 the peak table knows, MFU against its bf16 peak; ``--marginal`` adds the
 staging-cancelled per-epoch throughput (the walls at E and 2E epochs,
-differenced). Each config trains once to warm up, then once timed.
+differenced). Each config trains once to warm up, then once timed; the
+line's ``first_loss`` and ``final_loss`` are the timed run's.
 """
 
 from __future__ import annotations
@@ -33,10 +34,8 @@ import torch
 
 #: configs whose modules are not ported yet: the ROADMAP.md item named
 NOT_PORTED = {
-    "4": "BERT (models/bert.py, the encoder and MultiHeadAttention) is not "
-         "ported yet (ROADMAP.md Queue A, item 14)",
-    "5": "ViT (models/vit.py) and PjitTrainer are not ported yet (ROADMAP.md "
-         "Queue A, items 14 and 16)",
+    "5": "PjitTrainer is not ported yet (ROADMAP.md Queue A, item 16); ViT "
+         "is (models/vit.py)",
 }
 
 
@@ -78,6 +77,7 @@ def _time_trainer(trainer, ds, marginal: bool = False) -> dict:
     trainer.train(ds)
     dt = time.perf_counter() - t0
     n_steps = len(trainer.get_history())
+    first_loss = trainer.get_history()[0]["loss"]
     final_loss = trainer.get_history()[-1]["loss"]
     marg = None
     if marginal:
@@ -98,6 +98,7 @@ def _time_trainer(trainer, ds, marginal: bool = False) -> dict:
     device = _device(trainer)
     out = {"samples_per_sec": round(samples / dt, 2),
            "steps": n_steps, "wall_s": round(dt, 2),
+           "first_loss": round(first_loss, 4),
            "final_loss": round(final_loss, 4),
            "device": observability.device_name(device) or str(device)}
     peak = observability.device_peak_flops(device)
@@ -171,6 +172,30 @@ def config_3(full, marginal=False, device=None):
     return _time_trainer(t, _images(n, side, classes, full), marginal)
 
 
+def config_4(full, marginal=False, device=None):
+    from distkeras_tpu_torch import DynSGD
+    from distkeras_tpu_torch.data.dataset import Dataset
+    from distkeras_tpu_torch.models.bert import (bert_base, bert_tiny,
+                                                 init_params)
+
+    model = bert_base() if full else bert_tiny()
+    init_params(model, torch.Generator().manual_seed(0))
+    seq = 128 if full else 32
+    n = 2048 if full else 512
+    rng = np.random.default_rng(0)
+    # int16 token staging (BERT's vocab fits): the model casts on the device
+    dt = np.int16 if model.vocab_size < 2 ** 15 else np.int32
+    ids = rng.integers(1, model.vocab_size, (n, seq)).astype(dt)
+    labels = np.where(rng.random((n, seq)) < 0.15, ids, -1).astype(dt)
+    # one worker: the JAX runner's min(4, devices) on a one-card host
+    t = DynSGD(model, loss="masked_lm", metrics=(),
+               worker_optimizer="adam", learning_rate=1e-4, num_workers=1,
+               batch_size=32 if full else 16, communication_window=2,
+               num_epoch=3 if full else 1, device=device)
+    return _time_trainer(t, Dataset.from_arrays(features=ids, label=labels),
+                         marginal)
+
+
 def _not_ported(key):
     def run(full, marginal=False, device=None):
         raise NotImplementedError(NOT_PORTED[key])
@@ -181,7 +206,7 @@ CONFIGS = {
     "1": ("mnist-mlp-adag", config_1),
     "2": ("cifar-cnn-downpour", config_2),
     "3": ("resnet50-aeasgd", config_3),
-    "4": ("bert-dynsgd", _not_ported("4")),
+    "4": ("bert-dynsgd", config_4),
     "5": ("vit-pjit", _not_ported("5")),
 }
 

@@ -26,7 +26,12 @@ PyTorch idiom where the JAX package is functional:
   the gradients in float32 after; the step reads the live scale from an
   :func:`~distkeras_tpu_torch.precision.overflow_guard`-wrapped optimizer
   (:func:`~distkeras_tpu_torch.precision.current_scale`), else the
-  policy's static scale applies. The reported loss is the unscaled one.
+  policy's static scale applies. The reported loss is the unscaled one;
+- auxiliary losses: the JAX package's ``mutable=["losses"]``. The loss
+  function collects the terms modules sow in the forward
+  (:mod:`distkeras_tpu_torch.models.aux_losses`, Switch-MoE's
+  load-balance term) and adds each to the objective, which is the loss
+  reported and differentiated, as in the JAX package.
 
 A batch is a dict ``{"features": ..., "labels": ...}`` of tensors or numpy
 arrays; the step moves it to the module's device.
@@ -44,6 +49,7 @@ from torch import nn
 
 from distkeras_tpu_torch import precision as precision_lib
 from distkeras_tpu_torch.device import resolve_device
+from distkeras_tpu_torch.models import aux_losses
 from distkeras_tpu_torch.ops import losses as losses_lib
 from distkeras_tpu_torch.ops.optimizers import OptimizerFactory
 from distkeras_tpu_torch.utils import rng
@@ -107,20 +113,25 @@ def make_loss_fn(model: nn.Module, loss) -> Callable:
     resolving Keras-style loss names. With ``params`` (a name -> tensor
     dict) the forward runs on those tensors through
     ``torch.func.functional_call`` instead of the module's own; a model
-    whose ``forward`` takes a ``generator`` gets this one. No ported
-    module sows auxiliary losses, so the objective is the loss alone."""
+    whose ``forward`` takes a ``generator`` gets this one. The forward
+    runs inside a collector of sown auxiliary losses, each of which is
+    summed and added to the loss: the scalar is the objective."""
     loss_fn = losses_lib.get(loss)
     with_generator = _takes_generator(model)
 
     def compute(batch: Batch, generator: Optional[torch.Generator] = None,
                 params: Optional[dict] = None):
         kwargs = {"generator": generator} if with_generator else {}
-        if params is None:
-            logits = model(batch["features"], **kwargs)
-        else:
-            logits = torch.func.functional_call(
-                model, params, (batch["features"],), kwargs)
-        return loss_fn(logits, batch["labels"]), logits
+        with aux_losses.collect() as terms:
+            if params is None:
+                logits = model(batch["features"], **kwargs)
+            else:
+                logits = torch.func.functional_call(
+                    model, params, (batch["features"],), kwargs)
+        total = loss_fn(logits, batch["labels"])
+        for term in terms:
+            total = total + term.sum()
+        return total, logits
 
     return compute
 

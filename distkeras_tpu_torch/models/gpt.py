@@ -52,8 +52,12 @@ sets the compute dtype and, for ``"int8"``/``"fp8-sim"``, quantizes the
 products of every block Dense (qkv, out, fc1, fc2; under ``"int8"`` through
 the int8 matmul kernel); the LM head stays float32 and unquantized.
 
-Not ported yet: ``attention="ring"`` and ``remat`` other than
-``"none"`` (ROADMAP.md Queue A).
+``remat`` (:mod:`distkeras_tpu_torch.models.remat`) checkpoints each
+decoder block of the full forward, and under ``"full"`` the token
+embedding too; the cache paths (serving, CUDA-graph captures) run
+un-rematted, as in the JAX package.
+
+Not ported yet: ``attention="ring"`` (ROADMAP.md Queue A).
 """
 
 from __future__ import annotations
@@ -66,13 +70,12 @@ from torch import nn
 
 from distkeras_tpu_torch import precision as precision_lib
 from distkeras_tpu_torch.comms import codec
-from distkeras_tpu_torch.models.transformer import Dense, Embed, MlpBlock
+from distkeras_tpu_torch.models.remat import remat_call, validate_remat
+from distkeras_tpu_torch.models.transformer import (LN_EPS, Dense, Embed,
+                                                    MlpBlock)
 from distkeras_tpu_torch.ops.attention import (apply_attention,
                                                dot_product_attention)
 from distkeras_tpu_torch.ops.kernels import flash_attention as fa
-
-#: flax's LayerNorm epsilon (torch's default is 1e-5)
-LN_EPS = 1e-6
 
 
 class CausalSelfAttention(nn.Module):
@@ -286,10 +289,7 @@ class CausalLM(nn.Module):
                  attention: str = "full", remat: str = "none",
                  precision: Optional[str] = None):
         super().__init__()
-        if remat != "none":
-            raise NotImplementedError(
-                f"remat={remat!r} is not ported yet (ROADMAP.md Queue A, "
-                f"item 10, models/remat.py)")
+        validate_remat(remat)
         self.vocab_size = vocab_size
         self.max_len = max_len
         self.num_layers = num_layers
@@ -315,7 +315,10 @@ class CausalLM(nn.Module):
                 page_table=None):
         ids = input_ids.long()
         t = ids.shape[1]
-        x = self.tok_embed(ids)
+        if cache is None:
+            x = remat_call(self.tok_embed, self.remat, ids, stem=True)
+        else:
+            x = self.tok_embed(ids)
         if cache is not None:
             # a ghost position may sit at max_len; JAX clamps the gather
             idx = (cache_index.long()[:, None]
@@ -329,7 +332,7 @@ class CausalLM(nn.Module):
                 x, _ = block(x, layer_cache, cache_index, page_table)
         else:
             for block in self.layers:
-                x = block(x)
+                x = remat_call(block, self.remat, x)
         logits = self.lm_head(self.ln_final(x.float()))
         return logits if cache is None else (logits, cache)
 

@@ -22,19 +22,7 @@ import torch
 from torch import nn
 
 from distkeras_tpu_torch import precision as precision_lib
-from distkeras_tpu_torch.models.transformer import Dense
-
-
-def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """flax ``nn.Dropout``: keep each element with probability ``1 -
-    rate`` and scale the kept ones by ``1 / (1 - rate)``; identity when
-    not training or at rate 0."""
-    if not training or rate <= 0.0:
-        return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        >= rate
-    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+from distkeras_tpu_torch.models.transformer import Dense, dropout
 
 
 class MLP(nn.Module):

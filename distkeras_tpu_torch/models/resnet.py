@@ -21,8 +21,8 @@ even input pads (0, 1)), GroupNorm with ``gcd(32, C)`` groups and eps
 ``norm_proj``, ``head``), so that carrying weights across is mechanical
 (:mod:`distkeras_tpu_torch.utils.bridge`).
 
-Not ported yet: ``remat`` other than ``"none"`` (ROADMAP.md Queue A,
-item 10, ``models/remat.py``).
+``remat`` (:mod:`distkeras_tpu_torch.models.remat`) checkpoints each
+residual block, and under ``"full"`` the stem convolution too.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ from torch.nn import functional as F
 
 from distkeras_tpu_torch import precision as precision_lib
 from distkeras_tpu_torch.models.input_norm import normalize_image_input
+from distkeras_tpu_torch.models.remat import remat_call, validate_remat
 from distkeras_tpu_torch.ops.kernels.groupnorm import GroupNorm
 
 #: variance compensation after the branch-internal ReLUs of norm-free
@@ -283,10 +284,7 @@ class ResNet(nn.Module):
                  remat: str = "none", precision: Optional[str] = None,
                  in_channels: int = 3):
         super().__init__()
-        if remat != "none":
-            raise NotImplementedError(
-                f"remat={remat!r} is not ported yet (ROADMAP.md Queue A, "
-                f"item 10, models/remat.py)")
+        validate_remat(remat)
         if norm not in ("gn", "nf"):
             raise ValueError(f"norm must be 'gn' or 'nf', got {norm!r}")
         # the constructor kwargs, kept for serialize_model
@@ -333,14 +331,16 @@ class ResNet(nn.Module):
             n, h, w, c = x.shape
             x = x.reshape(n, h // 2, 2, w // 2, 2, c).permute(
                 0, 1, 3, 2, 4, 5).reshape(n, h // 2, w // 2, 4 * c)
-        x = self.conv_stem(x.permute(0, 3, 1, 2))  # channels_last NCHW
+        # channels_last NCHW
+        x = remat_call(self.conv_stem, self.remat, x.permute(0, 3, 1, 2),
+                       stem=True)
         if self.norm == "nf":
             x = _relu_gain(x)
         else:
             x = F.relu(_nhwc_norm(self.norm_stem, x))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for name in self._blocks:
-            x = getattr(self, name)(x)
+            x = remat_call(getattr(self, name), self.remat, x)
         x = x.mean(dim=(2, 3))  # global average pool
         return self.head(x.float())
 

@@ -20,6 +20,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch import nn
+
+from distkeras_tpu_torch import precision as precision_lib
 
 # Large-but-finite mask value (the JAX package's value): keeps softmax
 # defined even for a row whose keys are all masked, and makes a masked
@@ -82,3 +85,44 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor,
         logits = torch.where(mask, logits, MASK_VALUE)
     weights = torch.softmax(logits, dim=-1).to(dtype)
     return torch.einsum("bhqk,bkhd->bqhd", weights, v)
+
+
+class MultiHeadAttention(nn.Module):
+    """Multi-head attention with a fused QKV projection over ``[batch,
+    seq, width]``: ``qkv`` (``Dense(width, 3 * features)``) split as ``[q |
+    k | v]`` into ``[batch, seq, heads, head_dim]``, then
+    :func:`apply_attention` under ``mask``, ``causal`` and ``attention``,
+    then ``out`` (``Dense(features, width)``). Both projections compute in
+    ``precision``'s dtype (or ``dtype``) and quantize under its policy;
+    the softmax is float32 on either path. ``features`` is
+    ``qkv_features`` or ``width``."""
+
+    def __init__(self, width: int, num_heads: int,
+                 qkv_features: Optional[int] = None,
+                 dtype: torch.dtype = torch.bfloat16, causal: bool = False,
+                 precision: Optional[str] = None,
+                 attention: Optional[str] = None):
+        super().__init__()
+        # Dense lives with the models, which import this module
+        from distkeras_tpu_torch.models.transformer import Dense
+
+        features = qkv_features or width
+        if features % num_heads:
+            raise ValueError(f"qkv features {features} is not a multiple of "
+                             f"num_heads {num_heads}")
+        self.num_heads, self.features = num_heads, features
+        self.causal = causal
+        self.attention = resolve_attention(attention)
+        compute = precision_lib.resolve(precision, dtype)
+        self.qkv = Dense(width, 3 * features, compute, precision)
+        self.out = Dense(features, width, compute, precision)
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        b, t, _ = x.shape
+        head_dim = self.features // self.num_heads
+        q, k, v = (z.reshape(b, t, self.num_heads, head_dim)
+                   for z in self.qkv(x).split(self.features, dim=-1))
+        out = apply_attention(q, k, v, mask=mask, causal=self.causal,
+                              attention=self.attention)
+        return self.out(out.reshape(b, t, self.features))

@@ -1,22 +1,32 @@
-"""Weights across frameworks: a flax ``CausalLM``, ``ResNet``, ``MLP`` or
-``CIFARConvNet`` param tree <-> the port's ``state_dict``.
+"""Weights across frameworks: a flax ``CausalLM``, ``ResNet``, ``MLP``,
+``CIFARConvNet``, ``BertMLM``, ``ViT`` or ``MoEClassifier`` param tree <->
+the port's ``state_dict``.
 
 The flax side is a nested mapping of numpy arrays (convert a JAX tree
 with ``jax.tree.map(np.asarray, params)`` first; this module imports no
 JAX). The rules:
 
 - Dense ``kernel [in, out]`` <-> ``Linear.weight [out, in]``, ``bias`` as is;
+- stacked experts (flax's ``nn.vmap``): ``kernel [E, in, out]`` <->
+  ``weight [E, out, in]`` (each expert transposed), ``bias [E, out]`` as is;
 - conv ``kernel [kh, kw, in, out]`` (HWIO) <-> ``weight [out, in, kh, kw]``
-  (OIHW), for ``nn.Conv`` and ``ScaledWSConv`` alike; ``gain`` as is;
-- ``tok_embed/embedding`` <-> ``tok_embed.weight``; ``pos_embed`` as is;
+  (OIHW), for ``nn.Conv``, ``ScaledWSConv`` and ViT's ``patch_embed``
+  alike; ``gain`` as is;
+- ``tok_embed/embedding`` and ``seg_embed/embedding`` <-> ``.weight``;
+  top-level arrays (``pos_embed`` of rank 2 or 3, ViT's ``cls``) as they
+  are;
 - LayerNorm and GroupNorm ``scale``/``bias`` <-> ``weight``/``bias``;
-- CausalLM: ``layer_{i}/{ln1, attn/{qkv, out}, ln2, mlp/{fc1, fc2}}`` <->
-  ``layers.{i}.<same path with dots>``; ``ln_final``, ``lm_head``;
-- ResNet: module names are kept (``conv_stem``, ``norm_stem``,
-  ``stage{i}_block{j}/{conv1, norm1, ..., proj, norm_proj}``, ``head``);
-- MLP (``dense_{i}``, ``head``) and CIFARConvNet (``conv_{i}a``,
-  ``conv_{i}b``, ``dense``, ``head``) keep theirs too; the CNN flattens
-  its last feature map in NHWC order, so its dense kernel is flax's.
+- ``layer_{i}`` at any depth <-> ``layers.{i}``: CausalLM's
+  ``layer_{i}/{ln1, attn/{qkv, out}, ln2, mlp/{fc1, fc2}}`` and the
+  encoder's ``encoder/layer_{i}/...`` alike; ``ln_final``, ``lm_head``;
+- every other module name is kept: ResNet's (``conv_stem``,
+  ``norm_stem``, ``stage{i}_block{j}/{conv1, norm1, ..., proj,
+  norm_proj}``, ``head``), BERT's (``ln_embed``, ``mlm_dense``,
+  ``mlm_ln``, ``mlm_head``), the MoE classifier's (``block{i}/{ln1, attn,
+  ln2, moe/{router, experts/{fc1, fc2}}}``, ``head``), the MLP's
+  (``dense_{i}``, ``head``) and CIFARConvNet's (``conv_{i}a``,
+  ``conv_{i}b``, ``dense``, ``head``); the CNN flattens its last feature
+  map in NHWC order, so its dense kernel is flax's.
 """
 
 from __future__ import annotations
@@ -30,6 +40,8 @@ import torch
 _LAYER = re.compile(r"^layer_(\d+)$")
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
          "bias": "bias", "gain": "gain"}
+#: flax kernel -> port weight: Dense, stacked experts, conv (HWIO -> OIHW)
+_KERNEL_AXES = {2: (1, 0), 3: (0, 2, 1), 4: (3, 2, 0, 1)}
 
 
 def _flatten(tree: Mapping, prefix=()):
@@ -47,15 +59,17 @@ def flax_to_state_dict(params: Mapping) -> dict:
     out = {}
     for path, leaf in _flatten(params):
         arr = np.array(leaf, np.float32)  # a writable copy
-        if path == ("pos_embed",):
-            out["pos_embed"] = torch.from_numpy(arr)
+        if len(path) == 1:  # pos_embed, cls
+            out[path[0]] = torch.from_numpy(arr)
             continue
         *mods, leaf_name = path
-        m = _LAYER.match(mods[0])
-        mods = ["layers", m.group(1)] + mods[1:] if m else mods
+        names = []
+        for mod in mods:
+            m = _LAYER.match(mod)
+            names += ["layers", m.group(1)] if m else [mod]
         if leaf_name == "kernel":
-            arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
-        out[".".join(mods + [_LEAF[leaf_name]])] = torch.from_numpy(
+            arr = arr.transpose(_KERNEL_AXES[arr.ndim])
+        out[".".join(names + [_LEAF[leaf_name]])] = torch.from_numpy(
             np.ascontiguousarray(arr))
     return out
 
@@ -72,12 +86,13 @@ def state_dict_to_flax(state_dict: Mapping, shapes_only: bool = False
             arr = np.broadcast_to(np.float32(0), tuple(tensor.shape))
         else:
             arr = tensor.detach().to("cpu", torch.float32).numpy()
-        if name == "pos_embed":
-            tree["pos_embed"] = arr if shapes_only else arr.copy()
+        if "." not in name:  # pos_embed, cls
+            tree[name] = arr if shapes_only else arr.copy()
             continue
-        parts = name.split(".")
-        if parts[0] == "layers":
-            parts = [f"layer_{parts[1]}"] + parts[2:]
+        parts, raw = [], name.split(".")
+        while raw:
+            part = raw.pop(0)
+            parts.append(f"layer_{raw.pop(0)}" if part == "layers" else part)
         *mods, leaf = parts
         if leaf in ("bias", "gain"):
             key = leaf
@@ -85,7 +100,9 @@ def state_dict_to_flax(state_dict: Mapping, shapes_only: bool = False
             key = "scale"
         elif arr.ndim == 4:  # conv, OIHW -> HWIO
             key, arr = "kernel", arr.transpose(2, 3, 1, 0)
-        elif mods[-1] == "tok_embed":
+        elif arr.ndim == 3:  # stacked experts, [E, out, in] -> [E, in, out]
+            key, arr = "kernel", arr.transpose(0, 2, 1)
+        elif mods[-1] in ("tok_embed", "seg_embed"):
             key = "embedding"
         else:  # Dense
             key, arr = "kernel", arr.T

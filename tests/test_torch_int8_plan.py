@@ -1,12 +1,13 @@
 """The int8 kernel's schedule (``int8_matmul.plan``), a pure function of
 the shapes, output dtype and SM count that the CPU can check: every
 card-test shape and every product of the int8 GPT train path gets a
-plan, its shared memory fits one CTA's opt-in, the persistent CTAs
+plan (so does every product of BERT-base under ``precision="int8"`` at
+config 4's 32 x 128 tokens), its shared memory fits one CTA's opt-in, the persistent CTAs
 cover every output tile exactly once, and the epilogue's 16-byte stores
 are chosen only where the output's row pitch allows them. The C entry
 computes the same plan (``tests/test_torch_kernels_cuda.py`` holds the
-two equal on the card). No JAX: the GPT products come from walking the
-port's model on the meta device.
+two equal on the card). No JAX: the GPT and BERT products come from
+walking the port's models on the meta device.
 """
 
 from unittest import mock
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 from distkeras_tpu_torch import precision
+from distkeras_tpu_torch.models.bert import bert_base
 from distkeras_tpu_torch.models.gpt import CausalLM
 from distkeras_tpu_torch.ops.kernels import int8_matmul as ti
 from distkeras_tpu_torch.ops.kernels._build import SMEM_OPTIN_BYTES
@@ -26,20 +28,24 @@ DTYPES = [torch.bfloat16, torch.float32]
 #: block's order: qkv, attention out, fc1, fc2
 GPT_PRODUCTS = [(16384, 768, 2304), (16384, 768, 768), (16384, 768, 3072),
                 (16384, 3072, 768)]
+#: (m, k, n) of BERT-base's products at config 4's 32 x 128 tokens: an
+#: encoder block's qkv, attention out, fc1, fc2 (the MLM head's
+#: mlm_dense is the attention out's shape)
+BERT_PRODUCTS = [(4096, 768, 2304), (4096, 768, 768), (4096, 768, 3072),
+                 (4096, 3072, 768)]
 #: (m, k, n) of every int8 card test
 CARD_SHAPES = [(16384, 768, 2304), (512, 3072, 768), (100, 48, 72),
                (3, 16, 5), (130, 96, 1), (257, 80, 129), (16384, 768, 768),
                (16384, 768, 3072), (16384, 3072, 768), (300, 784, 200),
                (129, 3088, 520), (16384 + 77, 768, 2304), (384, 3072, 512),
                (64, 48, 32), (4096, 768, 2304), (2048, 3072, 768),
-               (1000, 784, 200), (4096, 768, 3072)]
+               (1000, 784, 200), (4096, 768, 3072), (4096, 768, 768),
+               (4096, 3072, 768)]
 
 
-def _gpt_int8_products(b=8, t=2048, num_layers=2):
+def _walk_int8_products(build, ids):
     """The ``(m, k, n, out_dtype)`` of every int8 product of one forward
-    of the int8 train path's model (GPT-2-small widths, bf16,
-    ``precision="int8"``) on ``b`` x ``t`` tokens, walked on the meta
-    device (no memory, no arithmetic)."""
+    of ``build()`` on ``ids``, walked on the meta device."""
     seen = []
 
     def record(qx, qw, sxw, out_dtype=torch.float32):
@@ -49,12 +55,21 @@ def _gpt_int8_products(b=8, t=2048, num_layers=2):
 
     with torch.device("meta"), mock.patch.object(
             precision.int8_kernels, "int8_matmul_dequant", record):
-        model = CausalLM(vocab_size=50304, max_len=2048,
+        build()(ids())
+    return seen
+
+
+def _gpt_int8_products(b=8, t=2048, num_layers=2):
+    """The ``(m, k, n, out_dtype)`` of every int8 product of one forward
+    of the int8 train path's model (GPT-2-small widths, bf16,
+    ``precision="int8"``) on ``b`` x ``t`` tokens, walked on the meta
+    device (no memory, no arithmetic)."""
+    return _walk_int8_products(
+        lambda: CausalLM(vocab_size=50304, max_len=2048,
                          num_layers=num_layers, num_heads=12, width=768,
                          mlp_dim=3072, dtype=torch.bfloat16,
-                         attention="full", precision="int8")
-        model(torch.zeros(b, t, dtype=torch.long))
-    return seen
+                         attention="full", precision="int8"),
+        lambda: torch.zeros(b, t, dtype=torch.long))
 
 
 def _assert_valid(m, k, n, dtype, p, sms=H100_SMS):
@@ -73,6 +88,24 @@ def _assert_valid(m, k, n, dtype, p, sms=H100_SMS):
 def test_the_gpt_path_runs_the_four_products():
     got = _gpt_int8_products()
     assert got == [(m, k, n, torch.bfloat16) for m, k, n in GPT_PRODUCTS] * 2
+
+
+def test_the_bert_path_runs_the_four_products_and_its_head():
+    """``bert_base(precision="int8")`` on config 4's int16 ids: each
+    encoder block's four products, then the MLM head's ``mlm_dense``
+    (its float32 ``mlm_head`` is not quantized)."""
+    got = _walk_int8_products(
+        lambda: bert_base(num_layers=2, precision="int8"),
+        lambda: torch.ones(32, 128, dtype=torch.int16))
+    assert got == [(m, k, n, torch.bfloat16) for m, k, n in
+                   BERT_PRODUCTS * 2 + BERT_PRODUCTS[1:2]]
+
+
+@pytest.mark.parametrize("m,k,n", BERT_PRODUCTS)
+def test_every_bert_product_gets_a_plan(m, k, n):
+    p = ti.plan(m, n, k, torch.bfloat16, H100_SMS)
+    _assert_valid(m, k, n, torch.bfloat16, p)
+    assert p.wide_store, p
 
 
 @pytest.mark.parametrize("m,k,n", GPT_PRODUCTS)

@@ -12,6 +12,9 @@
 - The measurement plane measures nothing on the CPU as if it were the
   card: with no card, the capture and the calibration decline, and the
   runners and ``bench_torch.py`` refuse unless asked for the host.
+- The encoder families likewise: trainers over ``bert_base()``,
+  ``vit_base()`` and ``MoEClassifier`` resolve to ``cuda:0`` and raise
+  without a card, leaving the model on the host.
 - The true-async plane likewise: ``HostAsyncRunner``, the five exchanging
   trainers in ``mode="host_async"`` (also with each lossy codec),
   ``WeightPublisher(ps=...)`` and the staleness twin resolve to
@@ -130,6 +133,23 @@ def test_trainers_do_not_fall_back_to_cpu(monkeypatch):
         assert ModelClassifier(MLP(features=(4,)), **kw).device.type == "cpu"
 
 
+@pytest.mark.parametrize("family", ["bert_base", "vit_base", "moe"])
+def test_encoder_trainers_do_not_fall_back_to_cpu(monkeypatch, family):
+    from distkeras_tpu_torch import DynSGD, SingleTrainer
+    from distkeras_tpu_torch.models import MoEClassifier, bert_base, vit_base
+
+    _no_cuda(monkeypatch)
+    model = {"bert_base": bert_base, "vit_base": vit_base,
+             "moe": lambda: MoEClassifier(8, num_layers=4, num_heads=12,
+                                          num_experts=8, mlp_dim=3072,
+                                          attention="flash",
+                                          width=768)}[family]()
+    for trainer in (DynSGD, SingleTrainer):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            trainer(model, loss="masked_lm")
+    assert all(p.device.type == "cpu" for p in model.parameters())
+
+
 def _async_builds():
     from distkeras_tpu_torch import trainers
     from distkeras_tpu_torch.benchmarks import staleness_tradeoff
@@ -183,6 +203,14 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
             "import distkeras_tpu_torch.engine\n"
             "import distkeras_tpu_torch.ops.kernels.flash_attention\n"
             "import distkeras_tpu_torch.models\n"
+            "import distkeras_tpu_torch.models.bert\n"
+            "import distkeras_tpu_torch.models.vit\n"
+            "import distkeras_tpu_torch.models.moe\n"
+            "import distkeras_tpu_torch.models.remat\n"
+            "import distkeras_tpu_torch.models.aux_losses\n"
+            "import distkeras_tpu_torch.models.transformer\n"
+            "import distkeras_tpu_torch.ops.attention\n"
+            "import distkeras_tpu_torch.benchmarks.run_config\n"
             "import distkeras_tpu_torch.precision\n"
             "import distkeras_tpu_torch.serving.engine\n"
             "import distkeras_tpu_torch.serving.rollout\n"
