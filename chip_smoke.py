@@ -282,6 +282,35 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    not, reported) within 1e-3 of each leaf's largest magnitude, lower
    peak memory, and the flash forward launched 24 times instead of 12
    (``launches_remat``).
+29. pjit    — the one-process workers x model mesh, TF32 off, meshes that
+   repeat ``cuda:0``. (a) BASELINE config 5 (``vit-pjit``) through the
+   runner at full width (``vit_base()``, 224^2 uint8, 1,000 classes,
+   n=512, batch 64, adamw 1e-3, 8 epochs, one worker): samples/s, MFU
+   against the bf16 peak, the timed run's loss falling. (b)
+   ``PjitTrainer(bert_base(), precision="int8")`` with the model built
+   at its default precision (``apply_to_model`` re-stamps it), config 4's
+   MLM data, adam 1e-4, 4 steps, on ``Mesh(["cuda:0"] * 2,
+   model_parallelism=2)`` and on ``[cuda:0]``: 49 int8 launches a step
+   in each (``launches_pjit``), bitwise equal losses, every sharded
+   parameter's shards half its bytes, adam's moments on the shards. (c)
+   ``PjitTrainer(MoEClassifier(attention="flash"),
+   partition_rules=ep_partition_rules())`` (phase 28 (d)'s model and
+   rows) at workers 2 x model 2 on ``["cuda:0"] * 4``, 4 adam(1e-4) steps
+   of 16 rows: each flash kernel launched 4 times a step
+   (``launches_pjit``), the 16 expert tensors sharded on their stacked
+   axis, losses finite and within 1e-3 relative of the workers 1 x
+   model 1 run's at steps 1-2 (bitwise reported). (d) ``ServingEngine(mesh=Mesh(["cuda:0"] *
+   2))`` with phase 22's one-shot shapes (gpt_small, flash, bf16,
+   128-token rows) and buckets (2, 4): rows within 2e-2 * max|ref| of
+   the ``mesh=None`` engine's, 4 graphs (buckets x shards) all captured
+   in ``__init__``, none under traffic, 12 x 2 flash forward launches a
+   batch counted per replay (``launches_mesh_serving``). (e)
+   ``ModelPredictor(mesh=...)`` at float32 within 1e-5 * max|ref| of
+   ``mesh=None``'s. (f) The native batcher built by g++ from the port's
+   copy: available, a gather bitwise NumPy's, config 5's 512-image
+   shuffle in rows/s. (g) A one-job ``Punchcard`` (``SingleTrainer``,
+   MLP) through ``LocalLauncher`` in a fresh interpreter on the card,
+   its results read back.
 
 The last three lines of standard output are the kernels' JSON, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details are
@@ -4825,61 +4854,489 @@ def phase_encoders(dev, power_line) -> dict:
     return out
 
 
+# -- phase 29: the one-process (workers x model) mesh --------------------------
+
+PJIT_STEPS = 4
+PJIT_B = 32            # config 4's batch (BERT) and rows a step
+PJIT_MOE_B = 16        # phase 28 (d)'s batch, split over 2 workers
+MESH_BUCKETS = (2, 4)  # phase 22's (1, 4) cannot split over 2 workers
+PREDICT_ROWS = 8
+
+
+def _pjit_run(dev, model, ds, mesh, loss, kernels, **kw):
+    """One ``PjitTrainer`` epoch on ``mesh`` (``kw`` its optimizer and
+    rules): losses, each kernel's launches (zeroed just before
+    ``train()``, read just after), the wall time and the trainer."""
+    from distkeras_tpu_torch import PjitTrainer
+
+    trainer = PjitTrainer(model, loss=loss, metrics=(), mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    for kernel in kernels:
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    trainer.train(ds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"losses": [h["loss"] for h in trainer.history], "wall_s": wall,
+            "launches": {k.__name__: k.launches for k in kernels}}, trainer
+
+
+def _shard_report(trainer) -> dict:
+    """Each sharded parameter's shards against its whole bytes, and where
+    its optimizer state lives."""
+    from distkeras_tpu_torch import precision as precision_lib
+    from distkeras_tpu_torch.parallel import tensor
+
+    opt = trainer.state.opt_state
+    inner = opt.inner if isinstance(
+        opt, precision_lib.OverflowGuardState) else opt
+    sharded, on_shards = {}, True
+    for name, p in trainer.state.params.items():
+        if not isinstance(p, tensor.Sharded):
+            continue
+        whole = math.prod(p.shape) * p.shards[0].element_size()
+        sharded[name] = [s.nbytes / whole for s in p.shards]
+        for s in p.shards:
+            moments = [v for v in inner.state[s].values()
+                       if torch.is_tensor(v) and v.dim() > 0]
+            on_shards &= bool(moments) and all(
+                v.shape == s.shape and v.device == s.device
+                for v in moments)
+    return {"sharded": sharded, "state_on_shards": on_shards}
+
+
+def _pjit_config5(dev, power_line) -> dict:
+    """(a) BASELINE config 5 (``vit-pjit``) through the runner at full
+    width: ``vit_base()`` at 224^2 uint8, 1,000 classes, n=512, batch 64,
+    adamw 1e-3, 8 epochs, one worker (the card count)."""
+    from distkeras_tpu_torch.benchmarks import run_config
+
+    set_tf32(False)
+    t0 = time.perf_counter()
+    out = run_config.config_5(True, device=dev)
+    out["phase_s"] = time.perf_counter() - t0
+    out["card"] = power_line
+    log(f"[pjit] (a) config 5 (vit-base, PjitTrainer, batch 64, 8 epochs of "
+        f"512 uint8 224^2 images): {out['samples_per_sec']} samples/s over "
+        f"{out['steps']} steps in {out['wall_s']} s, MFU {out.get('mfu')} "
+        f"(bf16 peak), loss {out['first_loss']} -> {out['final_loss']} "
+        f"({out['phase_s']:.1f} s with the warm-up run) [{power_line}]")
+    assert "mfu" in out and out["mfu"] > 0, out
+    assert out["steps"] == 8 * 512 // 64, out
+    assert math.isfinite(out["final_loss"]) and \
+        out["final_loss"] < out["first_loss"], out
+    return out
+
+
+def _pjit_int8(dev, power_line) -> dict:
+    """(b) ``PjitTrainer(bert_base(), precision="int8")``: the model is
+    built at its default precision, so ``apply_to_model`` re-stamps it;
+    config 4's MLM data, adam 1e-4, PJIT_STEPS steps of batch 32 on
+    ``Mesh(["cuda:0"] * 2, model_parallelism=2)`` and on ``[cuda:0]``:
+    49 int8 launches a step, bitwise equal losses, each sharded
+    parameter's shards half its bytes, adam's state on the shards."""
+    from distkeras_tpu_torch.data.dataset import Dataset
+    from distkeras_tpu_torch.ops.kernels import int8_matmul as i8
+    from distkeras_tpu_torch.parallel.mesh import Mesh
+
+    set_tf32(False)
+    rows = [_bert_batch(30592, seed=40 + i) for i in range(PJIT_STEPS)]
+    ds = Dataset.from_arrays(
+        features=np.concatenate([r["features"] for r in rows]),
+        label=np.concatenate([r["labels"] for r in rows]))
+    runs, reports = {}, {}
+    # model 2, model 1, then model 2 again warm: the third run's wall
+    # against the second's is the sharding's cost
+    for key, m in (("model2", 2), ("model1", 1), ("model2_warm", 2)):
+        model = _enc_model("bert")
+        assert model.precision is None
+        runs[key], trainer = _pjit_run(
+            dev, model, ds, Mesh([dev] * m, model_parallelism=m),
+            "masked_lm", (i8.int8_matmul_dequant,), precision="int8",
+            worker_optimizer="adam", learning_rate=1e-4, batch_size=PJIT_B)
+        assert trainer.model.precision == "int8" and \
+            trainer.model is not model
+        reports[key] = _shard_report(trainer)
+        del trainer, model
+        torch.cuda.empty_cache()
+    halves = [f for fs in reports["model2"]["sharded"].values() for f in fs]
+    info = {**runs, "shards": reports["model2"], "card": power_line,
+            "bitwise": runs["model2"]["losses"] == runs["model1"]["losses"]
+            == runs["model2_warm"]["losses"],
+            "wall_ratio": runs["model2_warm"]["wall_s"]
+            / runs["model1"]["wall_s"]}
+    log(f"[pjit] (b) bert-base re-stamped to int8 under PjitTrainer: "
+        f"model 2 losses "
+        f"{', '.join(f'{x:.6f}' for x in runs['model2']['losses'])}, model 1 "
+        f"{', '.join(f'{x:.6f}' for x in runs['model1']['losses'])}, "
+        f"bitwise {info['bitwise']} (a second model-2 run too); walls "
+        f"{runs['model2']['wall_s']:.3f} / {runs['model1']['wall_s']:.3f} / "
+        f"{runs['model2_warm']['wall_s']:.3f} s for {PJIT_STEPS} steps "
+        f"(model 2, 1, 2 warm: {info['wall_ratio']:.2f}x); int8 launches "
+        f"{runs['model2']['launches']} / {runs['model1']['launches']}; "
+        f"{len(reports['model2']['sharded'])} parameters sharded, each "
+        f"shard {min(halves):.3f}-{max(halves):.3f} of its bytes, adam "
+        f"state on the shards {reports['model2']['state_on_shards']}")
+    for run in runs.values():
+        assert run["launches"]["int8_matmul_dequant"] == \
+            49 * PJIT_STEPS, info
+        assert all(math.isfinite(x) for x in run["losses"]), info
+    assert info["bitwise"], info
+    assert reports["model2"]["sharded"] and all(f == 0.5 for f in halves), \
+        info
+    assert reports["model2"]["state_on_shards"], info
+    assert not reports["model1"]["sharded"], info
+    return info
+
+
+def _pjit_moe(dev, power_line) -> dict:
+    """(c) ``PjitTrainer(MoEClassifier(attention="flash"),
+    partition_rules=ep_partition_rules())`` at workers 2 x model 2 on
+    ``["cuda:0"] * 4``, phase 28 (d)'s model and rows, PJIT_STEPS
+    adam(1e-4) steps of 16 rows: each flash kernel launched 4 times a
+    step (the classifier's four blocks over the global batch), the
+    expert tensors sharded on their stacked axis, finite losses within
+    1e-3 relative of workers 1 x model 1's at steps 1-2 (phase 28 (d)'s
+    bound for a top-1 route; bitwise reported), later steps reported."""
+    from distkeras_tpu_torch.data.dataset import Dataset
+    from distkeras_tpu_torch.models.moe import ep_partition_rules
+    from distkeras_tpu_torch.ops.kernels import flash_attention as fa
+    from distkeras_tpu_torch.parallel import tensor
+    from distkeras_tpu_torch.parallel.mesh import Mesh
+
+    set_tf32(False)
+    rng = np.random.default_rng(6)
+    n = PJIT_MOE_B * PJIT_STEPS
+    x = rng.standard_normal((n,) + MOE_SHAPE[1:]).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, n)]
+    ds = Dataset.from_arrays(features=x, label=y)
+    kernels = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+               fa.flash_attention_bwd_dkv)
+    runs, experts = {}, None
+    for key, (w, m) in (("w2m2", (2, 2)), ("w1m1", (1, 1))):
+        runs[key], trainer = _pjit_run(
+            dev, _enc_model("moe", attention="flash"), ds,
+            Mesh([dev] * (w * m), model_parallelism=m),
+            "categorical_crossentropy", kernels,
+            partition_rules=ep_partition_rules(), worker_optimizer="adam",
+            learning_rate=1e-4, batch_size=PJIT_MOE_B)
+        if m == 2:
+            experts = {name: (p.dim, [tuple(s.shape) for s in p.shards])
+                       for name, p in trainer.state.params.items()
+                       if ".experts." in name
+                       and isinstance(p, tensor.Sharded)}
+        del trainer
+        torch.cuda.empty_cache()
+
+    info = {**runs, "experts": experts, "card": power_line,
+            "rel": [abs(u - v) / abs(v) for u, v in zip(
+                runs["w2m2"]["losses"], runs["w1m1"]["losses"])],
+            "bitwise": runs["w2m2"]["losses"] == runs["w1m1"]["losses"]}
+
+    def fmt(values, spec):
+        return ", ".join(format(v, spec) for v in values)
+
+    log(f"[pjit] (c) moe classifier flash under ep_partition_rules: workers "
+        f"2 x model 2 losses {fmt(runs['w2m2']['losses'], '.5f')} "
+        f"({runs['w2m2']['wall_s']:.2f} s, launches "
+        f"{runs['w2m2']['launches']}); workers 1 x model 1 "
+        f"{fmt(runs['w1m1']['losses'], '.5f')} "
+        f"({runs['w1m1']['wall_s']:.2f} s, launches "
+        f"{runs['w1m1']['launches']}), relative {fmt(info['rel'], '.2e')}"
+        f" (bound 1e-3 at steps 1-2), bitwise {info['bitwise']}; "
+        f"{len(experts)} expert tensors sharded, e.g. "
+        f"{next(iter(experts.items()))}")
+    assert all(math.isfinite(x) for run in runs.values()
+               for x in run["losses"]), info
+    for run in runs.values():
+        assert all(v == 4 * PJIT_STEPS
+                   for v in run["launches"].values()), info
+    assert len(experts) == 4 * 4 and all(
+        d == 0 and [s[0] for s in shapes] == [4, 4]
+        for d, shapes in experts.values()), info
+    assert max(info["rel"][:2]) <= 1e-3, info
+    return info
+
+
+def _pjit_serving(dev, power_line) -> dict:
+    """(d) ``ServingEngine(mesh=Mesh(["cuda:0"] * 2))`` with phase 22's
+    one-shot shapes (gpt_small, flash, bf16, 128-token rows), buckets
+    (2, 4): rows within 2e-2 * max|ref| of the ``mesh=None`` engine's on
+    the same rows, buckets x shards captures, all in ``__init__``, and
+    the flash forward counted per replay (layers x shards a batch)."""
+    from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch.ops.kernels import flash_attention as fa
+    from distkeras_tpu_torch.parallel.mesh import Mesh
+    from distkeras_tpu_torch.serving import ServingEngine
+
+    set_tf32(False)
+    telemetry.reset()
+    rows = np.random.default_rng(29).integers(
+        0, WIRE_LM["vocab_size"], (7, WIRE_ROW)).astype(np.int32)
+    kw = dict(input_dtype=np.int32, buckets=MESH_BUCKETS, max_wait_ms=50.0)
+    fa.flash_attention_fwd.captured = 0
+    t0 = time.perf_counter()
+    eng = ServingEngine(_flash_lm(torch.bfloat16), (WIRE_ROW,),
+                        mesh=Mesh([dev] * 2), **kw)
+    setup_s = time.perf_counter() - t0
+    captured = fa.flash_attention_fwd.captured
+    compiles = telemetry.counter("serving.compiles").value
+    try:
+        fa.flash_attention_fwd.launches = 0
+        t0 = time.perf_counter()
+        got = np.stack([f.result(timeout=120)
+                        for f in eng.submit_many(rows)]).astype(np.float32)
+        serve_s = time.perf_counter() - t0
+        launches = fa.flash_attention_fwd.launches
+        batches = int(telemetry.counter("serving.batches").value)
+        assert fa.flash_attention_fwd.captured == captured
+        assert telemetry.counter("serving.compiles").value == compiles
+        captures = eng.captures
+    finally:
+        eng.shutdown()
+    one = ServingEngine(_flash_lm(torch.bfloat16), (WIRE_ROW,), device=dev,
+                        **kw)
+    try:
+        want = np.stack([one.submit(r).result(timeout=120)
+                         for r in rows]).astype(np.float32)
+    finally:
+        one.shutdown()
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    info = {"captures": captures, "captured_flash": captured,
+            "compiles": compiles, "launches": launches, "batches": batches,
+            "max_abs_err": err, "max_abs_ref": scale, "setup_s": setup_s,
+            "serve_s": serve_s, "card": power_line}
+    log(f"[pjit] (d) ServingEngine over Mesh([cuda:0] x 2), gpt_small flash "
+        f"bf16, buckets {MESH_BUCKETS}: {captures} graphs captured in "
+        f"__init__ ({setup_s:.2f} s; {captured} flash calls recorded, "
+        f"compiles {compiles}), none under traffic; {len(rows)} rows in "
+        f"{batches} batches, {launches} flash forward launches "
+        f"(12 layers x 2 shards a batch); max |mesh - mesh=None| {err:.4e} "
+        f"<= 2e-2 x max |ref| {scale:.3f}")
+    assert captures == len(MESH_BUCKETS) * 2 == compiles, info
+    assert captured == 12 * captures, info
+    assert launches == 12 * 2 * batches and batches >= 2, info
+    assert err <= 2e-2 * scale, info
+    return info
+
+
+def _pjit_predictor(dev, power_line) -> dict:
+    """(e) ``ModelPredictor(mesh=Mesh(["cuda:0"] * 2))`` at float32 (TF32
+    off; the flash kernels' float32 path) against ``mesh=None``: within
+    phase 7's float32 bound, 1e-5 * max|ref|."""
+    from distkeras_tpu_torch import Dataset, ModelPredictor
+    from distkeras_tpu_torch.parallel.mesh import Mesh
+
+    set_tf32(False)
+    model = _flash_lm(torch.float32, seed=5, num_layers=4)
+    ds = Dataset.from_arrays(features=np.random.default_rng(7).integers(
+        0, WIRE_LM["vocab_size"], (PREDICT_ROWS + 1, WIRE_ROW)).astype(
+        np.int32))
+    t0 = time.perf_counter()
+    got = ModelPredictor(model, mesh=Mesh([dev] * 2), batch_size=2).predict(
+        ds)["prediction"]
+    mesh_s = time.perf_counter() - t0
+    want = ModelPredictor(model, device=dev, batch_size=2).predict(
+        ds)["prediction"]
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    info = {"max_abs_err": err, "max_abs_ref": scale, "mesh_s": mesh_s,
+            "rows": len(ds), "card": power_line}
+    log(f"[pjit] (e) ModelPredictor over Mesh([cuda:0] x 2), 4-layer "
+        f"gpt_small widths float32 flash, {len(ds)} rows (a padded tail): "
+        f"max |mesh - mesh=None| {err:.3e} <= 1e-5 x max |ref| {scale:.3f}")
+    assert got.shape == want.shape == (len(ds), WIRE_ROW,
+                                       WIRE_LM["vocab_size"]), info
+    assert err <= 1e-5 * scale, info
+    return info
+
+
+def _pjit_native(dev, power_line) -> dict:
+    """(f) The native batcher, built by g++ from the port's copy of its
+    source: available, a gather bitwise equal to NumPy's, and rows/s of
+    config 5's 512-image shuffle (uint8 224^2) native and NumPy."""
+    from distkeras_tpu_torch.data import native
+    from distkeras_tpu_torch.data.dataset import Dataset
+
+    t0 = time.perf_counter()
+    ok = native.available()
+    build_s = time.perf_counter() - t0
+    assert ok, "the native batcher did not build or load"
+    rng = np.random.default_rng(8)
+    x = np.frombuffer(rng.bytes(512 * 224 * 224 * 3), np.uint8).reshape(
+        512, 224, 224, 3)
+    idx = rng.integers(0, 512, 4096).astype(np.int64)
+    assert np.array_equal(native.gather_rows(x, idx), x[idx])
+    ds = Dataset.from_arrays(features=x, label=np.zeros((512, 1000),
+                                                         np.float32))
+    times = []
+    for seed in range(5):
+        t0 = time.perf_counter()
+        ds.shuffle(seed)
+        times.append(time.perf_counter() - t0)
+    perm = np.random.default_rng(0).permutation(512)
+    np_times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        x[perm]
+        np_times.append(time.perf_counter() - t0)
+    info = {"available": ok, "build_s": build_s,
+            "shuffle_rows_per_s": 512 / statistics.median(times),
+            "numpy_gather_rows_per_s": 512 / statistics.median(np_times),
+            "card": power_line}
+    log(f"[pjit] (f) native batcher available ({build_s:.2f} s; g++ builds "
+        f"it at its first use, an earlier phase's shuffle in a full run): "
+        f"gather bitwise equal to NumPy's; config 5's 512-image shuffle "
+        f"{info['shuffle_rows_per_s']:.0f} rows/s (median of 5, both "
+        f"columns), NumPy's gather of the images "
+        f"{info['numpy_gather_rows_per_s']:.0f} rows/s (host, warm)")
+    return info
+
+
+def _pjit_job(dev, power_line) -> dict:
+    """(g) A ``Punchcard`` of one ``SingleTrainer`` MLP job saved as a
+    bundle and run by ``LocalLauncher`` in a fresh interpreter (no
+    ``device`` kwarg: the trainer's default ``cuda:0``), its results read
+    back."""
+    import tempfile
+
+    from distkeras_tpu_torch.job_deployment import (Job, LocalLauncher,
+                                                    Punchcard)
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        card = Punchcard(jobs=[Job(
+            "chip-mlp", "SingleTrainer",
+            model="distkeras_tpu_torch.models.mlp:mnist_mlp",
+            data="distkeras_tpu_torch.data.dataset:synthetic_mnist",
+            batch_size=128, num_epoch=1)])
+        bundle = card.save_bundle(os.path.join(tmp, "bundle"))
+        t0 = time.perf_counter()
+        handle = LocalLauncher().submit(bundle)
+        try:
+            status = handle.wait(timeout=300)
+        finally:
+            if handle._proc.poll() is None:  # stop what this phase started
+                handle._proc.kill()
+                handle._proc.wait()
+        wall = time.perf_counter() - t0
+        log_path = handle.log_path if os.path.exists(handle.log_path) \
+            else handle._log_tmp
+        tail = open(log_path).read()[-2000:] if os.path.exists(log_path) \
+            else ""
+        assert status == "SUCCEEDED", (status, tail)
+        results = handle.results()
+    info = {"status": status, "results": results, "wall_s": wall,
+            "card": power_line}
+    log(f"[pjit] (g) LocalLauncher ran a one-job Punchcard (SingleTrainer, "
+        f"mnist_mlp, synthetic_mnist, batch 128) in a fresh interpreter on "
+        f"the card: {status} in {wall:.1f} s, results {results}")
+    assert len(results) == 1 and results[0]["job_name"] == "chip-mlp", info
+    assert results[0]["training_time"] > 0, info
+    return info
+
+
+def phase_pjit(dev, power_line) -> dict:
+    """Phase 29: the one-process (workers x model) mesh (module
+    docstring)."""
+    t0 = time.perf_counter()
+    out = {"config5": _pjit_config5(dev, power_line)}
+    torch.cuda.empty_cache()
+    out["int8"] = _pjit_int8(dev, power_line)
+    out["moe"] = _pjit_moe(dev, power_line)
+    out["serving"] = _pjit_serving(dev, power_line)
+    torch.cuda.empty_cache()
+    out["predictor"] = _pjit_predictor(dev, power_line)
+    torch.cuda.empty_cache()
+    out["native"] = _pjit_native(dev, power_line)
+    out["job"] = _pjit_job(dev, power_line)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[pjit] phase 29 in {out['phase_s']:.1f} s")
+    return out
+
+
+#: seconds each phase took, in run order (logged and in the report)
+PHASE_SECONDS = {}
+
+
+def _run_phase(name, phase, *args, **kwargs):
+    """Run one phase and log its wall time (the run's budget is read
+    from these lines)."""
+    t0 = time.perf_counter()
+    out = phase(*args, **kwargs)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    log(f"[chip_smoke] {name} took {PHASE_SECONDS[name]:.1f} s")
+    return out
+
+
 def main() -> int:
     report = {}
+    t = _run_phase
     try:
-        report["device"] = phase_device()
+        report["device"] = t("device", phase_device)
         import distkeras_tpu_torch  # noqa: F401 — fails outside a checkout
 
         dev = torch.device("cuda:0")
         card = report["device"]["nvidia_smi"]
-        report["build"] = phase_build()
-        report["kernel_cases"] = phase_kernels(dev)
-        report["engine"] = phase_engine(dev, card)
-        report["greedy"] = phase_greedy(dev)
-        report["profile"] = phase_profile(dev)
-        report["flash_cases"] = phase_flash_kernels(dev)
-        report["train"], train_run = phase_train(dev, card)
-        report["train_profile"] = phase_train_profile(*train_run)
+        report["build"] = t("build", phase_build)
+        report["kernel_cases"] = t("kernel_cases", phase_kernels, dev)
+        report["engine"] = t("engine", phase_engine, dev, card)
+        report["greedy"] = t("greedy", phase_greedy, dev)
+        report["profile"] = t("profile", phase_profile, dev)
+        report["flash_cases"] = t("flash_cases", phase_flash_kernels, dev)
+        report["train"], train_run = t("train", phase_train, dev, card)
+        report["train_profile"] = t("train_profile", phase_train_profile,
+                                    *train_run)
         del train_run
         torch.cuda.empty_cache()
-        report["train_witness"] = phase_train_witness(
-            dev, [m["loss"] for m in report["train"]["metrics"]])
-        report["train_identity"] = phase_train_identity(dev)
-        report["int8_cases"] = phase_int8_kernel(dev)
-        report["int8_train"], int8_run = phase_int8_train(dev, card)
-        report["int8_train_profile"] = phase_train_profile(
-            *int8_run, tag="int8-profile")
+        report["train_witness"] = t(
+            "train_witness", phase_train_witness, dev,
+            [m["loss"] for m in report["train"]["metrics"]])
+        report["train_identity"] = t("train_identity", phase_train_identity,
+                                     dev)
+        report["int8_cases"] = t("int8_cases", phase_int8_kernel, dev)
+        report["int8_train"], int8_run = t("int8_train", phase_int8_train,
+                                           dev, card)
+        report["int8_train_profile"] = t(
+            "int8_train_profile", phase_train_profile, *int8_run,
+            tag="int8-profile")
         assert report["int8_train_profile"]["int8_kernel_launches"] == 48
         del int8_run
         torch.cuda.empty_cache()
-        report["int8_witness"] = phase_int8_witness(
-            dev, report["int8_train"]["losses"])
-        report["gn_cases"] = phase_gn_kernels(dev)
-        report["resnet_train"], resnet_run = phase_resnet_train(dev, card)
-        report["resnet_train_profile"] = phase_train_profile(
-            *resnet_run, tag="resnet-profile")
+        report["int8_witness"] = t("int8_witness", phase_int8_witness, dev,
+                                   report["int8_train"]["losses"])
+        report["gn_cases"] = t("gn_cases", phase_gn_kernels, dev)
+        report["resnet_train"], resnet_run = t(
+            "resnet_train", phase_resnet_train, dev, card)
+        report["resnet_train_profile"] = t(
+            "resnet_train_profile", phase_train_profile, *resnet_run,
+            tag="resnet-profile")
         del resnet_run
         torch.cuda.empty_cache()
-        report["resnet_witness"] = phase_resnet_witness(
-            dev, report["resnet_train"]["losses"])
-        report["resnet_identity"] = phase_resnet_identity(dev)
-        report["nf"] = phase_nf(dev, card)
-        report["rect"] = phase_rect(dev, card)
-        report["sampled"] = phase_sampled(dev)
-        report["chunked"] = phase_chunked(dev, card)
-        report["prefix"] = phase_prefix(dev, card)
-        report["int8_kv"] = phase_int8(dev, card)
-        report["spec"] = phase_spec(dev, card)
-        report["wire"] = phase_wire(dev, card, report["engine"])
-        report["fleet"] = phase_fleet(dev, card, report["wire"],
-                                      report["engine"])
-        report["train_core"] = phase_train_core(dev, card, report["nf"])
-        report["measure"] = phase_measure(dev, card, report["profile"])
-        report["checkpoint"] = phase_checkpoint(dev, card)
-        report["async"] = phase_async(dev, card,
-                                      report["train_core"]["bench"])
-        report["encoders"] = phase_encoders(dev, card)
+        report["resnet_witness"] = t("resnet_witness", phase_resnet_witness,
+                                     dev, report["resnet_train"]["losses"])
+        report["resnet_identity"] = t("resnet_identity",
+                                      phase_resnet_identity, dev)
+        report["nf"] = t("nf", phase_nf, dev, card)
+        report["rect"] = t("rect", phase_rect, dev, card)
+        report["sampled"] = t("sampled", phase_sampled, dev)
+        report["chunked"] = t("chunked", phase_chunked, dev, card)
+        report["prefix"] = t("prefix", phase_prefix, dev, card)
+        report["int8_kv"] = t("int8_kv", phase_int8, dev, card)
+        report["spec"] = t("spec", phase_spec, dev, card)
+        report["wire"] = t("wire", phase_wire, dev, card, report["engine"])
+        report["fleet"] = t("fleet", phase_fleet, dev, card, report["wire"],
+                            report["engine"])
+        report["train_core"] = t("train_core", phase_train_core, dev, card,
+                                 report["nf"])
+        report["measure"] = t("measure", phase_measure, dev, card,
+                              report["profile"])
+        report["checkpoint"] = t("checkpoint", phase_checkpoint, dev, card)
+        report["async"] = t("async", phase_async, dev, card,
+                            report["train_core"]["bench"])
+        report["encoders"] = t("encoders", phase_encoders, dev, card)
+        report["pjit"] = t("pjit", phase_pjit, dev, card)
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         log("[chip_smoke] FAILED")
@@ -4945,6 +5402,14 @@ def main() -> int:
         rows[-1]["launches_encoders"] = enc["moe"]["flash"]["launches"][name]
         rows[-1]["launches_remat"] = enc["remat"]["gpt"]["blocks"][
             "launches"][name]
+        # phase 29 (c): PjitTrainer over the MoE classifier at workers 2 x
+        # model 2; (d): the mesh ServingEngine's traffic (each zeroed
+        # before, read after)
+        rows[-1]["launches_pjit"] = report["pjit"]["moe"]["w2m2"][
+            "launches"][name]
+        if name == "flash_attention_fwd":
+            rows[-1]["launches_mesh_serving"] = report["pjit"]["serving"][
+                "launches"]
     qkv = next(c for c in report["int8_cases"] if c["name"] == "qkv")
     rows.append({
         "name": "int8_matmul_dequant", "route": "cuda",
@@ -4960,6 +5425,10 @@ def main() -> int:
         # phase 28 (b): bert_base(precision="int8") steps (zeroed before,
         # read after)
         "launches_encoders": report["encoders"]["int8"]["int8"]["launches"][
+            "int8_matmul_dequant"],
+        # phase 29 (b): PjitTrainer over bert_base re-stamped to int8 at
+        # model 2 (zeroed before, read after)
+        "launches_pjit": report["pjit"]["int8"]["model2"]["launches"][
             "int8_matmul_dequant"],
     })
     stem = next(c for c in report["gn_cases"]
@@ -4989,6 +5458,8 @@ def main() -> int:
             "launches_async": report["async"]["groupnorm"]["launches"][name],
         })
     kernels = {"kernels": rows}
+    report["phase_seconds"] = PHASE_SECONDS
+    log(f"[chip_smoke] phases took {sum(PHASE_SECONDS.values()):.1f} s")
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({**report, **kernels}, f, indent=1, default=str)

@@ -36,6 +36,17 @@ Paged generative serving of a causal LM::
     with GenerationEngine(model, page_size=16, num_slots=8) as eng:
         result = eng.generate(prompt, max_new_tokens=32).result()
 
+Data (x tensor) parallel training over a workers x model mesh, in one
+process (BASELINE config 5's trainer)::
+
+    from distkeras_tpu_torch import PjitTrainer
+    from distkeras_tpu_torch.models import vit_base
+    from distkeras_tpu_torch.parallel.mesh import Mesh
+
+    trainer = PjitTrainer(vit_base(), worker_optimizer="adamw",
+                          learning_rate=1e-3, batch_size=64,
+                          mesh=Mesh(["cuda:0"] * 4, model_parallelism=2))
+
 Entry points run on ``cuda:0`` unless the caller passes ``device="cpu"``
 (see :func:`distkeras_tpu_torch.device.resolve_device`).
 
@@ -66,6 +77,8 @@ _EXPORTS = {
     "DynSGD": "trainers", "EAMSGD": "trainers",
     "EnsembleTrainer": "trainers", "PjitTrainer": "trainers",
     "SingleTrainer": "trainers", "Trainer": "trainers",
+    "Job": "job_deployment", "LocalLauncher": "job_deployment",
+    "Punchcard": "job_deployment",
     "telemetry": None,
 }
 

@@ -1,9 +1,9 @@
 """Columnar in-memory dataset (port of ``distkeras_tpu/data/dataset.py``):
 the Spark-DataFrame stand-in. Numpy code, kept as a copy so that the port
 imports nothing of the JAX package; every output is bitwise the JAX
-package's. The in-memory shuffle gathers with numpy (the JAX package's
-threaded gatherer, ``data/native.py``, is ROADMAP.md Queue A, item 12);
-the rows are the same.
+package's. The in-memory shuffle gathers through the threaded native
+assembler when it builds (``data/native.py``, the JAX package's), else
+with numpy; the rows are the same.
 
 Reference parity: dist-keras consumes Spark DataFrames with named feature /
 label columns, repartitions them per worker, and iterates rows per partition
@@ -192,12 +192,15 @@ class Dataset:
     def shuffle(self, seed: int = 0) -> "Dataset":
         """utils.shuffle(df) parity, but deterministic by seed.
 
-        In-memory columns are gathered eagerly. File-backed columns
+        In-memory columns are gathered eagerly (through the native threaded
+        assembler when available, data/native.py). File-backed columns
         (memmap / ShardedColumn) become lazy :class:`PermutedColumn` views —
         the streaming shuffle: only the permutation index (8 bytes/row) is
         materialized now; rows are read from disk O(chunk) at a time as the
         staging layer slices them. Indices are identical on every path, so
         numerics do not depend on which one executed."""
+        from distkeras_tpu_torch.data import native
+
         perm = rng.permutation(seed, len(self))
         out: Dict[str, ColumnLike] = {}
         for k, v in self._columns.items():
@@ -206,7 +209,7 @@ class Dataset:
             elif isinstance(v, (ShardedColumn, np.memmap)):
                 out[k] = PermutedColumn(v, perm)
             else:
-                out[k] = np.asarray(v)[perm]
+                out[k] = native.gather_rows(np.asarray(v), perm)
         return Dataset(out)
 
     def repartition(self, num_partitions: int) -> List["Dataset"]:

@@ -20,8 +20,10 @@ SwitchMoE; :class:`MoEClassifier` stacks them (``block{i}``), pools over
 tokens and classifies in float32. flax infers the feature width from
 the input; the port takes it at construction (``width``).
 
-Not ported: ``EP_RULES`` / ``ep_partition_rules`` (expert parallelism
-needs the tensor-parallel layer, ROADMAP.md Queue A item 16).
+``EP_RULES`` / :func:`ep_partition_rules` shard the stacked expert axis
+over the mesh's ``model`` axis under
+:class:`~distkeras_tpu_torch.trainers.PjitTrainer` (expert parallelism:
+each model position holds ``E / M`` experts at rest).
 """
 
 from __future__ import annotations
@@ -38,8 +40,8 @@ from distkeras_tpu_torch.models.remat import remat_call, validate_remat
 from distkeras_tpu_torch.models.transformer import LN_EPS, init_params
 from distkeras_tpu_torch.ops.attention import MultiHeadAttention
 
-__all__ = ["MoEClassifier", "MoEEncoderBlock", "StackedMlp", "SwitchMoE",
-           "ep_partition_rules", "init_params"]
+__all__ = ["EP_RULES", "MoEClassifier", "MoEEncoderBlock", "StackedMlp",
+           "SwitchMoE", "ep_partition_rules", "init_params"]
 
 
 class StackedMlp(nn.Module):
@@ -196,16 +198,23 @@ class MoEClassifier(nn.Module):
         return self.head(x.float().mean(dim=1))
 
 
+# partition rule addition for expert parallelism: the stacked expert
+# axis of the experts' params shards over the model axis (flax paths and
+# layout; parallel/tensor.py maps them onto the port's [E, out, in])
+EP_RULES = (
+    (r"experts/fc1/kernel$", ("model", None, None)),
+    (r"experts/fc2/kernel$", ("model", None, None)),
+    (r"experts/fc1/bias$", ("model", None)),
+    (r"experts/fc2/bias$", ("model", None)),
+)
+
+
 def ep_partition_rules():
-    """Expert-parallel partition rules: not ported (they need the
-    tensor-parallel layer, ``parallel/tensor.py``)."""
-    raise NotImplementedError(
-        "ep_partition_rules / EP_RULES need parallel/tensor.py, which is not "
-        "ported yet (ROADMAP.md Queue A, item 16)")
+    """EP rules as PartitionSpecs, prepended to the tensor-parallel
+    defaults (``parallel.tensor.DEFAULT_RULES``)."""
+    # imported here so that the model definition stays importable below
+    # parallel/
+    from distkeras_tpu_torch.parallel import tensor
 
-
-def __getattr__(name):
-    # EP_RULES, like ep_partition_rules, needs the tensor-parallel layer
-    if name == "EP_RULES":
-        ep_partition_rules()
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    converted = tuple((pat, tensor.P(*axes)) for pat, axes in EP_RULES)
+    return converted + tuple(tensor.DEFAULT_RULES)

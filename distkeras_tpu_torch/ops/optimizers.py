@@ -74,15 +74,22 @@ class _OptaxOptimizer(torch.optim.Optimizer):
             with torch.enable_grad():
                 loss = closure()
         for group in self.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                state = self.state[p]
-                if not state:
-                    state.update(self._init_state(p, group))
-                u = self._direction(p, p.grad, state, group)
-                p.add_(-group["lr"] * u)
+            self._step_group(group)
         return loss
+
+    def _step_group(self, group: dict) -> None:
+        for p in group["params"]:
+            if p.grad is None:
+                continue
+            p.add_(-group["lr"] * self._direction(p, p.grad,
+                                                  self._state(p, group),
+                                                  group))
+
+    def _state(self, p, group) -> dict:
+        state = self.state[p]
+        if not state:
+            state.update(self._init_state(p, group))
+        return state
 
 
 class Adagrad(_OptaxOptimizer):
@@ -173,7 +180,14 @@ class Lamb(_OptaxOptimizer):
     add_decayed_weights(weight_decay), scale_by_trust_ratio(),
     scale_by_learning_rate(lr))``. The Adam direction ``u`` plus ``wd *
     p`` is scaled per parameter tensor by ``||p|| / ||u||``, or by 1 where
-    either norm is 0 (optax's zero-norm rule). torch has no LAMB."""
+    either norm is 0 (optax's zero-norm rule). torch has no LAMB.
+
+    A param group with ``shard_dim`` holds the shards of one tensor, split
+    along that dim in order (what
+    :func:`~distkeras_tpu_torch.parallel.tensor.param_groups` builds):
+    their ratio is the whole tensor's, taken on the concatenated ``p`` and
+    ``u`` as GSPMD takes it over the logical array, so a sharded step
+    gives the unsharded one's bits."""
 
     def __init__(self, params, lr: float = 0.01, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-6, eps_root: float = 0.0,
@@ -186,19 +200,40 @@ class Lamb(_OptaxOptimizer):
         return {"count": 0, "mu": torch.zeros_like(p),
                 "nu": torch.zeros_like(p)}
 
-    def _direction(self, p, g, state, group):
+    def _update(self, p, g, state, group):
+        """The Adam direction plus weight decay, before the trust ratio."""
         b1, b2 = group["b1"], group["b2"]
         t = _adam_moments(g, state, b1, b2)
         mu_hat = _bias_correction(state["mu"], b1, t)
         nu_hat = _bias_correction(state["nu"], b2, t)
         u = mu_hat / (torch.sqrt(nu_hat + group["eps_root"]) + group["eps"])
-        u = u + group["weight_decay"] * p
+        return u + group["weight_decay"] * p
+
+    @staticmethod
+    def _trust_ratio(p, u):
         param_norm = torch.linalg.vector_norm(p)
         update_norm = torch.linalg.vector_norm(u)
         zero_norm = (param_norm == 0.0) | (update_norm == 0.0)
-        ratio = torch.where(zero_norm, torch.ones_like(param_norm),
-                            param_norm / update_norm)
-        return u * ratio
+        return torch.where(zero_norm, torch.ones_like(param_norm),
+                           param_norm / update_norm)
+
+    def _direction(self, p, g, state, group):
+        u = self._update(p, g, state, group)
+        return u * self._trust_ratio(p, u)
+
+    def _step_group(self, group):
+        dim = group.get("shard_dim")
+        if dim is None:
+            return super()._step_group(group)
+        shards = group["params"]
+        us = [self._update(p, p.grad, self._state(p, group), group)
+              for p in shards]
+        home = shards[0].device  # the ratio before any shard moves
+        ratio = self._trust_ratio(
+            torch.cat([p.to(home) for p in shards], dim=dim),
+            torch.cat([u.to(home) for u in us], dim=dim))
+        for p, u in zip(shards, us):
+            p.add_(-group["lr"] * (u * ratio.to(p.device)))
 
 
 def get(optimizer: Union[str, OptimizerFactory],

@@ -2,18 +2,22 @@
 cluster abstraction.
 
 The JAX package's cluster is a ``jax.sharding.Mesh`` with a ``workers``
-axis of data-parallel replicas and a ``model`` axis. The port's
-:class:`Mesh` is an ordered list of torch devices on the ``workers``
-axis, with a ``model`` axis of 1 (tensor parallelism waits for ROADMAP.md
-Queue A, item 16). Every device of a port mesh lives in this process; a
-mesh over several processes (a NCCL or gloo group) is item 16 too.
+axis of data-parallel replicas and a ``model`` axis over which
+:mod:`~distkeras_tpu_torch.parallel.tensor` shards parameters. The
+port's :class:`Mesh` is the same workers x model grid of torch devices,
+row-major: worker ``w`` holds the row ``grid[w]``, its model positions
+``grid[w][m]``. ``devices`` lists the workers axis (each row's first
+device), which is where the substrate, the predictors and the serving
+engine place their replicas. Every device of a port mesh lives in this
+process; a mesh over several processes (a NCCL or gloo group) is ROADMAP.md
+Queue A, item 16.
 
 The substrate runs ``K = D * factor`` logical workers on a mesh of D
-devices: worker ``k`` lives on ``devices[k // factor]``. On a host with
-one card the mesh is ``[cuda:0]`` and the K replicas are stacked there
-(the trainers' ``parallelism_factor``). A mesh may repeat a device, as
-the tests repeat ``cpu`` to get two-level layouts (D devices x K/D
-replicas) without a second card.
+worker devices: worker ``k`` lives on ``devices[k // factor]``. On a host
+with one card the mesh is ``[cuda:0]`` and the K replicas are stacked
+there (the trainers' ``parallelism_factor``). A mesh may repeat a device,
+as the tests repeat ``cpu`` (and a one-card host repeats ``cuda:0``) to
+get two-level layouts and workers x model grids without more cards.
 """
 
 from __future__ import annotations
@@ -29,17 +33,29 @@ MODEL_AXIS = "model"
 
 
 class Mesh:
-    """An ordered list of devices on the ``workers`` axis. ``shape`` maps
-    each axis name to its size, as a JAX mesh's does."""
+    """A workers x model grid of devices, from ``devices`` listed
+    row-major (``len(devices) / model_parallelism`` workers of
+    ``model_parallelism`` positions each). ``shape`` maps each axis name
+    to its size, as a JAX mesh's does."""
 
-    def __init__(self, devices: Sequence):
+    def __init__(self, devices: Sequence, model_parallelism: int = 1):
+        model_parallelism = int(model_parallelism)
         if not devices:
             raise ValueError("a Mesh needs at least one device")
-        self.devices = [torch.device(d) for d in devices]
+        if model_parallelism < 1 or len(devices) % model_parallelism:
+            raise ValueError(
+                f"{len(devices)} devices do not form rows of "
+                f"model_parallelism={model_parallelism}")
+        flat = [torch.device(d) for d in devices]
+        #: ``grid[w][m]``: the device of worker ``w``, model position ``m``
+        self.grid = [flat[i:i + model_parallelism]
+                     for i in range(0, len(flat), model_parallelism)]
+        #: the workers axis: each worker's first device
+        self.devices = [row[0] for row in self.grid]
 
     @property
     def shape(self) -> dict:
-        return {WORKER_AXIS: len(self.devices), MODEL_AXIS: 1}
+        return {WORKER_AXIS: len(self.grid), MODEL_AXIS: len(self.grid[0])}
 
     @property
     def home(self) -> torch.device:
@@ -47,8 +63,15 @@ class Mesh:
         metrics live on: the first worker's."""
         return self.devices[0]
 
+    def device(self, worker: int, model: int = 0) -> torch.device:
+        """The device at (``worker``, ``model``) of the grid."""
+        return self.grid[worker][model]
+
     def __repr__(self) -> str:
-        return f"Mesh({[str(d) for d in self.devices]})"
+        if self.shape[MODEL_AXIS] == 1:
+            return f"Mesh({[str(d) for d in self.devices]})"
+        return (f"Mesh({[str(d) for row in self.grid for d in row]}, "
+                f"model_parallelism={self.shape[MODEL_AXIS]})")
 
 
 def check_single_process(what: str = "a mesh") -> None:
@@ -61,32 +84,34 @@ def check_single_process(what: str = "a mesh") -> None:
         raise NotImplementedError(
             f"{what} over {dist.get_world_size()} processes needs the "
             f"cross-process collectives, which are not ported (ROADMAP.md "
-            f"Queue A, item 16, parallel/collectives.py)")
+            f"Queue A, item 16, the multi-process plane)")
 
 
 def make_mesh(num_workers: Optional[int] = None,
               model_parallelism: int = 1,
               devices: Optional[Sequence] = None) -> Mesh:
-    """A ``workers`` mesh over ``devices`` (default ``[resolve_device(None)]``:
-    ``cuda:0``, raising without a card). ``num_workers=None`` uses every
-    device; asking for more workers than devices raises ValueError, as
-    JAX's does."""
-    if int(model_parallelism) != 1:
-        raise NotImplementedError(
-            f"model_parallelism={model_parallelism}: tensor-sharded meshes "
-            f"are not ported (ROADMAP.md Queue A, item 16, "
-            f"parallel/tensor.py)")
+    """A (workers, model) mesh over ``devices`` (default
+    ``[resolve_device(None)]``: ``cuda:0``, raising without a card),
+    which may repeat a device. ``num_workers=None`` uses every device:
+    ``len(devices) // model_parallelism`` workers. Asking for more
+    devices than are listed raises ValueError, as JAX's does."""
     check_single_process()
+    model_parallelism = int(model_parallelism)
+    if model_parallelism < 1:
+        raise ValueError(
+            f"model_parallelism must be >= 1, got {model_parallelism}")
     devices = list(devices) if devices is not None \
         else [resolve_device(None)]
     if num_workers is None:
-        num_workers = len(devices)
-    if num_workers > len(devices):
+        num_workers = len(devices) // model_parallelism
+    need = num_workers * model_parallelism
+    if need > len(devices):
         raise ValueError(
-            f"Mesh needs {num_workers} devices ({num_workers} workers x "
+            f"Mesh needs {need} devices ({num_workers} workers x "
             f"{model_parallelism} model shards) but only {len(devices)} "
             f"are visible")
-    return Mesh([resolve_device(d) for d in devices[:num_workers]])
+    return Mesh([resolve_device(d) for d in devices[:need]],
+                model_parallelism=model_parallelism)
 
 
 def local_worker_positions(mesh: Mesh) -> list:

@@ -315,26 +315,43 @@ def scale_grads_fn(policy: Optional[PrecisionPolicy]):
 
 
 def apply_to_model(model, precision):
-    """Check that ``model`` carries the policy ``precision`` names and
-    return it. A port model wires its policy into its layers when it is
-    built, so a model built with ``precision=None`` cannot be re-stamped
-    afterwards (the JAX package clones the module definition): build it
-    with ``precision=`` instead."""
+    """Stamp the policy ``precision`` names onto ``model`` (the trainers'
+    ``precision=``): the model itself when it already carries it, else a
+    re-stamped copy. A port model wires its policy into its layers when
+    it is built (the JAX package clones the frozen module definition with
+    the new field), so the copy is the model's class rebuilt from its own
+    constructor kwargs (:func:`~distkeras_tpu_torch.utils.serialization.constructor_kwargs`,
+    ``remat=``, ``attention=`` and the rest kept) with ``precision=name``,
+    on the device the model's parameters lie on, holding the model's
+    float32 master weights and its train/eval mode. A model with no
+    ``precision`` field, or one whose own precision contradicts
+    ``precision``, raises ValueError, as in the JAX package."""
+    from distkeras_tpu_torch.utils.serialization import constructor_kwargs
+
     name = validate_precision(precision)
     if name is None:
         return model
     if not hasattr(model, "precision"):
         raise ValueError(
             f"precision={name!r} was requested but {type(model).__name__} "
-            f"has no `precision` field; custom models must add it to opt "
-            f"into mixed precision")
+            f"has no `precision` field; every distkeras_tpu_torch model "
+            f"family exposes one (models/*.py) — custom models must add it "
+            f"to opt into mixed precision")
     if model.precision == name:
         return model
     if model.precision is not None:
         raise ValueError(
             f"trainer precision={name!r} contradicts the model's own "
             f"precision={model.precision!r}; set it in one place")
-    raise NotImplementedError(
-        f"re-stamping a built {type(model).__name__} with precision={name!r}"
-        f" is not ported (ROADMAP.md Queue A, item 12, the trainer API that "
-        f"calls it); build the model with precision={name!r}")
+    kwargs = constructor_kwargs(model)
+    kwargs["precision"] = name
+    state = model.state_dict()
+    device = next(iter(state.values())).device if state else \
+        torch.device("cpu")
+    # built on the meta device (no init draws, no memory), then given
+    # storage and the original's weights
+    with torch.random.fork_rng(devices=[]), torch.device("meta"):
+        clone = type(model)(**kwargs)
+    clone = clone.to_empty(device=device)
+    clone.load_state_dict(state, strict=True)
+    return clone.train(model.training)

@@ -5,8 +5,12 @@ The forward runs on the predictor's device (``cuda:0`` unless the caller
 names another, as at every entry point of the port) in eval mode without
 autograd, in batches of ``batch_size`` rows (the tail padded to a full
 batch and sliced off after, so every call has one shape), and the
-outputs come back as numpy columns. Scoring sharded over several
-devices is ROADMAP.md Queue A, item 16.
+outputs come back as numpy columns. With ``mesh=`` the scoring is
+sharded over the mesh's worker devices, as the JAX predictor shards its
+batch over the ``workers`` axis: each chunk of ``batch_size x workers``
+rows splits into the workers' equal slices, each scored by a copy of
+the model on its worker's device, and the outputs are gathered in row
+order.
 """
 
 from __future__ import annotations
@@ -64,23 +68,27 @@ class ModelPredictor(Predictor):
     (optional) are loaded into a copy of ``model``. Scoring runs on
     ``device`` (``None`` -> ``cuda:0``, raising without a card; the
     port's one added kwarg, as on the trainers) or, when ``mesh`` is
-    given, on its one device."""
+    given, on its worker devices, the batch sharded over them."""
 
     def __init__(self, model, params=None, features_col: str = "features",
                  output_col: str = "prediction", batch_size: int = 512,
                  mesh=None, device=None):
+        self.mesh = mesh
         if mesh is not None:
-            if len(mesh.devices) > 1:
-                raise NotImplementedError(
-                    "scoring sharded over several devices is not ported yet "
-                    "(ROADMAP.md Queue A, item 16)")
-            device = mesh.home
-        self.device = resolve_device(device)
-        self.model = _placed(model, params, self.device)
+            self.devices = [resolve_device(d) for d in mesh.devices]
+        else:
+            self.devices = [resolve_device(device)]
+        self.device = self.devices[0]
+        copies = {}  # one model a distinct device
+        for dev in self.devices:
+            if dev not in copies:
+                copies[dev] = _placed(model, params, dev)
+        self.model = copies[self.device]
         self.features_col = features_col
         self.output_col = output_col
         self.batch_size = int(batch_size)
-        self._forward = make_forward_fn(self.model)
+        self._num_shards = len(self.devices)
+        self._forwards = [make_forward_fn(copies[d]) for d in self.devices]
 
     def predict(self, dataset: Dataset) -> Dataset:
         # integer columns are token ids and stay as they are; float
@@ -89,12 +97,19 @@ class ModelPredictor(Predictor):
         if np.issubdtype(x.dtype, np.floating):
             x = x.astype(np.float32)
         n = len(x)
-        pad = (-n) % self.batch_size
+        # pad to a full (batch * shards) multiple: one shape a call
+        chunk = self.batch_size * self._num_shards
+        pad = (-n) % chunk
         if pad:
             x = np.concatenate([x, np.zeros((pad,) + x.shape[1:], x.dtype)])
-        outs = [self._forward(torch.from_numpy(
-                    x[start:start + self.batch_size]).to(self.device)).cpu()
-                for start in range(0, len(x), self.batch_size)]
+        outs = []
+        for start in range(0, len(x), chunk):
+            parts = [fwd(torch.from_numpy(
+                         x[start + i * self.batch_size:
+                           start + (i + 1) * self.batch_size]).to(dev))
+                     for i, (fwd, dev) in enumerate(zip(self._forwards,
+                                                        self.devices))]
+            outs.extend(p.cpu() for p in parts)
         y = torch.cat(outs).numpy()[:n]
         return dataset.with_column(self.output_col, y)
 

@@ -33,8 +33,15 @@ flash forward under ``CausalLM(attention="flash")``, one a layer) to the
 wrappers' ``launches``. On the CPU, used only when the caller names it,
 the buckets run eagerly on the same static buffers.
 
-Not ported: ``mesh=`` (sharding micro-batches over a device mesh,
-ROADMAP.md Queue A, item 11) raises.
+**Over a mesh** (``mesh=``, the JAX engine's worker-sharded forward):
+every padded micro-batch splits evenly over the mesh's worker devices
+(a bucket that does not divide by their count raises ValueError, as
+in JAX), each distinct worker device holds one weight bank (the weights
+replicated) and each (bucket, worker shard) one graph, all captured in
+``__init__`` on that shard's stream into that shard's pool, and the
+shards' rows are gathered back in order. A mesh may repeat a device
+(``Mesh(["cuda:0"] * 2)`` on a one-card host): the shards then share
+that device's bank and run in turn on the one card.
 
 Telemetry (the JAX engine's): ``serving.queue_depth``,
 ``serving.batch_size``, ``serving.batch_wait_s``,
@@ -91,6 +98,9 @@ class ServingEngine:
         :class:`QueueFull`.
       default_timeout_ms: per-request deadline applied when ``submit``
         is not given one; ``None`` = no deadline.
+      mesh: optional :class:`~distkeras_tpu_torch.parallel.mesh.Mesh`
+        to shard micro-batches over its worker devices (every bucket
+        must divide evenly); ``device`` places a single-device engine.
       device: ``None`` is ``cuda:0``; the CPU only when named.
       warmup: replay every bucket once after the captures.
       telemetry_path: if set, ``shutdown()`` dumps the telemetry
@@ -107,10 +117,6 @@ class ServingEngine:
                  mesh=None, device=None,
                  warmup: bool = True,
                  telemetry_path: Optional[str] = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ServingEngine(mesh=...) shards micro-batches over a device "
-                "mesh, which is not ported yet (ROADMAP.md Queue A, item 11)")
         self.model = model
         self.input_shape = tuple(int(d) for d in input_shape)
         self.input_dtype = np.dtype(input_dtype)
@@ -127,7 +133,22 @@ class ServingEngine:
         self.default_timeout_s = (None if default_timeout_ms is None
                                   else float(default_timeout_ms) / 1e3)
         self.telemetry_path = telemetry_path
-        self.device = resolve_device(device)
+        if mesh is not None:
+            from distkeras_tpu_torch.parallel import mesh as mesh_lib
+
+            shards = mesh.shape[mesh_lib.WORKER_AXIS]
+            bad = [b for b in self.spec if b % shards]
+            if bad:
+                raise ValueError(
+                    f"buckets {bad} not divisible by the mesh's "
+                    f"{shards} worker shards; every padded batch must "
+                    f"split evenly across the mesh")
+            #: the worker shards' devices, in row order
+            self.devices = [resolve_device(d) for d in mesh.devices]
+        else:
+            self.devices = [resolve_device(device)]
+        self.mesh = mesh
+        self.device = self.devices[0]
         model.to(self.device).eval()
 
         # live-rollout state (serving/rollout.py): the float32 masters and
@@ -163,31 +184,50 @@ class ServingEngine:
     # -- one CUDA graph a bucket ------------------------------------------
 
     def _capture(self) -> None:
-        """Make the weight bank and one runner per bucket (a CUDA graph on
-        the card, captured on the engine's stream into one pool), counting
-        each on ``serving.compiles``."""
+        """Make one weight bank a distinct device and one runner per
+        (bucket, shard) (a CUDA graph on the card, captured on the shard's
+        stream into its pool), counting each on ``serving.compiles``."""
         cuda = self.device.type == "cuda"
-        #: the stream every capture, replay and bank load runs on
-        self.stream = torch.cuda.Stream(self.device) if cuda else None
-        self._graph_pool = torch.cuda.graph_pool_handle() if cuda else None
-        self._bank = _serving_copy(self.model)
-        forward = make_forward_fn(self._bank)
+        #: one stream a shard: every capture and replay of the shard runs
+        #: on it, a bank loads on its device's first shard's (``stream`` is
+        #: the first shard's)
+        self.streams = [torch.cuda.Stream(d) if cuda else None
+                        for d in self.devices]
+        self.stream = self.streams[0]
+        pools = [torch.cuda.graph_pool_handle() if cuda else None
+                 for _ in self.devices]
+        by_device = {}
+        for d, stream in zip(self.devices, self.streams):
+            if d not in by_device:
+                by_device[d] = (_serving_copy(self.model).to(d), stream)
+        #: one weight bank a distinct device, with the stream that loads
+        #: it: the shards on one device share its bank
+        self._banks = list(by_device.values())
+        self._bank = self._banks[0][0]
+        forwards = [make_forward_fn(by_device[d][0]) for d in self.devices]
         self._runs = {}
+        shards = len(self.devices)
         for bucket in self.spec:
-            x = np.zeros((bucket,) + self.input_shape, self.input_dtype)
-            with telemetry.span("serving.compile", bucket=bucket):
-                self._runs[bucket] = _StepRunner(
-                    lambda _pool, x: forward(x), None, {"x": x},
-                    self.device, self.stream, self._graph_pool)
-            telemetry.counter("serving.compiles").inc()
+            x = np.zeros((bucket // shards,) + self.input_shape,
+                         self.input_dtype)
+            runs = []
+            for forward, dev, stream, pool in zip(forwards, self.devices,
+                                                  self.streams, pools):
+                with telemetry.span("serving.compile", bucket=bucket):
+                    runs.append(_StepRunner(
+                        lambda _pool, x, f=forward: f(x), None, {"x": x},
+                        dev, stream, pool))
+                telemetry.counter("serving.compiles").inc()
+            self._runs[bucket] = runs
 
     def warmup(self) -> Tuple[int, ...]:
         """Replay every bucket once, so no request pays a first replay's
         costs. Returns the declared buckets."""
         with telemetry.span("serving.warmup"):
             with self._run_lock:
-                for run in self._runs.values():
-                    run.warm()
+                for runs in self._runs.values():
+                    for run in runs:
+                        run.warm()
         return self.compiled_buckets
 
     @property
@@ -196,15 +236,28 @@ class ServingEngine:
         ladder, never grown by traffic or swaps."""
         return tuple(sorted(self._runs))
 
+    @property
+    def captures(self) -> int:
+        """The runners made in ``__init__``: buckets x worker shards."""
+        return sum(len(runs) for runs in self._runs.values())
+
     def _replay(self, x: np.ndarray, n: int) -> np.ndarray:
-        """Run the bucket of ``len(x)`` and fetch its first ``n`` output
-        rows (caller holds ``_run_lock``)."""
-        run = self._runs[len(x)]
-        run(x=x)
-        if self.stream is None:
-            return run.out[:n].detach().numpy().copy()
-        with torch.cuda.stream(self.stream):
-            return run.out[:n].cpu().numpy()
+        """Run the bucket of ``len(x)``, each worker shard on its slice of
+        the rows, and fetch the first ``n`` output rows, in order (caller
+        holds ``_run_lock``)."""
+        runs = self._runs[len(x)]
+        m = len(x) // len(runs)
+        for i, run in enumerate(runs):
+            run(x=x[i * m:(i + 1) * m])
+        outs = []
+        for i, run in enumerate(runs[:-(-n // m)]):
+            rows = min(m, n - i * m)
+            if self.streams[i] is None:
+                outs.append(run.out[:rows].detach().numpy().copy())
+                continue
+            with torch.cuda.stream(self.streams[i]):
+                outs.append(run.out[:rows].cpu().numpy())
+        return outs[0] if len(outs) == 1 else np.concatenate(outs)
 
     # -- live weight rollout (serving/rollout.py) ---------------------------
 
@@ -218,14 +271,16 @@ class ServingEngine:
         return staged
 
     def _load(self, staged: dict) -> None:
-        """Cast ``staged`` into the bank's tensors in place, on the
-        engine's stream (caller holds ``_run_lock``)."""
-        if self.stream is None:
-            gpt.load_weights(self._bank, staged)
-            return
-        with torch.cuda.stream(self.stream):
-            gpt.load_weights(self._bank, staged)
-        self.stream.synchronize()
+        """Cast ``staged`` into every bank's tensors in place, each on its
+        stream, finished before this returns (caller holds
+        ``_run_lock``)."""
+        for bank, stream in self._banks:
+            if stream is None:
+                gpt.load_weights(bank, staged)
+                continue
+            with torch.cuda.stream(stream):
+                gpt.load_weights(bank, staged)
+            stream.synchronize()
 
     def swap_weights(self, params, version: int) -> None:
         """Atomically install ``params`` (a ``state_dict`` of float32

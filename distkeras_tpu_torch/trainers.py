@@ -33,11 +33,15 @@ Where the port differs from the JAX package, by design:
   the JAX package, which also runs one in-process server in a single
   process; snapshots ``{"center", "clock"}`` are DKTP2 steps every
   ``checkpoint_folds`` commits, and ``resume=True`` continues the clock;
+- ``precision=`` on a built model re-stamps it
+  (:func:`~distkeras_tpu_torch.precision.apply_to_model`: the model
+  rebuilt from its constructor kwargs, holding its weights);
+- ``PjitTrainer`` runs a workers x model mesh in this process
+  (:mod:`~distkeras_tpu_torch.parallel.tensor`);
 - what is not ported raises NotImplementedError naming its ROADMAP.md
   Queue A item: ``data_service=`` and any run over several processes
-  (item 16), ``PjitTrainer`` (item 16), and a ``precision=`` that would
-  re-stamp a built model (item 12). A ``GlobalShards`` pool (item 16)
-  raises ValueError as JAX's ``_reject_global_shards`` does.
+  (item 16). A ``GlobalShards`` pool (item 16) raises ValueError as
+  JAX's ``_reject_global_shards`` does.
 """
 
 from __future__ import annotations
@@ -191,9 +195,9 @@ class Trainer:
         if telemetry_path is not None:
             telemetry.flush_at_exit(telemetry_path)
         self.tx = opt_lib.get(worker_optimizer, learning_rate)
-        # mixed precision: validate early; the model must already carry
-        # the policy (re-stamping is item 12); the optimizer is
-        # guard-wrapped only when the policy scales the loss
+        # mixed precision: validate early and re-stamp the model with the
+        # policy; the optimizer is guard-wrapped only when the policy
+        # scales the loss
         self.precision = precision_lib.validate_precision(precision)
         if self.precision is not None:
             self.model = precision_lib.apply_to_model(self.model,
@@ -950,12 +954,184 @@ class EnsembleTrainer(DistributedTrainer):
 
 
 class PjitTrainer(Trainer):
-    """The JAX package's GSPMD data (x tensor) parallel trainer: not
-    ported (ROADMAP.md Queue A, item 16)."""
+    """Sync data-parallel (x tensor-parallel) trainer: the JAX package's
+    GSPMD trainer (BASELINE config 5, "pjit-sharded data-parallel").
 
-    def __init__(self, *args, **kwargs):
-        raise _not_ported("PjitTrainer (GSPMD data x tensor parallelism)",
-                          "item 16: parallel/tensor.py and collectives")
+    The global batch is split over the ``workers`` mesh axis and the
+    parameters optionally over ``model`` by partition rules
+    (:mod:`~distkeras_tpu_torch.parallel.tensor`: flax-path rules mapped
+    onto the port's layout, shards at rest, the optimizer state per
+    shard, parameters gathered for the step, the loss taken over the
+    global batch as GSPMD takes it, its gradient split back into the
+    shards). No parameter server: every step is one synchronous update.
+
+    Placement: ``mesh=`` as given; else ``make_mesh(num_workers,
+    model_parallelism)`` over ``[cuda:0]`` (raising without a card), or,
+    with ``device=``, over that device repeated ``num_workers x
+    model_parallelism`` times (``device="cpu"`` runs on the host). In one
+    process ``data_layout="host_sharded"`` is the replicated case.
+    Checkpoints (``checkpoint_dir=``) hold whole tensors (parameters and
+    optimizer state) and re-shard on restore, onto any model-axis size.
+
+    Dropout: one stream a step on the GSPMD path, one stream a (step,
+    worker) under ``bucket_bytes`` (each worker's slice a step of its own)
+    (:func:`~distkeras_tpu_torch.parallel.tensor.build_pjit_epoch_fn`).
+    """
+
+    def __init__(self, model, loss="categorical_crossentropy",
+                 worker_optimizer="sgd", learning_rate: float = 0.01,
+                 metrics=("accuracy",), features_col="features",
+                 label_col="label", batch_size: int = 32, num_epoch: int = 1,
+                 num_workers: Optional[int] = None,
+                 model_parallelism: int = 1, partition_rules=None,
+                 mesh=None, seed: int = 0, loss_weights=None,
+                 checkpoint_dir: Optional[str] = None,
+                 staging_steps: Optional[int] = None,
+                 data_layout: str = "replicated",
+                 telemetry_path: Optional[str] = None,
+                 accum_steps: int = 1,
+                 precision: Optional[str] = None,
+                 bucket_bytes: Optional[int] = None,
+                 device=None):
+        super().__init__(model, loss, worker_optimizer, learning_rate,
+                         metrics, features_col, label_col, batch_size,
+                         num_epoch, seed, loss_weights=loss_weights,
+                         checkpoint_dir=checkpoint_dir,
+                         telemetry_path=telemetry_path,
+                         precision=precision, device=device)
+        if mesh is None:
+            devices = None
+            if device is not None:
+                need = (1 if num_workers is None else int(num_workers)) \
+                    * int(model_parallelism)
+                devices = [resolve_device(device)] * need
+            mesh = mesh_lib.make_mesh(num_workers,
+                                      model_parallelism=model_parallelism,
+                                      devices=devices)
+        for row in mesh.grid:  # a card the host lacks raises here
+            for d in row:
+                resolve_device(d)
+        self.mesh = mesh
+        self.num_workers = self.mesh.shape[mesh_lib.WORKER_AXIS]
+        self.partition_rules = partition_rules
+        # None: whole epoch resident; int: O(staging_steps) chunks
+        # prefetched on a thread
+        self.staging_steps = staging_steps
+        if data_layout not in ("replicated", "host_sharded"):
+            raise ValueError(
+                f"data_layout must be 'replicated' or 'host_sharded', "
+                f"got {data_layout!r}")
+        self.data_layout = data_layout
+        if self.batch_size % self.num_workers != 0:
+            raise ValueError(
+                f"batch_size {self.batch_size} must be divisible by "
+                f"num_workers {self.num_workers} (the batch is the GLOBAL "
+                f"batch, sharded over the workers axis)")
+        # each microbatch must still shard evenly over the workers axis,
+        # so the PER-WORKER batch is what accum_steps has to divide
+        self.accum_steps = int(accum_steps)
+        if self.accum_steps < 1:
+            raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+        if (self.batch_size // self.num_workers) % self.accum_steps != 0:
+            raise ValueError(
+                f"accum_steps={self.accum_steps} must divide the per-device "
+                f"batch {self.batch_size // self.num_workers} "
+                f"(global batch_size {self.batch_size} / num_workers "
+                f"{self.num_workers}) so each microbatch shards evenly over "
+                f"the workers axis")
+        if bucket_bytes is not None:
+            bucket_bytes = int(bucket_bytes)
+            if bucket_bytes <= 0:
+                raise ValueError(
+                    f"bucket_bytes must be positive, got {bucket_bytes}")
+            if self.mesh.shape.get(mesh_lib.MODEL_AXIS, 1) > 1:
+                raise ValueError(
+                    f"bucket_bytes={bucket_bytes} (explicit bucketed grad "
+                    f"all-reduce) requires a pure data-parallel mesh, but "
+                    f"model_parallelism="
+                    f"{self.mesh.shape[mesh_lib.MODEL_AXIS]} shards params "
+                    f"over the model axis — GSPMD's implicit model-parallel "
+                    f"collectives do not compose with explicit shard_map "
+                    f"psums")
+        self.bucket_bytes = bucket_bytes
+        #: the train state on the mesh after ``train()`` (shards and the
+        #: optimizer over them)
+        self.state = None
+
+    def train(self, dataset: Dataset, shuffle: bool = False,
+              resume: bool = False):
+        from distkeras_tpu_torch.parallel import tensor
+
+        self._reject_global_shards(dataset, "PjitTrainer")
+        self._start()
+        if self.data_layout == "host_sharded":
+            positions = mesh_lib.local_worker_positions(self.mesh)
+            local_batch = (self.batch_size // self.num_workers) \
+                * len(positions)
+        else:
+            local_batch = self.batch_size
+        self._check_trainable(dataset, local_batch)
+        if self.staging_steps is None:
+            self._warn_if_large_resident(dataset, "staging_steps")
+        # the one module skeleton every worker's gathered tensors run
+        # through
+        self.model.to(self.mesh.home)
+        if getattr(self, "_pjit_fns", None) is None:
+            with span("trainer.compile"):
+                self._pjit_fns = tensor.build_pjit_epoch_fn(
+                    self.model, self.loss, self.tx, self.mesh, self.metrics,
+                    self.partition_rules, dropout_seed=self.seed,
+                    accum_steps=self.accum_steps, precision=self.precision,
+                    bucket_bytes=self.bucket_bytes)
+        epoch_fn, place_state, place_data = self._pjit_fns
+        with span("trainer.init"):
+            state = place_state(_params_of(self.model))
+        ckpt = self._checkpointer()
+        snap, start_epoch = self._maybe_resume(ckpt, resume)
+        step_offset = 0
+        if snap is not None:
+            tensor.load_params(state, snap["state"]["params"])
+            tensor.load_optimizer_state_tree(state,
+                                             snap["state"].get("opt", {}))
+            state.step = int(np.asarray(snap["state"]["step"]))
+            step_offset = int(np.asarray(snap["counters"]).ravel()[0])
+        self.state = state
+        self.history = []
+        staged = None  # shuffle=False + whole-epoch staging: place once
+        for epoch in range(start_epoch, self.num_epoch):
+            with span("trainer.stage"):
+                chunks, staged = self._epoch_chunk_stream(
+                    staged,
+                    lambda: ((place_data(data), steps)
+                             for data, steps in tensor.stage_step_chunks(
+                                 dataset.shuffle(self.seed + epoch)
+                                 if shuffle else dataset,
+                                 self.features_col, self.label_col,
+                                 local_batch,
+                                 chunk_steps=self.staging_steps)),
+                    resident=not shuffle and self.staging_steps is None)
+            with span("trainer.epoch"):
+                pending = []
+                for data, steps in chunks:
+                    state, ms = epoch_fn(state, data, step_offset)
+                    step_offset += steps
+                    pending.append((ms, steps))
+                for ms, steps in pending:
+                    host = {k: v.cpu().numpy() for k, v in ms.items()}
+                    self.history.extend(
+                        {k: float(v[i]) for k, v in host.items()}
+                        for i in range(steps))
+            if ckpt is not None:
+                ckpt.save(epoch, {
+                    "state": {"params": state.gathered("cpu"),
+                              "opt": tensor.optimizer_state_tree(state),
+                              "step": np.asarray(state.step, np.int64)},
+                    "counters": np.array([step_offset], np.int64)})
+        with span("trainer.finalize"):
+            self.params = state.gathered(self.mesh.home)
+            _load(self.model, self.params)
+        self._stop(self.mesh.home)
+        return self.params
 
 
 class SingleTrainer(Trainer):

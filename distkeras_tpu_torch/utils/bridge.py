@@ -74,6 +74,34 @@ def flax_to_state_dict(params: Mapping) -> dict:
     return out
 
 
+def flax_layout(name: str, ndim: int) -> tuple:
+    """``(path, axes)`` of the port parameter ``name`` of rank ``ndim``
+    in the flax tree: its path (a tuple of keys, e.g. ``("layer_0",
+    "attn", "qkv", "kernel")``) and the permutation that turns the port
+    tensor into the flax array (``flax = port.permute(axes)``)."""
+    identity = tuple(range(ndim))
+    if "." not in name:  # pos_embed, cls
+        return (name,), identity
+    parts, raw = [], name.split(".")
+    while raw:
+        part = raw.pop(0)
+        parts.append(f"layer_{raw.pop(0)}" if part == "layers" else part)
+    *mods, leaf = parts
+    if leaf in ("bias", "gain"):
+        key, axes = leaf, identity
+    elif ndim == 1:  # LayerNorm / GroupNorm
+        key, axes = "scale", identity
+    elif ndim == 4:  # conv, OIHW -> HWIO
+        key, axes = "kernel", (2, 3, 1, 0)
+    elif ndim == 3:  # stacked experts, [E, out, in] -> [E, in, out]
+        key, axes = "kernel", (0, 2, 1)
+    elif mods[-1] in ("tok_embed", "seg_embed"):
+        key, axes = "embedding", identity
+    else:  # Dense
+        key, axes = "kernel", (1, 0)
+    return tuple(mods) + (key,), axes
+
+
 def state_dict_to_flax(state_dict: Mapping, shapes_only: bool = False
                        ) -> dict:
     """Inverse of :func:`flax_to_state_dict`: a nested dict of float32
@@ -82,34 +110,16 @@ def state_dict_to_flax(state_dict: Mapping, shapes_only: bool = False
     wire codec's template: only shapes and dtypes are read)."""
     tree: dict = {}
     for name, tensor in state_dict.items():
+        path, axes = flax_layout(name, tensor.dim())
         if shapes_only:
             arr = np.broadcast_to(np.float32(0), tuple(tensor.shape))
         else:
             arr = tensor.detach().to("cpu", torch.float32).numpy()
-        if "." not in name:  # pos_embed, cls
-            tree[name] = arr if shapes_only else arr.copy()
-            continue
-        parts, raw = [], name.split(".")
-        while raw:
-            part = raw.pop(0)
-            parts.append(f"layer_{raw.pop(0)}" if part == "layers" else part)
-        *mods, leaf = parts
-        if leaf in ("bias", "gain"):
-            key = leaf
-        elif arr.ndim == 1:  # LayerNorm / GroupNorm
-            key = "scale"
-        elif arr.ndim == 4:  # conv, OIHW -> HWIO
-            key, arr = "kernel", arr.transpose(2, 3, 1, 0)
-        elif arr.ndim == 3:  # stacked experts, [E, out, in] -> [E, in, out]
-            key, arr = "kernel", arr.transpose(0, 2, 1)
-        elif mods[-1] in ("tok_embed", "seg_embed"):
-            key = "embedding"
-        else:  # Dense
-            key, arr = "kernel", arr.T
+        arr = arr.transpose(axes)
         node = tree
-        for m in mods:
+        for m in path[:-1]:
             node = node.setdefault(m, {})
-        node[key] = arr if shapes_only else np.ascontiguousarray(arr)
+        node[path[-1]] = arr if shapes_only else np.array(arr, order="C")
     return tree
 
 

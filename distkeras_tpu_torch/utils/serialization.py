@@ -247,16 +247,36 @@ def _unjsonable(value):
     return value
 
 
-def _model_config(model) -> dict:
-    """The constructor kwargs, read back from the module's attributes
-    of the same names (JSON-able values, dtypes and classes); a kwarg the
-    module does not keep raises ValueError rather than being rebuilt at
-    its default."""
-    cfg, missing = {}, []
+def constructor_kwargs(model) -> dict:
+    """The constructor kwargs of ``model``, read back from the module's
+    attributes of the same names (every model family of the port keeps
+    them); a kwarg the module does not keep raises ValueError rather
+    than being rebuilt at its default."""
+    out, missing = {}, []
     for name, p in inspect.signature(type(model).__init__).parameters.items():
         if name == "self" or p.kind in (p.VAR_POSITIONAL, p.VAR_KEYWORD):
             continue
-        val = _jsonable(vars(model)[name]) if name in vars(model) else _SKIP
+        if name in vars(model):
+            out[name] = vars(model)[name]
+        else:
+            missing.append(name)
+    if missing:
+        raise ValueError(f"{type(model).__name__} does not keep its "
+                         f"constructor kwargs {missing} as attributes, so "
+                         f"it cannot be rebuilt")
+    return out
+
+
+def _model_config(model) -> dict:
+    """:func:`constructor_kwargs` as JSON-able values (dtypes and classes
+    tagged); a value with no JSON form raises ValueError."""
+    cfg, missing = {}, []
+    try:
+        kwargs = constructor_kwargs(model)
+    except ValueError as e:
+        raise ValueError(f"serialize_model: {e}") from None
+    for name, value in kwargs.items():
+        val = _jsonable(value)
         if val is _SKIP:
             missing.append(name)
         else:

@@ -2,9 +2,9 @@
 without a card and without ``--device cpu`` they refuse instead of
 measuring the host.
 
-- ``python -m distkeras_tpu_torch.benchmarks``: configs 1-4 run their
-  smoke shapes through the port's trainers and print one JSON line each;
-  config 5 prints an ``error`` line naming its ROADMAP.md item;
+- ``python -m distkeras_tpu_torch.benchmarks``: configs 1-5 run their
+  smoke shapes through the port's trainers and print one JSON line each
+  (config 5 through ``PjitTrainer``);
 - ``bench_torch.py --tiny --device cpu`` prints one JSON line with
   ``bench.py``'s keys; without a card and without ``--device cpu`` it
   exits non-zero and prints no result.
@@ -14,6 +14,7 @@ import json
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -36,7 +37,8 @@ def test_configs_one_to_three_run_on_the_cpu_when_asked(capsys):
     lines = {d["config"]: d for d in _lines(capsys.readouterr().out)}
     assert sorted(lines) == ["1", "2", "3", "4", "5"]
     for k, name in (("1", "mnist-mlp-adag"), ("2", "cifar-cnn-downpour"),
-                    ("3", "resnet50-aeasgd"), ("4", "bert-dynsgd")):
+                    ("3", "resnet50-aeasgd"), ("4", "bert-dynsgd"),
+                    ("5", "vit-pjit")):
         d = lines[k]
         assert d["name"] == name and d["mode"] == "smoke"
         assert d["device"] == "cpu" and d["steps"] > 0
@@ -45,8 +47,10 @@ def test_configs_one_to_three_run_on_the_cpu_when_asked(capsys):
     # epoch on one worker
     assert lines["4"]["steps"] == 512 // 16
     assert 0 < lines["4"]["final_loss"] < 10
-    assert "item 16" in lines["5"]["error"]
-    assert "item 14" not in lines["5"]["error"]
+    # config 5 at its smoke shape: 512 rows of 16x16 images, batch 64, one
+    # epoch on one worker
+    assert "error" not in lines["5"] and lines["5"]["steps"] == 512 // 64
+    assert np.isfinite(lines["5"]["final_loss"])
 
 
 def test_runners_refuse_the_host_without_a_card(capsys):

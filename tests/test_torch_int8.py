@@ -215,8 +215,10 @@ def test_apply_to_model_checks_the_policy():
         tprecision.apply_to_model(model, "bf16")
     with pytest.raises(ValueError, match="no `precision` field"):
         tprecision.apply_to_model(torch.nn.Linear(2, 2), "bf16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tprecision.apply_to_model(tgpt.gpt_tiny(), "int8")
+    built = tgpt.gpt_tiny()  # re-stamped: a copy with the policy
+    stamped = tprecision.apply_to_model(built, "int8")
+    assert stamped is not built and stamped.precision == "int8"
+    assert built.precision is None
     with pytest.raises(ValueError, match="unknown precision"):
         tprecision.apply_to_model(model, "int4")
 

@@ -189,10 +189,20 @@ def test_bridge_round_trips_the_moe_tree_exactly(pair):
 
 
 def test_expert_parallel_rules_name_item_16():
-    with pytest.raises(NotImplementedError, match="item 16"):
-        moe.ep_partition_rules()
-    with pytest.raises(NotImplementedError, match="item 16"):
-        moe.EP_RULES  # noqa: B018
+    """Item 16's expert-parallel rules (ported): JAX's ``EP_RULES``, and
+    ``ep_partition_rules()`` prepends them, as specs, to the
+    tensor-parallel defaults, in JAX's order."""
+    from distkeras_tpu.models import moe as jmoe
+    from distkeras_tpu_torch.parallel import tensor
+
+    assert moe.EP_RULES == jmoe.EP_RULES
+    rules = moe.ep_partition_rules()
+    want = jmoe.ep_partition_rules()
+    assert [pat for pat, _ in rules] == [pat for pat, _ in want]
+    assert [tuple(spec) for _, spec in rules] == \
+        [tuple(spec) for _, spec in want]
+    assert all(isinstance(spec, tensor.PartitionSpec) for _, spec in rules)
+    assert rules[len(moe.EP_RULES):] == tuple(tensor.DEFAULT_RULES)
 
 
 def test_router_noise_draws_from_the_generator():

@@ -20,6 +20,10 @@
   ``WeightPublisher(ps=...)`` and the staleness twin resolve to
   ``cuda:0``, raise without a card, and run on the host with
   ``device="cpu"``.
+- The one-process mesh likewise: ``PjitTrainer`` (by default, and over a
+  mesh of cards), ``ServingEngine(mesh=...)`` and
+  ``ModelPredictor(mesh=...)`` raise without a card and run on the host
+  with ``device="cpu"`` or a CPU mesh.
 """
 
 import ast
@@ -150,6 +154,31 @@ def test_encoder_trainers_do_not_fall_back_to_cpu(monkeypatch, family):
     assert all(p.device.type == "cpu" for p in model.parameters())
 
 
+def test_mesh_paths_do_not_fall_back_to_cpu(monkeypatch):
+    from distkeras_tpu_torch import ModelPredictor, PjitTrainer
+    from distkeras_tpu_torch.models import MLP
+    from distkeras_tpu_torch.parallel.mesh import Mesh
+
+    _no_cuda(monkeypatch)
+    cards = Mesh(["cuda:0"] * 2)
+    for build in (lambda: PjitTrainer(MLP(features=(4,))),
+                  lambda: PjitTrainer(MLP(features=(4,)), mesh=Mesh(
+                      ["cuda:0"] * 2, model_parallelism=2)),
+                  lambda: ServingEngine(MLP(features=(4,), in_features=8),
+                                        (8,), buckets=(2,), mesh=cards),
+                  lambda: ModelPredictor(MLP(features=(4,)), mesh=cards)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    assert PjitTrainer(MLP(features=(4,)), device="cpu", num_workers=2,
+                       model_parallelism=2).mesh.shape == {"workers": 2,
+                                                           "model": 2}
+    host = Mesh(["cpu"] * 2)
+    assert ModelPredictor(MLP(features=(4,)), mesh=host).device.type == "cpu"
+    with ServingEngine(MLP(features=(4,), in_features=8), (8,),
+                       buckets=(2,), mesh=host) as eng:
+        assert [d.type for d in eng.devices] == ["cpu", "cpu"]
+
+
 def _async_builds():
     from distkeras_tpu_torch import trainers
     from distkeras_tpu_torch.benchmarks import staleness_tradeoff
@@ -247,6 +276,15 @@ def test_import_pulls_in_no_jax_and_no_reference_package():
             "import distkeras_tpu_torch.parallel.elastic\n"
             "import distkeras_tpu_torch.parallel.failover\n"
             "import distkeras_tpu_torch.utils.transfer\n"
+            "import distkeras_tpu_torch.parallel.collectives\n"
+            "import distkeras_tpu_torch.parallel.tensor\n"
+            "import distkeras_tpu_torch.parallel.distributed\n"
+            "import distkeras_tpu_torch.data.native\n"
+            "import distkeras_tpu_torch.utils.compat\n"
+            "import distkeras_tpu_torch.job_deployment\n"
+            "from distkeras_tpu_torch import (PjitTrainer, Job, Punchcard,"
+            " LocalLauncher)\n"
+            "from distkeras_tpu_torch.models.moe import EP_RULES\n"
             "import bench_torch\n"
             "from distkeras_tpu_torch import (ADAG, DOWNPOUR, DynSGD, AEASGD,"
             " EAMSGD, AveragingTrainer, EnsembleTrainer, SingleTrainer,"

@@ -15,7 +15,8 @@ flax with ``state_dict_to_flax``), 16-token rows of int32 ids, buckets
   restored);
   ``shadow_forward`` equals live output bitwise at the same bucket; a
   torn tree is refused with the incumbent serving bitwise;
-- ``mesh=`` raises naming its ROADMAP item.
+- a ``mesh=`` bucket its worker count does not divide raises JAX's
+  ValueError.
 
 The JAX engine is built once for the module.
 """
@@ -119,8 +120,11 @@ def test_errors_typed_as_jax(weights):
         _engine(weights[0], max_batch_size=8)
     with pytest.raises(ValueError, match="max_wait_ms"):
         _engine(weights[0], max_wait_ms=-1.0)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        _engine(weights[0], mesh=object())
+    # a bucket the mesh's worker count does not divide (JAX's error)
+    from distkeras_tpu_torch.parallel.mesh import Mesh
+
+    with pytest.raises(ValueError, match="not divisible by the mesh's 2"):
+        _engine(weights[0], mesh=Mesh(["cpu", "cpu"]))
 
 
 def test_swap_changes_outputs_and_adds_no_compile(weights):

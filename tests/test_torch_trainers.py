@@ -259,27 +259,36 @@ def test_dataset_too_small_and_master_port_like_jax():
             == 8
 
 
+def _multi_process(build):
+    """``build()`` inside what looks like a two-process
+    ``torch.distributed`` group."""
+    from unittest import mock
+
+    def run():
+        with mock.patch.object(torch.distributed, "is_initialized",
+                               lambda: True), \
+                mock.patch.object(torch.distributed, "get_world_size",
+                                  lambda: 2):
+            return build()
+    return run
+
+
 NOT_PORTED = [  # (build, item)
     # host_async runs in one process (item 13 is ported); the streaming
     # data plane that feeds it across processes is item 16
     (lambda: tdk.DOWNPOUR(_tmodel(), num_workers=1, device="cpu",
                           mode="host_async", data_service="h:1"),
      "item 16"),
-    # checkpoints and resume (items 8 and 12) are ported: these four
-    # cases now hold other paths that still raise
-    (lambda: tdk.SingleTrainer(_tmodel(), device="cpu", precision="bf16"),
-     "item 12"),
-    (lambda: tdk.ModelPredictor(_tmodel(), mesh=tdk.parallel.mesh.Mesh(
-        ["cpu", "cpu"])), "item 16"),
-    (lambda: tdk.parallel.mesh.make_mesh(devices=["cpu"],
-                                         model_parallelism=2), "item 16"),
-    # remat (item 10) is ported: this case now holds precision
-    # re-stamping of a built encoder model, which still raises
-    (lambda: tdk.DynSGD(tdk.models.bert_tiny(), num_workers=1,
-                        device="cpu", precision="int8"), "item 12"),
-    (lambda: tdk.PjitTrainer(_tmodel()), "item 16"),
-    (lambda: tdk.ADAG(_tmodel(), num_workers=1, device="cpu",
-                      precision="bf16"), "item 12"),
+    # the one-process mesh, re-stamping and sharded scoring are ported
+    # (items 12 and 16): these cases now hold what still raises, ring
+    # attention and every path across processes
+    (lambda: tdk.models.gpt.CausalLM(attention="ring"), "item 16"),
+    (_multi_process(lambda: tdk.parallel.mesh.make_mesh(devices=["cpu"])),
+     "item 16"),
+    (_multi_process(lambda: tdk.PjitTrainer(_tmodel(), device="cpu")),
+     "item 16"),
+    (_multi_process(lambda: tdk.ADAG(_tmodel(), num_workers=1,
+                                     device="cpu")), "item 16"),
     (lambda: tdk.AccuracyEvaluator(across_processes=True), "item 16"),
     (lambda: tdk.LossEvaluator(across_processes=True), "item 16"),
 ]
@@ -290,6 +299,61 @@ def test_unported_paths_name_their_item(case):
     build, item = NOT_PORTED[case]
     with pytest.raises(NotImplementedError, match=item):
         build()
+
+
+def _mlm_rows(n=32, t=16, vocab=128):
+    rng = np.random.default_rng(0)
+    ids = rng.integers(1, vocab, (n, t)).astype(np.int32)
+    labels = np.where(rng.random((n, t)) < 0.15, ids, -1).astype(np.int32)
+    return tdk.Dataset.from_arrays(features=ids, label=labels)
+
+
+NOW_PORTED = {  # name -> (build, dataset): paths that raised before
+    # a trainer's precision= on a built model re-stamps it (item 12)
+    "single_bf16": (lambda: tdk.SingleTrainer(
+        _tmodel(), device="cpu", precision="bf16", batch_size=32),
+        lambda: tdk.synthetic_mnist(n=64)),
+    "adag_bf16": (lambda: tdk.ADAG(
+        _tmodel(), num_workers=1, device="cpu", precision="bf16",
+        batch_size=16, communication_window=2),
+        lambda: tdk.synthetic_mnist(n=64)),
+    "dynsgd_bert_int8": (lambda: tdk.DynSGD(
+        tdk.models.bert_tiny(vocab_size=128), num_workers=1, device="cpu",
+        precision="int8", loss="masked_lm", metrics=(), batch_size=8,
+        communication_window=2), _mlm_rows),
+    # the workers x model mesh, PjitTrainer and sharded scoring (item 16)
+    "model_predictor_mesh": (lambda: tdk.ModelPredictor(
+        _tmodel(), mesh=tdk.parallel.mesh.Mesh(["cpu", "cpu"]),
+        batch_size=8), lambda: tdk.synthetic_mnist(n=20)),
+    "make_mesh_model_2": (lambda: tdk.PjitTrainer(
+        _tmodel(), batch_size=32, mesh=tdk.parallel.mesh.make_mesh(
+            devices=["cpu"] * 2, model_parallelism=2)),
+        lambda: tdk.synthetic_mnist(n=64)),
+    "pjit_trainer": (lambda: tdk.PjitTrainer(
+        _tmodel(), device="cpu", num_workers=2, batch_size=32),
+        lambda: tdk.synthetic_mnist(n=64)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(NOW_PORTED))
+def test_ported_paths_build_and_step(name):
+    """Each path that raised NotImplementedError before builds and runs
+    on the CPU: a trainer trains (finite losses; a re-stamped model
+    carries the policy), a predictor scores every row."""
+    build, data = NOW_PORTED[name]
+    built, ds = build(), data()
+    if isinstance(built, tdk.ModelPredictor):
+        out = built.predict(ds)["prediction"]
+        assert out.shape == (len(ds), 10) and np.isfinite(out).all()
+        assert [d.type for d in built.devices] == ["cpu", "cpu"]
+        return
+    built.train(ds)
+    losses = [h["loss"] for h in built.get_history()]
+    assert losses and np.isfinite(losses).all()
+    if built.precision is not None:
+        assert built.model.precision == built.precision
+    if name == "make_mesh_model_2":
+        assert built.mesh.shape == {"workers": 1, "model": 2}
 
 
 def test_host_async_plain_run_counts_like_jax():
