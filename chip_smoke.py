@@ -182,8 +182,9 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    before and after the kill). (c) ``push_weights`` of seeded new
    weights to the live replicas: every reply ok, ``version_skew`` 0,
    ``model_version`` 1 on each, and the tokens that follow equal an
-   engine's loaded with them. (d) bf16, two ``both`` replicas, phase 4's
-   window through the router from 8 client threads (affinity routing)
+   engine's loaded with them. (d) bf16, two ``both`` replicas, the first
+   64 requests of phase 4's window through the router from 8 client
+   threads (affinity routing)
    with a ``MetricStore`` and the default SLO specs installed: tokens/s,
    TTFT p50/p99, longest gap, affinity hit rate, one paged launch a
    layer a model call (``launches_fleet`` in the kernels' line); the
@@ -228,10 +229,11 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    kernels report their formulas, the plain versions run as aten ops)
    for a 2-layer gpt_small-width flash step (rows 1-3), its int8 step
    (row 5), a resnet50() GroupNorm step at b=2 (rows 6-7) and a paged
-   decode call (row 4); ``capture_op_times`` over three calls and
+   decode call (row 4); ``capture_op_times`` over two calls and
    ``build_report`` (op inventory against its source view: coverage) of
    phase 8's step, phase 12's, phase 14's, and a round of phase 24 (a)'s
-   configuration (one round), with phase 6's capture of a graphed
+   configuration at a window of 4 steps (one round), with phase 6's
+   capture of a graphed
    window of phase 4's engine (graph replays dispatch no op: no
    roofline): busy share, top kernels, top roofline rows, and each
    path's hand-written kernels named in its trace;
@@ -251,7 +253,8 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    ``(delta, weight)`` accumulated in float64 as it lands, the final
    center within 1e-6 of it; (c) a K = 1 MNIST-MLP run on the card and on
    the host's CPU, centers within 1e-5; (d) ``codec="int8"`` with
-   ``comms_overlap=True`` (ADAG K = 2): bytes a commit raw and int8,
+   ``comms_overlap=True`` (ADAG K = 2, batch 128, window 8, 2 windows a
+   worker): bytes a commit raw and int8,
    every window commits; (e) ``ADAG(resnet50())`` GroupNorm K = 2: the
    GroupNorm kernels launched 53 x K x window x windows times, plus 53
    by the runner's one-row FLOPs count (``launches_async`` in the
@@ -311,6 +314,31 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    shuffle in rows/s. (g) A one-job ``Punchcard`` (``SingleTrainer``,
    MLP) through ``LocalLauncher`` in a fresh interpreter on the card,
    its results read back.
+30. seqpipe — sequence and pipeline parallelism in one process, TF32
+   off, meshes that repeat ``cuda:0``. (a) ``gpt_small(attention=
+   "ring")`` in bf16 through ``parallel.sequence.build_sp_train_step`` on
+   workers 1 x seq 4, global T = 1,024 (its ``max_len``), b = 8,
+   adamw(1e-3), 4 steps: step 1's loss within 1e-3 relative of the same
+   weights under ``attention="full"`` through the single-device step
+   (``engine.make_train_step``), the loss falling, the median step,
+   tokens/s, peak memory against the full step's. (b) Workers 2 x seq 2
+   against 1 x 4 on (a)'s weights and batch in float32, one sgd(0.1)
+   step: the loss and the parameters within 1e-5 relative (only the
+   fold's order differs); bf16 step 1 on 2 x 2 against (a)'s, reported.
+   (c) Long context: gpt_small's widths at ``max_len=8192``, b = 1 on
+   seq 8, ``remat="blocks"``, 2 adamw steps: finite losses, peak memory
+   and step times (every shard's folds live on the one card: no memory
+   gain is claimed). (d) ``PipelinedLM`` at gpt_small's config in bf16,
+   12 layers over 4 stages of 3, M = 4 microbatches of 2 at T = 1,024:
+   one sgd(0.1) step's loss within 1e-6 relative and parameters within
+   1e-6 of each leaf's largest magnitude of ``reference_apply`` over
+   the same microbatches on the same stacked weights (the whole batch in
+   one call reported); then 4 adamw steps, ms a step. (e)
+   ``GenericPipeline`` over ``resnet50()`` (GroupNorm) cut into stem, its
+   four stages and head (6 stages), b = 32 at 224^2, M = 4, bf16 hops:
+   the loss within 1e-6 relative of the sequential oracle over the same
+   microbatches, and both GroupNorm kernels launched 53 x M times over
+   the step (``launches_pipeline`` in the kernels' line).
 
 The last three lines of standard output are the kernels' JSON, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details are
@@ -2893,6 +2921,8 @@ FLEET_KILL_PROMPTS = 12
 FLEET_STORM = 48
 FLEET_KILL_NEW = 32
 FLEET_CLIENTS = 8
+#: (d) the first half of phase 4's window through the router
+FLEET_RATE_REQUESTS = 64
 #: (c) prompts served after the weight push, new tokens each
 FLEET_PUSH_PROMPTS = 4
 
@@ -3271,7 +3301,8 @@ def _fleet_window(router, prompts, new) -> dict:
 
 
 def _fleet_rates(dev, power_line, wire_info, engine_info) -> dict:
-    """(d) bf16: phase 4's window through the router over two ``both``
+    """(d) bf16: half of phase 4's window (FLEET_RATE_REQUESTS requests)
+    through the router over two ``both``
     replicas with affinity routing, a MetricStore and the default SLO
     specs installed; the paged launches counted per replay."""
     from distkeras_tpu_torch import telemetry
@@ -3292,7 +3323,8 @@ def _fleet_rates(dev, power_line, wire_info, engine_info) -> dict:
             for k in ("prefills", "steps"))
         fa.paged_flash_attention.launches = 0
         calls0 = calls()
-        window = _fleet_window(router, _serving_prompts(), SERVE_NEW)
+        window = _fleet_window(
+            router, _serving_prompts()[:FLEET_RATE_REQUESTS], SERVE_NEW)
         launches = fa.paged_flash_attention.launches
         n_calls = calls() - calls0
         layers = fleet.replicas[0]["gen"].model.num_layers
@@ -3686,7 +3718,10 @@ CAL_SIZES = (16384, 8192, 4096)
 #: GroupNorm resnet50() batch at 224^2
 PARITY_LAYERS, PARITY_B, PARITY_T, PARITY_GN_B = 2, 2, 128, 2
 #: steps a traced capture covers
-MEASURE_STEPS = 3
+MEASURE_STEPS = 2
+#: local steps of the traced training-core round (phase 24 (a) takes
+#: CORE_WINDOW): the profiler's processing of a round grows with it
+MEASURE_CORE_WINDOW = 4
 #: rounds of bench_torch's configuration in phase 25 (1 warm-up, 2 timed)
 MEASURE_BENCH_ROUNDS = 2
 
@@ -3856,7 +3891,8 @@ def _measure_path(dev, tag, step_fn, expect, dtype="bf16",
 
 def _measure_paths(dev, serving_profile) -> dict:
     """Phase 8's GPT step, phase 12's int8 step and phase 14's GroupNorm
-    step (three steps each) and a round of phase 24 (a)'s configuration,
+    step (MEASURE_STEPS steps each) and a round of phase 24 (a)'s
+    configuration at MEASURE_CORE_WINDOW steps,
     each captured and reported; the graphed serving window is phase 6's
     capture (``serving_profile``)."""
     import bench_torch
@@ -3926,7 +3962,8 @@ def _measure_paths(dev, serving_profile) -> dict:
         f"{ {k: round(v, 4) for k, v in serving['kernels_ms'].items()} }")
     assert "paged_flash_attention" in serving["kernels_ms"], serving
     b = bench_torch.build(batch_size=CORE_B, image_side=224,
-                          window=CORE_WINDOW, rounds=1, num_classes=1000,
+                          window=MEASURE_CORE_WINDOW, rounds=1,
+                          num_classes=1000,
                           tiny=False, device=dev)
     cell = {"center": b["center"], "carries": b["carries"], "round": 0}
 
@@ -3937,8 +3974,9 @@ def _measure_paths(dev, serving_profile) -> dict:
         return metrics
 
     mark("round built")
-    out["core"] = _measure_path(dev, "ADAG(resnet50_nf()) round (phase 24 "
-                                "(a))", core_round, (), steps=1)
+    out["core"] = _measure_path(dev, f"ADAG(resnet50_nf()) round (phase 24 "
+                                f"(a) at window {MEASURE_CORE_WINDOW})",
+                                core_round, (), steps=1)
     del b, cell
     torch.cuda.empty_cache()
     return out
@@ -4052,7 +4090,7 @@ ASYNC_KS = (1, 2)
 #: (b) the fold witness; (d) the int8 wire; (e) GroupNorm; (f) the
 #: fleet; (g) snapshots: (workers, batch, window, windows a worker)
 WITNESS = (4, 32, 4, 2)
-WIRE = (2, 128, 16, 2)
+WIRE = (2, 128, 8, 2)
 ASYNC_GN = (2, 32, 2, 1)
 FLEET = (2, 32, 4, 12)
 SNAP = (2, 32, 2, 2)
@@ -5256,6 +5294,432 @@ def phase_pjit(dev, power_line) -> dict:
     return out
 
 
+# -- phase 30 -----------------------------------------------------------------
+
+#: (a) sequence parallelism at gpt_small's widths: the (workers, seq)
+#: mesh, the global batch x T (gpt_small's max_len), adamw(1e-3) steps
+SP_MESH, SP_B, SP_T, SP_STEPS = (1, 4), 8, 1024, 4
+#: (a)'s bound on step 1's loss against attention="full" through the
+#: single-device step, relative: the plain attention rounds its softmax
+#: weights to bf16 (2^-9) before p.v where the ring keeps them float32;
+#: through 12 bf16 layers that moved the loss by 7e-6-2e-5 in a CPU
+#: rehearsal at gpt_small widths, so 1e-3 holds it with margin
+SP_FULL_REL = 1e-3
+#: (b) the other mesh, float32, one sgd(0.1) step: loss and parameters
+#: within 1e-5 relative (only the fold's order differs). At bf16 the
+#: fold's float32 differences flip bf16 roundings of the attention
+#: output: 1.1e-5-1.5e-5 in the same CPU rehearsal, reported, not gated
+SP_MESH_B, SP_MESH_REL, SP_SGD_LR = (2, 2), 1e-5, 0.1
+#: gpt_small's widths ((c) takes another max_len)
+GPT_SMALL_WIDTHS = dict(vocab_size=50304, num_layers=12, num_heads=12,
+                        width=768, mlp_dim=3072)
+#: (c) long context: gpt_small's widths at max_len 8192, b=1 on seq 8,
+#: remat="blocks", adamw(1e-3)
+LONG_T, LONG_SEQ, LONG_STEPS = 8192, 8, 2
+#: (d) PipelinedLM at gpt_small's config: stages, microbatches, batch, T
+PP_LM = dict(GPT_SMALL_WIDTHS, max_len=1024)
+PP_STAGES, PP_M, PP_B, PP_T, PP_STEPS = 4, 4, 8, 1024, 4
+#: (d)'s bounds against reference_apply over the schedule's microbatches
+#: (the same ops on the same shapes, so the forward is expected bitwise;
+#: the gradients differ only in the order autograd sums a parameter's
+#: M = 4 uses, a few float32 ulps, and an SGD update rounds at the
+#: parameter's scale): loss 1e-6 relative, parameters 1e-6 of each
+#: leaf's largest magnitude
+PP_LOSS_REL, PP_PARAM_REL = 1e-6, 1e-6
+#: (e) GenericPipeline over resnet50(): batch, image side, microbatches;
+#: the loss against the sequential oracle (the same kernels on the same
+#: shapes and layouts: expected bitwise), relative
+GP_B, GP_SIDE, GP_M, GP_LOSS_REL = 32, 224, 4, 1e-6
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _leaf_rel(got: dict, want: dict) -> float:
+    """Largest ``max|got - want| / max|want|`` over the leaves."""
+    worst = 0.0
+    for name, w in want.items():
+        diff = (got[name].float() - w.float()).abs().max().item()
+        worst = max(worst, diff / max(w.float().abs().max().item(), 1e-30))
+    return worst
+
+
+def _sp_batch(b, t, seed):
+    from distkeras_tpu_torch.parallel.sequence import shift_labels
+
+    ids = np.random.default_rng(seed).integers(1, 50304, (b, t)).astype(
+        np.int32)
+    return {"input_ids": ids, "labels": shift_labels(ids)}
+
+
+def _peak_over(dev, base) -> tuple:
+    """(peak bytes, peak less ``base``, what was allocated when the run
+    started: earlier phases' leftovers and the run's weights)."""
+    peak = torch.cuda.max_memory_allocated(dev)
+    return peak, peak - base
+
+
+def _sp_steps(dev, model, mesh_shape, batch, tx, steps):
+    """``steps`` of ``build_sp_train_step`` over a (workers, seq) mesh
+    repeating ``dev``: losses, step seconds, (peak bytes, the run's own
+    peak bytes)."""
+    from distkeras_tpu_torch import engine
+    from distkeras_tpu_torch.parallel import sequence
+
+    mesh = sequence.make_sp_mesh(*mesh_shape, devices=[dev] * (
+        mesh_shape[0] * mesh_shape[1]))
+    step_fn, place_state, place_batch = sequence.build_sp_train_step(
+        model, tx, mesh)
+    state = place_state(engine.TrainState(0, model, tx(model.parameters())))
+    placed = place_batch(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, ms = step_fn(state, placed)
+        losses.append(float(ms["loss"]))
+        times.append(time.perf_counter() - t0)
+    return losses, times, _peak_over(dev, base)
+
+
+def _seq_ring(dev, power_line, start) -> dict:
+    """(a) gpt_small(attention="ring") in bf16 through
+    build_sp_train_step on workers 1 x seq 4, T = 1,024, b = 8, adamw:
+    step 1's loss against attention="full" through the single-device
+    step from the same weights."""
+    from distkeras_tpu_torch import engine
+    from distkeras_tpu_torch.models.gpt import gpt_small
+    from distkeras_tpu_torch.ops import optimizers
+
+    tx = optimizers.get("adamw", 1e-3)
+    batch = _sp_batch(SP_B, SP_T, seed=40)
+    full = gpt_small(attention="full")
+    full.load_state_dict(start)
+    state = engine.create_train_state(full, tx, device=dev)
+    step = engine.make_train_step(full, "masked_lm", tx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    t0 = time.perf_counter()
+    _, ms = step(state, {"features": batch["input_ids"],
+                         "labels": batch["labels"]})
+    full_loss = float(ms["loss"])
+    full_s = time.perf_counter() - t0
+    full_peak = _peak_over(dev, base)
+    del full, state, step
+    torch.cuda.empty_cache()
+    ring = gpt_small(attention="ring")
+    ring.load_state_dict(start)
+    ring.to(dev)
+    losses, times, peak = _sp_steps(dev, ring, SP_MESH, batch, tx, SP_STEPS)
+    median_s = statistics.median(times[1:])
+    info = {"mesh": list(SP_MESH), "losses": losses, "step_s": times,
+            "median_step_s": median_s,
+            "tokens_per_s": SP_B * SP_T / median_s, "peak_bytes": peak[0],
+            "own_peak_bytes": peak[1], "full_loss": full_loss,
+            "full_step_s": full_s, "full_peak_bytes": full_peak[0],
+            "full_own_peak_bytes": full_peak[1],
+            "rel_vs_full": _rel(losses[0], full_loss), "card": power_line}
+    log(f"[seqpipe] (a) gpt_small ring, bf16, workers {SP_MESH[0]} x seq "
+        f"{SP_MESH[1]}, b={SP_B}, T={SP_T}, adamw(1e-3): losses "
+        f"{', '.join(f'{x:.5f}' for x in losses)}; step 1 against "
+        f"attention='full' through the single-device step {full_loss:.5f}: "
+        f"relative {info['rel_vs_full']:.3e} (bound {SP_FULL_REL}); median "
+        f"step {median_s * 1e3:.1f} ms, {info['tokens_per_s']:.0f} tokens/s; "
+        f"peak {peak[0] / 2**30:.2f} GiB (+{peak[1] / 2**30:.2f} over its "
+        f"start) "
+        f"against the full step's {full_peak[0] / 2**30:.2f} GiB "
+        f"(+{full_peak[1] / 2**30:.2f}) [{power_line}]")
+    assert all(math.isfinite(x) for x in losses), losses
+    assert info["rel_vs_full"] <= SP_FULL_REL, info
+    assert min(losses[1:]) < losses[0], losses
+    del ring
+    torch.cuda.empty_cache()
+    return info
+
+
+def _seq_meshes(dev, power_line, start, bf16_loss) -> dict:
+    """(b) workers 2 x seq 2 against workers 1 x seq 4 on (a)'s weights
+    and batch: float32 (gated), one sgd step each; and bf16 step 1 on
+    2 x 2 against (a)'s (reported)."""
+    from distkeras_tpu_torch.models.gpt import gpt_small
+    from distkeras_tpu_torch.ops import optimizers
+
+    batch = _sp_batch(SP_B, SP_T, seed=40)
+    tx = optimizers.get("sgd", SP_SGD_LR)
+    runs = {}
+    for shape in (SP_MESH, SP_MESH_B):
+        model = gpt_small(attention="ring", dtype=torch.float32)
+        model.load_state_dict(start)
+        model.to(dev)
+        losses, times, _ = _sp_steps(dev, model, shape, batch, tx, 1)
+        runs[shape] = (losses[0], {n: p.detach().clone() for n, p in
+                                   model.named_parameters()})
+        del model
+        torch.cuda.empty_cache()
+    (loss_a, params_a), (loss_b, params_b) = runs[SP_MESH], runs[SP_MESH_B]
+    start_dev = {n: t.to(dev) for n, t in start.items()}
+    upd = lambda p: {n: t - start_dev[n] for n, t in p.items()}
+    model = gpt_small(attention="ring")
+    model.load_state_dict(start)
+    model.to(dev)
+    bf16, _, _ = _sp_steps(dev, model, SP_MESH_B, batch,
+                           optimizers.get("sgd", 0.0), 1)
+    del model
+    info = {"meshes": [list(SP_MESH), list(SP_MESH_B)],
+            "losses_f32": [loss_a, loss_b],
+            "loss_rel": _rel(loss_b, loss_a),
+            "param_rel": _leaf_rel(params_b, params_a),
+            "update_rel": _leaf_rel(upd(params_b), upd(params_a)),
+            "bf16_loss_2x2": bf16[0], "bf16_rel": _rel(bf16[0], bf16_loss),
+            "card": power_line}
+    log(f"[seqpipe] (b) float32, one sgd({SP_SGD_LR}) step, workers "
+        f"{SP_MESH_B[0]} x seq {SP_MESH_B[1]} against {SP_MESH[0]} x "
+        f"{SP_MESH[1]}: losses {loss_b:.7f} / {loss_a:.7f} (relative "
+        f"{info['loss_rel']:.3e}), parameters {info['param_rel']:.3e} of "
+        f"each leaf's largest (bound {SP_MESH_REL}), updates "
+        f"{info['update_rel']:.3e} of the largest update; bf16 step 1 on "
+        f"2 x 2 {bf16[0]:.5f} against (a)'s {bf16_loss:.5f}: relative "
+        f"{info['bf16_rel']:.3e} (reported) [{power_line}]")
+    assert info["loss_rel"] <= SP_MESH_REL, info
+    assert info["param_rel"] <= SP_MESH_REL, info
+    del params_a, params_b, start_dev
+    torch.cuda.empty_cache()
+    return info
+
+
+def _seq_long(dev, power_line) -> dict:
+    """(c) gpt_small's widths at max_len 8,192: b = 1 on seq 8 under
+    remat="blocks", adamw(1e-3), LONG_STEPS steps; every shard's folds
+    live on the one card, so no memory gain is claimed."""
+    from distkeras_tpu_torch.models.gpt import CausalLM, init_params
+    from distkeras_tpu_torch.ops import optimizers
+
+    model = init_params(CausalLM(**GPT_SMALL_WIDTHS, max_len=LONG_T,
+                                 attention="ring", remat="blocks"),
+                        torch.Generator().manual_seed(41))
+    model.to(dev)
+    losses, times, peak = _sp_steps(dev, model, (1, LONG_SEQ),
+                                    _sp_batch(1, LONG_T, seed=42),
+                                    optimizers.get("adamw", 1e-3),
+                                    LONG_STEPS)
+    info = {"T": LONG_T, "seq": LONG_SEQ, "losses": losses, "step_s": times,
+            "peak_bytes": peak[0], "own_peak_bytes": peak[1],
+            "tokens_per_s": LONG_T / times[-1], "card": power_line}
+    log(f"[seqpipe] (c) long context: gpt_small widths, max_len {LONG_T}, "
+        f"b=1 on seq {LONG_SEQ} (t={LONG_T // LONG_SEQ} a shard), remat "
+        f"blocks, bf16: losses {', '.join(f'{x:.5f}' for x in losses)}; "
+        f"steps {', '.join(f'{t * 1e3:.1f}' for t in times)} ms; peak "
+        f"{peak[0] / 2**30:.2f} GiB (+{peak[1] / 2**30:.2f} over its start; "
+        f"all 8 shards' folds on one card) [{power_line}]")
+    assert all(math.isfinite(x) for x in losses), losses
+    del model
+    torch.cuda.empty_cache()
+    return info
+
+
+def _pipe_lm(dev, power_line) -> dict:
+    """(d) PipelinedLM at gpt_small's config in bf16, 12 layers over 4
+    stages of 3, M = 4 microbatches of 2 at T = 1,024: one sgd step
+    against reference_apply over the same microbatches, then adamw
+    steps."""
+    from distkeras_tpu_torch.ops import losses as losses_lib
+    from distkeras_tpu_torch.ops import optimizers
+    from distkeras_tpu_torch.parallel import pipeline
+
+    model = pipeline.PipelinedLM(**PP_LM, num_stages=PP_STAGES,
+                                 dtype=torch.bfloat16, device=dev).init(43)
+    mesh = pipeline.make_pp_mesh(PP_STAGES, devices=[dev] * PP_STAGES)
+    batch = _sp_batch(PP_B, PP_T, seed=44)
+    ids = torch.from_numpy(batch["input_ids"]).to(dev)
+    labels = torch.from_numpy(batch["labels"]).to(dev)
+    mb = PP_B // PP_M
+    # the oracle: reference_apply over the schedule's microbatches
+    nll = count = 0.0
+    for m in range(PP_M):
+        terms = losses_lib.masked_lm_terms(
+            model.reference_apply(ids[m * mb:(m + 1) * mb]),
+            labels[m * mb:(m + 1) * mb])
+        nll, count = nll + terms[0], count + terms[2]
+    ref_loss = nll / torch.clamp(count, min=1.0)
+    ref_loss.backward()
+    ref_loss = ref_loss.item()
+    expect = {n: torch.add(p.detach(), p.grad, alpha=-SP_SGD_LR)
+              for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    with torch.no_grad():  # the whole batch in one call (reported)
+        whole = losses_lib.masked_lm(model.reference_apply(ids), labels)
+    step_fn, place_params, place_batch = model.build_train_step(
+        optimizers.get("sgd", SP_SGD_LR), mesh, PP_M)
+    state, ms = step_fn(place_params(), place_batch(batch))
+    got = {n: p.detach() for n, p in model.named_parameters()}
+    info = {"stages": PP_STAGES, "microbatches": PP_M,
+            "loss": float(ms["loss"]), "ref_loss": ref_loss,
+            "whole_batch_loss": float(whole),
+            "loss_rel": _rel(float(ms["loss"]), ref_loss),
+            "loss_bitwise": float(ms["loss"]) == ref_loss,
+            "param_rel": _leaf_rel(got, expect)}
+    del expect, got
+    step_fn, place_params, _ = model.build_train_step(
+        optimizers.get("adamw", 1e-3), mesh, PP_M)
+    state = place_params()
+    placed = place_batch(batch)
+    losses, times = [], []
+    for _ in range(PP_STEPS):
+        t0 = time.perf_counter()
+        state, ms = step_fn(state, placed)
+        losses.append(float(ms["loss"]))
+        times.append(time.perf_counter() - t0)
+    info.update(losses=losses, step_s=times,
+                median_step_s=statistics.median(times[1:]),
+                tokens_per_s=PP_B * PP_T / statistics.median(times[1:]),
+                card=power_line)
+    log(f"[seqpipe] (d) PipelinedLM gpt_small config, bf16, {PP_STAGES} "
+        f"stages x {PP_LM['num_layers'] // PP_STAGES} layers, M={PP_M} x "
+        f"{mb} at T={PP_T}: one sgd step "
+        f"loss {info['loss']:.6f} against reference_apply over the same "
+        f"microbatches {info['ref_loss']:.6f} (relative "
+        f"{info['loss_rel']:.3e}, bitwise {info['loss_bitwise']}; the "
+        f"whole batch in one call {info['whole_batch_loss']:.6f}), "
+        f"parameters {info['param_rel']:.3e} of each leaf's largest "
+        f"(bounds {PP_LOSS_REL}, {PP_PARAM_REL}); adamw(1e-3) losses "
+        f"{', '.join(f'{x:.5f}' for x in losses)}, median step "
+        f"{info['median_step_s'] * 1e3:.1f} ms, "
+        f"{info['tokens_per_s']:.0f} tokens/s [{power_line}]")
+    assert info["loss_rel"] <= PP_LOSS_REL, info
+    assert info["param_rel"] <= PP_PARAM_REL, info
+    assert all(math.isfinite(x) for x in losses), losses
+    assert min(losses[1:]) < losses[0], losses
+    del model, state
+    torch.cuda.empty_cache()
+    return info
+
+
+def _resnet_pipeline_stages(model) -> list:
+    """resnet50()'s forward cut into a stem, its four stages and the
+    head, as modules (NHWC float images in, float32 logits out; each
+    stage takes its input back to channels_last, the layout a hop's flat
+    buffer loses)."""
+    from torch import nn
+    from torch.nn import functional as F
+
+    class Stem(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv_stem, self.norm_stem = model.conv_stem, model.norm_stem
+
+        def forward(self, x):
+            x = self.conv_stem(x.to(model.dtype).permute(0, 3, 1, 2))
+            x = self.norm_stem(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            return F.max_pool2d(F.relu(x), 3, stride=2, padding=1)
+
+    class Stage(nn.Module):
+        def __init__(self, names):
+            super().__init__()
+            self.blocks = nn.ModuleList(getattr(model, n) for n in names)
+
+        def forward(self, x):
+            x = x.contiguous(memory_format=torch.channels_last)
+            for block in self.blocks:
+                x = block(x)
+            return x
+
+    class Head(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.head = model.head
+
+        def forward(self, x):
+            return self.head(x.mean(dim=(2, 3)).float())
+
+    stages = [[n for n in model._blocks if n.startswith(f"stage{i}_")]
+              for i in range(len(model.stage_sizes))]
+    return [Stem()] + [Stage(s) for s in stages] + [Head()]
+
+
+def _pipe_generic(dev, power_line) -> dict:
+    """(e) GenericPipeline over resnet50() (GroupNorm) cut into stem /
+    four stages / head, b = 32 at 224^2, M = 4: the loss against the
+    sequential oracle over the same microbatches; both GroupNorm
+    kernels' launches over the step."""
+    from distkeras_tpu_torch.ops import optimizers
+    from distkeras_tpu_torch.ops.kernels import groupnorm as gn
+    from distkeras_tpu_torch.parallel import pipeline
+
+    model = _resnet_model("gn", torch.bfloat16, seed=45)
+    parts = _resnet_pipeline_stages(model)
+    pipe = pipeline.GenericPipeline(parts, num_microbatches=GP_M,
+                                    dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(46)
+    feats = rng.standard_normal((GP_B, GP_SIDE, GP_SIDE, 3)).astype(
+        np.float32)
+    labels = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, GP_B)]
+    mb = GP_B // GP_M
+    pipe.init(feats[:mb])
+    mesh = pipeline.make_pp_mesh(len(parts), devices=[dev] * len(parts))
+    step_fn, place_params, place_batch = pipe.build_train_step(
+        optimizers.get("adamw", 1e-3), mesh)
+    state = place_params()
+    placed = place_batch({"features": feats, "labels": labels})
+    with torch.no_grad():
+        oracle = sum(pipe.loss_fn(pipe.reference_apply(
+            placed["features"][m * mb:(m + 1) * mb]).float(),
+            placed["labels"][m * mb:(m + 1) * mb])
+            for m in range(GP_M)) / GP_M
+    kernels = (gn.group_norm_fwd, gn.group_norm_bwd)
+    torch.cuda.synchronize()
+    for kernel in kernels:
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    state, ms = step_fn(state, placed)
+    loss = float(ms["loss"])
+    step_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    info = {"stages": len(parts), "microbatches": GP_M,
+            "shapes": [list(s) for s in pipe._shapes], "loss": loss,
+            "oracle_loss": float(oracle),
+            "loss_rel": _rel(loss, float(oracle)),
+            "loss_bitwise": loss == float(oracle), "step_s": step_s,
+            "launches": launches, "card": power_line}
+    log(f"[seqpipe] (e) GenericPipeline over resnet50() (GroupNorm), "
+        f"{len(parts)} stages (stem, 4 stages, head), b={GP_B} at "
+        f"{GP_SIDE}^2, "
+        f"M={GP_M}, bf16 hops: loss {loss:.6f} against the sequential "
+        f"oracle {info['oracle_loss']:.6f} (relative {info['loss_rel']:.3e}, "
+        f"bitwise {info['loss_bitwise']}; bound {GP_LOSS_REL}); step "
+        f"{step_s * 1e3:.1f} ms; GroupNorm launches {launches} (53 x M = "
+        f"{53 * GP_M} each) [{power_line}]")
+    assert info["loss_rel"] <= GP_LOSS_REL, info
+    assert all(n == 53 * GP_M for n in launches.values()), launches
+    del pipe, parts, model, state, placed
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_sequence_pipeline(dev, power_line) -> dict:
+    """Phase 30: sequence and pipeline parallelism in one process on
+    meshes that repeat ``cuda:0`` (module docstring), TF32 off."""
+    from distkeras_tpu_torch.models.gpt import gpt_small, init_params
+
+    set_tf32(False)
+    t0 = time.perf_counter()
+    start = init_params(gpt_small(), torch.Generator().manual_seed(39)) \
+        .state_dict()
+    out = {"ring": _seq_ring(dev, power_line, start)}
+    out["meshes"] = _seq_meshes(dev, power_line, start,
+                                out["ring"]["losses"][0])
+    del start
+    out["long"] = _seq_long(dev, power_line)
+    out["pipelined_lm"] = _pipe_lm(dev, power_line)
+    out["generic"] = _pipe_generic(dev, power_line)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[seqpipe] phase 30 in {out['phase_s']:.1f} s [{power_line}]")
+    return out
+
+
 #: seconds each phase took, in run order (logged and in the report)
 PHASE_SECONDS = {}
 
@@ -5337,6 +5801,8 @@ def main() -> int:
                             report["train_core"]["bench"])
         report["encoders"] = t("encoders", phase_encoders, dev, card)
         report["pjit"] = t("pjit", phase_pjit, dev, card)
+        report["seqpipe"] = t("seqpipe", phase_sequence_pipeline, dev,
+                              card)
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         log("[chip_smoke] FAILED")
@@ -5456,6 +5922,10 @@ def main() -> int:
             # phase 27 (e): resnet50() under host_async K = 2 (zeroed
             # before, read after)
             "launches_async": report["async"]["groupnorm"]["launches"][name],
+            # phase 30 (e): GenericPipeline over resnet50() (zeroed
+            # before its step, read after)
+            "launches_pipeline": report["seqpipe"]["generic"]["launches"][
+                name],
         })
     kernels = {"kernels": rows}
     report["phase_seconds"] = PHASE_SECONDS

@@ -52,12 +52,26 @@ sets the compute dtype and, for ``"int8"``/``"fp8-sim"``, quantizes the
 products of every block Dense (qkv, out, fc1, fc2; under ``"int8"`` through
 the int8 matmul kernel); the LM head stays float32 and unquantized.
 
-``remat`` (:mod:`distkeras_tpu_torch.models.remat`) checkpoints each
-decoder block of the full forward, and under ``"full"`` the token
-embedding too; the cache paths (serving, CUDA-graph captures) run
-un-rematted, as in the JAX package.
+``attention="ring"`` is the sequence-parallel forward
+(:mod:`distkeras_tpu_torch.parallel.sequence` drives it): the model
+takes a LIST of per-shard ``[batch, t]`` id blocks, block ``j`` holding
+global positions ``j * t ... (j + 1) * t``, and returns the list of
+their logits. Every layer runs block by block, in step across the
+shards, each block computed on its shard's device (which must be the
+parameters' device: one copy of the weights, as a mesh that repeats
+``cuda:0`` has it), and its attention folds the blocks' q/k/v through
+:func:`~distkeras_tpu_torch.ops.ring_attention.ring_attention`. Block
+``j`` adds rows ``j * t ... (j + 1) * t`` of the position table; a
+global length ``t * shards`` past ``max_len`` raises ValueError before
+any row is sliced (a torch slice would silently come up short). The
+weights are those of ``"full"``/``"flash"`` (the same state dict). A
+single tensor, a decode or a serving call under ``"ring"`` raises, as
+in the JAX package.
 
-Not ported yet: ``attention="ring"`` (ROADMAP.md Queue A).
+``remat`` (:mod:`distkeras_tpu_torch.models.remat`) checkpoints each
+decoder block of the full and ring forwards, and under ``"full"`` the
+token embedding too; the cache paths (serving, CUDA-graph captures) run
+un-rematted, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -76,6 +90,7 @@ from distkeras_tpu_torch.models.transformer import (LN_EPS, Dense, Embed,
 from distkeras_tpu_torch.ops.attention import (apply_attention,
                                                dot_product_attention)
 from distkeras_tpu_torch.ops.kernels import flash_attention as fa
+from distkeras_tpu_torch.ops.ring_attention import ring_attention
 
 
 class CausalSelfAttention(nn.Module):
@@ -83,11 +98,7 @@ class CausalSelfAttention(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  attention: str = "full", precision: Optional[str] = None):
         super().__init__()
-        if attention == "ring":
-            raise NotImplementedError(
-                "attention='ring' is not ported yet (ROADMAP.md Queue A, "
-                "item 16, with sequence parallelism)")
-        if attention not in ("full", "flash"):
+        if attention not in ("full", "flash", "ring"):
             raise ValueError(f"Unknown attention {attention!r}; expected "
                              f"'full', 'flash', or 'ring'")
         self.num_heads = num_heads
@@ -95,11 +106,24 @@ class CausalSelfAttention(nn.Module):
         self.qkv = Dense(width, 3 * width, dtype, precision)
         self.out = Dense(width, width, dtype, precision)
 
-    def forward(self, x, cache=None, cache_index=None, page_table=None):
+    def _heads(self, x):
         b, t, width = x.shape
         head_dim = width // self.num_heads
-        q, k, v = (z.reshape(b, t, self.num_heads, head_dim).contiguous()
-                   for z in self.qkv(x).split(width, dim=-1))
+        return tuple(z.reshape(b, t, self.num_heads, head_dim).contiguous()
+                     for z in self.qkv(x).split(width, dim=-1))
+
+    def forward(self, x, cache=None, cache_index=None, page_table=None):
+        if isinstance(x, (list, tuple)):  # the ring: one block a shard
+            qs, ks, vs = zip(*(self._heads(xi) for xi in x))
+            out = ring_attention(qs, ks, vs, causal=True)
+            return [self.out(o.flatten(2)) for o in out]
+        if cache is None and self.attention == "ring":
+            raise ValueError(
+                "attention='ring' runs over sequence shards: call the model "
+                "on a list of per-shard id blocks "
+                "(parallel/sequence.py's build_sp_train_step does)")
+        b, t, width = x.shape
+        q, k, v = self._heads(x)
         if cache is None:
             mode = "flash" if self.attention == "flash" else "xla"
             out = apply_attention(q, k, v, causal=True, attention=mode)
@@ -270,6 +294,11 @@ class DecoderBlock(nn.Module):
         self.mlp = MlpBlock(width, mlp_dim, dtype, precision)
 
     def forward(self, x, cache=None, cache_index=None, page_table=None):
+        if isinstance(x, (list, tuple)):  # the ring, in step over shards
+            ys = self.attn([self.ln1(xi.float()).to(self.dtype) for xi in x])
+            x = [xi + yi for xi, yi in zip(x, ys)]
+            return [xi + self.mlp(self.ln2(xi.float()).to(self.dtype))
+                    for xi in x]
         y = self.ln1(x.float()).to(self.dtype)
         if cache is not None:
             y, new_cache = self.attn(y, cache, cache_index, page_table)
@@ -313,6 +342,8 @@ class CausalLM(nn.Module):
 
     def forward(self, input_ids, cache=None, cache_index=None,
                 page_table=None):
+        if isinstance(input_ids, (list, tuple)):
+            return self._ring_forward(input_ids)
         ids = input_ids.long()
         t = ids.shape[1]
         if cache is None:
@@ -336,12 +367,44 @@ class CausalLM(nn.Module):
         logits = self.lm_head(self.ln_final(x.float()))
         return logits if cache is None else (logits, cache)
 
+    def _ring_forward(self, blocks):
+        """The sequence-parallel forward (module docstring): per-shard id
+        blocks in, per-shard logits out."""
+        if self.attention != "ring":
+            raise ValueError(f"a list of sequence shards needs "
+                             f"attention='ring', got {self.attention!r}")
+        num, t = len(blocks), blocks[0].shape[1]
+        if any(b.shape != blocks[0].shape for b in blocks):
+            raise ValueError("sequence shards must be equal blocks")
+        # before any slicing: a short slice of the table would not fail
+        if t * num > self.max_len:
+            raise ValueError(f"global sequence {t}*{num} exceeds max_len "
+                             f"{self.max_len}")
+        home = self.pos_embed.device
+        if any(b.device != home for b in blocks):
+            raise ValueError(
+                f"sequence shards on {[str(b.device) for b in blocks]}, the "
+                f"parameters on {home}: each shard computes on the "
+                f"parameters' device (one copy of the weights; replicas on "
+                f"distinct cards are not ported)")
+        xs = []
+        for j, ids in enumerate(blocks):
+            x = remat_call(self.tok_embed, self.remat, ids.long(), stem=True)
+            xs.append(x + self.pos_embed[j * t:(j + 1) * t].to(self.dtype))
+        for block in self.layers:
+            xs = remat_call(block, self.remat, xs)
+        return [self.lm_head(self.ln_final(x.float())) for x in xs]
 
-def init_params(model: CausalLM, generator: torch.Generator) -> CausalLM:
+
+def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights, made on the CPU from ``generator`` and
-    copied into ``model`` in place: Linear weights normal with std
-    ``fan_in ** -0.5`` (flax's LeCun normal, untruncated), embeddings and
-    positions normal with std 0.02, biases zero, LayerNorm scale one."""
+    copied into ``model`` (a :class:`CausalLM`, or any module of its
+    parts, as :class:`~distkeras_tpu_torch.parallel.pipeline.PipelinedLM`)
+    in place, module by module in ``modules()`` order, then the position
+    tables: Linear weights normal with std ``fan_in ** -0.5`` (flax's
+    LeCun normal, untruncated), embeddings and positions (every parameter
+    named ``pos_embed``) normal with std 0.02, biases zero, LayerNorm
+    scale one."""
     def normal(p, std):
         p.copy_(torch.empty(p.shape).normal_(0.0, std, generator=generator))
 
@@ -355,7 +418,9 @@ def init_params(model: CausalLM, generator: torch.Generator) -> CausalLM:
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
-        normal(model.pos_embed, 0.02)
+        for name, p in model.named_parameters():
+            if name.rsplit(".", 1)[-1] == "pos_embed":
+                normal(p, 0.02)
     return model
 
 

@@ -47,6 +47,19 @@ def masked_lm(logits, labels):
     return -torch.sum(torch.where(valid, ll, 0.0)) / count
 
 
+def masked_lm_terms(logits, labels):
+    """``(summed NLL, hits, valid count)`` of one block under
+    :func:`masked_lm`'s rule (labels < 0 ignored): the terms a
+    sequence-parallel or pipelined step sums over its shards or
+    microbatches before dividing by the global count."""
+    valid = labels >= 0
+    safe = torch.where(valid, labels, 0).long()
+    ll = torch.gather(_log_softmax(logits), -1, safe[..., None])[..., 0]
+    nll = -torch.sum(torch.where(valid, ll, 0.0))
+    hits = (valid & (torch.argmax(logits, dim=-1) == safe)).sum()
+    return nll, hits, valid.sum()
+
+
 def mean_squared_error(preds, targets):
     return torch.mean(torch.square(preds - targets))
 

@@ -2,6 +2,9 @@
 update rules of the trainer zoo, the substrate that runs them (one
 process, K replicas), tensor parallelism (``tensor.py``: partition
 rules and ``PjitTrainer``'s step) with its bucketed folds
-(``collectives.py``), the one-process parts of ``distributed.py``, and
+(``collectives.py``), sequence parallelism over ring attention
+(``sequence.py``: ``make_sp_mesh``, ``build_sp_train_step``), pipeline
+parallelism (``pipeline.py``: ``make_pp_mesh``, ``PipelinedLM``,
+``GenericPipeline``), the one-process parts of ``distributed.py``, and
 the wire format of ``parallel/remote_ps.py`` (the serving front end
-speaks it)."""
+speaks it). The module names are the JAX package's."""

@@ -10,7 +10,10 @@ row-major: worker ``w`` holds the row ``grid[w]``, its model positions
 device), which is where the substrate, the predictors and the serving
 engine place their replicas. Every device of a port mesh lives in this
 process; a mesh over several processes (a NCCL or gloo group) is ROADMAP.md
-Queue A, item 16.
+Queue A, item 16. The second axis may take another name:
+:mod:`~distkeras_tpu_torch.parallel.sequence`'s workers x ``seq`` grid
+and :mod:`~distkeras_tpu_torch.parallel.pipeline`'s one row of
+``stages`` are the same grid.
 
 The substrate runs ``K = D * factor`` logical workers on a mesh of D
 worker devices: worker ``k`` lives on ``devices[k // factor]``. On a host
@@ -36,10 +39,13 @@ class Mesh:
     """A workers x model grid of devices, from ``devices`` listed
     row-major (``len(devices) / model_parallelism`` workers of
     ``model_parallelism`` positions each). ``shape`` maps each axis name
-    to its size, as a JAX mesh's does."""
+    (``axis_names``, outer then inner) to its size, as a JAX mesh's
+    does."""
 
-    def __init__(self, devices: Sequence, model_parallelism: int = 1):
+    def __init__(self, devices: Sequence, model_parallelism: int = 1,
+                 axis_names: Sequence[str] = (WORKER_AXIS, MODEL_AXIS)):
         model_parallelism = int(model_parallelism)
+        self.axis_names = tuple(axis_names)
         if not devices:
             raise ValueError("a Mesh needs at least one device")
         if model_parallelism < 1 or len(devices) % model_parallelism:
@@ -55,7 +61,15 @@ class Mesh:
 
     @property
     def shape(self) -> dict:
-        return {WORKER_AXIS: len(self.grid), MODEL_AXIS: len(self.grid[0])}
+        outer, inner = self.axis_names
+        return {outer: len(self.grid), inner: len(self.grid[0])}
+
+    def axis_devices(self, axis: str) -> list:
+        """The devices along ``axis`` at position 0 of the other axis."""
+        if axis not in self.axis_names:
+            raise ValueError(f"mesh has axes {self.axis_names}, not {axis!r}")
+        return list(self.devices if axis == self.axis_names[0]
+                    else self.grid[0])
 
     @property
     def home(self) -> torch.device:
@@ -68,10 +82,12 @@ class Mesh:
         return self.grid[worker][model]
 
     def __repr__(self) -> str:
-        if self.shape[MODEL_AXIS] == 1:
-            return f"Mesh({[str(d) for d in self.devices]})"
-        return (f"Mesh({[str(d) for row in self.grid for d in row]}, "
-                f"model_parallelism={self.shape[MODEL_AXIS]})")
+        flat = [str(d) for row in self.grid for d in row]
+        if self.axis_names != (WORKER_AXIS, MODEL_AXIS):
+            return f"Mesh({flat}, axes={self.shape})"
+        if len(self.grid[0]) == 1:
+            return f"Mesh({flat})"
+        return f"Mesh({flat}, model_parallelism={len(self.grid[0])})"
 
 
 def check_single_process(what: str = "a mesh") -> None:

@@ -1,0 +1,374 @@
+"""Pipeline parallelism (port of ``distkeras_tpu/parallel/pipeline.py``):
+the GPipe microbatch schedule over a ``stages`` mesh axis.
+
+Two pipelines, as in the JAX package:
+
+- :class:`PipelinedLM`, a causal LM whose ``L`` decoder blocks are cut
+  into ``P`` stages of ``L / P`` (stage ``s`` holds layers ``s * L/P ...
+  (s + 1) * L/P - 1``, the JAX package's stacked ``[P, L/P, ...]``
+  layout), with the embedding before stage 0 and the float32 head after
+  the last;
+- :class:`GenericPipeline` over arbitrary ``nn.Module`` stages, whose
+  activations may change shape between stages.
+
+The schedule runs ``M + P - 1`` ticks: at tick ``t`` stage ``s`` works on
+microbatch ``t - s`` when that is in range, its output hops to stage
+``s + 1``'s device with ``.to()`` (the JAX package's ``ppermute``), and the
+last stage folds the loss terms of the microbatch it finishes. Backward
+is autograd through the whole schedule: one ``backward``, whose
+transposed hops carry the gradients back stage by stage.
+
+In one process (a mesh may repeat a device: ``["cuda:0"] * 4`` on a
+one-card host). Where the parameters live: each stage's modules on its
+stage device, the LM's embedding on stage 0's and its head on the last
+stage's. The JAX package replicates the embedding and head (and every
+``GenericPipeline`` stage) over the mesh; here each lives once, where it
+is used, so the gradients are the same. Bubble ticks (stage ``s`` at
+ticks ``t < s`` or ``t - s >= M``) compute on zeros in the JAX package
+and feed no loss; the port skips them, which changes no value. The hops
+do not overlap compute: on one card the stages run in turn.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Sequence, Union
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from distkeras_tpu_torch import engine
+from distkeras_tpu_torch.device import resolve_device
+from distkeras_tpu_torch.models import gpt
+from distkeras_tpu_torch.models.transformer import LN_EPS, Embed
+from distkeras_tpu_torch.ops import losses as losses_lib
+from distkeras_tpu_torch.ops.optimizers import OptimizerFactory
+from distkeras_tpu_torch.parallel import mesh as mesh_lib
+from distkeras_tpu_torch.parallel.mesh import WORKER_AXIS, Mesh
+
+STAGE_AXIS = "stages"
+
+
+def make_pp_mesh(num_stages: int, devices=None) -> Mesh:
+    """One row of ``num_stages`` stage devices over ``devices`` (default
+    ``[resolve_device(None)]``: ``cuda:0``, raising without a card),
+    which may repeat a device; too few raise ValueError, as JAX's does."""
+    mesh_lib.check_single_process("a pipeline mesh")
+    devices = list(devices) if devices is not None \
+        else [resolve_device(None)]
+    if num_stages > len(devices):
+        raise ValueError(f"need {num_stages} devices, have {len(devices)}")
+    return Mesh([resolve_device(d) for d in devices[:num_stages]],
+                model_parallelism=num_stages,
+                axis_names=(WORKER_AXIS, STAGE_AXIS))
+
+
+def _stage_devices(mesh: Mesh, num_stages: int) -> list:
+    mesh_lib.check_single_process("a pipeline mesh")
+    devices = mesh.axis_devices(STAGE_AXIS)
+    if len(devices) != num_stages:
+        raise ValueError(f"mesh has {len(devices)} stage devices, pipeline "
+                         f"has {num_stages} stages")
+    return devices
+
+
+def _microbatches(x: torch.Tensor, m: int, device) -> torch.Tensor:
+    """``[B, ...]`` -> ``[M, B / M, ...]`` on ``device``."""
+    b = x.shape[0]
+    if b % m:
+        raise ValueError(f"batch {b} not divisible by microbatches {m}")
+    return x.to(device).reshape((m, b // m) + tuple(x.shape[1:]))
+
+
+def _as_tensor(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else torch.as_tensor(
+        np.asarray(x))
+
+
+class _Embed(nn.Module):
+    """Token embedding in the compute dtype plus the float32 position
+    table's first ``T`` rows (flax's ``_Embed``: ``tok_embed``,
+    ``pos_embed``)."""
+
+    def __init__(self, vocab: int, width: int, max_len: int,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.dtype = dtype
+        self.tok_embed = Embed(vocab, width, dtype)
+        self.pos_embed = nn.Parameter(torch.zeros(max_len, width))
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        t = ids.shape[-1]
+        return self.tok_embed(ids.long()) + self.pos_embed[:t].to(self.dtype)
+
+
+class _Head(nn.Module):
+    """``ln_final`` and ``lm_head``, both float32 (flax's ``_Head``)."""
+
+    def __init__(self, width: int, vocab: int):
+        super().__init__()
+        self.ln_final = nn.LayerNorm(width, eps=LN_EPS)
+        self.lm_head = nn.Linear(width, vocab)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.lm_head(self.ln_final(x.float()))
+
+
+class PipelinedLM(nn.Module):
+    """A causal LM cut into ``num_stages`` stages of ``num_layers /
+    num_stages`` decoder blocks (``attention="full"``).
+
+    Parameters: ``embed.{tok_embed.weight, pos_embed}``,
+    ``stages.{s}.{j}.*`` (layer ``s * L/P + j``, a
+    :class:`~distkeras_tpu_torch.models.gpt.DecoderBlock`) and
+    ``head.{ln_final, lm_head}.*``; ``utils.bridge`` carries the JAX
+    package's stacked tree to and from them. Built on ``device`` (default
+    ``cuda:0``); :meth:`build_train_step`'s ``place_params`` moves each
+    stage to its stage device.
+    """
+
+    def __init__(self, vocab_size: int, max_len: int, num_layers: int,
+                 num_heads: int, width: int, mlp_dim: int, num_stages: int,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        if num_layers % num_stages != 0:
+            raise ValueError(f"num_layers {num_layers} must divide evenly "
+                             f"into {num_stages} stages")
+        self.vocab_size, self.max_len = vocab_size, max_len
+        self.num_layers, self.num_stages = num_layers, num_stages
+        self.layers_per_stage = num_layers // num_stages
+        self.width, self.dtype = width, dtype
+        self.embed = _Embed(vocab_size, width, max_len, dtype)
+        self.stages = nn.ModuleList(
+            nn.ModuleList(gpt.DecoderBlock(width, num_heads, mlp_dim, dtype,
+                                           attention="full")
+                          for _ in range(self.layers_per_stage))
+            for _ in range(num_stages))
+        self.head = _Head(width, vocab_size)
+        self.to(resolve_device(device))
+
+    def init(self, seed: int = 0) -> "PipelinedLM":
+        """Seeded weights in place (``gpt.init_params``' rules), each of
+        the ``L`` layers its own draw, in layer order."""
+        gpt.init_params(self, torch.Generator().manual_seed(int(seed)))
+        return self
+
+    def _run_stage(self, s: int, x: torch.Tensor) -> torch.Tensor:
+        for block in self.stages[s]:
+            x = block(x)
+        return x
+
+    def reference_apply(self, ids) -> torch.Tensor:
+        """The sequential forward with the same weights (the oracle):
+        every layer in order, wherever its stage lives, no schedule."""
+        ids = _as_tensor(ids)
+        x = self.embed(ids.to(self.embed.pos_embed.device))
+        for s, stage in enumerate(self.stages):
+            x = self._run_stage(s, x.to(next(stage.parameters()).device))
+        return self.head(x.to(self.head.lm_head.weight.device))
+
+    def build_train_step(self, tx: OptimizerFactory, mesh: Mesh,
+                         num_microbatches: int):
+        """``(step_fn, place_params, place_batch)``:
+
+        - ``place_params(params=None)`` loads ``params`` (a state dict)
+          when given, puts each stage on its stage device (the embedding
+          on stage 0's, the head on the last's) and builds ``tx`` (a
+          factory) over the parameters: an ``engine.TrainState``;
+        - ``place_batch({"input_ids": [B, T], "labels": [B, T]})`` puts
+          the ids on stage 0's device and the labels on the last's;
+        - ``step_fn(state, batch) -> (state, metrics)``: the schedule,
+          one backward, one optimizer step (in place); ``loss`` (the
+          summed token NLL over the global count) and ``accuracy``.
+
+        B must divide into ``num_microbatches``; labels < 0 are ignored.
+        """
+        devices = _stage_devices(mesh, self.num_stages)
+        m_count = int(num_microbatches)
+        stages = self.num_stages
+
+        def place_params(params=None) -> engine.TrainState:
+            if params is not None:
+                self.load_state_dict(params)
+            self.embed.to(devices[0])
+            for stage, dev in zip(self.stages, devices):
+                stage.to(dev)
+            self.head.to(devices[-1])
+            return engine.TrainState(step=0, model=self,
+                                     opt_state=tx(self.parameters()))
+
+        def place_batch(batch) -> dict:
+            return {"input_ids": _as_tensor(batch["input_ids"]).to(
+                        devices[0]),
+                    "labels": _as_tensor(batch["labels"]).to(devices[-1])}
+
+        def step_fn(state: engine.TrainState, batch):
+            ids_mb = _microbatches(_as_tensor(batch["input_ids"]), m_count,
+                                   devices[0])
+            labels_mb = _microbatches(_as_tensor(batch["labels"]), m_count,
+                                      devices[-1])
+            zero = lambda: torch.zeros((), device=devices[-1])
+            nll, hits, count = zero(), zero(), zero()
+            inbox = [None] * stages  # inbox[s]: stage s's input this tick
+            for tick in range(m_count + stages - 1):
+                outbox = [None] * stages
+                for s in range(stages):
+                    mb = tick - s
+                    if not 0 <= mb < m_count:
+                        continue  # a bubble tick: no loss reads it
+                    x = self.embed(ids_mb[mb]) if s == 0 else inbox[s]
+                    out = self._run_stage(s, x)
+                    if s < stages - 1:
+                        outbox[s + 1] = out.to(devices[s + 1])
+                        continue
+                    terms = losses_lib.masked_lm_terms(self.head(out),
+                                                       labels_mb[mb])
+                    nll, hits, count = (nll + terms[0], hits + terms[1],
+                                        count + terms[2])
+                inbox = outbox
+            count = torch.clamp(count, min=1.0)
+            loss = nll / count
+            state.model.zero_grad(set_to_none=True)
+            loss.backward()
+            state.opt_state.step()
+            state.opt_state.zero_grad(set_to_none=True)
+            return (engine.TrainState(step=state.step + 1, model=state.model,
+                                      opt_state=state.opt_state),
+                    {"loss": loss.detach(), "accuracy": hits / count})
+
+        return step_fn, place_params, place_batch
+
+
+class GenericPipeline:
+    """GPipe over arbitrary stage modules, applied in order
+    (``stages[k](x)``); they may differ in class, width and activation
+    shape. Stage ``k`` runs on the mesh's stage device ``k``, where its
+    parameters live. Activations hop through one flat buffer in
+    ``dtype``, padded to the largest hop (the JAX package's layout, so a
+    bf16 hop rounds as JAX's does); :meth:`init` records each stage's
+    output shape for one microbatch.
+
+    ``loss`` is a name of :mod:`~distkeras_tpu_torch.ops.losses` or a
+    callable ``(logits, labels) -> scalar``, applied to the last stage's
+    float32 output a microbatch; the step's loss is their mean.
+    """
+
+    def __init__(self, stages: Sequence[nn.Module], num_microbatches: int,
+                 loss: Union[str, Callable] = "categorical_crossentropy",
+                 dtype: torch.dtype = torch.float32, device=None):
+        if len(stages) < 2:
+            raise ValueError("a pipeline needs >= 2 stages")
+        home = resolve_device(device)
+        self.stages = nn.ModuleList(stages).to(home)
+        self.num_stages = len(stages)
+        #: each stage's device (place_params moves them)
+        self.devices = [home] * self.num_stages
+        self.M = int(num_microbatches)
+        self.dtype = dtype
+        self.loss_fn = losses_lib.get(loss)
+        self._shapes: Optional[list] = None  # per-stage output shapes
+
+    def init(self, sample_features) -> tuple:
+        """Record each stage's output shape for one microbatch shaped as
+        ``sample_features``; returns the stages' parameters, a tuple of
+        state dicts (copies), in stage order."""
+        x = _as_tensor(sample_features).to(self.dtype)
+        shapes = []
+        with torch.no_grad():
+            for stage, dev in zip(self.stages, self.devices):
+                x = stage(x.to(dev))
+                shapes.append(tuple(x.shape))
+        self._shapes = shapes
+        return tuple({n: t.detach().clone()
+                      for n, t in stage.state_dict().items()}
+                     for stage in self.stages)
+
+    def reference_apply(self, features) -> torch.Tensor:
+        """The sequential forward with the same weights (the oracle)."""
+        x = _as_tensor(features).to(self.dtype)
+        for stage, dev in zip(self.stages, self.devices):
+            x = stage(x.to(dev))
+        return x
+
+    def build_train_step(self, tx: OptimizerFactory, mesh: Mesh):
+        """``(step_fn, place_params, place_batch)``:
+
+        - ``place_params(params=None)`` loads ``params`` (a tuple of
+          state dicts, :meth:`init`'s) when given, puts stage ``k`` on
+          stage device ``k`` and builds ``tx`` (a factory) over every
+          stage's parameters: an ``engine.TrainState`` over
+          ``self.stages``;
+        - ``place_batch({"features": [B, ...], "labels": [B, ...]})``
+          puts the features on stage 0's device, the labels on the
+          last's;
+        - ``step_fn(state, batch) -> (state, {"loss"})``; B must divide
+          into ``num_microbatches``.
+        """
+        if self._shapes is None:
+            raise RuntimeError("call init() before build_train_step()")
+        stages_n, m_count, shapes = self.num_stages, self.M, self._shapes
+        devices = _stage_devices(mesh, stages_n)
+        # hop buffer: outputs of stages 0 .. P-2 travel, padded to the
+        # largest
+        hop_sizes = [math.prod(s) for s in shapes[:-1]]
+        buf_n = max(hop_sizes)
+
+        def place_params(params=None) -> engine.TrainState:
+            if params is not None:
+                for stage, sd in zip(self.stages, params):
+                    stage.load_state_dict(sd)
+            for stage, dev in zip(self.stages, devices):
+                stage.to(dev)
+            self.devices = list(devices)
+            return engine.TrainState(
+                step=0, model=self.stages,
+                opt_state=tx(self.stages.parameters()))
+
+        def place_batch(batch) -> dict:
+            return {"features": _as_tensor(batch["features"]).to(devices[0]),
+                    "labels": _as_tensor(batch["labels"]).to(devices[-1])}
+
+        def hop(k: int, out: torch.Tensor) -> torch.Tensor:
+            if out.numel() != hop_sizes[k]:
+                raise ValueError(
+                    f"stage {k} gave {tuple(out.shape)}, init recorded "
+                    f"{shapes[k]}: init with one microbatch of the batch's "
+                    f"shape")
+            flat = F.pad(out.reshape(-1).to(self.dtype),
+                         (0, buf_n - hop_sizes[k]))
+            return flat.to(devices[k + 1])
+
+        def step_fn(state: engine.TrainState, batch):
+            feats = _microbatches(_as_tensor(batch["features"]), m_count,
+                                  devices[0])
+            labels = _microbatches(_as_tensor(batch["labels"]), m_count,
+                                   devices[-1])
+            loss_sum = torch.zeros((), device=devices[-1])
+            inbox = [None] * stages_n
+            for tick in range(m_count + stages_n - 1):
+                outbox = [None] * stages_n
+                for k in range(stages_n):
+                    mb = tick - k
+                    if not 0 <= mb < m_count:
+                        continue  # a bubble tick: no loss reads it
+                    x = feats[mb].to(self.dtype) if k == 0 else \
+                        inbox[k][:hop_sizes[k - 1]].reshape(shapes[k - 1])
+                    out = self.stages[k](x)
+                    if k < stages_n - 1:
+                        outbox[k + 1] = hop(k, out)
+                    else:
+                        loss_sum = loss_sum + self.loss_fn(out.float(),
+                                                           labels[mb])
+                inbox = outbox
+            loss = loss_sum / m_count
+            state.model.zero_grad(set_to_none=True)
+            loss.backward()
+            state.opt_state.step()
+            state.opt_state.zero_grad(set_to_none=True)
+            return (engine.TrainState(step=state.step + 1, model=state.model,
+                                      opt_state=state.opt_state),
+                    {"loss": loss.detach()})
+
+        return step_fn, place_params, place_batch

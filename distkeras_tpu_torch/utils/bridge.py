@@ -19,6 +19,14 @@ JAX). The rules:
 - ``layer_{i}`` at any depth <-> ``layers.{i}``: CausalLM's
   ``layer_{i}/{ln1, attn/{qkv, out}, ln2, mlp/{fc1, fc2}}`` and the
   encoder's ``encoder/layer_{i}/...`` alike; ``ln_final``, ``lm_head``;
+- the JAX package's ``PipelinedLM`` tree ``{"embed": {tok_embed,
+  pos_embed}, "blocks": <one DecoderBlock tree, leaves [P, L/P, ...]>,
+  "head": {ln_final, lm_head}}`` <-> the port's ``embed.*``,
+  ``stages.{s}.{j}.*`` (layer ``s * L/P + j``) and ``head.*``
+  (:func:`pipelined_lm_to_state_dict`, :func:`state_dict_to_pipelined_lm`);
+  a ``GenericPipeline``'s tuple of per-stage trees goes stage by stage
+  through the rules here (:func:`pipeline_stages_to_state_dicts`,
+  :func:`state_dicts_to_pipeline_stages`);
 - every other module name is kept: ResNet's (``conv_stem``,
   ``norm_stem``, ``stage{i}_block{j}/{conv1, norm1, ..., proj,
   norm_proj}``, ``head``), BERT's (``ln_embed``, ``mlm_dense``,
@@ -128,3 +136,66 @@ def load_flax_params(model: torch.nn.Module, params: Mapping):
     parameter must be covered and no name may be left over."""
     model.load_state_dict(flax_to_state_dict(params), strict=True)
     return model
+
+
+def _prefixed(prefix: str, state_dict: Mapping) -> dict:
+    return {f"{prefix}.{n}": t for n, t in state_dict.items()}
+
+
+def pipelined_lm_to_state_dict(params: Mapping) -> dict:
+    """The JAX package's ``PipelinedLM`` params (numpy leaves; ``blocks``
+    stacked ``[P, L/P, ...]``) -> the port's ``PipelinedLM`` state
+    dict."""
+    out = _prefixed("embed", flax_to_state_dict(params["embed"]))
+    out.update(_prefixed("head", flax_to_state_dict(params["head"])))
+    blocks = list(_flatten(params["blocks"]))
+    num_stages, per_stage = np.shape(blocks[0][1])[:2]
+    for s in range(num_stages):
+        for j in range(per_stage):
+            layer: dict = {}
+            for path, leaf in blocks:
+                node = layer
+                for key in path[:-1]:
+                    node = node.setdefault(key, {})
+                node[path[-1]] = np.asarray(leaf)[s, j]
+            out.update(_prefixed(f"stages.{s}.{j}",
+                                 flax_to_state_dict(layer)))
+    return out
+
+
+def state_dict_to_pipelined_lm(state_dict: Mapping) -> dict:
+    """Inverse of :func:`pipelined_lm_to_state_dict`."""
+    groups: dict = {}
+    for name, tensor in state_dict.items():
+        part, rest = name.split(".", 1)
+        if part == "stages":
+            s, j, rest = rest.split(".", 2)
+            groups.setdefault((int(s), int(j)), {})[rest] = tensor
+        else:
+            groups.setdefault(part, {})[rest] = tensor
+    layers = sorted(k for k in groups if isinstance(k, tuple))
+    num_stages = layers[-1][0] + 1
+    per_stage = layers[-1][1] + 1
+    trees = [state_dict_to_flax(groups[k]) for k in layers]
+    flat = [dict(_flatten(t)) for t in trees]
+    blocks: dict = {}
+    for path in flat[0]:
+        stacked = np.stack([f[path] for f in flat]).reshape(
+            (num_stages, per_stage) + flat[0][path].shape)
+        node = blocks
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = stacked
+    return {"embed": state_dict_to_flax(groups["embed"]), "blocks": blocks,
+            "head": state_dict_to_flax(groups["head"])}
+
+
+def pipeline_stages_to_state_dicts(params) -> tuple:
+    """A JAX ``GenericPipeline``'s tuple of per-stage flax trees -> a
+    tuple of port state dicts (each stage through this module's rules)."""
+    return tuple(flax_to_state_dict(p) for p in params)
+
+
+def state_dicts_to_pipeline_stages(state_dicts) -> tuple:
+    """Inverse of :func:`pipeline_stages_to_state_dicts`."""
+    return tuple(state_dict_to_flax(sd) for sd in state_dicts)

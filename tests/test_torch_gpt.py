@@ -212,8 +212,17 @@ def test_bf16_full_forward_tracks_jax(pair):
 
 
 def test_model_options_not_ported_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgpt.gpt_tiny(attention="ring")
+    # ported: attention="ring" builds; outside a set of sequence shards
+    # (parallel/sequence.py) and in decode it raises
+    ring = tgpt.gpt_tiny(attention="ring")
+    with pytest.raises(ValueError, match="sequence shards"):
+        ring(torch.ones(1, 4, dtype=torch.long))
+    with pytest.raises(ValueError, match="attention='full'"):
+        ring(torch.zeros(1, 2, dtype=torch.long),
+             cache=tgpt.init_cache(ring, 1),
+             cache_index=torch.zeros(1, dtype=torch.int32))
+    logits = ring([torch.ones(1, 4, dtype=torch.long)] * 2)
+    assert [tuple(x.shape) for x in logits] == [(1, 4, ring.vocab_size)] * 2
     # ported: remat (models/remat.py) builds and steps
     remat = tgpt.gpt_tiny(remat="blocks")
     logits = remat(torch.ones(1, 4, dtype=torch.long))

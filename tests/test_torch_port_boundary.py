@@ -157,11 +157,20 @@ def test_encoder_trainers_do_not_fall_back_to_cpu(monkeypatch, family):
 def test_mesh_paths_do_not_fall_back_to_cpu(monkeypatch):
     from distkeras_tpu_torch import ModelPredictor, PjitTrainer
     from distkeras_tpu_torch.models import MLP
+    from distkeras_tpu_torch.parallel import pipeline, sequence
     from distkeras_tpu_torch.parallel.mesh import Mesh
 
     _no_cuda(monkeypatch)
     cards = Mesh(["cuda:0"] * 2)
-    for build in (lambda: PjitTrainer(MLP(features=(4,))),
+    lm = dict(vocab_size=16, max_len=8, num_layers=2, num_heads=1, width=4,
+              mlp_dim=8, num_stages=2)
+    for build in (lambda: sequence.make_sp_mesh(),
+                  lambda: sequence.make_sp_mesh(1, 2, devices=["cuda:0"] * 2),
+                  lambda: pipeline.make_pp_mesh(1),
+                  lambda: pipeline.PipelinedLM(**lm),
+                  lambda: pipeline.GenericPipeline(
+                      [MLP(features=(4,)), MLP(features=(4,))], 2),
+                  lambda: PjitTrainer(MLP(features=(4,))),
                   lambda: PjitTrainer(MLP(features=(4,)), mesh=Mesh(
                       ["cuda:0"] * 2, model_parallelism=2)),
                   lambda: ServingEngine(MLP(features=(4,), in_features=8),
@@ -174,6 +183,12 @@ def test_mesh_paths_do_not_fall_back_to_cpu(monkeypatch):
                                                            "model": 2}
     host = Mesh(["cpu"] * 2)
     assert ModelPredictor(MLP(features=(4,)), mesh=host).device.type == "cpu"
+    assert sequence.make_sp_mesh(1, 2, devices=["cpu"] * 2).home.type \
+        == "cpu"
+    assert pipeline.make_pp_mesh(2, devices=["cpu"] * 2).shape == {
+        "workers": 1, "stages": 2}
+    assert next(pipeline.PipelinedLM(**lm, device="cpu").parameters()) \
+        .device.type == "cpu"
     with ServingEngine(MLP(features=(4,), in_features=8), (8,),
                        buckets=(2,), mesh=host) as eng:
         assert [d.type for d in eng.devices] == ["cpu", "cpu"]

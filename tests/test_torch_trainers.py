@@ -36,6 +36,8 @@ import distkeras_tpu as jdk
 import distkeras_tpu_torch as tdk
 from distkeras_tpu.models.mlp import MLP as JMLP
 from distkeras_tpu_torch.models.mlp import MLP
+from distkeras_tpu_torch.parallel import pipeline as tpipeline
+from distkeras_tpu_torch.parallel import sequence as tsequence
 from distkeras_tpu_torch.utils import bridge
 
 K = 4
@@ -279,10 +281,13 @@ NOT_PORTED = [  # (build, item)
     (lambda: tdk.DOWNPOUR(_tmodel(), num_workers=1, device="cpu",
                           mode="host_async", data_service="h:1"),
      "item 16"),
-    # the one-process mesh, re-stamping and sharded scoring are ported
-    # (items 12 and 16): these cases now hold what still raises, ring
-    # attention and every path across processes
-    (lambda: tdk.models.gpt.CausalLM(attention="ring"), "item 16"),
+    # the one-process mesh, re-stamping, sharded scoring, sequence and
+    # pipeline parallelism are ported (items 12 and 16): these cases now
+    # hold what still raises, every path across processes
+    (_multi_process(lambda: tsequence.make_sp_mesh(devices=["cpu"])),
+     "item 16"),
+    (_multi_process(lambda: tpipeline.make_pp_mesh(1, devices=["cpu"])),
+     "item 16"),
     (_multi_process(lambda: tdk.parallel.mesh.make_mesh(devices=["cpu"])),
      "item 16"),
     (_multi_process(lambda: tdk.PjitTrainer(_tmodel(), device="cpu")),
