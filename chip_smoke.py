@@ -257,8 +257,8 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    worker): bytes a commit raw and int8,
    every window commits; (e) ``ADAG(resnet50())`` GroupNorm K = 2: the
    GroupNorm kernels launched 53 x K x window x windows times, plus 53
-   by the runner's one-row FLOPs count (``launches_async`` in the
-   kernels' line); (f) DynSGD over a 2-shard
+   by the runner's one-row FLOPs count on the first round a worker
+   trains (``launches_async`` in the kernels' line); (f) DynSGD over a 2-shard
    fleet with a standby on loopback, the coordinator chaos-killed mid-run:
    zero lost windows, one promotion, the kill-to-promotion time, the
    fleet's clock the run's; (g) ``checkpoint_folds`` snapshots, then
@@ -339,6 +339,26 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    the loss within 1e-6 relative of the sequential oracle over the same
    microbatches, and both GroupNorm kernels launched 53 x M times over
    the step (``launches_pipeline`` in the kernels' line).
+31. data    — the one-process data plane at full width: ``ADAG(
+   resnet50_nf())``, sgd 0.05, b = 128, uint8 224^2 images, 1,000-way
+   one-hot labels, K = 2, window 4, no kernel of the table on the path.
+   (a) Streaming with a dead worker: a ``DataCoordinator`` over 4,096
+   seeded rows in ranges of 512 (one round each), 2 epochs, served on
+   loopback; a bare client (worker 99) leases 3 ranges, acks one and
+   vanishes; ``mode="host_async"`` with ``data_service=`` and a
+   ``checkpoint_dir`` trains from the wire. The cursor ends at ``[2,
+   num_ranges]``, exactly 2 re-leases, 0 stale acks, (2 x 8 - 1) x 4 =
+   60 landed steps, the last snapshot's ``data_cursor`` the final
+   cursor, finite losses; samples/s beside phase 27 (a)'s staged K = 2
+   rate, the median fetch and lease round trips, and the longest
+   interval between a live worker's lease calls against the lease. (b)
+   ``GlobalShards`` over 8 seeded ``.npy`` shard pairs of 512 rows:
+   ``data_layout="host_sharded"``, 2 epochs, sync and ``host_async``:
+   ``epoch_dataset`` re-resolved each epoch with the rows' order
+   changed, 16 commits in ``host_async``, finite losses, samples/s. (c)
+   ``run_with_retries``: the MNIST MLP crashes after epoch 0's
+   checkpoint and resumes: parameters within rtol 1e-6 / atol 1e-7 of a
+   clean run on the card (TF32 off).
 
 The last three lines of standard output are the kernels' JSON, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details are
@@ -4354,9 +4374,12 @@ def _async_groupnorm(dev, power_line) -> dict:
     """(e) ``ADAG(resnet50())`` (GroupNorm, bf16) host_async K = 2: the
     GroupNorm kernels launched 53 x K x window x windows times each by
     the workers, plus 53 each by the runner's one-row FLOPs count for the
-    per-window MFU series (a forward and backward before the workers
-    start)."""
+    per-window MFU series (a forward and backward on the first round a
+    worker trains); that count equals the same count made alone, so no
+    sibling's launch reached it."""
+    from distkeras_tpu_torch import observability
     from distkeras_tpu_torch.ops.kernels import groupnorm as gn
+    from distkeras_tpu_torch.utils.transfer import to_device
 
     k, b, window, windows = ASYNC_GN
     ds = _learnable_images(k * windows * window * b, seed=35)
@@ -4370,13 +4393,24 @@ def _async_groupnorm(dev, power_line) -> dict:
     launches = {kk.__name__: kk.launches for kk in kernels}
     want = 53 * k * window * windows + 53
     losses = [h["loss"] for h in trainer.get_history()]
+    runner = trainer._async_runner
+    params = {n: p.detach().clone().requires_grad_(True)
+              for n, p in trainer.model.named_parameters()}
+    row = to_device({"features": np.asarray(ds["features"][:1]),
+                     "labels": np.asarray(ds["label"][:1])}, dev)
+    alone = observability.count_flops(runner.window_fn.grad_fn, params,
+                                      row, None) * b * window
     info = {"launches": launches, "expected": want, "losses": losses,
-            "commits": trainer.num_updates, "card": power_line}
+            "commits": trainer.num_updates,
+            "window_flops": runner._window_flops,
+            "window_flops_alone": alone, "card": power_line}
     log(f"[async] (e) ADAG(resnet50() GroupNorm, bf16) host_async K={k}, "
         f"batch {b}, window {window}: GroupNorm launches {launches} (53 x K "
         f"x window x windows + 53 for the MFU count = {want}), commits "
-        f"{info['commits']}")
+        f"{info['commits']}; a window's FLOPs {runner._window_flops:.6g} "
+        f"counted in a worker, {alone:.6g} alone")
     assert all(n == want for n in launches.values()), info
+    assert runner._window_flops == alone, info
     assert all(math.isfinite(x) for x in losses), losses
     del trainer, ds
     torch.cuda.empty_cache()
@@ -5720,6 +5754,291 @@ def phase_sequence_pipeline(dev, power_line) -> dict:
     return out
 
 
+# -- phase 31 ----------------------------------------------------------------
+
+#: (a) and (b): rows, rows a range or a shard file (one round: batch x
+#: window), batch, window, workers, epochs
+DATA_ROWS, DATA_RANGE = 4096, 512
+DATA_B, DATA_WINDOW, DATA_K, DATA_EPOCHS = 128, 4, 2, 2
+#: (a)'s lease (s): about four times the longest hold between a live
+#: worker's lease calls measured on a slow host (5.15 s; printed beside
+#: it), and the tail of epoch 0 waits it out once for the dead worker's
+#: two ranges
+DATA_LEASE_S = 20.0
+#: (a)'s snapshot cadence (commits)
+DATA_FOLDS = 8
+#: (c) the MNIST MLP: rows, batch, epochs
+RETRY_N, RETRY_B, RETRY_EPOCHS = 4096, 64, 3
+
+
+def _data_trainer(mode, dev, **kw):
+    import distkeras_tpu_torch as dk
+
+    place = dict(num_workers=DATA_K) if mode == "host_async" else \
+        dict(num_workers=1, parallelism_factor=DATA_K)
+    return dk.ADAG(_nf_model(seed=40), mode=mode, worker_optimizer="sgd",
+                   learning_rate=0.05, batch_size=DATA_B,
+                   communication_window=DATA_WINDOW, metrics=(),
+                   device=dev, **place, **kw)
+
+
+def _counter_total(name) -> float:
+    from distkeras_tpu_torch import telemetry
+
+    return sum(v for k, v in telemetry.get_registry().snapshot()[
+        "counters"].items() if k.split("{")[0] == name)
+
+
+def _data_stream(dev, power_line, staged_rate) -> dict:
+    """(a) host_async from a data service, with a worker that died
+    holding two leased ranges before the trainer started."""
+    import tempfile
+
+    from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch.checkpoint import Checkpointer
+    from distkeras_tpu_torch.data import service
+
+    ds = _learnable_images(DATA_ROWS, seed=41)
+    coord = service.DataCoordinator(dataset=ds, range_size=DATA_RANGE,
+                                    seed=42, num_epochs=DATA_EPOCHS,
+                                    lease_s=DATA_LEASE_S)
+    lease_calls = []  # (perf_counter, worker) of every lease call
+    orig_lease = service.DataServiceClient.lease
+
+    def lease(client, *a, **kw):
+        lease_calls.append((time.perf_counter(), client.worker))
+        return orig_lease(client, *a, **kw)
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    telemetry.reset()
+    coord.start()
+    try:
+        releases0 = _counter_total("data.service.releases")
+        stale0 = _counter_total("data.service.stale_acks")
+        dead = service.DataServiceClient(coord.address, worker=99)
+        dead.register()
+        grant = dead.lease(max_ranges=3)
+        pos, start, stop = grant["ranges"][0]
+        dead.fetch(start, stop)
+        dead.ack(grant["epoch"], [pos])
+        dead.close()  # no deregister: a killed worker
+        with tempfile.TemporaryDirectory(dir=OUT_DIR) as d:
+            trainer = _data_trainer("host_async", dev, data_service=coord,
+                                    checkpoint_dir=d,
+                                    checkpoint_folds=DATA_FOLDS)
+            service.DataServiceClient.lease = lease
+            clock = _WindowClock()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                trainer.train(None)
+            finally:
+                clock.close()
+                service.DataServiceClient.lease = orig_lease
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ckpt = Checkpointer(d)
+            last = ckpt.latest_step()
+            snap_cursor = [int(v) for v in np.asarray(
+                ckpt.restore(step=last)["data_cursor"]).ravel()]
+        cursor = [int(v) for v in coord.cursor_carry()]
+        releases = _counter_total("data.service.releases") - releases0
+        stale = _counter_total("data.service.stale_acks") - stale0
+    finally:
+        coord.stop()
+    holds = {}
+    for w in range(DATA_K):
+        ts = [t for t, ww in lease_calls if ww == w]
+        holds[w] = max(b - a for a, b in zip(ts, ts[1:])) \
+            if len(ts) > 1 else 0.0
+    marks = sorted(t for t, _ in clock.marks)
+    gaps = [b - a for a, b in zip(marks, marks[1:])]
+    samples = DATA_WINDOW * DATA_B
+    losses = [h["loss"] for h in trainer.get_history()]
+    rtt = {op: telemetry.histogram("data.service.client.rtt_s",
+                                   op=op).stats()["p50"]
+           for op in ("data_fetch", "data_lease")}
+    want_steps = (DATA_EPOCHS * coord.num_ranges - 1) * \
+        (DATA_RANGE // DATA_B)
+    info = {
+        "wall_s": wall, "cursor": cursor, "num_ranges": coord.num_ranges,
+        "releases": releases, "stale_acks": stale, "steps": len(losses),
+        "expected_steps": want_steps, "commits": trainer.num_updates,
+        "snapshot_step": last, "snapshot_cursor": snap_cursor,
+        "samples_per_s": clock.steady_rate(samples),
+        # the same windows with the longest pause between two commits
+        # (the epoch tail's wait for the dead worker's lease) taken out
+        "samples_per_s_busy": samples * (len(marks) - 1)
+        / (marks[-1] - marks[0] - max(gaps)),
+        "staged_k2_samples_per_s": staged_rate,
+        "rtt_p50_s": rtt, "longest_hold_s": holds,
+        "lease_s": DATA_LEASE_S, "first_loss": losses[0],
+        "last_window_loss": float(np.mean(losses[-DATA_WINDOW:])),
+        "card": power_line}
+    log(f"[data] (a) ADAG(resnet50_nf()) host_async K={DATA_K} from a data "
+        f"service ({DATA_ROWS} rows, ranges of {DATA_RANGE}, "
+        f"{DATA_EPOCHS} epochs, batch {DATA_B}, window {DATA_WINDOW}) with "
+        f"worker 99 dead holding 2 ranges: cursor {cursor}, re-leases "
+        f"{releases:.0f}, stale acks {stale:.0f}, steps {len(losses)} "
+        f"(expected {want_steps}), snapshot {last} cursor {snap_cursor}; "
+        f"{info['samples_per_s']:.1f} samples/s over the steady windows "
+        f"({info['samples_per_s_busy']:.1f} without the longest pause, "
+        f"{max(gaps):.2f} s; phase 27 (a) staged K=2 at window "
+        f"{ASYNC_WINDOW}: {staged_rate:.1f}); median round trip fetch "
+        f"{rtt['data_fetch'] * 1e3:.1f} ms, lease "
+        f"{rtt['data_lease'] * 1e3:.2f} ms; longest interval between a "
+        f"live worker's lease calls {max(holds.values()):.2f} s against "
+        f"the {DATA_LEASE_S:.0f} s lease; loss {info['first_loss']:.4f} -> "
+        f"{info['last_window_loss']:.4f}; {wall:.1f} s [{power_line}]")
+    assert cursor == [DATA_EPOCHS, coord.num_ranges], info
+    assert releases == 2 and stale == 0, info
+    assert len(losses) == want_steps, info
+    assert snap_cursor == cursor, info
+    assert all(math.isfinite(x) for x in losses), losses
+    del trainer, ds
+    torch.cuda.empty_cache()
+    return info
+
+
+def _write_shards(directory) -> dict:
+    """``DATA_ROWS // DATA_RANGE`` seeded ``.npy`` shard pairs."""
+    paths = {"features": [], "label": []}
+    for i in range(DATA_ROWS // DATA_RANGE):
+        part = _learnable_images(DATA_RANGE, seed=50 + i)
+        for col in paths:
+            path = os.path.join(directory, f"{col}{i}.npy")
+            np.save(path, np.asarray(part[col]))
+            paths[col].append(path)
+    return paths
+
+
+def _data_shards(dev, power_line) -> dict:
+    """(b) A ``GlobalShards`` pool under ``data_layout="host_sharded"``,
+    sync and host_async, each pool's ``epoch_dataset`` recorded."""
+    import tempfile
+
+    from distkeras_tpu_torch.data import GlobalShards
+
+    out = {}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as d:
+        paths = _write_shards(d)
+        for mode in ("sync", "host_async"):
+            pool = GlobalShards(paths, seed=43)
+            seen = []
+            orig = pool.epoch_dataset
+
+            def recording(epoch, *a, _orig=orig, _seen=seen, **kw):
+                view = _orig(epoch, *a, **kw)
+                _seen.append((epoch, np.asarray(view["label"][
+                    ::DATA_RANGE]).argmax(-1).tolist()))
+                return view
+
+            pool.epoch_dataset = recording
+            trainer = _data_trainer(mode, dev, num_epoch=DATA_EPOCHS,
+                                    data_layout="host_sharded")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train(pool)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            losses = [h["loss"] for h in trainer.get_history()]
+            orders = {}
+            for e, first_labels in seen:
+                orders.setdefault(e, first_labels)
+            info = {"wall_s": wall,
+                    "samples_per_s": DATA_EPOCHS * DATA_ROWS / wall,
+                    "resolved_epochs": [e for e, _ in seen],
+                    "shard_first_labels": orders,
+                    "commits": trainer.num_updates, "steps": len(losses),
+                    "first_loss": losses[0], "last_loss": losses[-1],
+                    "card": power_line}
+            log(f"[data] (b) ADAG(resnet50_nf()) {mode} K={DATA_K} over "
+                f"GlobalShards ({DATA_ROWS // DATA_RANGE} files of "
+                f"{DATA_RANGE} rows, host_sharded, {DATA_EPOCHS} epochs): "
+                f"epoch_dataset resolved for epochs "
+                f"{info['resolved_epochs']}, first label of each shard by "
+                f"epoch {orders}; {info['samples_per_s']:.1f} samples/s "
+                f"({wall:.1f} s, staging included), commits "
+                f"{trainer.num_updates}, loss {losses[0]:.4f} -> "
+                f"{losses[-1]:.4f} [{power_line}]")
+            assert set(range(DATA_EPOCHS)) <= set(info["resolved_epochs"]), \
+                info
+            assert orders[0] != orders[1], info  # re-dealt between epochs
+            if mode == "host_async":
+                assert trainer.num_updates == DATA_EPOCHS * DATA_K * \
+                    DATA_ROWS // (DATA_K * DATA_RANGE), info
+            assert all(math.isfinite(x) for x in losses), losses
+            out[mode] = info
+            del trainer
+            torch.cuda.empty_cache()
+    return out
+
+
+def _data_retries(dev, power_line) -> dict:
+    """(c) ``run_with_retries`` on the card: a crash after epoch 0's
+    checkpoint, then a resume, against a clean run (TF32 off)."""
+    import tempfile
+
+    import distkeras_tpu_torch as dk
+    from distkeras_tpu_torch.models.mlp import MLP, init_params
+    from distkeras_tpu_torch.utils.fault import run_with_retries
+
+    class Crashing(dk.SingleTrainer):
+        crashes = 0
+
+        def train(self, dataset, shuffle=False, resume=False):
+            if not resume and not self.crashes:
+                epochs, self.num_epoch = self.num_epoch, 1
+                super().train(dataset, shuffle=shuffle)
+                self.num_epoch = epochs
+                self.crashes += 1
+                raise RuntimeError("injected failure after epoch 0")
+            return super().train(dataset, shuffle=shuffle, resume=resume)
+
+    def model():
+        return init_params(MLP(), torch.Generator().manual_seed(44))
+
+    set_tf32(False)
+    ds = dk.synthetic_mnist(n=RETRY_N, seed=45)
+    kw = dict(worker_optimizer="sgd", learning_rate=0.05,
+              batch_size=RETRY_B, num_epoch=RETRY_EPOCHS, seed=5,
+              device=dev)
+    clean = dk.SingleTrainer(model(), **kw).train(ds)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as d:
+        crashy = Crashing(model(), checkpoint_dir=d, **kw)
+        retried = run_with_retries(crashy, ds, max_restarts=2,
+                                   backoff_s=0.0)
+    worst = max(float(((retried[n] - want).abs()
+                       / (1e-7 + 1e-6 * want.abs())).max())
+                for n, want in clean.items())
+    bitwise = all(torch.equal(retried[n], want) for n, want in clean.items())
+    info = {"crashes": crashy.crashes, "worst_ratio_to_bound": worst,
+            "bitwise": bitwise, "card": power_line}
+    log(f"[data] (c) run_with_retries: MLP on {dev}, {RETRY_EPOCHS} epochs "
+        f"of {RETRY_N} rows at batch {RETRY_B}, {crashy.crashes} crash after "
+        f"epoch 0's checkpoint, resumed: parameters against the clean run "
+        f"at {worst:.3g} of the rtol 1e-6 / atol 1e-7 bound (bitwise "
+        f"{bitwise}) [{power_line}]")
+    assert crashy.crashes == 1, info
+    for n, want in clean.items():
+        torch.testing.assert_close(retried[n], want, rtol=1e-6, atol=1e-7)
+    return info
+
+
+def phase_data(dev, power_line, staged_rate) -> dict:
+    """Phase 31: the one-process data plane on the card (module
+    docstring)."""
+    t0 = time.perf_counter()
+    out = {"stream": _data_stream(dev, power_line, staged_rate),
+           "shards": _data_shards(dev, power_line),
+           "retries": _data_retries(dev, power_line)}
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"[data] phase 31 in {out['phase_s']:.1f} s [{power_line}]")
+    return out
+
+
 #: seconds each phase took, in run order (logged and in the report)
 PHASE_SECONDS = {}
 
@@ -5803,6 +6122,8 @@ def main() -> int:
         report["pjit"] = t("pjit", phase_pjit, dev, card)
         report["seqpipe"] = t("seqpipe", phase_sequence_pipeline, dev,
                               card)
+        report["data"] = t("data", phase_data, dev, card,
+                           report["async"]["bench"]["k2"]["samples_per_s"])
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         log("[chip_smoke] FAILED")

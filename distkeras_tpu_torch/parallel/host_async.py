@@ -29,9 +29,12 @@ JAX package, by design:
   synchronization); the dropout stream of step ``i`` of a window is a
   ``torch.Generator`` seeded from ``(seed, fold_key, i)``, not threefry.
 
-What needs several processes (``run_cross_process``, the lease-driven
-``stream_worker_rounds`` of the data service) is ROADMAP.md Queue A,
-item 16.
+A worker's rounds come staged (:func:`stage_worker_shards`, a list a
+worker and epoch) or lease-driven (:func:`stream_worker_rounds`, a
+zero-argument callable against a
+:class:`~distkeras_tpu_torch.data.service.DataCoordinator`); the worker
+loop cannot tell them apart. What needs several processes
+(``run_cross_process``) is ROADMAP.md Queue A, item 16.
 """
 
 from __future__ import annotations
@@ -242,14 +245,16 @@ class HostAsyncRunner:
         self.heartbeat = HeartbeatPublisher()
         self.straggler = StragglerDetector()
         # live per-window MFU series: one local step's FLOPs counted once
-        # (before the workers start) and only when a peak is known; on the
-        # CPU device_peak_flops is None and the path stays cold
+        # (on the first round a worker trains) and only when a peak is
+        # known; on the CPU device_peak_flops is None and the path stays
+        # cold
         policy = precision_lib.get_policy(precision)
         self.mfu_dtype = policy.mfu_dtype if policy is not None else "bf16"
         self.mfu_peak_flops: Optional[float] = None  # bench/test override
         self._mfu_peak: Optional[float] = None
         self._mfu_peak_resolved = False
         self._window_flops: Optional[float] = None
+        self._flops_lock = threading.Lock()
         self.worker_devices: list = []  # actual placement, for tests/logs
         self.window_clocks: list = []   # merged commit clocks, last run
         self.merged_windows: list = []  # (clock, staleness, steps) tuples
@@ -455,7 +460,6 @@ class HostAsyncRunner:
                     abort.set()
                 watchdog.on_trip = on_trip
             watchdog.start_stall_monitor()
-        self._note_window_flops(fns[0], init_params, epoch_shards)
         saver_thread = None
         if checkpointing:
             saver_thread = threading.Thread(target=saver, daemon=True)
@@ -506,34 +510,42 @@ class HostAsyncRunner:
                 self._mfu_peak = None
         return self._mfu_peak
 
-    def _note_window_flops(self, window_fn, init_params,
-                           epoch_shards) -> None:
-        """Count one window's model FLOPs once, before the workers start
-        (the counter hears every kernel launch of the process): one
-        local step's gradient on ``accum_steps`` rows (the fewest the
-        step takes), scaled to the batch (matmul and convolution FLOPs
-        are linear in the rows) and by ``window`` (the optimizer update
-        is elementwise, which MFU does not count). The JAX package counts
-        a trace instead; torch has none without running, so this runs a
-        forward and backward of a few rows on the first worker's device.
+    def _note_window_flops(self, window_fn, params: dict,
+                           batches: dict) -> None:
+        """Count one window's model FLOPs once, on the first round a
+        worker is about to train (``batches``, on the device of the
+        worker's ``params``), as the JAX package counts on the first
+        batches a worker trains: a round taken from the source for the
+        count alone would, from a lease-driven source, lease ranges and
+        ack them untrained. One local step's gradient on
+        ``accum_steps`` rows (the fewest the step takes), scaled to the
+        batch (matmul and convolution FLOPs are linear in the rows) and
+        by ``window`` (the optimizer update is elementwise, which MFU
+        does not count). The JAX package counts a trace instead; torch
+        has none without running, so this runs a forward and backward of
+        a few rows in the calling worker's thread. The first worker to
+        get here counts while its siblings wait at the lock before their
+        first window: the kernels' reports reach every listener of the
+        process (a backward's launches on a card come from autograd's
+        device thread), so no sibling may launch during the count.
         Skipped while no peak is known, so the CPU path never pays it."""
         if self._window_flops is not None or self._mfu_ceiling() is None:
             return
-        try:
-            rounds = epoch_shards[0][0]
-            batches = next(iter(rounds() if callable(rounds) else rounds))
-            dev = self.worker_devices[0]
-            rows = self.accum_steps
-            batch = {key: value[0][:rows] for key, value in
-                     to_device(batches, dev).items()}
-            per_row = next(iter(batches.values()))[0].shape[0] / rows
-            params = {n: torch.as_tensor(x).detach().to(dev)
-                      .requires_grad_(True) for n, x in init_params.items()}
-            step = observability.count_flops(window_fn.grad_fn, params,
-                                             batch, None)
-            self._window_flops = step * per_row * self.window
-        except Exception:
-            self._window_flops = 0.0  # cannot count: stay silent
+        with self._flops_lock:
+            if self._window_flops is not None:
+                return  # a sibling counted while this worker waited
+            try:
+                rows = self.accum_steps
+                batch = {key: value[0][:rows]
+                         for key, value in batches.items()}
+                per_row = next(iter(batches.values()))[0].shape[0] / rows
+                leaves = {n: x.detach().clone().requires_grad_(True)
+                          for n, x in params.items()}
+                step = observability.count_flops(window_fn.grad_fn, leaves,
+                                                 batch, None)
+                self._window_flops = step * per_row * self.window
+            except Exception:
+                self._window_flops = 0.0  # cannot count: stay silent
 
     def _publish_window_mfu(self, win_s: float) -> None:
         if not self._window_flops or win_s <= 0:
@@ -582,6 +594,7 @@ class HostAsyncRunner:
                 return  # a sibling died: stop wasting windows
             phases = {"data_wait": time.perf_counter() - t_start}
             prof["data_wait"].record(phases["data_wait"])
+            self._note_window_flops(window_fn, carry.params, batches)
             with _window_trace(self.trace, wid, fold):
                 t0 = time.perf_counter()
                 try:
@@ -732,6 +745,7 @@ class HostAsyncRunner:
                     # the previous window's commit has folded; its clock
                     # arrived with this response
                     bookkeep(clock_at_fold, *pending)
+                self._note_window_flops(window_fn, carry.params, batches)
                 t1 = time.perf_counter()
                 center_dev = to_device(center, dev)
                 carry, commit, ms = window_fn(
@@ -752,6 +766,15 @@ class HostAsyncRunner:
             ct.join()
 
 
+def _round(feats: np.ndarray, labs: np.ndarray, batch_size: int,
+           window: int) -> dict:
+    """One round: ``batch_size * window`` rows as ``[window, batch, ...]``
+    feature and label arrays."""
+    return {"features": feats.reshape((window, batch_size)
+                                      + feats.shape[1:]),
+            "labels": labs.reshape((window, batch_size) + labs.shape[1:])}
+
+
 def stage_worker_shards(shards, features_col: str, label_col: str,
                         batch_size: int, window: int) -> list:
     """Host-side staging for the async runner: per-worker lists of
@@ -765,13 +788,62 @@ def stage_worker_shards(shards, features_col: str, label_col: str,
         rs = []
         for r in range(rounds):
             lo = r * per_round
-            feats = np.asarray(s[features_col][lo:lo + per_round])
-            labs = np.asarray(s[label_col][lo:lo + per_round])
-            rs.append({
-                "features": feats.reshape((window, batch_size) +
-                                          feats.shape[1:]),
-                "labels": labs.reshape((window, batch_size) +
-                                       labs.shape[1:]),
-            })
+            rs.append(_round(np.asarray(s[features_col][lo:lo + per_round]),
+                             np.asarray(s[label_col][lo:lo + per_round]),
+                             batch_size, window))
         out.append(rs)
     return out
+
+
+def stream_worker_rounds(address: str, worker: int, features_col: str,
+                         label_col: str, batch_size: int, window: int,
+                         token: Optional[str] = None, dataset=None,
+                         max_ranges: int = 2):
+    """A lease-driven round source for one worker: returns the ZERO-ARG
+    CALLABLE :meth:`HostAsyncRunner.run` accepts as an ``epoch_shards``
+    worker entry (streaming admission, DESIGN.md §20).
+
+    Each call opens a fresh :class:`~distkeras_tpu_torch.data.service.
+    DataServiceClient` (the client is not thread-safe; one per worker
+    thread) and drives lease -> materialize -> ack against the
+    coordinator at ``address``, reshaping leased row ranges into the
+    exact ``[window, batch, ...]`` numpy round dicts
+    :func:`stage_worker_shards` produces: the worker loop cannot tell
+    staged and streamed rounds apart. Rows come from ``dataset`` locally
+    when given, else over the wire. Epoch advancement is
+    coordinator-side; the generator ends when the coordinator reports the
+    stream exhausted.
+
+    A range is acked once the consumer advances past it, which can
+    precede the emission of the round holding its final rows: rows
+    buffered toward an incomplete round when a worker dies are bounded
+    by ``batch_size * window + max_ranges * range_size``, the
+    drop-remainder loss :func:`stage_worker_shards` has at every shard
+    tail."""
+    def rounds():
+        from distkeras_tpu_torch.data.service import (DataServiceClient,
+                                                      stream_ranges)
+        per_round = batch_size * window
+        client = DataServiceClient(address, worker=worker, token=token)
+        client.register()
+        cols = [features_col, label_col]
+        feats = labs = None  # row backlog pending reshape into rounds
+        try:
+            for _e, _pos, _start, _stop, rows in stream_ranges(
+                    client, dataset=dataset, cols=cols,
+                    max_ranges=max_ranges):
+                f, l = np.asarray(rows[features_col]), \
+                    np.asarray(rows[label_col])
+                feats = f if feats is None else np.concatenate([feats, f])
+                labs = l if labs is None else np.concatenate([labs, l])
+                while len(feats) >= per_round:
+                    tf, feats = feats[:per_round], feats[per_round:]
+                    tl, labs = labs[:per_round], labs[per_round:]
+                    yield _round(tf, tl, batch_size, window)
+        finally:
+            try:
+                client.deregister()
+            except Exception:
+                pass
+            client.close()
+    return rounds

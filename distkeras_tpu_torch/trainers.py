@@ -38,10 +38,15 @@ Where the port differs from the JAX package, by design:
   rebuilt from its constructor kwargs, holding its weights);
 - ``PjitTrainer`` runs a workers x model mesh in this process
   (:mod:`~distkeras_tpu_torch.parallel.tensor`);
+- the data plane runs in one process: a ``GlobalShards`` pool under
+  ``data_layout="host_sharded"`` is re-dealt each epoch (sync and
+  ``host_async``), and ``data_service=`` (a
+  :class:`~distkeras_tpu_torch.data.service.DataCoordinator` or its
+  address) feeds ``host_async`` workers lease-driven rounds; with the
+  coordinator object in hand its ``[epoch, watermark]`` cursor rides
+  every snapshot as ``data_cursor`` and is restored on ``resume``;
 - what is not ported raises NotImplementedError naming its ROADMAP.md
-  Queue A item: ``data_service=`` and any run over several processes
-  (item 16). A ``GlobalShards`` pool (item 16) raises ValueError as
-  JAX's ``_reject_global_shards`` does.
+  Queue A item: any run over several processes (item 16).
 """
 
 from __future__ import annotations
@@ -67,11 +72,6 @@ from distkeras_tpu_torch.parallel.elastic import PLACEMENT_POLICIES
 from distkeras_tpu_torch.telemetry import span
 from distkeras_tpu_torch.utils import rng
 from distkeras_tpu_torch.utils.trees import tree_mean
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue A, {item})")
 
 
 def _params_of(model: torch.nn.Module) -> dict:
@@ -304,13 +304,18 @@ class Trainer:
     # -- shared plumbing ----------------------------------------------------
     @staticmethod
     def _reject_global_shards(dataset, trainer_name: str):
-        """A ``GlobalShards`` pool (it re-deals shard files to hosts each
-        epoch) needs several processes, which the port does not run."""
-        if hasattr(dataset, "epoch_dataset"):
+        """Clear error instead of an opaque AttributeError when a
+        GlobalShards pool reaches a trainer whose data path cannot re-deal
+        files (Single/Pjit consume row streams, not per-worker shards)."""
+        from distkeras_tpu_torch.data.global_shards import GlobalShards
+
+        if isinstance(dataset, GlobalShards):
             raise ValueError(
                 f"{trainer_name} does not support GlobalShards (cross-host "
-                f"shard re-dealing, ROADMAP.md Queue A, item 16); pass a "
-                f"Dataset — e.g. Dataset.from_files")
+                f"shard re-dealing maps to the async zoo's host_sharded "
+                f"per-worker shards); pass a Dataset — e.g. "
+                f"Dataset.from_files — or use a DistributedTrainer with "
+                f"data_layout='host_sharded'")
 
     def _check_trainable(self, dataset: Dataset, effective_batch: int):
         if len(dataset) < effective_batch:
@@ -473,11 +478,9 @@ class DistributedTrainer(Trainer):
                     "data_service replaces the data_layout contracts (the "
                     "coordinator leases ranges to every worker wherever "
                     "it runs); leave data_layout='replicated'")
-            raise _not_ported(
-                "data_service= (the streaming data plane's lease-driven "
-                "rounds, data/service.py)",
-                "item 16: the data service and the cross-process plane")
-        self.data_service = None
+        # a DataCoordinator (its cursor then rides every snapshot) or the
+        # "host:port" of one
+        self.data_service = data_service
         self.communication_window = int(communication_window)
         # None: stage the whole epoch device-resident; an int bounds
         # staging memory to O(staging_rounds), prefetched on a thread
@@ -664,11 +667,27 @@ class DistributedTrainer(Trainer):
 
     def train(self, dataset: Dataset, shuffle: bool = False,
               resume: bool = False):
+        """Train on ``dataset``: a :class:`Dataset`, or a
+        :class:`~distkeras_tpu_torch.data.global_shards.GlobalShards` pool
+        under ``data_layout="host_sharded"`` (re-dealt each epoch; the
+        dataset is epoch 0's view until the epoch loop re-resolves it).
+        With ``data_service=`` the coordinator holds the rows and
+        ``dataset`` may be None."""
+        from distkeras_tpu_torch.data.global_shards import GlobalShards
         from distkeras_tpu_torch.parallel import substrate
 
-        self._reject_global_shards(dataset, type(self).__name__)
+        provider = dataset if isinstance(dataset, GlobalShards) else None
+        if provider is not None:
+            if self.data_layout != "host_sharded":
+                raise ValueError(
+                    "GlobalShards is the cross-host mixing source for "
+                    "data_layout='host_sharded'; with 'replicated' every "
+                    "host already sees the full dataset — pass a Dataset "
+                    "(e.g. Dataset.from_files) instead")
+            dataset = provider.epoch_dataset(0)
         if self.mode == "host_async":
-            return self._train_host_async(dataset, shuffle, resume)
+            return self._train_host_async(dataset, shuffle, resume,
+                                          provider=provider)
         self._start()
         n_shards = self.num_workers
         self._check_trainable(
@@ -703,16 +722,20 @@ class DistributedTrainer(Trainer):
         self.num_updates = int(counters[1])
         staged = None  # shuffle=False + whole-epoch staging: stage once
         for epoch in range(start_epoch, self.num_epoch):
+            # a pool is re-dealt each epoch: its epoch's view is staged anew
+            ds_epoch = provider.epoch_dataset(epoch) if provider is not None \
+                else dataset
             with span("trainer.stage"):
                 chunks, staged = self._epoch_chunk_stream(
                     staged,
                     lambda: substrate.stage_epoch_chunks(
-                        (dataset.shuffle(self.seed + epoch)
-                         if shuffle else dataset).repartition(n_shards),
+                        (ds_epoch.shuffle(self.seed + epoch)
+                         if shuffle else ds_epoch).repartition(n_shards),
                         self.features_col, self.label_col, self.batch_size,
                         self.communication_window, self.mesh,
                         chunk_rounds=self.staging_rounds),
-                    resident=not shuffle and self.staging_rounds is None)
+                    resident=(not shuffle and self.staging_rounds is None
+                              and provider is None))
             with span("trainer.epoch"):
                 pending = []
                 for data, rounds in chunks:
@@ -743,7 +766,7 @@ class DistributedTrainer(Trainer):
         return self.params
 
     def _train_host_async(self, dataset: Dataset, shuffle: bool,
-                          resume: bool = False):
+                          resume: bool = False, provider=None):
         """True wall-clock asynchrony: a thread per worker against a live
         parameter server (:mod:`~distkeras_tpu_torch.parallel.host_async`);
         staleness is real scheduling, not the substrate's rotation.
@@ -752,15 +775,31 @@ class DistributedTrainer(Trainer):
         snapshot every ``checkpoint_folds`` commits (default one round,
         ``num_workers`` folds). ``resume=True`` restores the latest
         snapshot: workers restart their data passes from the beginning,
-        pull the restored center and continue its clock."""
+        pull the restored center and continue its clock.
+
+        The rounds come from ``dataset`` (staged once, or once an epoch
+        when shuffling), from a ``GlobalShards`` ``provider`` (one
+        epoch's re-dealt view staged per epoch), or with
+        ``data_service=`` from one lease-driven
+        :func:`~distkeras_tpu_torch.parallel.host_async.stream_worker_rounds`
+        source a worker: the coordinator then owns the epochs and the
+        shuffle (its ``seed``/``num_epochs``), and the rows."""
         from distkeras_tpu_torch.health import recorder as flight_recorder
         from distkeras_tpu_torch.parallel import host_async
 
         mesh_lib.check_single_process("mode='host_async'")
+        svc = self.data_service
+        if svc is not None and shuffle:
+            raise ValueError(
+                "shuffle=True with data_service=: the coordinator "
+                "already owns the global shuffle (its seed= argument); "
+                "a second trainer-side shuffle would be dead code")
         self._start()
-        self._check_trainable(
-            dataset,
-            self.batch_size * self.communication_window * self.num_workers)
+        if svc is None:
+            self._check_trainable(
+                dataset,
+                self.batch_size * self.communication_window
+                * self.num_workers)
         home = self.devices[0]
         self.model.to(home)
 
@@ -772,6 +811,15 @@ class DistributedTrainer(Trainer):
         with span("trainer.init"):
             init_params = _params_of(self.model)
         start_clock = 0
+        # with the coordinator object in hand (not just its address) the
+        # shuffle cursor rides every snapshot and is restored on resume:
+        # the torn-coordinator recovery path (DESIGN.md §20)
+        coord = svc if svc is not None and not isinstance(svc, str) \
+            else None
+        snapshot_extra = None
+        if coord is not None:
+            def snapshot_extra():
+                return {"data_cursor": coord.cursor_carry()}
         ckpt = self._checkpointer()
         if ckpt is not None:
             snap, _ = self._maybe_resume(ckpt, resume)
@@ -779,7 +827,26 @@ class DistributedTrainer(Trainer):
                 init_params = {n: _tensor(x).to(home)
                                for n, x in snap["center"].items()}
                 start_clock = int(np.asarray(snap["clock"]).ravel()[0])
-        if shuffle:
+                if coord is not None and "data_cursor" in snap:
+                    coord.restore_cursor(snap["data_cursor"])
+
+        def ds_for(e):
+            ds = provider.epoch_dataset(e) if provider is not None \
+                else dataset
+            return ds.shuffle(self.seed + e) if shuffle else ds
+
+        if svc is not None:
+            # one epoch_shards entry: the coordinator streams all its
+            # epochs through each worker's source until it reports the
+            # stream exhausted; nothing is staged up front
+            address = svc if isinstance(svc, str) else svc.address
+            token = None if isinstance(svc, str) else svc.token
+            with span("trainer.stage"):
+                epoch_shards = [[host_async.stream_worker_rounds(
+                    address, k, self.features_col, self.label_col,
+                    self.batch_size, self.communication_window, token=token)
+                    for k in range(self.num_workers)]]
+        elif shuffle or provider is not None:
             # workers cross epoch boundaries without barriers, so every
             # epoch's shards are staged host-resident up front
             per_epoch = self._resident_bytes(dataset)
@@ -792,7 +859,7 @@ class DistributedTrainer(Trainer):
                     f"mode='sync' with staging_rounds= (O(chunk) memory).",
                     RuntimeWarning, stacklevel=3)
             with span("trainer.stage"):
-                epoch_shards = [stage(dataset.shuffle(self.seed + e))
+                epoch_shards = [stage(ds_for(e))
                                 for e in range(self.num_epoch)]
         else:
             with span("trainer.stage"):
@@ -818,16 +885,18 @@ class DistributedTrainer(Trainer):
                 params, history, staleness, num_updates = runner.run(
                     init_params, epoch_shards, checkpointer=ckpt,
                     checkpoint_folds=folds, start_clock=start_clock,
-                    watchdog=watchdog)
+                    watchdog=watchdog, snapshot_extra=snapshot_extra)
         except BaseException:
             flight_recorder.auto_dump("trainer_exception")
             raise
         with span("trainer.finalize"):
             if ckpt is not None and \
                     num_updates > (ckpt.latest_step() or 0):
-                ckpt.save(num_updates,
-                          {"center": params,
-                           "clock": np.array([num_updates], np.int64)})
+                final = {"center": params,
+                         "clock": np.array([num_updates], np.int64)}
+                if snapshot_extra is not None:
+                    final.update(snapshot_extra())
+                ckpt.save(num_updates, final)
             self.history = history
             self.staleness_history = staleness
             self.num_updates = num_updates

@@ -1,6 +1,9 @@
-"""Fault injection (port of ``distkeras_tpu/utils/fault.py``, without
-``run_with_retries``, which comes with the trainers: ROADMAP.md Queue A,
-item 12).
+"""Fault injection and the retry runner (port of
+``distkeras_tpu/utils/fault.py``).
+
+**Resume on failure**: :func:`run_with_retries` runs ``trainer.train``
+and, when it raises, trains again with ``resume=True`` from the
+trainer's last checkpoint.
 
 **Value corruption**: instrumented sites pass observed values through
 :func:`apply`, and a test (or chaos run) arms a corruption with
@@ -19,14 +22,20 @@ sites the port passes through today are ``"rollout.publish"``
 ``"kv.swap_in"`` (the prefix cache's page restore in
 :class:`~distkeras_tpu_torch.serving.generation.GenerationEngine`) and
 ``"fleet.kv_handoff"`` (the prefill -> decode page shipment in
-:class:`~distkeras_tpu_torch.serving.fleet.FleetRouter`).
+:class:`~distkeras_tpu_torch.serving.fleet.FleetRouter`), ``"data.lease"``
+and ``"data.fetch"`` (the data coordinator's dispatch and its client's
+requests, :mod:`~distkeras_tpu_torch.data.service`).
 """
 
 from __future__ import annotations
 
+import logging
 import math
 import threading
+import time
 from typing import Optional
+
+logger = logging.getLogger("distkeras_tpu_torch.fault")
 
 
 # -- fault injection (health/watchdog test surface) --------------------------
@@ -234,3 +243,40 @@ def chaos(site: str, shard: Optional[int] = None) -> Optional[ChaosAction]:
 
     telemetry.counter("fault.chaos", site=site, action=inj.action).inc()
     return ChaosAction(inj.action, inj.delay_s)
+
+
+def run_with_retries(trainer, dataset, shuffle: bool = False,
+                     max_restarts: int = 3,
+                     backoff_s: float = 1.0,
+                     retry_on: tuple = (Exception,),
+                     no_retry_on: tuple = (ValueError, TypeError)):
+    """``trainer.train`` with automatic resume-from-checkpoint on failure.
+
+    The trainer must have been constructed with ``checkpoint_dir``
+    (otherwise a retry restarts from scratch, which is still a retry: a
+    warning is logged). Returns the trained params; re-raises after
+    ``max_restarts`` failed attempts. Deterministic configuration errors
+    (``no_retry_on``, default ValueError/TypeError) surface immediately:
+    retrying them with backoff would only mask the bug.
+    """
+    if getattr(trainer, "checkpoint_dir", None) is None:
+        logger.warning(
+            "run_with_retries: trainer has no checkpoint_dir; retries will "
+            "restart training from scratch")
+    attempt = 0
+    while True:
+        try:
+            return trainer.train(dataset, shuffle=shuffle,
+                                 resume=attempt > 0)
+        except no_retry_on:
+            raise
+        except retry_on as e:  # noqa: PERF203
+            attempt += 1
+            if attempt > max_restarts:
+                logger.error("run_with_retries: giving up after %d restarts",
+                             max_restarts)
+                raise
+            logger.warning("run_with_retries: attempt %d failed (%s: %s); "
+                           "resuming from checkpoint", attempt,
+                           type(e).__name__, e)
+            time.sleep(backoff_s * attempt)

@@ -45,6 +45,18 @@ LM = dict(vocab_size=64, max_len=32, num_layers=4, num_heads=2, width=32,
           mlp_dim=64, num_stages=4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Run this module's torch ops on one intra-op thread, restoring the
+    count after: the CPU ring's many small per-shard ops are erratic
+    under a thread pool, and several test processes at once each with a
+    pool oversubscribe the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jax_lm_step():
     """JAX's PipelinedLM step (4 stages x 1 layer, M = 4, sgd 0.1): start

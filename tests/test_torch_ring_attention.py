@@ -24,6 +24,18 @@ from distkeras_tpu_torch.parallel.sequence import make_sp_mesh
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Run this module's torch ops on one intra-op thread, restoring the
+    count after: the CPU ring's many small per-shard ops are erratic
+    under a thread pool, and several test processes at once each with a
+    pool oversubscribe the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def meshes(devices):
     return (JMesh(np.array(devices[:8]), ("seq",)),

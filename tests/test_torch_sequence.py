@@ -34,6 +34,18 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """Run this module's torch ops on one intra-op thread, restoring the
+    count after: the CPU ring's many small per-shard ops are erratic
+    under a thread pool, and several test processes at once each with a
+    pool oversubscribe the host's cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def jax_sp_step():
     """JAX's step at workers 2 x seq 4, sgd(0.1): the start and end

@@ -276,11 +276,6 @@ def _multi_process(build):
 
 
 NOT_PORTED = [  # (build, item)
-    # host_async runs in one process (item 13 is ported); the streaming
-    # data plane that feeds it across processes is item 16
-    (lambda: tdk.DOWNPOUR(_tmodel(), num_workers=1, device="cpu",
-                          mode="host_async", data_service="h:1"),
-     "item 16"),
     # the one-process mesh, re-stamping, sharded scoring, sequence and
     # pipeline parallelism are ported (items 12 and 16): these cases now
     # hold what still raises, every path across processes
@@ -337,7 +332,22 @@ NOW_PORTED = {  # name -> (build, dataset): paths that raised before
     "pjit_trainer": (lambda: tdk.PjitTrainer(
         _tmodel(), device="cpu", num_workers=2, batch_size=32),
         lambda: tdk.synthetic_mnist(n=64)),
+    # the one-process data plane: host_async workers fed by a data
+    # service (item 19)
+    "data_service": (lambda: tdk.DOWNPOUR(
+        _tmodel(), num_workers=1, device="cpu", mode="host_async",
+        batch_size=16, communication_window=2,
+        data_service=_started_coordinator(tdk.synthetic_mnist(n=64))),
+        lambda: None),
 }
+
+
+def _started_coordinator(ds):
+    from distkeras_tpu_torch.data.service import DataCoordinator
+
+    coord = DataCoordinator(dataset=ds, range_size=32)
+    coord.start()
+    return coord
 
 
 @pytest.mark.parametrize("name", sorted(NOW_PORTED))
@@ -347,6 +357,15 @@ def test_ported_paths_build_and_step(name):
     carries the policy), a predictor scores every row."""
     build, data = NOW_PORTED[name]
     built, ds = build(), data()
+    service = getattr(built, "data_service", None)
+    if service is not None:
+        try:
+            built.train(ds)
+        finally:
+            service.stop()
+        assert len(built.get_history()) == 64 // 16
+        assert list(service.cursor_carry()) == [1, service.num_ranges]
+        return
     if isinstance(built, tdk.ModelPredictor):
         out = built.predict(ds)["prediction"]
         assert out.shape == (len(ds), 10) and np.isfinite(out).all()
@@ -397,15 +416,27 @@ def test_host_async_fleet_kwargs_accepted_like_jax(kw):
     assert [getattr(t, a) for a in attrs] == [getattr(j, a) for a in attrs]
 
 
-def test_global_shards_are_refused():
-    class Pool:  # what a GlobalShards offers a trainer
-        def epoch_dataset(self, epoch):
-            raise AssertionError("not reached")
+@pytest.mark.parametrize("trainer", ["SingleTrainer", "PjitTrainer",
+                                     "replicated"])
+def test_global_shards_are_refused(tmp_path, trainer):
+    """JAX's rejections: the trainers that consume row streams refuse a
+    pool and name ``data_layout='host_sharded'``, where a pool is
+    re-dealt; so does a DistributedTrainer under ``"replicated"``."""
+    from distkeras_tpu_torch.data.global_shards import GlobalShards
 
-    for t in (tdk.ADAG(_tmodel(), num_workers=1, device="cpu"),
-              tdk.SingleTrainer(_tmodel(), device="cpu")):
-        with pytest.raises(ValueError, match="GlobalShards"):
-            t.train(Pool())
+    np.save(tmp_path / "f.npy", np.zeros((64, 784), np.float32))
+    np.save(tmp_path / "l.npy", np.zeros((64, 10), np.float32))
+    pool = GlobalShards({"features": [str(tmp_path / "f.npy")],
+                         "label": [str(tmp_path / "l.npy")]})
+    build = {
+        "SingleTrainer": lambda: tdk.SingleTrainer(_tmodel(), device="cpu"),
+        "PjitTrainer": lambda: tdk.PjitTrainer(_tmodel(), device="cpu"),
+        "replicated": lambda: tdk.ADAG(_tmodel(), num_workers=1,
+                                       device="cpu"),
+    }[trainer]
+    with pytest.raises(ValueError, match="host_sharded") as err:
+        build().train(pool)
+    assert "processes" not in str(err.value)
 
 
 # -- the twin of examples/mnist_mlp.py -------------------------------------
