@@ -359,6 +359,26 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    ``run_with_retries``: the MNIST MLP crashes after epoch 0's
    checkpoint and resumes: parameters within rtol 1e-6 / atol 1e-7 of a
    clean run on the card (TF32 off).
+32. multiprocess — the multi-process plane: two ranks of this script
+   (``chip_smoke.py --mp-child RANK PORT DIR``) on ``cuda:0`` join a
+   two-process gloo group; each has a hard timeout and is killed in a
+   ``finally``, and a rank that fails fails the phase. Phase 31's
+   ``ADAG(resnet50_nf())`` at b = 128, window 4, one worker a process
+   (K = 2), on phase 31 (b)'s 8-file pool, TF32 off and cuDNN
+   deterministic. The fold backend must be gloo (two ranks, one card);
+   each rank's peak memory is printed. (a) Sync over ``GlobalShards``
+   (``host_sharded``, 2 epochs): both ranks' centers and losses equal,
+   and the center equal to the one-process K = 2 run in this process
+   (bitwise, or within rtol 1e-5 / atol 1e-6, the CPU test's bound);
+   samples/s and the fold's seconds a round. (b) ``mode="host_async"``
+   with process 0's live center: both ranks' results equal, 16 commits,
+   staleness > 0, samples/s beside phase 27 (a)'s K = 2. (c) The same
+   with ``ps_shards=2, ps_placement="spread"`` (one epoch, 8 commits).
+   (d) Process 0's service cannot bind its port: rank 1 raises
+   ``RuntimeError`` within 5 s. (e) Each rank scores its half of 512
+   seeded images with (a)'s center; the ``across_processes`` accuracy
+   equals this process's scoring of all of them, the loss within 1e-5
+   relative, the predictions within 1e-5 of the largest.
 
 The last three lines of standard output are the kernels' JSON, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details are
@@ -6039,6 +6059,329 @@ def phase_data(dev, power_line, staged_rate) -> dict:
     return out
 
 
+# -- phase 32: the multi-process plane ----------------------------------------
+
+#: each rank's hard limit (s): a rank that hangs fails the phase
+MP_CHILD_TIMEOUT_S = 600
+#: (c)'s epochs (the spread fleet) and (e)'s scored rows (two halves)
+MP_SPREAD_EPOCHS, MP_EVAL_ROWS = 1, 512
+#: (a)'s fold bound against the one-process K = 2 run when not bitwise:
+#: the CPU test's (tests/test_torch_multiprocess.py), rtol / atol
+MP_FOLD_RTOL, MP_FOLD_ATOL = 1e-5, 1e-6
+
+
+def _digest(params, *extra) -> str:
+    """sha256 of a name -> tensor dict's bytes (names sorted) and of
+    ``extra`` (JSON): equal digests, equal bits."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for n in sorted(params):
+        h.update(n.encode())
+        h.update(np.ascontiguousarray(
+            torch.as_tensor(params[n]).detach().cpu().numpy()).tobytes())
+    h.update(json.dumps(extra).encode())
+    return h.hexdigest()
+
+
+def _scoring_model(center):
+    """(e)'s model: ``resnet50_nf()`` holding (a)'s trained center."""
+    model = _nf_model(seed=40)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(center[n])
+    return model
+
+
+def _mp_adag(dev, **kw):
+    """``bench.py``'s ``ADAG(resnet50_nf())`` at phase 31's widths; in a
+    two-process group the default mesh is one worker a process."""
+    import distkeras_tpu_torch as dk
+
+    return dk.ADAG(_nf_model(seed=40), worker_optimizer="sgd",
+                   learning_rate=0.05, batch_size=DATA_B,
+                   communication_window=DATA_WINDOW, metrics=(),
+                   device=dev, **kw)
+
+
+def _mp_child(rank: int, port: str, work: str) -> int:
+    """One rank of phase 32 (``chip_smoke.py --mp-child RANK PORT DIR``):
+    (a)-(e) in order on ``cuda:0``, the results written to
+    ``DIR/rank{RANK}.json``."""
+    from distkeras_tpu_torch.data import GlobalShards
+    from distkeras_tpu_torch.evaluators import (AccuracyEvaluator,
+                                                LossEvaluator)
+    from distkeras_tpu_torch.ops import optimizers
+    from distkeras_tpu_torch.parallel import (collectives, distributed,
+                                              host_async, strategies)
+    from distkeras_tpu_torch.predictors import ModelPredictor
+
+    dev = torch.device("cuda:0")
+    set_tf32(False)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    distributed.initialize(coordinator_address=f"127.0.0.1:{port}",
+                           num_processes=2, process_id=rank,
+                           local_device_ids=[0], timeout_s=300)
+    _, backend = distributed.fold_group(dev)
+    with open(os.path.join(work, "paths.json")) as f:
+        paths = json.load(f)
+    out = {"rank": rank, "fold_backend": backend}
+
+    def timed_run(trainer, **kw):
+        distributed.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = trainer.train(GlobalShards(paths, seed=43), **kw)
+        torch.cuda.synchronize()
+        return params, time.perf_counter() - t0
+
+    # (a) the sync fold, each round's fold timed
+    fold_s = []
+    cross = collectives.cross_process_sum
+
+    def timed_fold(tree, bucket_bytes=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = cross(tree, bucket_bytes)
+        torch.cuda.synchronize()
+        fold_s.append(time.perf_counter() - t0)
+        return got
+
+    collectives.cross_process_sum = timed_fold
+    try:
+        trainer = _mp_adag(dev, num_epoch=DATA_EPOCHS,
+                           data_layout="host_sharded")
+        params, wall = timed_run(trainer)
+    finally:
+        collectives.cross_process_sum = cross
+    losses = [h["loss"] for h in trainer.history]
+    out["sync"] = {
+        "wall_s": wall, "samples_per_s": DATA_EPOCHS * DATA_ROWS / wall,
+        "fold_s_median": statistics.median(fold_s), "folds": len(fold_s),
+        "owners": trainer.mesh.owners, "steps": len(losses),
+        "commits": trainer.num_updates, "first_loss": losses[0],
+        "last_loss": losses[-1], "digest": _digest(params, losses)}
+    center = {n: t.cpu() for n, t in params.items()}
+    if rank == 0:
+        torch.save(center, os.path.join(work, "sync_center.pt"))
+    del trainer, params
+    torch.cuda.empty_cache()
+
+    # (b) the live center on process 0, (c) a spread two-shard fleet
+    for key, epochs, kw in (
+            ("async", DATA_EPOCHS, {}),
+            ("spread", MP_SPREAD_EPOCHS,
+             dict(ps_shards=2, ps_placement="spread"))):
+        trainer = _mp_adag(dev, mode="host_async", num_workers=DATA_K,
+                           num_epoch=epochs, data_layout="host_sharded",
+                           **kw)
+        params, wall = timed_run(trainer)
+        losses = [h["loss"] for h in trainer.history]
+        out[key] = {
+            "wall_s": wall, "samples_per_s": epochs * DATA_ROWS / wall,
+            "commits": trainer.num_updates, "steps": len(losses),
+            "staleness_sum": float(sum(trainer.staleness_history)),
+            "first_loss": losses[0], "last_loss": losses[-1],
+            "finite": all(math.isfinite(x) for x in losses),
+            "digest": _digest(params, losses, trainer.staleness_history,
+                              trainer.num_updates)}
+        del trainer, params
+        torch.cuda.empty_cache()
+
+    # (d) process 0's service cannot bind its port
+    import socket
+
+    runner = host_async.HostAsyncRunner(
+        _nf_model(seed=40), "categorical_crossentropy",
+        optimizers.get("sgd", 0.05),
+        strategies.get("adag", learning_rate=0.05), DATA_WINDOW,
+        device=dev)
+    blocker, port0 = None, 0
+    if rank == 0:
+        blocker = socket.socket()
+        blocker.bind(("0.0.0.0", 0))
+        blocker.listen(1)
+        port0 = blocker.getsockname()[1]
+    distributed.barrier()
+    t0 = time.perf_counter()
+    raised = None
+    try:
+        host_async.run_cross_process(
+            runner, {n: p.detach() for n, p in
+                     runner.model.named_parameters()}, [[[]]],
+            worker_offset=rank, service_port=port0)
+    except (RuntimeError, OSError) as e:
+        raised = type(e).__name__
+    finally:
+        if blocker is not None:
+            blocker.close()
+    out["failed_start"] = {"raised": raised,
+                           "seconds": time.perf_counter() - t0}
+    del runner
+
+    # (e) host-sharded scoring, across_processes evaluators
+    ds = _learnable_images(MP_EVAL_ROWS, seed=60)
+    half = MP_EVAL_ROWS // 2
+    mine = ds.__class__({c: np.asarray(ds[c])[rank * half:(rank + 1) * half]
+                         for c in ds.columns})
+    scored = ModelPredictor(_scoring_model(center), batch_size=DATA_B,
+                            device=dev).predict(mine)
+    np.save(os.path.join(work, f"pred{rank}.npy"),
+            np.asarray(scored["prediction"]))
+    out["eval"] = {
+        "accuracy": AccuracyEvaluator(across_processes=True).evaluate(
+            scored),
+        "loss": LossEvaluator(across_processes=True).evaluate(scored),
+        "local_accuracy": AccuracyEvaluator().evaluate(scored)}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_multiprocess(dev, power_line, async_k2_rate) -> dict:
+    """Phase 32: the multi-process plane, two ranks of this script on
+    ``cuda:0`` (module docstring)."""
+    import socket
+    import tempfile
+
+    from distkeras_tpu_torch.data import GlobalShards
+    from distkeras_tpu_torch.evaluators import (AccuracyEvaluator,
+                                                LossEvaluator)
+    from distkeras_tpu_torch.predictors import ModelPredictor
+
+    t_phase = time.perf_counter()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as work:
+        paths = _write_shards(work)
+        with open(os.path.join(work, "paths.json"), "w") as f:
+            json.dump(paths, f)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = str(s.getsockname()[1])
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mp-child",
+             str(r), port, work], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, cwd=HERE)
+            for r in (0, 1)]
+        try:
+            outs = [p.communicate(timeout=MP_CHILD_TIMEOUT_S)[0]
+                    for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, text) in enumerate(zip(procs, outs)):
+            for line in text.strip().splitlines()[-12:]:
+                log(f"[multiprocess] rank {r}: {line}")
+            assert p.returncode == 0, f"rank {r} exited {p.returncode}"
+        ranks = []
+        for r in (0, 1):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        got = torch.load(os.path.join(work, "sync_center.pt"))
+        preds = [np.load(os.path.join(work, f"pred{r}.npy"))
+                 for r in (0, 1)]
+        a, b = ranks
+        # the one-process K = 2 run on the same seeds (two stacked
+        # replicas, the same pool seen by one process)
+        set_tf32(False)
+        prev = (torch.backends.cudnn.deterministic,
+                torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            ref_trainer = _data_trainer("sync", dev, num_epoch=DATA_EPOCHS,
+                                        data_layout="host_sharded")
+            ref = ref_trainer.train(GlobalShards(paths, seed=43))
+            ref_losses = [h["loss"] for h in ref_trainer.history]
+            del ref_trainer
+            ds = _learnable_images(MP_EVAL_ROWS, seed=60)
+            scored = ModelPredictor(_scoring_model(got), batch_size=DATA_B,
+                                    device=dev).predict(ds)
+            ref_pred = np.asarray(scored["prediction"])
+            ref_acc = AccuracyEvaluator().evaluate(scored)
+            ref_loss = LossEvaluator().evaluate(scored)
+        finally:
+            (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark) = prev
+    bitwise = all(torch.equal(got[n], ref[n].cpu()) for n in ref)
+    worst = max(float(((got[n] - ref[n].cpu()).abs()
+                       / (MP_FOLD_ATOL + MP_FOLD_RTOL
+                          * ref[n].cpu().abs())).max()) for n in ref)
+    pred_err = float(np.max(np.abs(np.concatenate(preds) - ref_pred)))
+    info = {
+        "fold_backend": a["fold_backend"],
+        "peak_bytes": [a["peak_bytes"], b["peak_bytes"]],
+        "sync": {**a["sync"], "bitwise_one_process": bitwise,
+                 "worst_ratio_to_bound": worst,
+                 "one_process_last_loss": ref_losses[-1]},
+        "async": a["async"], "spread": a["spread"],
+        "failed_start": [a["failed_start"], b["failed_start"]],
+        "eval": {**a["eval"], "one_process_accuracy": ref_acc,
+                 "one_process_loss": ref_loss,
+                 "max_abs_pred_err": pred_err},
+        "async_k2_staged_samples_per_s": async_k2_rate,
+        "card": power_line}
+    log(f"[multiprocess] fold backend {a['fold_backend']} (two ranks on "
+        f"one card); peak memory rank 0 {a['peak_bytes'] / 2**30:.2f} GiB, "
+        f"rank 1 {b['peak_bytes'] / 2**30:.2f} GiB [{power_line}]")
+    log(f"[multiprocess] (a) ADAG(resnet50_nf()) sync over 2 processes "
+        f"(one worker each, owners {a['sync']['owners']}), GlobalShards "
+        f"host_sharded, {DATA_EPOCHS} epochs, b={DATA_B}, window "
+        f"{DATA_WINDOW}: {a['sync']['samples_per_s']:.1f} samples/s, "
+        f"the fold {a['sync']['fold_s_median'] * 1e3:.1f} ms a round "
+        f"(median of {a['sync']['folds']}), ranks equal "
+        f"{a['sync']['digest'] == b['sync']['digest']}, center against "
+        f"the one-process K=2 run: bitwise {bitwise}, {worst:.3g} of the "
+        f"rtol {MP_FOLD_RTOL} / atol {MP_FOLD_ATOL} bound; loss "
+        f"{a['sync']['first_loss']:.4f} -> {a['sync']['last_loss']:.4f} "
+        f"[{power_line}]")
+    log(f"[multiprocess] (b) host_async over 2 processes, process 0's "
+        f"live center: {a['async']['samples_per_s']:.1f} samples/s (phase "
+        f"27 (a) one-process K=2 at window {ASYNC_WINDOW}: "
+        f"{async_k2_rate:.1f}), {a['async']['commits']} commits, "
+        f"staleness sum {a['async']['staleness_sum']:.0f}, ranks equal "
+        f"{a['async']['digest'] == b['async']['digest']} [{power_line}]")
+    log(f"[multiprocess] (c) spread two-shard fleet: "
+        f"{a['spread']['samples_per_s']:.1f} samples/s, "
+        f"{a['spread']['commits']} commits, ranks equal "
+        f"{a['spread']['digest'] == b['spread']['digest']}; (d) process "
+        f"0's service failed to start ({a['failed_start']['raised']}), "
+        f"rank 1 raised {b['failed_start']['raised']} after "
+        f"{b['failed_start']['seconds'] * 1e3:.1f} ms; (e) across_processes"
+        f" accuracy {a['eval']['accuracy']:.6f} (one process "
+        f"{ref_acc:.6f}), loss {a['eval']['loss']:.6f} (one process "
+        f"{ref_loss:.6f}), predictions {pred_err:.3g} max abs from one "
+        f"process's [{power_line}]")
+    assert a["fold_backend"] == b["fold_backend"] == "gloo", info
+    assert a["sync"]["digest"] == b["sync"]["digest"], info
+    assert a["sync"]["owners"] == [0, 1], info
+    assert bitwise or worst <= 1.0, info
+    assert a["sync"]["steps"] == len(ref_losses), info
+    for key, epochs in (("async", DATA_EPOCHS), ("spread", MP_SPREAD_EPOCHS)):
+        assert a[key]["digest"] == b[key]["digest"], info
+        assert a[key]["commits"] == epochs * DATA_ROWS // (
+            DATA_B * DATA_WINDOW), info
+        assert a[key]["finite"], info
+    assert a["async"]["staleness_sum"] > 0, info
+    assert b["failed_start"]["raised"] == "RuntimeError", info
+    assert b["failed_start"]["seconds"] < 5.0, info
+    assert a["eval"]["accuracy"] == b["eval"]["accuracy"] == ref_acc, info
+    assert abs(a["eval"]["loss"] - ref_loss) <= 1e-5 * abs(ref_loss), info
+    assert a["eval"]["loss"] == b["eval"]["loss"], info
+    assert pred_err <= 1e-5 * float(np.max(np.abs(ref_pred))), info
+    info["phase_s"] = time.perf_counter() - t_phase
+    log(f"[multiprocess] phase 32 in {info['phase_s']:.1f} s "
+        f"[{power_line}]")
+    return info
+
+
 #: seconds each phase took, in run order (logged and in the report)
 PHASE_SECONDS = {}
 
@@ -6124,6 +6467,9 @@ def main() -> int:
                               card)
         report["data"] = t("data", phase_data, dev, card,
                            report["async"]["bench"]["k2"]["samples_per_s"])
+        report["multiprocess"] = t(
+            "multiprocess", phase_multiprocess, dev, card,
+            report["async"]["bench"]["k2"]["samples_per_s"])
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         log("[chip_smoke] FAILED")
@@ -6263,4 +6609,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mp-child"]:
+        sys.exit(_mp_child(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -1,5 +1,6 @@
-"""Multi-process entry points (port of ``distkeras_tpu/parallel/distributed.py``),
-the one-process parts.
+"""Multi-process entry points (port of ``distkeras_tpu/parallel/distributed.py``
+and of the two ``jax.experimental.multihost_utils`` helpers the JAX package
+uses).
 
 The JAX package joins jax's coordination service and builds meshes over
 every process's devices. The port's counterpart of that service is a
@@ -8,13 +9,23 @@ every process's devices. The port's counterpart of that service is a
 - :func:`initialize` is a no-op on a plain host (no launcher environment,
   no arguments), so training scripts run unchanged on one card; with a
   launcher's environment (torchrun's ``MASTER_ADDR`` / ``WORLD_SIZE`` /
-  ``RANK``) or explicit arguments it joins the group
-  (``init_process_group``). Collectives across processes are not ported
-  (ROADMAP.md Queue A, item 16): once the group holds more than one
-  process, every mesh raises through
-  :func:`~distkeras_tpu_torch.parallel.mesh.check_single_process`;
-- :func:`multihost_mesh` degrades to
-  :func:`~distkeras_tpu_torch.parallel.mesh.make_mesh` in one process;
+  ``RANK``) or explicit arguments it joins the group with an explicit
+  ``timeout`` (a peer that never arrives fails the collective instead of
+  hanging the job);
+- the group is ``gloo``: the host-side agreement plane
+  (:func:`process_allgather`, :func:`broadcast_one_to_all`,
+  :func:`barrier`) and the tensor folds (:func:`fold_group`). Several
+  ranks on one card fold their card tensors over it, staged through the
+  host; NCCL refuses two ranks of one communicator on one card, which is
+  the one-card host's case. A fold of card tensors when every rank holds
+  a card of its own (an NCCL fold across cards) raises
+  ``NotImplementedError`` until a host with several cards can run it
+  (ROADMAP.md Queue A, item 16 part 4);
+- the host helpers move fixed-size numpy payloads as tensors (JAX's
+  512-byte address payload is one). Nothing here pickles: no
+  ``*_object`` collective is used, so nothing on a wire can execute code;
+- :func:`multihost_mesh` is :func:`~distkeras_tpu_torch.parallel.mesh.make_mesh`,
+  which spans every process's devices inside a group;
 - :func:`determine_host_address` reads this host's address from its own
   name and never opens a socket to another host (the JAX helper connects
   a UDP socket towards a public address to pick an interface).
@@ -22,13 +33,19 @@ every process's devices. The port's counterpart of that service is a
 
 from __future__ import annotations
 
+import datetime
 import os
 import socket
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
-from distkeras_tpu_torch.parallel import mesh as mesh_lib
+#: seconds a collective of the group waits for its peers before failing
+DEFAULT_TIMEOUT_S = 300.0
+
+#: (world size, device) -> whether every rank folds on a card of its own
+_CARDS: dict = {}
 
 
 def determine_host_address() -> str:
@@ -47,19 +64,35 @@ def _cluster_env_present() -> bool:
                                            "RANK"))
 
 
+def joined() -> bool:
+    """True inside an initialized ``torch.distributed`` group."""
+    dist = torch.distributed
+    return dist.is_available() and dist.is_initialized()
+
+
+def process_count() -> int:
+    """The group's world size (1 outside a group)."""
+    return torch.distributed.get_world_size() if joined() else 1
+
+
+def process_index() -> int:
+    """This process's rank (0 outside a group)."""
+    return torch.distributed.get_rank() if joined() else 0
+
+
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None,
-               local_device_ids: Optional[Sequence[int]] = None) -> None:
+               local_device_ids: Optional[Sequence[int]] = None,
+               timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
     """Join the process group (the multi-process entry point).
 
     With no arguments and no launcher environment it is a no-op. Else it
-    calls ``torch.distributed.init_process_group``: explicit arguments
-    give ``tcp://{coordinator_address}``, ``num_processes`` and
-    ``process_id``; a launcher's environment gives ``env://``.
-    ``local_device_ids[0]`` selects this process's card. The backend is
-    ``nccl`` with a card, else ``gloo``. Joining a group that this
-    process already joined is a no-op."""
+    calls ``torch.distributed.init_process_group("gloo", timeout=...)``:
+    explicit arguments give ``tcp://{coordinator_address}``,
+    ``num_processes`` and ``process_id``; a launcher's environment gives
+    ``env://``. ``local_device_ids[0]`` selects this process's card.
+    Joining a group that this process already joined is a no-op."""
     dist = torch.distributed
     explicit = any(a is not None for a in
                    (coordinator_address, num_processes, process_id))
@@ -75,39 +108,140 @@ def initialize(coordinator_address: Optional[str] = None,
             "them, with a launcher's MASTER_ADDR/WORLD_SIZE/RANK)")
     if local_device_ids and torch.cuda.is_available():
         torch.cuda.set_device(int(local_device_ids[0]))
-    backend = "nccl" if torch.cuda.is_available() else "gloo"
+    timeout = datetime.timedelta(seconds=float(timeout_s))
+    _CARDS.clear()
     if explicit:
-        dist.init_process_group(backend,
+        dist.init_process_group("gloo",
                                 init_method=f"tcp://{coordinator_address}",
                                 world_size=int(num_processes),
-                                rank=int(process_id))
+                                rank=int(process_id), timeout=timeout)
     else:
-        dist.init_process_group(backend, init_method="env://")
+        dist.init_process_group("gloo", init_method="env://",
+                                timeout=timeout)
+
+
+def _require_gloo() -> None:
+    """Raise unless the default group is gloo (as :func:`initialize`
+    makes it): the host helpers and the folds run over it."""
+    backend = torch.distributed.get_backend()
+    if backend != "gloo":
+        raise RuntimeError(
+            f"the port's process group must be gloo (distributed.initialize "
+            f"joins one); this process joined a {backend!r} group")
+
+
+def process_allgather(value) -> np.ndarray:
+    """Every process's ``value`` (a numpy array or scalar of the same
+    shape and dtype on every process), stacked in rank order:
+    ``[process_count, *shape]``. Outside a group: ``value[None]``. Every
+    process must call it (a collective)."""
+    arr = np.ascontiguousarray(np.asarray(value))
+    if process_count() == 1:
+        return arr[None].copy()
+    _require_gloo()
+    t = torch.from_numpy(arr.reshape(-1).copy())
+    out = [torch.empty_like(t) for _ in range(process_count())]
+    torch.distributed.all_gather(out, t)
+    return np.stack([o.numpy().reshape(arr.shape) for o in out])
+
+
+def broadcast_one_to_all(value):
+    """Process 0's ``value`` on every process: a numpy array (same shape
+    and dtype everywhere), or a name -> array dict (each leaf broadcast in
+    key order). Outside a group: ``value`` unchanged."""
+    if isinstance(value, dict):
+        return {k: broadcast_one_to_all(value[k]) for k in sorted(value)}
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu().numpy()
+    arr = np.ascontiguousarray(np.asarray(value))
+    if process_count() == 1:
+        return arr
+    _require_gloo()
+    t = torch.from_numpy(arr.reshape(-1).copy())
+    torch.distributed.broadcast(t, src=0)
+    return t.numpy().reshape(arr.shape)
+
+
+def barrier() -> None:
+    """Every process reaches this point before any leaves it (JAX's
+    ``sync_global_devices``). Outside a group: nothing."""
+    if process_count() > 1:
+        _require_gloo()
+        torch.distributed.barrier()
+
+
+def encode_payload(text: str, size: int = 512) -> np.ndarray:
+    """``text`` as a zero-padded ``uint8[size]`` payload (raises when it
+    does not fit)."""
+    raw = text.encode()
+    if len(raw) > size:
+        raise ValueError(f"payload {raw!r} longer than {size} bytes")
+    payload = np.zeros((size,), np.uint8)
+    payload[:len(raw)] = np.frombuffer(raw, np.uint8)
+    return payload
+
+
+def decode_payload(payload) -> str:
+    """The text of an :func:`encode_payload` payload."""
+    row = np.asarray(payload)
+    return bytes(row[row != 0]).decode()
+
+
+def fold_group(device=None) -> tuple:
+    """``(group, backend)`` of the tensor folds across processes of
+    tensors on ``device`` (default the CPU): the gloo default group,
+    ``(None, "gloo")``. Outside a group: ``(None, None)``.
+
+    For a card, the first call a (world size, device) is a collective of
+    every rank: each rank's host name and card index are all-gathered. If
+    every rank holds a card of its own, the fold would be NCCL's across
+    cards, which waits for a host with several cards: every rank raises
+    ``NotImplementedError`` (ROADMAP.md Queue A, item 16 part 4). Every
+    rank folds tensors on the same kind of device."""
+    if process_count() == 1:
+        return None, None
+    _require_gloo()
+    dev = torch.device("cpu" if device is None else device)
+    if dev.type == "cuda":
+        key = (process_count(), str(dev))
+        if key not in _CARDS:
+            index = torch.cuda.current_device() if dev.index is None \
+                else dev.index
+            rows = process_allgather(
+                encode_payload(f"{socket.gethostname()}|{index}"))
+            _CARDS[key] = len({decode_payload(r) for r in rows}) \
+                == process_count()
+        if _CARDS[key]:
+            raise NotImplementedError(
+                "a fold across processes that each hold a card of their own "
+                "(an NCCL fold across cards) is not ported yet (ROADMAP.md "
+                "Queue A, item 16 part 4); several ranks on one card fold "
+                "over gloo")
+    return None, "gloo"
 
 
 def multihost_mesh(num_workers: Optional[int] = None,
                    model_parallelism: int = 1,
-                   devices: Optional[Sequence] = None) -> mesh_lib.Mesh:
-    """The (workers, model) mesh over every process's devices: in one
-    process, :func:`~distkeras_tpu_torch.parallel.mesh.make_mesh` over
-    ``devices`` (default ``[cuda:0]``); across processes it raises
-    (item 16)."""
-    mesh_lib.check_single_process("multihost_mesh")
+                   devices: Optional[Sequence] = None):
+    """The (workers, model) mesh over every process's devices:
+    :func:`~distkeras_tpu_torch.parallel.mesh.make_mesh`, whose ``devices``
+    (default ``[cuda:0]``) are this process's, every process passing as
+    many. In one process, the one-process mesh."""
+    from distkeras_tpu_torch.parallel import mesh as mesh_lib
+
     return mesh_lib.make_mesh(num_workers, model_parallelism=model_parallelism,
                               devices=devices)
 
 
 def process_info() -> dict:
     """Topology snapshot for logging and debugging."""
-    dist = torch.distributed
-    joined = dist.is_available() and dist.is_initialized()
     if torch.cuda.is_available():
         local = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
     else:
         local = ["cpu"]
-    count = dist.get_world_size() if joined else 1
+    count = process_count()
     return {
-        "process_index": dist.get_rank() if joined else 0,
+        "process_index": process_index(),
         "process_count": count,
         "local_devices": local,
         "global_device_count": len(local) * count,

@@ -157,8 +157,7 @@ def make_ps_fleet(ps_factory: Callable[[Any], Any], like: Any,
     of them — the single-host fleet). With a partial set the services
     come back bound-but-unstarted regardless of ``start``: the launcher
     must gather the cross-host address map first and finish via
-    :func:`connect_fleet` (the cross-process launcher is ROADMAP.md
-    Queue A, item 16).
+    :func:`connect_fleet` (``run_cross_process``'s spread placement).
 
     ``standby=True`` appends a DARK standby service (LAST in the returned
     list, so ``services[0]`` stays the coordinator when it is local and
@@ -239,20 +238,36 @@ def connect_fleet(services: Sequence, addresses: Sequence[str],
 
 
 def gather_fleet_addresses(services: Sequence, num_shards: int) -> tuple:
-    """Every hosted shard's address in shard order, and the standby's:
-    ``(addresses, standby_address)``. The port runs one process, which
-    hosts the whole fleet, so this is a local reshuffle; the all-gather
-    across processes is ROADMAP.md Queue A, item 16."""
-    from distkeras_tpu_torch.parallel.mesh import check_single_process
+    """All-gather every process's locally-hosted shard addresses into the
+    complete fleet map. Returns ``(addresses, standby_address)``,
+    identical on every process. In one process: a local reshuffle, no
+    collective. The payload is the JAX package's (512 bytes a process of
+    ``key=host:port`` entries joined by ``;``)."""
+    from distkeras_tpu_torch.parallel import distributed
 
-    check_single_process("gathering fleet addresses")
     local = {("standby" if svc.is_standby else int(svc.shard)):
              svc.advertised for svc in services}
-    missing = [s for s in range(num_shards) if s not in local]
+    if distributed.process_count() == 1:
+        missing = [s for s in range(num_shards) if s not in local]
+        if missing:
+            raise RuntimeError(f"fleet address gather incomplete: shards "
+                               f"{missing} unhosted (map: {local})")
+        return ([local[s] for s in range(num_shards)],
+                local.get("standby"))
+    msg = ";".join(f"{k}={v}" for k, v in sorted(
+        local.items(), key=lambda kv: str(kv[0])))
+    payload = distributed.encode_payload(msg)
+    merged: dict = {}
+    for row in distributed.process_allgather(payload):
+        for entry in filter(None, distributed.decode_payload(row).split(";")):
+            key, _, addr = entry.partition("=")
+            merged[key] = addr
+    missing = [s for s in range(num_shards) if str(s) not in merged]
     if missing:
         raise RuntimeError(f"fleet address gather incomplete: shards "
-                           f"{missing} unhosted (map: {local})")
-    return ([local[s] for s in range(num_shards)], local.get("standby"))
+                           f"{missing} unhosted (map: {merged})")
+    return ([merged[str(s)] for s in range(num_shards)],
+            merged.get("standby"))
 
 
 class ShardedRemoteParameterServer:

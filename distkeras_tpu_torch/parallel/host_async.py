@@ -33,8 +33,9 @@ A worker's rounds come staged (:func:`stage_worker_shards`, a list a
 worker and epoch) or lease-driven (:func:`stream_worker_rounds`, a
 zero-argument callable against a
 :class:`~distkeras_tpu_torch.data.service.DataCoordinator`); the worker
-loop cannot tell them apart. What needs several processes
-(``run_cross_process``) is ROADMAP.md Queue A, item 16.
+loop cannot tell them apart. :func:`run_cross_process` runs the
+workers of several processes (a ``torch.distributed`` group) against
+one live center that process 0 owns.
 """
 
 from __future__ import annotations
@@ -258,6 +259,9 @@ class HostAsyncRunner:
         self.worker_devices: list = []  # actual placement, for tests/logs
         self.window_clocks: list = []   # merged commit clocks, last run
         self.merged_windows: list = []  # (clock, staleness, steps) tuples
+        # merged fleet telemetry rows of the last run_cross_process (set
+        # on process 0)
+        self.fleet_telemetry: list = []
 
     def _window_fn_for(self, k: int, device: torch.device):
         """Worker ``k``'s window function over its own module on
@@ -764,6 +768,218 @@ class HostAsyncRunner:
         finally:
             req.put(_STOP)
             ct.join()
+
+
+def run_cross_process(runner: HostAsyncRunner, init_params, epoch_shards,
+                      *, worker_offset: int, checkpointer=None,
+                      checkpoint_folds: int = 0, start_clock: int = 0,
+                      service_port: int = 0,
+                      history_timeout: float = 600.0,
+                      watchdog=None, ps_shards: int = 1,
+                      ps_placement: str = "process0",
+                      ps_standby: bool = False,
+                      snapshot_extra=None) -> tuple:
+    """This process's worker threads against ONE live center owned by
+    process 0 of the ``torch.distributed`` group (the reference's
+    workers-on-separate-machines deployment).
+
+    Process 0 hosts the parameter server behind a
+    :class:`~distkeras_tpu_torch.parallel.remote_ps.ParameterServerService`;
+    its own workers hit the server directly, every other process's go
+    through a :class:`~distkeras_tpu_torch.parallel.remote_ps.RemoteParameterServer`.
+    Staleness is real cross-process interleaving on the server clock.
+
+    End of run: every process uploads its clock-tagged windows, and
+    ``history_get`` is the completion barrier (it blocks until every
+    process uploaded) and returns the clock-merged history and the final
+    center, so every process returns IDENTICAL ``(params, history,
+    staleness, num_updates)``, ``params`` a name -> numpy dict.
+    Checkpoints are taken on process 0 only.
+
+    ``ps_shards > 1`` (or ``ps_standby``) replaces the single service
+    with a shard fleet (:mod:`~distkeras_tpu_torch.parallel.elastic`) and
+    every process's workers, process 0's too, go through a
+    :class:`~distkeras_tpu_torch.parallel.elastic.ShardedRemoteParameterServer`.
+    ``ps_placement="spread"`` deals the shard services over processes:
+    the token travels first, each process binds its shards, and the
+    address map is all-gathered. ``ps_standby=True`` adds a dark standby
+    service (on shard 1's process under spread placement).
+
+    Every collective here is symmetric: when process 0 cannot start its
+    service it broadcasts the failure sentinel of
+    :func:`~distkeras_tpu_torch.parallel.remote_ps.share_service_address`,
+    so its peers raise instead of blocking."""
+    import secrets
+
+    from distkeras_tpu_torch.health.collector import TelemetryCollector
+    from distkeras_tpu_torch.parallel import distributed
+    from distkeras_tpu_torch.parallel import elastic as elastic_mod
+    from distkeras_tpu_torch.parallel import remote_ps as rps
+
+    ps_shards = int(ps_shards)
+    if ps_shards < 1:
+        raise ValueError(f"ps_shards must be >= 1, got {ps_shards}")
+    nproc = distributed.process_count()
+    placement = elastic_mod.shard_placement(ps_shards, nproc, ps_placement)
+    spread = any(p != 0 for p in placement)
+    pid = distributed.process_index()
+    home = runner.devices[0]
+    codec_name = "raw" if runner.codec is None else runner.codec.name
+    service = client = None
+    services: list = []
+    init_params = to_host(init_params)
+
+    def _make_ps(part):
+        ps = server_for(runner.strategy, to_device(part, home))
+        ps.num_updates = int(start_clock)
+        return ps
+
+    try:
+        if spread:
+            if pid == 0:
+                _, token = rps.share_service_address(
+                    [], token=secrets.token_hex(16))
+            else:
+                _, token = rps.share_service_address(None)
+            # the authoritative start state (restored on process 0 on
+            # resume) seeds every hosting process's shards
+            init_params = distributed.broadcast_one_to_all(init_params)
+            mine = [s for s in range(ps_shards) if placement[s] == pid]
+            standby_here = ps_standby and \
+                pid == elastic_mod.standby_process(placement)
+            services = elastic_mod.make_ps_fleet(
+                _make_ps, init_params, ps_shards,
+                expected_processes=nproc, token=token,
+                straggler=(StragglerDetector()
+                           if 0 in mine or standby_here else None),
+                advertise_host=distributed.determine_host_address(),
+                local_shards=mine, standby=standby_here)
+            for svc in services:
+                if svc.shard == 0 and not svc.is_standby:
+                    svc.collector = TelemetryCollector()
+            addresses, standby_addr = elastic_mod.gather_fleet_addresses(
+                services, ps_shards)
+            elastic_mod.connect_fleet(
+                services, addresses, standby_address=standby_addr,
+                token=token)
+            client = elastic_mod.ShardedRemoteParameterServer(
+                addresses, init_params, timeout=history_timeout + 60.0,
+                token=token, codec=codec_name, standby=standby_addr)
+            local_ps = client
+        elif pid == 0:
+            try:
+                token = secrets.token_hex(16)
+                if ps_shards == 1 and not ps_standby:
+                    ps = _make_ps(init_params)
+                    service = rps.ParameterServerService(
+                        ps, init_params, expected_processes=nproc,
+                        port=service_port, token=token,
+                        collector=TelemetryCollector())
+                    service.start()
+                    ports = service.port
+                else:
+                    services = elastic_mod.make_ps_fleet(
+                        _make_ps, init_params, ps_shards,
+                        expected_processes=nproc, token=token,
+                        straggler=StragglerDetector(),
+                        advertise_host=distributed.determine_host_address(),
+                        standby=ps_standby)
+                    services[0].collector = TelemetryCollector()
+                    ports = [svc.advertised for svc in services
+                             if not svc.is_standby]
+                    ports += ["~" + svc.advertised for svc in services
+                              if svc.is_standby]
+            except Exception:
+                rps.share_service_address(None, error=True)
+                raise
+            rps.share_service_address(ports, token=token)
+            if ps_shards == 1 and not ps_standby:
+                local_ps = ps
+                if runner.codec is not None and runner.codec.name != "raw":
+                    # process 0's workers skip the socket but see the
+                    # wire's numerics, as remote peers do
+                    local_ps = comms.EncodedParameterServer(ps, runner.codec)
+            else:
+                client = elastic_mod.ShardedRemoteParameterServer(
+                    [svc.advertised for svc in services
+                     if not svc.is_standby], init_params,
+                    timeout=history_timeout + 60.0, token=token,
+                    codec=codec_name,
+                    standby=next((svc.advertised for svc in services
+                                  if svc.is_standby), None))
+                local_ps = client
+        else:
+            addr, token = rps.share_service_address(None)
+            entries = addr.split(",")
+            standby_addr = next(
+                (e[1:] for e in entries if e.startswith("~")), None)
+            addresses = [e for e in entries if not e.startswith("~")]
+            # the socket timeout outlives the history barrier
+            if len(addresses) == 1 and standby_addr is None:
+                client = rps.RemoteParameterServer(
+                    addresses[0], init_params,
+                    timeout=history_timeout + 60.0, token=token,
+                    codec=codec_name)
+            else:
+                client = elastic_mod.ShardedRemoteParameterServer(
+                    addresses, init_params, timeout=history_timeout + 60.0,
+                    token=token, codec=codec_name, standby=standby_addr)
+            local_ps = client
+            # the authoritative start state lives at the center (process
+            # 0 restored it on resume)
+            init_params, _ = client.pull()
+        runner.run(to_device(init_params, home), epoch_shards,
+                   checkpointer=checkpointer if pid == 0 else None,
+                   checkpoint_folds=checkpoint_folds if pid == 0 else 0,
+                   start_clock=start_clock, ps=local_ps,
+                   worker_offset=worker_offset, fetch_final=False,
+                   watchdog=watchdog,
+                   snapshot_extra=snapshot_extra if pid == 0 else None)
+        if pid == 0 and client is None:
+            service.put_history(0, runner.merged_windows)
+            merged, center, clock = service.get_history_blocking(
+                timeout=history_timeout)
+        else:
+            client.put_history(pid, runner.merged_windows)
+            merged, center, clock = client.get_history(
+                timeout=history_timeout)
+        # every process that does not host the coordinator pushes its
+        # registry rows to the coordinator's collector (best effort)
+        reg = telemetry.get_registry()
+        hosts_coord = service is not None or any(
+            svc.shard == 0 and not svc.is_standby for svc in services)
+        if reg is not None and client is not None and (
+                pid != 0 or not hosts_coord):
+            client.put_telemetry(pid, list(reg.rows()))
+        # everyone holds the final state before process 0 stops the
+        # service; the barrier also orders the pushes before the merge
+        distributed.barrier()
+        if pid == 0:
+            collector = service.collector if service is not None else None
+            promoted = [svc for svc in services
+                        if svc.standby is not None and svc.standby.promoted]
+            if promoted:
+                collector = promoted[-1].collector
+            elif collector is None:
+                for svc in services:
+                    if svc.shard == 0 and not svc.is_standby:
+                        collector = svc.collector
+            if collector is not None:
+                runner.fleet_telemetry = collector.merged_rows(local_pid=0)
+            elif client is not None:
+                runner.fleet_telemetry = client.get_merged_telemetry()
+    finally:
+        if client is not None:
+            client.close()
+        if service is not None:
+            service.stop()
+        for svc in services:
+            if svc.replicator is not None:
+                svc.replicator.close(timeout=1.0)
+            svc.stop()
+    history = [step for _, _, steps in merged for step in steps]
+    stal = [float(s) for _, s, _ in merged]
+    return to_host(center), history, stal, int(clock)
 
 
 def _round(feats: np.ndarray, labs: np.ndarray, batch_size: int,

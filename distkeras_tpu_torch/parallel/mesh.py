@@ -9,11 +9,23 @@ row-major: worker ``w`` holds the row ``grid[w]``, its model positions
 ``grid[w][m]``. ``devices`` lists the workers axis (each row's first
 device), which is where the substrate, the predictors and the serving
 engine place their replicas. Every device of a port mesh lives in this
-process; a mesh over several processes (a NCCL or gloo group) is ROADMAP.md
-Queue A, item 16. The second axis may take another name:
+process unless the mesh spans a process group (below). The second axis
+may take another name:
 :mod:`~distkeras_tpu_torch.parallel.sequence`'s workers x ``seq`` grid
 and :mod:`~distkeras_tpu_torch.parallel.pipeline`'s one row of
 ``stages`` are the same grid.
+
+Inside a ``torch.distributed`` group of P processes a mesh spans them:
+:func:`make_mesh` lays every process's ``devices`` (each process passes
+as many) end to end in rank order, and ``Mesh.owners[w]`` is the process
+that runs worker row ``w``. A row owned by another process names that
+process's device in its own numbering (``cuda:0`` on each of two hosts);
+this process touches only its own rows (:func:`local_worker_positions`),
+and :attr:`Mesh.home` is its first own row's device. A mesh built by
+hand (``Mesh(devices)``) belongs to the process that builds it. The model
+axis (> 1) over processes, and sequence and pipeline meshes over
+processes, wait for a host with several cards (ROADMAP.md Queue A,
+item 16 part 4).
 
 The substrate runs ``K = D * factor`` logical workers on a mesh of D
 worker devices: worker ``k`` lives on ``devices[k // factor]``. On a host
@@ -30,6 +42,7 @@ from typing import Optional, Sequence
 import torch
 
 from distkeras_tpu_torch.device import resolve_device
+from distkeras_tpu_torch.parallel import distributed
 
 WORKER_AXIS = "workers"
 MODEL_AXIS = "model"
@@ -43,7 +56,8 @@ class Mesh:
     does."""
 
     def __init__(self, devices: Sequence, model_parallelism: int = 1,
-                 axis_names: Sequence[str] = (WORKER_AXIS, MODEL_AXIS)):
+                 axis_names: Sequence[str] = (WORKER_AXIS, MODEL_AXIS),
+                 owners: Optional[Sequence[int]] = None):
         model_parallelism = int(model_parallelism)
         self.axis_names = tuple(axis_names)
         if not devices:
@@ -58,6 +72,13 @@ class Mesh:
                      for i in range(0, len(flat), model_parallelism)]
         #: the workers axis: each worker's first device
         self.devices = [row[0] for row in self.grid]
+        #: ``owners[w]``: the process that runs worker row ``w`` (a mesh
+        #: built by hand belongs to the process that builds it)
+        self.owners = [distributed.process_index()] * len(self.grid) if owners is None \
+            else [int(o) for o in owners]
+        if len(self.owners) != len(self.grid):
+            raise ValueError(f"{len(self.owners)} owners for "
+                             f"{len(self.grid)} worker rows")
 
     @property
     def shape(self) -> dict:
@@ -74,8 +95,18 @@ class Mesh:
     @property
     def home(self) -> torch.device:
         """The device the center (the parameter server's state) and the
-        metrics live on: the first worker's."""
+        metrics live on: this process's first worker's (the first
+        worker's in one process)."""
+        me = distributed.process_index()
+        for dev, owner in zip(self.devices, self.owners):
+            if owner == me:
+                return dev
         return self.devices[0]
+
+    @property
+    def spans_processes(self) -> bool:
+        """True when another process owns a worker row."""
+        return len(set(self.owners)) > 1
 
     def device(self, worker: int, model: int = 0) -> torch.device:
         """The device at (``worker``, ``model``) of the grid."""
@@ -83,6 +114,8 @@ class Mesh:
 
     def __repr__(self) -> str:
         flat = [str(d) for row in self.grid for d in row]
+        if self.spans_processes:
+            return f"Mesh({flat}, owners={self.owners})"
         if self.axis_names != (WORKER_AXIS, MODEL_AXIS):
             return f"Mesh({flat}, axes={self.shape})"
         if len(self.grid[0]) == 1:
@@ -92,15 +125,15 @@ class Mesh:
 
 def check_single_process(what: str = "a mesh") -> None:
     """Raise NotImplementedError when this process is one of several in
-    an initialized ``torch.distributed`` group: collectives across
-    processes are not ported."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
+    an initialized ``torch.distributed`` group, for the paths that still
+    run in one process only: the model axis (> 1), sequence and pipeline
+    meshes over processes, which wait for a host with several cards."""
+    count = distributed.process_count()
+    if count > 1:
         raise NotImplementedError(
-            f"{what} over {dist.get_world_size()} processes needs the "
-            f"cross-process collectives, which are not ported (ROADMAP.md "
-            f"Queue A, item 16, the multi-process plane)")
+            f"{what} over {count} processes is not ported: it waits for "
+            f"a host with several cards (ROADMAP.md Queue A, item 16 "
+            f"part 4)")
 
 
 def make_mesh(num_workers: Optional[int] = None,
@@ -110,14 +143,23 @@ def make_mesh(num_workers: Optional[int] = None,
     ``[resolve_device(None)]``: ``cuda:0``, raising without a card),
     which may repeat a device. ``num_workers=None`` uses every device:
     ``len(devices) // model_parallelism`` workers. Asking for more
-    devices than are listed raises ValueError, as JAX's does."""
-    check_single_process()
+    devices than are listed raises ValueError, as JAX's does.
+
+    Inside a group of P processes ``devices`` are this process's, every
+    process passes as many, and the mesh is over all of them, process 0's
+    first (JAX's global device list): worker rows are owned by the
+    process whose device they take. No collective runs."""
     model_parallelism = int(model_parallelism)
     if model_parallelism < 1:
         raise ValueError(
             f"model_parallelism must be >= 1, got {model_parallelism}")
+    count = distributed.process_count()
+    if model_parallelism > 1:
+        check_single_process("the model axis (model_parallelism > 1)")
     devices = list(devices) if devices is not None \
         else [resolve_device(None)]
+    owners = [p for p in range(count) for _ in devices]
+    devices = devices * count
     if num_workers is None:
         num_workers = len(devices) // model_parallelism
     need = num_workers * model_parallelism
@@ -127,14 +169,16 @@ def make_mesh(num_workers: Optional[int] = None,
             f"{model_parallelism} model shards) but only {len(devices)} "
             f"are visible")
     return Mesh([resolve_device(d) for d in devices[:need]],
-                model_parallelism=model_parallelism)
+                model_parallelism=model_parallelism,
+                owners=owners[:need:model_parallelism])
 
 
 def local_worker_positions(mesh: Mesh) -> list:
-    """Worker-axis positions with a device in this process: all of them
-    (a port mesh lives in one process), so host-sharded staging is the
-    replicated case."""
-    return list(range(len(mesh.devices)))
+    """Worker-axis positions this process runs (JAX's positions with a
+    device owned by this process): every position in one process, so
+    host-sharded staging is then the replicated case."""
+    me = distributed.process_index()
+    return [w for w, owner in enumerate(mesh.owners) if owner == me]
 
 
 def put_replicated(tree: dict, mesh: Mesh) -> dict:

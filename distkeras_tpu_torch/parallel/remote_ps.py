@@ -16,9 +16,9 @@ elastic membership plane, the coordinator failover hooks
 (:mod:`~distkeras_tpu_torch.parallel.failover`), the end-of-run history
 barrier, the fleet telemetry collector and the health ops. Every op and
 reply is the JAX package's, so either package's client talks to either
-package's service. The broadcast of the service's address across
-processes (JAX's ``share_service_address``) needs several processes and
-is ROADMAP.md Queue A, item 16.
+package's service. :func:`share_service_address` agrees on the
+service's address and token across the processes of a
+``torch.distributed`` group, with the JAX package's payload bytes.
 
 One framing for every socket of the repo, no pickle: nothing on the wire
 can execute code, and leaves decode zero-copy into numpy::
@@ -1237,6 +1237,59 @@ class RemoteParameterServer:
         pass
 
 
+def share_service_address(ports,
+                          token: Optional[str] = None,
+                          error: bool = False) -> Tuple[str, Optional[str]]:
+    """Agree on the service address AND auth token across processes:
+    process 0 broadcasts ``host:port|token`` in a 512-byte payload;
+    everyone returns the same ``(address, token)`` pair.
+
+    ``ports`` may be a single port or a sequence of them (a shard fleet):
+    the payload is then the full shard map, ``host:p0,host:p1,...|token``
+    in shard order (one shard gives the single-server payload). Entries
+    that are already strings pass through verbatim: spread placement's
+    gathered ``host:port`` addresses, and the standby as a ``~host:port``
+    entry. An EMPTY ``ports`` list broadcasts just the token
+    (``|token``): the token-first handshake spread placement needs before
+    any process can bind an authenticated service.
+
+    ``error=True`` (process 0 only) broadcasts a failure sentinel
+    instead, so that the peers RAISE here instead of blocking in this
+    broadcast when process 0 could not bring the service up; process 0
+    returns a dummy, its own exception being in flight. The bytes are the
+    JAX package's for the same ports and token."""
+    from distkeras_tpu_torch.parallel import distributed
+
+    port_list = list(ports) if isinstance(ports, (list, tuple)) \
+        else [ports]
+    if distributed.process_count() == 1:
+        return ",".join(e if isinstance(e, str) else f"127.0.0.1:{e}"
+                        for e in port_list), token
+    payload = np.zeros((512,), np.uint8)
+    if distributed.process_index() == 0:
+        payload = distributed.encode_payload(
+            service_payload(port_list, token,
+                            distributed.determine_host_address(), error))
+    msg = distributed.decode_payload(
+        distributed.broadcast_one_to_all(payload))
+    if msg.startswith("!"):
+        if distributed.process_index() == 0:
+            return "", None  # the original exception is already in flight
+        raise RuntimeError(f"parameter service never came up: {msg[1:]}")
+    addr, _, tok = msg.partition("|")
+    return addr, (tok or None)
+
+
+def service_payload(port_list: Sequence, token: Optional[str], host: str,
+                    error: bool = False) -> str:
+    """The text process 0 broadcasts in :func:`share_service_address`."""
+    if error:
+        return "!service construction failed on process 0"
+    return ",".join(e if isinstance(e, str) else f"{host}:{e}"
+                    for e in port_list) + f"|{token or ''}"
+
+
 __all__ = ["send_message", "recv_message", "check_token", "PSUnavailable",
            "HistoryBarrierTimeout", "CoordinatorFenced",
-           "ParameterServerService", "RemoteParameterServer"]
+           "ParameterServerService", "RemoteParameterServer",
+           "share_service_address"]

@@ -23,6 +23,15 @@ What comes out as the JAX package has it:
 - metrics come back as ``(workers, rounds, window)`` tensors, with
   ``staleness`` as ``(workers, rounds)``.
 
+On a mesh that spans a process group (:mod:`~distkeras_tpu_torch.parallel.mesh`)
+each process runs its own worker rows only (their carries, their staged
+data): it folds its workers' weighted commits in worker order into a
+partial, and the partials are summed across processes
+(:func:`~distkeras_tpu_torch.parallel.collectives.cross_process_sum`,
+bucketed as ``bucket_bytes`` asks) before the center moves, so every
+process holds the same center. The metrics are all-gathered, so every
+process returns the whole ``(workers, ...)`` tensors.
+
 The replicas are not ``torch.func.vmap``-ed: the hand-written kernels
 (GroupNorm, flash attention) are ``autograd.Function``s without a vmap
 rule, and a loop leaves them as they are. Dropout draws from a generator
@@ -37,6 +46,7 @@ import numpy as np
 import torch
 
 from distkeras_tpu_torch import engine
+from distkeras_tpu_torch.parallel import collectives, distributed
 from distkeras_tpu_torch.parallel import mesh as mesh_lib
 from distkeras_tpu_torch.parallel.mesh import Mesh
 from distkeras_tpu_torch.parallel.strategies import Strategy
@@ -79,7 +89,8 @@ def build_epoch_fn(model, loss, tx, strategy: Strategy, mesh: Mesh,
     - ``center``: name -> tensor dict on ``mesh.home`` (the parameter
       server's state); a new dict is returned;
     - ``carries``: the K workers' :class:`~.strategies.Carry`, in worker
-      order, each on its device, updated in place and returned;
+      order, each on its device, updated in place and returned (on a
+      mesh over processes: this process's workers' only);
     - ``data``: a :func:`stage_epoch_chunks` chunk;
     - ``round_offset``: the global round counter;
     - ``metrics``: ``(workers, rounds, window)`` float32 tensors on
@@ -92,7 +103,6 @@ def build_epoch_fn(model, loss, tx, strategy: Strategy, mesh: Mesh,
     threads a policy's static loss scale into the grad function, as in
     the JAX package.
     """
-    mesh_lib.check_single_process("the substrate's fold")
     if bucket_bytes is not None and int(bucket_bytes) <= 0:
         raise ValueError(f"bucket_bytes must be positive, got {bucket_bytes}")
     metric_names = tuple(metrics)
@@ -113,6 +123,14 @@ def build_epoch_fn(model, loss, tx, strategy: Strategy, mesh: Mesh,
             f"logical workers divide evenly onto devices")
     factor = num_workers // mesh_workers
     names = ("loss",) + metric_names
+    # this process's worker rows (every row in one process)
+    local = mesh_lib.local_worker_positions(mesh)
+    spans = mesh.spans_processes
+    if spans and set(mesh.owners) != set(range(distributed.process_count())):
+        raise ValueError(
+            f"mesh owners {mesh.owners}: every process of the group must "
+            f"own a worker row")
+    local_k = local_workers(mesh, num_workers)
 
     def step_metrics(out: dict, batch: dict) -> dict:
         ms = {"loss": out["loss"]}
@@ -129,43 +147,45 @@ def build_epoch_fn(model, loss, tx, strategy: Strategy, mesh: Mesh,
         if isinstance(data, StagedChunk):
             data.wait()
         num_rounds = next(iter(data.values()))[0].shape[0]
-        # per worker, per round, per step: 0-d tensors on the worker's
-        # device, stacked once at the end (no host read in the loop)
+        # per local worker, per round, per step: 0-d tensors on the
+        # worker's device, stacked once at the end (no host read in the
+        # loop); carries, data and metrics are indexed by local worker
         hist = {n: [[[] for _ in range(num_rounds)]
-                    for _ in range(num_workers)] for n in names}
-        staleness = np.zeros((num_workers, num_rounds), np.float32)
+                    for _ in local_k] for n in names}
+        staleness = np.zeros((len(local_k), num_rounds), np.float32)
         with torch.no_grad():
-            replicas = [{n: x.to(dev) for n, x in center.items()}
-                        for dev in mesh.devices]
+            replicas = [{n: x.to(mesh.devices[d]) for n, x in center.items()}
+                        for d in local]
         for ri in range(num_rounds):
             r_idx = int(round_offset) + ri
             device_sums, commits = [], []
-            for d, dev in enumerate(mesh.devices):
-                local = None
+            for li, d in enumerate(local):
+                dev = mesh.devices[d]
+                part = None
                 for j in range(factor):
-                    k = d * factor + j
-                    carry = strategy.round_start(carries[k], replicas[d])
+                    lk, k = li * factor + j, d * factor + j
+                    carry = strategy.round_start(carries[lk], replicas[li])
                     for s in range(window):
-                        batch = {key: cols[d][ri, j, s]
+                        batch = {key: cols[li][ri, j, s]
                                  for key, cols in data.items()}
                         gen = rng.step_generator(dropout_seed, k, r_idx, s,
                                                  dev)
                         carry, out = strategy.local_step(grad_fn, carry,
                                                          batch, gen)
                         for n, v in step_metrics(out, batch).items():
-                            hist[n][k][ri].append(v)
-                    carries[k] = carry
+                            hist[n][lk][ri].append(v)
+                    carries[lk] = carry
                     if not strategy.exchanges:
                         continue
-                    commit = strategy.commit(carry, replicas[d], window)
+                    commit = strategy.commit(carry, replicas[li], window)
                     position = (k + r_idx) % num_workers
                     weighted = tree_scale(
                         commit, strategy.staleness_weight(position))
-                    staleness[k, ri] = position
-                    local = weighted if local is None \
-                        else tree_add(local, weighted)
+                    staleness[lk, ri] = position
+                    part = weighted if part is None \
+                        else tree_add(part, weighted)
                     commits.append(commit)
-                device_sums.append(local)
+                device_sums.append(part)
             if not strategy.exchanges:
                 continue
             with torch.no_grad():
@@ -173,17 +193,24 @@ def build_epoch_fn(model, loss, tx, strategy: Strategy, mesh: Mesh,
                 for part in device_sums[1:]:
                     total = tree_add(total, {n: x.to(mesh.home)
                                              for n, x in part.items()})
+                if spans:
+                    total = collectives.cross_process_sum(total,
+                                                          bucket_bytes)
                 center = tree_add(center, total)
-                replicas = [{n: x.to(dev) for n, x in center.items()}
-                            for dev in mesh.devices]
-            for k in range(num_workers):
-                carries[k] = strategy.post_commit(
-                    carries[k], commits[k], replicas[k // factor])
+                replicas = [{n: x.to(mesh.devices[d])
+                             for n, x in center.items()} for d in local]
+            for lk in range(len(local_k)):
+                carries[lk] = strategy.post_commit(
+                    carries[lk], commits[lk], replicas[lk // factor])
         ms = {n: torch.stack([torch.stack([torch.stack(step).to(mesh.home)
                                            for step in per_round])
                               for per_round in per_worker]).float()
               for n, per_worker in hist.items()}
         ms["staleness"] = torch.from_numpy(staleness).to(mesh.home)
+        if spans:  # every process returns every worker's rows
+            ms = {n: torch.from_numpy(np.concatenate(
+                distributed.process_allgather(v.cpu().numpy()))).to(
+                    mesh.home) for n, v in ms.items()}
         return center, carries, ms
 
     return epoch_fn
@@ -194,14 +221,23 @@ def init_center_and_carries(params: dict, tx, strategy: Strategy,
                                                                    list]:
     """The center on ``mesh.home`` and K carries, worker ``k`` on its
     device, all starting from ``params`` (the reference's model
-    broadcast)."""
+    broadcast); on a mesh over processes the carries of this process's
+    workers only."""
     factor = num_workers // mesh.shape[WORKERS]
     center = mesh_lib.put_replicated(params, mesh)
     carries = [strategy.init_carry(params, tx,
                                    device=mesh_lib.worker_device(mesh, k,
                                                                  factor))
-               for k in range(num_workers)]
+               for k in local_workers(mesh, num_workers)]
     return center, carries
+
+
+def local_workers(mesh: Mesh, num_workers: int) -> list:
+    """The global ids of this process's logical workers, in order (all K
+    in one process)."""
+    factor = num_workers // mesh.shape[WORKERS]
+    return [d * factor + j for d in mesh_lib.local_worker_positions(mesh)
+            for j in range(factor)]
 
 
 def stage_epoch_data(shards, features_col: str, label_col: str,
@@ -246,7 +282,8 @@ def stage_epoch_chunks(shards, features_col: str, label_col: str,
     """A generator of ``(chunk, rounds)`` of at most ``chunk_rounds``
     rounds each (all rounds in one chunk when None), staging memory
     O(chunk). Data is round-major, ``(rounds, workers, window, batch,
-    ...)``, split on the workers axis into each device's replicas.
+    ...)``, split on the workers axis into each of this process's
+    devices' replicas (a chunk lists this process's positions only).
     Columns keep their dtype: uint8 images stay uint8 until the model
     normalizes them on the device.
 
@@ -255,23 +292,53 @@ def stage_epoch_chunks(shards, features_col: str, label_col: str,
     ``i`` while this generator (on a prefetch thread) stages chunk
     ``i + 1`` overlaps the host work and the copy with the compute.
 
-    ``local_positions`` is the JAX package's host-sharded contract; one
-    process owns every position, so only the full list is accepted."""
-    factor = len(shards) // mesh.shape[WORKERS]
-    if factor * mesh.shape[WORKERS] != len(shards):
+    The JAX package's two multi-process data contracts, on a mesh over
+    processes:
+
+    - ``local_positions=None`` (replicated): every process holds the
+      same full dataset, ``shards`` covers every worker, and this process
+      stages its own positions' shards only;
+    - ``local_positions`` (host-sharded, this process's
+      :func:`~distkeras_tpu_torch.parallel.mesh.local_worker_positions`):
+      ``shards`` holds those positions' workers only, ``factor`` each in
+      order. The common round count is negotiated with a process
+      all-gather (once a call, on the caller's thread), and a process
+      whose shards cannot form a round makes every process raise.
+
+    In one process every position is local."""
+    local = mesh_lib.local_worker_positions(mesh)
+    if local_positions is not None:
+        if list(local_positions) != local:
+            raise ValueError(
+                f"local_positions={list(local_positions)}: this process "
+                f"runs positions {local}")
+        width = len(local)
+    else:
+        width = mesh.shape[WORKERS]
+    factor = len(shards) // width
+    if factor * width != len(shards) or factor == 0:
         raise ValueError(
             f"{len(shards)} shards do not divide onto the mesh's "
-            f"{mesh.shape[WORKERS]} devices")
-    if local_positions is not None and list(local_positions) != \
-            mesh_lib.local_worker_positions(mesh):
-        raise ValueError(
-            f"local_positions={list(local_positions)}: this process owns "
-            f"every position of the mesh")
+            f"{width} devices")
+    if local_positions is None and mesh.spans_processes:
+        shards = [s for d in local
+                  for s in shards[d * factor:(d + 1) * factor]]
     per_round = batch_size * window
-    rounds = min(len(s) // per_round for s in shards)
+    local_rounds = min(len(s) // per_round for s in shards)
+    rounds = local_rounds
+    if local_positions is not None and distributed.process_count() > 1:
+        # the global minimum: shard sizes may differ across processes
+        rounds = int(np.min(distributed.process_allgather(
+            np.int64(local_rounds))))
     if max_rounds is not None:
         rounds = min(rounds, max_rounds)
     if rounds == 0:
+        if rounds != local_rounds:
+            raise ValueError(
+                f"A PEER process's shards cannot form a single round of "
+                f"window={window} x batch={batch_size} (negotiated global "
+                f"round count is 0; this host's shards of sizes "
+                f"{[len(s) for s in shards]} could form {local_rounds})")
         raise ValueError(
             f"Shards of sizes {[len(s) for s in shards]} cannot form a "
             f"single round of window={window} x batch={batch_size}")
@@ -281,7 +348,8 @@ def stage_epoch_chunks(shards, features_col: str, label_col: str,
     # columns stay lazy (ndarray views, memmaps, ShardedColumns); rows are
     # read per chunk slice below
     arrs = {key: [s[col] for s in shards] for key, col in cols.items()}
-    streams = {dev: torch.cuda.Stream(dev) for dev in set(mesh.devices)
+    devices = [mesh.devices[d] for d in local]
+    streams = {dev: torch.cuda.Stream(dev) for dev in set(devices)
                if dev.type == "cuda"}
 
     def gen():
@@ -292,7 +360,7 @@ def stage_epoch_chunks(shards, features_col: str, label_col: str,
             data, events, hold = {}, [], []
             for key in cols:
                 data[key] = []
-                for d, dev in enumerate(mesh.devices):
+                for d, dev in enumerate(devices):
                     mine = arrs[key][d * factor:(d + 1) * factor]
                     tail = tuple(mine[0].shape[1:])
                     blocks = [np.asarray(a[lo:hi]).reshape(

@@ -42,6 +42,30 @@ activations over the model axis; the port gathers the parameters, so only
 storage is sharded. Splitting the activations waits for a host with
 several cards.
 
+On a mesh that spans a process group (model axis 1; the model axis over
+processes waits for a host with several cards, ROADMAP.md Queue A, item
+16 part 4) each process holds its own worker positions' rows of every
+step's global batch and the full parameters, and takes the loss over its
+rows. The processes' terms are summed
+(:func:`~distkeras_tpu_torch.parallel.collectives.cross_process_sum`)
+before anything is divided by the global batch's count, so the update is
+the global batch's and every process applies the same bits:
+
+- a loss that is a mean over rows (every named loss but ``masked_lm``;
+  a callable loss is taken to be one) weights each process's gradient
+  and loss by its share of the global batch;
+- ``masked_lm`` sums each process's gradient and loss times its valid
+  token count, and the count, and divides the sums by the global count
+  once;
+- metrics sum their ``(numerator, denominator)`` terms.
+
+Two objectives the processes cannot assemble from their rows raise
+``NotImplementedError`` on every process (item 16 part 4): a
+capacity-routed MoE (its routing and load-balance term are the global
+batch's tokens') and ``masked_lm`` under ``accum_steps > 1`` (a
+microbatch is a slice of the global batch that spans processes). Dropout
+folds the process index into each step's stream.
+
 ``bucket_bytes`` is the JAX package's explicit shard_map step: each
 worker runs its slice of the batch on its device with its own dropout
 stream, and the workers' gradients fold as their mean, bucket by bucket
@@ -60,7 +84,8 @@ import torch
 
 from distkeras_tpu_torch import engine
 from distkeras_tpu_torch import precision as precision_lib
-from distkeras_tpu_torch.parallel import collectives
+from distkeras_tpu_torch.ops import losses as losses_lib
+from distkeras_tpu_torch.parallel import collectives, distributed
 from distkeras_tpu_torch.parallel import mesh as mesh_lib
 from distkeras_tpu_torch.parallel.mesh import MODEL_AXIS, WORKER_AXIS, Mesh
 from distkeras_tpu_torch.utils import bridge
@@ -322,7 +347,27 @@ def build_pjit_epoch_fn(model, loss, tx, mesh: Mesh,
     worker), as the JAX package's shard_map step folds the worker index
     into the key. The streams are torch's, not threefry's.
     """
-    mesh_lib.check_single_process("a PjitTrainer mesh")
+    spans = mesh.spans_processes
+    if spans and mesh.shape.get(MODEL_AXIS, 1) > 1:
+        mesh_lib.check_single_process("the model axis (model_parallelism "
+                                      "> 1) of a PjitTrainer mesh")
+    decorrelate = bucket_bytes is not None
+    masked = losses_lib.get(loss) is losses_lib.masked_lm
+    if spans and not decorrelate:
+        from distkeras_tpu_torch.models.moe import SwitchMoE
+
+        coupled = "a capacity-routed MoE (its routing and load-balance " \
+            "term are the global batch's tokens')" \
+            if any(isinstance(m, SwitchMoE) for m in model.modules()) else \
+            "masked_lm under accum_steps > 1 (a microbatch of the global " \
+            "batch spans processes)" if masked and int(accum_steps) > 1 \
+            else None
+        if coupled:
+            raise NotImplementedError(
+                f"PjitTrainer's GSPMD step over {distributed.process_count()}"
+                f" processes cannot take {coupled} from each process's rows:"
+                f" not ported (ROADMAP.md Queue A, item 16 part 4)")
+    local = mesh_lib.local_worker_positions(mesh)
     metric_names = tuple(metrics)
     accum_steps = int(accum_steps)
     if accum_steps > 1:
@@ -343,8 +388,38 @@ def build_pjit_epoch_fn(model, loss, tx, mesh: Mesh,
             f"shard_map psums — drop bucket_bytes or use model=1)")
     if bucket_bytes is not None and int(bucket_bytes) <= 0:
         raise ValueError(f"bucket_bytes must be positive, got {bucket_bytes}")
-    decorrelate = bucket_bytes is not None
     home = mesh.home
+    # this process's share of the global batch (1 in one process)
+    share = len(local) / num_workers
+    pid = distributed.process_index()
+
+    def across(out: dict, grads: dict, weight, count=None):
+        """The sum over processes of ``weight`` times the gradients and
+        the loss, and of the metrics' ``(num, den)`` terms; under
+        ``count`` (this process's denominator of the loss, a tensor) the
+        sums of the gradients and the loss are divided once by the
+        processes' summed count. One process: unchanged."""
+        if not spans:
+            return grads, out
+        with torch.no_grad():
+            tree = {f"g/{n}": g * weight for n, g in grads.items()}
+            for name, v in out.items():
+                if isinstance(v, tuple):  # (num, den) terms
+                    tree[f"m/{name}/0"], tree[f"m/{name}/1"] = v
+                else:
+                    tree[f"m/{name}"] = v.float() * weight
+            if count is not None:
+                tree["count"] = count
+            tree = collectives.cross_process_sum(tree, bucket_bytes)
+            if count is not None:
+                total = torch.clamp(tree.pop("count"), min=1.0)
+                tree = {k: v if k.startswith("m/") and k != "m/loss"
+                        else v / total for k, v in tree.items()}
+        grads = {n: tree[f"g/{n}"] for n in grads}
+        out = {name: (tree[f"m/{name}/0"], tree[f"m/{name}/1"])
+               if isinstance(v, tuple) else tree[f"m/{name}"]
+               for name, v in out.items()}
+        return grads, out
 
     def place_state(params: Mapping) -> PjitState:
         placed = shard_params(params, mesh, rules)
@@ -357,12 +432,12 @@ def build_pjit_epoch_fn(model, loss, tx, mesh: Mesh,
             arr = np.asarray(value)
             x = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
             b = x.shape[1]
-            if b % num_workers:
+            if b % len(local):
                 raise ValueError(
                     f"the global batch {b} does not split over "
-                    f"{num_workers} workers")
+                    f"{len(local)} workers")
             out[key] = [c.to(mesh.devices[w]) for w, c in
-                        enumerate(x.chunk(num_workers, dim=1))] \
+                        zip(local, x.chunk(len(local), dim=1))] \
                 if decorrelate else x.to(home)
         return out
 
@@ -370,14 +445,22 @@ def build_pjit_epoch_fn(model, loss, tx, mesh: Mesh,
         """GSPMD's arithmetic: the loss over the global batch (a
         capacity-routed MoE and a masked-token mean are the global
         batch's), one dropout stream a step."""
-        gen = rng.generator(rng.fold_in(dropout_seed, step), home)
+        seed = rng.fold_in(dropout_seed, step, pid) if spans \
+            else rng.fold_in(dropout_seed, step)
+        gen = rng.generator(seed, home)
         (loss_val, aux), grads = grad_fn(params, batch, gen,
                                          loss_scale=scale)
         out = {"loss": loss_val.detach()}
         for name in metric_names:
-            out[name] = engine.finalize_metric(aux[name]) \
-                if accum_steps > 1 else \
-                engine.compute_metric(name, aux, batch["labels"])
+            out[name] = aux[name] if accum_steps > 1 else \
+                engine.compute_metric_terms(name, aux, batch["labels"])
+        if spans and masked:  # the global token mean: sum, then divide
+            count = (batch["labels"] >= 0).sum().float()
+            grads, out = across(out, grads, count, count)
+        else:
+            grads, out = across(out, grads, share)
+        for name in metric_names:
+            out[name] = engine.finalize_metric(out[name])
         return grads, out
 
     def bucketed_step(state: PjitState, batches: list, step: int, scale):
@@ -385,7 +468,7 @@ def build_pjit_epoch_fn(model, loss, tx, mesh: Mesh,
         own dropout stream; the gradients, loss and metrics are the mean
         over the workers, the gradients summed bucket by bucket."""
         grads, losses, metric_terms = [], [], []
-        for w, batch in enumerate(batches):
+        for w, batch in zip(local, batches):
             dev = mesh.devices[w]
             with torch.no_grad():
                 full = {n: t.detach().requires_grad_()
@@ -402,14 +485,18 @@ def build_pjit_epoch_fn(model, loss, tx, mesh: Mesh,
                 for name in metric_names})
         with torch.no_grad():
             folded = collectives.bucketed_psum(grads, bucket_bytes)
-            if num_workers > 1:  # x / 1 is x: skip the launches
-                folded = {n: g / num_workers for n, g in folded.items()}
-            out = {"loss": sum(losses) / num_workers}
+            out = {"loss": sum(losses)}
             for name in metric_names:
                 terms = [m[name] for m in metric_terms]
-                out[name] = engine.finalize_metric(  # (num, den) sum exactly
-                    (sum(t[0] for t in terms), sum(t[1] for t in terms))) \
-                    if accum_steps > 1 else sum(terms) / num_workers
+                out[name] = (sum(t[0] for t in terms),
+                             sum(t[1] for t in terms)) \
+                    if accum_steps > 1 else sum(terms)
+            folded, out = across(out, folded, 1.0)
+            if num_workers > 1:  # x / 1 is x: skip the launches
+                folded = {n: g / num_workers for n, g in folded.items()}
+            for name, v in out.items():  # (num, den) sum exactly
+                out[name] = engine.finalize_metric(v) \
+                    if isinstance(v, tuple) else v / num_workers
         return folded, out
 
     def one_step(state: PjitState, batch, step: int) -> dict:
@@ -442,7 +529,7 @@ def build_pjit_epoch_fn(model, loss, tx, mesh: Mesh,
         for i in range(first.shape[0]):
             batch = [{"features": data["features"][w][i],
                       "labels": data["labels"][w][i]}
-                     for w in range(num_workers)] if decorrelate else \
+                     for w in range(len(local))] if decorrelate else \
                 {"features": data["features"][i],
                  "labels": data["labels"][i]}
             outs.append(one_step(state, batch, int(step_offset) + i))

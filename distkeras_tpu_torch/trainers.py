@@ -26,27 +26,39 @@ Where the port differs from the JAX package, by design:
   ``torch.optim`` state and the counters come back with the weights, so
   a resumed run continues the uninterrupted one bit for bit;
 - ``mode="host_async"`` runs ``num_workers`` threads against a live
-  parameter server in this process
-  (:mod:`~distkeras_tpu_torch.parallel.host_async`); worker ``k`` runs on
-  ``devices[k % D]`` (default ``[cuda:0]``, or ``[device]``).
-  ``ps_shards``, ``ps_placement`` and ``ps_standby`` are validated as in
-  the JAX package, which also runs one in-process server in a single
-  process; snapshots ``{"center", "clock"}`` are DKTP2 steps every
+  parameter server (:mod:`~distkeras_tpu_torch.parallel.host_async`);
+  worker ``k`` runs on ``devices[k % D]`` (default ``[cuda:0]``, or
+  ``[device]``). In one process ``ps_shards``, ``ps_placement`` and
+  ``ps_standby`` are validated and one in-process server runs, as in the
+  JAX package; over several processes they build the service fleet of
+  ``run_cross_process``; snapshots ``{"center", "clock"}`` are DKTP2 steps every
   ``checkpoint_folds`` commits, and ``resume=True`` continues the clock;
 - ``precision=`` on a built model re-stamps it
   (:func:`~distkeras_tpu_torch.precision.apply_to_model`: the model
   rebuilt from its constructor kwargs, holding its weights);
-- ``PjitTrainer`` runs a workers x model mesh in this process
-  (:mod:`~distkeras_tpu_torch.parallel.tensor`);
-- the data plane runs in one process: a ``GlobalShards`` pool under
+- ``PjitTrainer`` runs a workers x model mesh
+  (:mod:`~distkeras_tpu_torch.parallel.tensor`), over several processes
+  at model axis 1;
+- the data plane: a ``GlobalShards`` pool under
   ``data_layout="host_sharded"`` is re-dealt each epoch (sync and
   ``host_async``), and ``data_service=`` (a
   :class:`~distkeras_tpu_torch.data.service.DataCoordinator` or its
   address) feeds ``host_async`` workers lease-driven rounds; with the
   coordinator object in hand its ``[epoch, watermark]`` cursor rides
   every snapshot as ``data_cursor`` and is restored on ``resume``;
+- over several processes (a ``torch.distributed`` group,
+  :mod:`~distkeras_tpu_torch.parallel.distributed`) the JAX package's
+  contracts hold: a sync mesh spans the processes, each runs its own
+  worker rows and the folds are summed across them; ``"host_sharded"``
+  data holds this process's workers' rows only, ``"replicated"`` data
+  is the full dataset that each process cuts its workers' shards from;
+  ``mode="host_async"`` splits ``num_workers`` near-evenly over the
+  processes against process 0's live center
+  (:func:`~distkeras_tpu_torch.parallel.host_async.run_cross_process`);
+  history, staleness and the final parameters are the same on every
+  process, and process 0 alone writes checkpoints;
 - what is not ported raises NotImplementedError naming its ROADMAP.md
-  Queue A item: any run over several processes (item 16).
+  Queue A item: the model axis (> 1) over processes (item 16 part 4).
 """
 
 from __future__ import annotations
@@ -67,11 +79,12 @@ from distkeras_tpu_torch.data.dataset import Dataset
 from distkeras_tpu_torch.device import resolve_device
 from distkeras_tpu_torch.ops import losses as losses_lib
 from distkeras_tpu_torch.ops import optimizers as opt_lib
+from distkeras_tpu_torch.parallel import distributed
 from distkeras_tpu_torch.parallel import mesh as mesh_lib
 from distkeras_tpu_torch.parallel.elastic import PLACEMENT_POLICIES
 from distkeras_tpu_torch.telemetry import span
 from distkeras_tpu_torch.utils import rng
-from distkeras_tpu_torch.utils.trees import tree_mean
+from distkeras_tpu_torch.utils.trees import tree_add, tree_mean, tree_scale
 
 
 def _params_of(model: torch.nn.Module) -> dict:
@@ -249,7 +262,7 @@ class Trainer:
 
     # -- bookkeeping (record_training_time parity) -------------------------
     def _start(self):
-        telemetry.set_process_index(0)
+        telemetry.set_process_index(distributed.process_index())
         from distkeras_tpu_torch.health import recorder as flight_recorder
 
         # crash bundles land where the crash checkpoint does
@@ -465,7 +478,7 @@ class DistributedTrainer(Trainer):
                 f"data_layout must be 'replicated' (every process holds the "
                 f"full dataset) or 'host_sharded' (each process's dataset "
                 f"holds ONLY its own workers' rows), got {data_layout!r}")
-        # one process: host_sharded is the replicated case
+        # in one process host_sharded is the replicated case
         self.data_layout = data_layout
         if data_service is not None:
             if mode != "host_async":
@@ -625,8 +638,9 @@ class DistributedTrainer(Trainer):
                 return sorted(tuple(m.shape) for _, m in _leaves(
                     {k: tree.get(k, {}) for k in ("params", "extra")}))
 
+            ids = self._local_worker_ids()
             current = [_carry_tree(c) for c in carries]
-            if [shapes(saved[str(k)]) for k in range(saved_workers)] != [
+            if [shapes(saved[str(k)]) for k in ids] != [
                     shapes(c) for c in current]:
                 raise ValueError(
                     f"checkpoint step {step} matches "
@@ -637,7 +651,7 @@ class DistributedTrainer(Trainer):
             snap = ckpt.restore(step=step)
             center = {n: _tensor(x).to(self.mesh.home)
                       for n, x in snap["state"]["center"].items()}
-            for k, carry in enumerate(carries):
+            for k, carry in zip(ids, carries):
                 _load_carry(carry, snap["carries"][str(k)])
             return (center, carries,
                     parse_counters(snap["state"]["counters"]), step + 1)
@@ -665,6 +679,45 @@ class DistributedTrainer(Trainer):
         return (new_center, new_carries, parse_counters(state["counters"]),
                 step + 1)
 
+    def _local_worker_ids(self) -> list:
+        """The global ids of this process's workers (all K in one
+        process)."""
+        from distkeras_tpu_torch.parallel import substrate
+
+        return substrate.local_workers(self.mesh, self.num_workers)
+
+    def _all_trees(self, trees: list) -> list:
+        """Every worker's tree (a nested dict of tensors or arrays), in
+        worker order, from this process's workers' ``trees``. Over
+        processes (each with as many workers, process 0's first) each
+        leaf is all-gathered into numpy: a collective every process
+        calls."""
+        if not self.mesh.spans_processes:
+            return trees
+        count = distributed.process_count()
+        if self._local_worker_ids() != list(range(
+                distributed.process_index() * len(trees),
+                (distributed.process_index() + 1) * len(trees))) \
+                or len(trees) * count != self.num_workers:
+            raise ValueError(
+                f"mesh owners {self.mesh.owners}: gathering every worker "
+                f"needs as many workers on every process, in rank order")
+        gathered = [[(path, distributed.process_allgather(
+            leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor)
+            else np.asarray(leaf))) for path, leaf in _leaves(tree)]
+            for tree in trees]
+        out = []
+        for p in range(count):
+            for pairs in gathered:
+                tree: dict = {}
+                for path, stacked in pairs:
+                    node = tree
+                    for key in path[:-1]:
+                        node = node.setdefault(key, {})
+                    node[path[-1]] = stacked[p]
+                out.append(tree)
+        return out
+
     def train(self, dataset: Dataset, shuffle: bool = False,
               resume: bool = False):
         """Train on ``dataset``: a :class:`Dataset`, or a
@@ -689,9 +742,19 @@ class DistributedTrainer(Trainer):
             return self._train_host_async(dataset, shuffle, resume,
                                           provider=provider)
         self._start()
-        n_shards = self.num_workers
-        self._check_trainable(
-            dataset, self.batch_size * self.communication_window * n_shards)
+        multi = self.mesh.spans_processes
+        if self.data_layout == "host_sharded":
+            # this process stages its own mesh positions' shards only
+            positions = mesh_lib.local_worker_positions(self.mesh)
+            n_shards = len(positions) * self.parallelism_factor
+        else:
+            positions, n_shards = None, self.num_workers
+        if positions is None or not multi:
+            self._check_trainable(
+                dataset,
+                self.batch_size * self.communication_window * n_shards)
+        # else: a short process is found by the round negotiation in
+        # stage_epoch_chunks, where every process raises
         if self.staging_rounds is None:
             self._warn_if_large_resident(dataset, "staging_rounds")
         # the one module skeleton the replicas' tensors run through
@@ -733,7 +796,8 @@ class DistributedTrainer(Trainer):
                          if shuffle else ds_epoch).repartition(n_shards),
                         self.features_col, self.label_col, self.batch_size,
                         self.communication_window, self.mesh,
-                        chunk_rounds=self.staging_rounds),
+                        chunk_rounds=self.staging_rounds,
+                        local_positions=positions),
                     resident=(not shuffle and self.staging_rounds is None
                               and provider is None))
             with span("trainer.epoch"):
@@ -748,13 +812,19 @@ class DistributedTrainer(Trainer):
                                  rounds)
             if ckpt is not None:
                 # counters[2] records the topology, so a later resume sees
-                # a worker-count change before it reads any carry
-                ckpt.save(epoch, {
-                    "state": {"center": center,
-                              "counters": np.array(
-                                  [round_offset, self.num_updates,
-                                   self.num_workers], np.int64)},
-                    "carries": [_carry_tree(c) for c in carries]})
+                # a worker-count change before it reads any carry; over
+                # processes every carry is gathered and process 0 writes
+                trees = self._all_trees([_carry_tree(c) for c in carries])
+                if distributed.process_index() == 0:
+                    ckpt.save(epoch, {
+                        "state": {"center": center,
+                                  "counters": np.array(
+                                      [round_offset, self.num_updates,
+                                       self.num_workers], np.int64)},
+                        "carries": trees})
+                # every process reads the directory on resume: none goes
+                # on before the step is on disk
+                distributed.barrier()
             if self.weight_publisher is not None:
                 self.weight_publisher.publish(dict(center),
                                               clock=round_offset)
@@ -787,7 +857,6 @@ class DistributedTrainer(Trainer):
         from distkeras_tpu_torch.health import recorder as flight_recorder
         from distkeras_tpu_torch.parallel import host_async
 
-        mesh_lib.check_single_process("mode='host_async'")
         svc = self.data_service
         if svc is not None and shuffle:
             raise ValueError(
@@ -795,18 +864,53 @@ class DistributedTrainer(Trainer):
                 "already owns the global shuffle (its seed= argument); "
                 "a second trainer-side shuffle would be dead code")
         self._start()
-        if svc is None:
-            self._check_trainable(
-                dataset,
-                self.batch_size * self.communication_window
-                * self.num_workers)
+        nproc, pid = distributed.process_count(), distributed.process_index()
+        multi = nproc > 1
+        if multi:
+            if self.num_workers < nproc:
+                # known to every process: every process raises
+                raise ValueError(
+                    f"num_workers={self.num_workers} < process_count="
+                    f"{nproc}: some process would own no workers")
+            counts = [self.num_workers // nproc
+                      + (1 if i < self.num_workers % nproc else 0)
+                      for i in range(nproc)]
+            worker_offset, local_workers = sum(counts[:pid]), counts[pid]
+        else:
+            worker_offset, local_workers = 0, self.num_workers
+        per_round = self.batch_size * self.communication_window
+        if svc is None and self.data_layout == "host_sharded" and multi:
+            # the local dataset holds this process's workers' rows only:
+            # sufficiency is per process, so it is agreed before any
+            # other collective and every process raises
+            oks = distributed.process_allgather(np.int64(
+                len(dataset) // local_workers // per_round)).ravel()
+            if oks.min() == 0:
+                short = np.flatnonzero(oks == 0).tolist()
+                raise ValueError(
+                    f"Process(es) {short} cannot form one round of "
+                    f"window={self.communication_window} x "
+                    f"batch={self.batch_size} per local worker (this host "
+                    f"is process {pid} with {len(dataset)} rows over "
+                    f"{local_workers} workers)")
+
+            def shards_of(ds):
+                return ds.repartition(local_workers)
+        else:
+            if svc is None:
+                self._check_trainable(dataset,
+                                      per_round * self.num_workers)
+
+            def shards_of(ds):
+                return ds.repartition(self.num_workers)[
+                    worker_offset:worker_offset + local_workers]
         home = self.devices[0]
         self.model.to(home)
 
         def stage(ds):
             return host_async.stage_worker_shards(
-                ds.repartition(self.num_workers), self.features_col,
-                self.label_col, self.batch_size, self.communication_window)
+                shards_of(ds), self.features_col, self.label_col,
+                self.batch_size, self.communication_window)
 
         with span("trainer.init"):
             init_params = _params_of(self.model)
@@ -820,15 +924,36 @@ class DistributedTrainer(Trainer):
         if coord is not None:
             def snapshot_extra():
                 return {"data_cursor": coord.cursor_carry()}
-        ckpt = self._checkpointer()
-        if ckpt is not None:
-            snap, _ = self._maybe_resume(ckpt, resume)
-            if snap is not None:
-                init_params = {n: _tensor(x).to(home)
-                               for n, x in snap["center"].items()}
-                start_clock = int(np.asarray(snap["clock"]).ravel()[0])
-                if coord is not None and "data_cursor" in snap:
-                    coord.restore_cursor(snap["data_cursor"])
+        # process 0 alone owns the live center's snapshots
+        ckpt, ckpt_error = None, None
+        if pid == 0:
+            try:
+                ckpt = self._checkpointer()
+                if ckpt is not None:
+                    snap, _ = self._maybe_resume(ckpt, resume)
+                    if snap is not None:
+                        init_params = {n: _tensor(x).to(home)
+                                       for n, x in snap["center"].items()}
+                        start_clock = int(
+                            np.asarray(snap["clock"]).ravel()[0])
+                        if coord is not None and "data_cursor" in snap:
+                            coord.restore_cursor(snap["data_cursor"])
+            except BaseException as e:
+                if not multi:
+                    raise
+                ckpt_error = e  # the peers must hear first
+        if multi:
+            # process 0's checkpoint state is private: a one-sided raise
+            # would leave the peers blocked in the address broadcast, so
+            # every process agrees on go/no-go first
+            flags = distributed.process_allgather(
+                np.int64(0 if ckpt_error is None else 1)).ravel()
+            if flags.any():
+                if ckpt_error is not None:
+                    raise ckpt_error
+                raise ValueError(
+                    f"checkpoint setup failed on process(es) "
+                    f"{np.flatnonzero(flags).tolist()}; see their logs")
 
         def ds_for(e):
             ds = provider.epoch_dataset(e) if provider is not None \
@@ -843,9 +968,10 @@ class DistributedTrainer(Trainer):
             token = None if isinstance(svc, str) else svc.token
             with span("trainer.stage"):
                 epoch_shards = [[host_async.stream_worker_rounds(
-                    address, k, self.features_col, self.label_col,
-                    self.batch_size, self.communication_window, token=token)
-                    for k in range(self.num_workers)]]
+                    address, worker_offset + k, self.features_col,
+                    self.label_col, self.batch_size,
+                    self.communication_window, token=token)
+                    for k in range(local_workers)]]
         elif shuffle or provider is not None:
             # workers cross epoch boundaries without barriers, so every
             # epoch's shards are staged host-resident up front
@@ -882,10 +1008,21 @@ class DistributedTrainer(Trainer):
             if ckpt is not None else 0
         try:
             with span("trainer.epoch"):  # workers cross epoch boundaries
-                params, history, staleness, num_updates = runner.run(
-                    init_params, epoch_shards, checkpointer=ckpt,
-                    checkpoint_folds=folds, start_clock=start_clock,
-                    watchdog=watchdog, snapshot_extra=snapshot_extra)
+                if multi:
+                    params, history, staleness, num_updates = \
+                        host_async.run_cross_process(
+                            runner, init_params, epoch_shards,
+                            worker_offset=worker_offset, checkpointer=ckpt,
+                            checkpoint_folds=folds, start_clock=start_clock,
+                            watchdog=watchdog, ps_shards=self.ps_shards,
+                            ps_placement=self.ps_placement,
+                            ps_standby=self.ps_standby,
+                            snapshot_extra=snapshot_extra)
+                else:
+                    params, history, staleness, num_updates = runner.run(
+                        init_params, epoch_shards, checkpointer=ckpt,
+                        checkpoint_folds=folds, start_clock=start_clock,
+                        watchdog=watchdog, snapshot_extra=snapshot_extra)
         except BaseException:
             flight_recorder.auto_dump("trainer_exception")
             raise
@@ -900,7 +1037,8 @@ class DistributedTrainer(Trainer):
             self.history = history
             self.staleness_history = staleness
             self.num_updates = num_updates
-            self.params = {n: x.detach() for n, x in params.items()}
+            self.params = {n: _tensor(x).to(home)
+                           for n, x in params.items()}
             _load(self.model, self.params)
         self._stop(home)
         return self.params
@@ -972,8 +1110,19 @@ class AveragingTrainer(DistributedTrainer):
 
     @torch.no_grad()
     def _finalize(self, center: dict, carries: list):
-        return tree_mean([{n: x.detach().to(self.mesh.home)
-                           for n, x in c.params.items()} for c in carries])
+        trees = [{n: x.detach().to(self.mesh.home)
+                  for n, x in c.params.items()} for c in carries]
+        if not self.mesh.spans_processes:
+            return tree_mean(trees)
+        # this process's replicas summed in worker order, the partial
+        # sums summed across processes, then scaled as tree_mean scales
+        from distkeras_tpu_torch.parallel.collectives import \
+            cross_process_sum
+
+        part = trees[0]
+        for t in trees[1:]:
+            part = tree_add(part, t)
+        return tree_scale(cross_process_sum(part), 1.0 / self.num_workers)
 
 
 class EnsembleTrainer(DistributedTrainer):
@@ -1009,14 +1158,20 @@ class EnsembleTrainer(DistributedTrainer):
         members = self._member_params()
         factor = self.num_workers // self.mesh.shape[mesh_lib.WORKER_AXIS]
         carries = [self.strategy.init_carry(
-            p, self.tx, device=mesh_lib.worker_device(self.mesh, k, factor))
-            for k, p in enumerate(members)]
+            members[k], self.tx,
+            device=mesh_lib.worker_device(self.mesh, k, factor))
+            for k in substrate.local_workers(self.mesh, self.num_workers)]
         center = mesh_lib.put_replicated(members[0], self.mesh)
         return center, carries
 
     def _finalize(self, center: dict, carries: list):
-        return [{n: x.detach() for n, x in c.params.items()}
-                for c in carries]
+        local = [{n: x.detach() for n, x in c.params.items()}
+                 for c in carries]
+        if not self.mesh.spans_processes:
+            return local
+        # every process returns all K members, gathered
+        return [{n: _tensor(x).to(self.mesh.home) for n, x in m.items()}
+                for m in self._all_trees(local)]
 
     def _model_params(self) -> dict:
         return self.params[0]
@@ -1037,8 +1192,11 @@ class PjitTrainer(Trainer):
     Placement: ``mesh=`` as given; else ``make_mesh(num_workers,
     model_parallelism)`` over ``[cuda:0]`` (raising without a card), or,
     with ``device=``, over that device repeated ``num_workers x
-    model_parallelism`` times (``device="cpu"`` runs on the host). In one
-    process ``data_layout="host_sharded"`` is the replicated case.
+    model_parallelism`` times (``device="cpu"`` runs on the host; over
+    several processes that count is split among them). In one process
+    ``data_layout="host_sharded"`` is the replicated case; over several
+    (model axis 1) each process holds its worker positions' rows of
+    every global batch.
     Checkpoints (``checkpoint_dir=``) hold whole tensors (parameters and
     optimizer state) and re-shard on restore, onto any model-axis size.
 
@@ -1073,7 +1231,10 @@ class PjitTrainer(Trainer):
             if device is not None:
                 need = (1 if num_workers is None else int(num_workers)) \
                     * int(model_parallelism)
-                devices = [resolve_device(device)] * need
+                # this process's part of the mesh (make_mesh lays every
+                # process's devices end to end)
+                count = distributed.process_count()
+                devices = [resolve_device(device)] * max(1, -(-need // count))
             mesh = mesh_lib.make_mesh(num_workers,
                                       model_parallelism=model_parallelism,
                                       devices=devices)
@@ -1133,13 +1294,36 @@ class PjitTrainer(Trainer):
 
         self._reject_global_shards(dataset, "PjitTrainer")
         self._start()
+        multi = self.mesh.spans_processes
+        positions = mesh_lib.local_worker_positions(self.mesh)
+        per_worker = self.batch_size // self.num_workers
+        # this process's rows of each global batch (all of them in one
+        # process): host_sharded data holds them only; replicated data is
+        # the full batch, cut to them after staging
+        cut = None
         if self.data_layout == "host_sharded":
-            positions = mesh_lib.local_worker_positions(self.mesh)
-            local_batch = (self.batch_size // self.num_workers) \
-                * len(positions)
+            local_batch = per_worker * len(positions)
         else:
             local_batch = self.batch_size
-        self._check_trainable(dataset, local_batch)
+            if multi:
+                cut = (positions[0] * per_worker,
+                       (positions[-1] + 1) * per_worker)
+        max_steps = None
+        if multi and self.data_layout == "host_sharded":
+            # the common step count, agreed by every process (a one-sided
+            # raise would leave the peers blocked in the step's folds)
+            counts = distributed.process_allgather(
+                np.int64(len(dataset) // local_batch)).ravel()
+            max_steps = int(counts.min())
+            if max_steps == 0:
+                short = np.flatnonzero(counts == 0).tolist()
+                raise ValueError(
+                    f"Process(es) {short} cannot form one local batch "
+                    f"(per-process step counts {counts.tolist()}; this "
+                    f"host is process {distributed.process_index()} with "
+                    f"{len(dataset)} rows, local batch {local_batch})")
+        else:
+            self._check_trainable(dataset, local_batch)
         if self.staging_steps is None:
             self._warn_if_large_resident(dataset, "staging_steps")
         # the one module skeleton every worker's gathered tensors run
@@ -1171,13 +1355,15 @@ class PjitTrainer(Trainer):
             with span("trainer.stage"):
                 chunks, staged = self._epoch_chunk_stream(
                     staged,
-                    lambda: ((place_data(data), steps)
-                             for data, steps in tensor.stage_step_chunks(
-                                 dataset.shuffle(self.seed + epoch)
-                                 if shuffle else dataset,
-                                 self.features_col, self.label_col,
-                                 local_batch,
-                                 chunk_steps=self.staging_steps)),
+                    lambda: ((place_data(data if cut is None else {
+                        k: v[:, cut[0]:cut[1]] for k, v in data.items()}),
+                        steps)
+                        for data, steps in tensor.stage_step_chunks(
+                            dataset.shuffle(self.seed + epoch)
+                            if shuffle else dataset,
+                            self.features_col, self.label_col,
+                            local_batch, chunk_steps=self.staging_steps,
+                            max_steps=max_steps)),
                     resident=not shuffle and self.staging_steps is None)
             with span("trainer.epoch"):
                 pending = []
@@ -1191,11 +1377,15 @@ class PjitTrainer(Trainer):
                         {k: float(v[i]) for k, v in host.items()}
                         for i in range(steps))
             if ckpt is not None:
-                ckpt.save(epoch, {
-                    "state": {"params": state.gathered("cpu"),
-                              "opt": tensor.optimizer_state_tree(state),
-                              "step": np.asarray(state.step, np.int64)},
-                    "counters": np.array([step_offset], np.int64)})
+                # every process holds the same state: process 0 writes,
+                # and none goes on before the step is on disk
+                if distributed.process_index() == 0:
+                    ckpt.save(epoch, {
+                        "state": {"params": state.gathered("cpu"),
+                                  "opt": tensor.optimizer_state_tree(state),
+                                  "step": np.asarray(state.step, np.int64)},
+                        "counters": np.array([step_offset], np.int64)})
+                distributed.barrier()
         with span("trainer.finalize"):
             self.params = state.gathered(self.mesh.home)
             _load(self.model, self.params)

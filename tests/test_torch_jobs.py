@@ -161,8 +161,9 @@ def test_multihost_mesh_single_process():
 
 def test_initialize_noop_and_single_process_group(monkeypatch):
     """No arguments and no launcher: a no-op. Explicit arguments join a
-    one-process gloo group, after which meshes still build; a group of
-    several processes makes every mesh raise (item 16)."""
+    one-process gloo group, after which meshes still build; in a group
+    of several processes a mesh spans them (a worker row a process's
+    device) and the model axis over processes raises (item 16 part 4)."""
     for var in ("MASTER_ADDR", "WORLD_SIZE", "RANK"):
         monkeypatch.delenv(var, raising=False)
     distributed.initialize()
@@ -174,11 +175,17 @@ def test_initialize_noop_and_single_process_group(monkeypatch):
     try:
         assert torch.distributed.get_world_size() == 1
         assert mesh_lib.make_mesh(devices=["cpu"]).shape["workers"] == 1
+        assert distributed.fold_group() == (None, None)
         monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-        with pytest.raises(NotImplementedError, match="item 16"):
-            mesh_lib.make_mesh(devices=["cpu"])
-        with pytest.raises(NotImplementedError, match="item 16"):
-            distributed.multihost_mesh(devices=["cpu"])
+        mesh = mesh_lib.make_mesh(devices=["cpu"])
+        assert mesh.shape["workers"] == 2 and mesh.owners == [0, 1]
+        assert mesh_lib.local_worker_positions(mesh) == [0]
+        assert distributed.multihost_mesh(devices=["cpu"]).owners == [0, 1]
+        with pytest.raises(NotImplementedError, match="item 16 part 4"):
+            mesh_lib.make_mesh(devices=["cpu"] * 2, model_parallelism=2)
+        with pytest.raises(NotImplementedError, match="item 16 part 4"):
+            distributed.multihost_mesh(devices=["cpu"] * 2,
+                                       model_parallelism=2)
     finally:
         monkeypatch.undo()
         torch.distributed.destroy_process_group()

@@ -24,6 +24,7 @@
   mesh of cards), ``ServingEngine(mesh=...)`` and
   ``ModelPredictor(mesh=...)`` raise without a card and run on the host
   with ``device="cpu"`` or a CPU mesh.
+- The multi-process plane calls no pickling ``*_object`` collective.
 """
 
 import ast
@@ -343,6 +344,20 @@ def test_no_forbidden_import_statement_in_port_or_chip_smoke():
                 continue
             for name in names:
                 assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_no_pickling_collective_in_port_or_chip_smoke():
+    """The multi-process plane moves numpy payloads as tensors: no
+    ``torch.distributed`` ``*_object`` collective (they pickle, and
+    nothing on a wire may execute code) is called or named."""
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            name = node.attr if isinstance(node, ast.Attribute) else \
+                node.id if isinstance(node, ast.Name) else ""
+            assert not name.endswith("_object") and \
+                not name.endswith("_object_list"), (path, name)
 
 
 def test_measurement_plane_does_not_measure_the_cpu_without_a_card(
