@@ -379,6 +379,13 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    seeded images with (a)'s center; the ``across_processes`` accuracy
    equals this process's scoring of all of them, the loss within 1e-5
    relative, the predictions within 1e-5 of the largest.
+33. lint — the port's dktlint over this checkout, in child interpreters:
+   ``python -m distkeras_tpu_torch.analysis --list-rules`` names the ten
+   rules; ``--root <checkout> --format json`` exits 0 with no finding and
+   nothing baselined over at least 150 files; the same run through
+   ``main`` in a ``-c`` wrapper loads no torch, jax, flax or
+   ``distkeras_tpu`` module. One line gives the files, findings,
+   suppressed findings and seconds.
 
 The last three lines of standard output are the kernels' JSON, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details are
@@ -424,6 +431,9 @@ def hbm_bytes_per_s() -> float:
     rate = roofline.device_hbm_bandwidth(torch.device("cuda", 0))
     assert rate is not None, "the bandwidth table does not know this card"
     return rate
+
+#: the decode scheduler's model-call counters (prefills and steps)
+DECODE_CALLS = ("serving.decode.prefills", "serving.decode.steps")
 
 # gpt_small paged serving geometry (the engine phase uses the same)
 H, D, PAGE, PMAX, SLOTS = 12, 64, 16, 64, 8
@@ -842,10 +852,11 @@ def _serve_window(eng, prompts, new, tokens=None) -> dict:
 
     from distkeras_tpu_torch import telemetry
 
-    prefill = ("chunk.steps" if "prefill_chunk" in eng.compiled_executables
-               else "prefills")
-    calls = lambda: sum(telemetry.counter(f"serving.decode.{name}").value
-                        for name in (prefill, "steps"))
+    prefill = ("serving.decode.chunk.steps"
+               if "prefill_chunk" in eng.compiled_executables
+               else "serving.decode.prefills")
+    calls = lambda: sum(telemetry.counter(name).value
+                        for name in (prefill, "serving.decode.steps"))
     free = threading.Semaphore(SLOTS)
     submit, first, emits, gc_runs, collections = {}, {}, [], [], []
     t0 = time.perf_counter()
@@ -2161,8 +2172,7 @@ def _counted(eng, prompts, new, tag) -> dict:
     from distkeras_tpu_torch.ops.kernels import flash_attention as fa
 
     tokens = {}
-    calls = lambda: sum(telemetry.counter(f"serving.decode.{n}").value
-                        for n in ("prefills", "steps"))
+    calls = lambda: sum(telemetry.counter(n).value for n in DECODE_CALLS)
     calls0 = calls()
     fa.paged_flash_attention.launches = 0
     info = _serve_window(eng, prompts, new, tokens)
@@ -2279,16 +2289,16 @@ def phase_prefix(dev, power_line) -> dict:
                     "serving.decode.compiles").value == compiles
                 if cache and dtype == torch.bfloat16:
                     run["swap_round_trip"] = _swap_round_trip(eng)
-            count = lambda n: telemetry.counter(  # noqa: E731
-                f"serving.decode.{n}").value
+            count = lambda n: telemetry.counter(n).value  # noqa: E731
             run.update(systems_tokens=warm.pop("tokens"), card=power_line,
                        compiled_executables=declared, compiles=compiles,
-                       hits=count("prefix.hits"),
-                       misses=count("prefix.misses"),
-                       full_hits=count("prefix.full_hits"),
-                       swapped_in=count("paged.swapped_in"),
-                       swapped_out=count("paged.swapped_out"),
-                       evictions=count("prefix.evictions"),
+                       hits=count("serving.decode.prefix.hits"),
+                       misses=count("serving.decode.prefix.misses"),
+                       full_hits=count("serving.decode.prefix.full_hits"),
+                       swapped_in=count("serving.decode.paged.swapped_in"),
+                       swapped_out=count(
+                           "serving.decode.paged.swapped_out"),
+                       evictions=count("serving.decode.prefix.evictions"),
                        prefix_bytes=telemetry.gauge(
                            "serving.decode.prefix.bytes").value)
             lookups = run["hits"] + run["misses"]
@@ -2836,13 +2846,12 @@ def phase_wire(dev, power_line, engine_info) -> dict:
 
         fa.paged_flash_attention.launches = 0
         fa.flash_attention_fwd.launches = 0
-        calls0 = sum(telemetry.counter(f"serving.decode.{k}").value
-                     for k in ("prefills", "steps"))
+        calls0 = sum(telemetry.counter(k).value for k in DECODE_CALLS)
         batches0 = telemetry.counter("serving.batches").value
         info["window"] = _wire_window(address, _serving_prompts(),
                                       SERVE_NEW, swap=swap)
-        calls = sum(telemetry.counter(f"serving.decode.{k}").value
-                    for k in ("prefills", "steps")) - calls0
+        calls = sum(telemetry.counter(k).value
+                    for k in DECODE_CALLS) - calls0
         paged = fa.paged_flash_attention.launches
         assert paged == gen.model.num_layers * calls > 0, (paged, calls)
         assert compiles.value == 2 and dcompiles.value == 6, "captured late"
@@ -3359,8 +3368,7 @@ def _fleet_rates(dev, power_line, wire_info, engine_info) -> dict:
         store.start()
         judge.start(interval=0.5)
         calls = lambda: sum(  # noqa: E731
-            telemetry.counter(f"serving.decode.{k}").value
-            for k in ("prefills", "steps"))
+            telemetry.counter(k).value for k in DECODE_CALLS)
         fa.paged_flash_attention.launches = 0
         calls0 = calls()
         window = _fleet_window(
@@ -6382,6 +6390,69 @@ def phase_multiprocess(dev, power_line, async_k2_rate) -> dict:
     return info
 
 
+# -- phase 33 ----------------------------------------------------------------
+
+#: the lint gate's corpus floor (tests/test_torch_lint_clean.py)
+LINT_MIN_FILES = 150
+#: every rule of the port's dktlint (``--list-rules``)
+LINT_RULES = ("lock-blocking-call", "lock-order-cycle", "wire-unhandled-op",
+              "wire-unreferenced-op", "wire-error-kind-drift",
+              "telemetry-undeclared-name", "telemetry-kind-mismatch",
+              "telemetry-unknown-consumer-name", "precision-f32-pin",
+              "layer-forbidden-import")
+#: runs the CLI's main in a child, then names the framework modules that
+#: the run loaded (the suite reads source: it needs neither torch nor JAX)
+_LINT_WRAPPER = (
+    "import json, sys\n"
+    "from distkeras_tpu_torch.analysis.__main__ import main\n"
+    "rc = main(['--root', sys.argv[1], '--format', 'json'])\n"
+    "loaded = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+    "                ('torch', 'jax', 'flax', 'distkeras_tpu'))\n"
+    "print(json.dumps({'rc': rc, 'loaded': loaded}))\n")
+
+
+def _lint_child(*args) -> tuple:
+    """One child interpreter from the checkout's root, which must exit 0
+    (dktlint's code for no finding): (stdout, seconds)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], capture_output=True,
+                          text=True, cwd=HERE, timeout=300)
+    assert proc.returncode == 0, (args, proc.returncode,
+                                  proc.stdout[-4000:], proc.stderr[-4000:])
+    return proc.stdout, time.perf_counter() - t0
+
+
+def phase_lint(power_line) -> dict:
+    """Phase 33: the port's dktlint over this checkout (module
+    docstring)."""
+    t_phase = time.perf_counter()
+    out, _ = _lint_child("-m", "distkeras_tpu_torch.analysis",
+                         "--list-rules")
+    rules = sorted(ln.split(": ", 1)[1] for ln in out.splitlines()
+                   if ln.strip() and not ln.startswith("#"))
+    assert rules == sorted(LINT_RULES), rules
+    out, lint_s = _lint_child("-m", "distkeras_tpu_torch.analysis",
+                              "--root", HERE, "--format", "json")
+    report = json.loads(out)
+    assert report["findings"] == [], report
+    assert report["baselined"] == 0, report
+    assert report["checked_files"] >= LINT_MIN_FILES, report
+    out, wrapped_s = _lint_child("-c", _LINT_WRAPPER, HERE)
+    head, _, tail = out.rpartition("\n{")
+    child = json.loads("{" + tail)
+    assert child == {"rc": 0, "loaded": []}, child
+    assert json.loads(head) == report
+    info = {"files": report["checked_files"],
+            "findings": len(report["findings"]),
+            "suppressed": report["suppressed"], "rules": rules,
+            "lint_s": lint_s, "wrapped_s": wrapped_s, "card": power_line,
+            "phase_s": time.perf_counter() - t_phase}
+    log(f"[lint] phase 33: {info['files']} files, {info['findings']} "
+        f"findings, {info['suppressed']} suppressed, {lint_s:.2f} s "
+        f"(no torch/jax loaded: {wrapped_s:.2f} s) [{power_line}]")
+    return info
+
+
 #: seconds each phase took, in run order (logged and in the report)
 PHASE_SECONDS = {}
 
@@ -6470,6 +6541,7 @@ def main() -> int:
         report["multiprocess"] = t(
             "multiprocess", phase_multiprocess, dev, card,
             report["async"]["bench"]["k2"]["samples_per_s"])
+        report["lint"] = t("lint", phase_lint, card)
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         log("[chip_smoke] FAILED")

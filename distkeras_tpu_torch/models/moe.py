@@ -212,9 +212,9 @@ EP_RULES = (
 def ep_partition_rules():
     """EP rules as PartitionSpecs, prepended to the tensor-parallel
     defaults (``parallel.tensor.DEFAULT_RULES``)."""
-    # imported here so that the model definition stays importable below
-    # parallel/
-    from distkeras_tpu_torch.parallel import tensor
+    # sharding-layer bridge, lazy so the MoE model definition itself stays
+    # importable below parallel/ (only this helper reaches up)
+    from distkeras_tpu_torch.parallel import tensor  # dktlint: disable=layer-forbidden-import
 
     converted = tuple((pat, tensor.P(*axes)) for pat, axes in EP_RULES)
     return converted + tuple(tensor.DEFAULT_RULES)

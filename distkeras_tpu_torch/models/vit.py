@@ -107,7 +107,7 @@ class ViT(nn.Module):
         x = torch.cat([self.cls.expand(b, 1, c).to(self.dtype), x], dim=1)
         x = x + self.pos_embed.to(self.dtype)
         x = self.encoder(x, None, generator)
-        return self.head(x[:, 0])
+        return self.head(x[:, 0].float())
 
 
 def vit_base(**kw) -> ViT:

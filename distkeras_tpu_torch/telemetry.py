@@ -73,7 +73,7 @@ SCHEMA_VERSION = 1
 #: once, name -> instrument kind. Two readers share this dict as the
 #: single source of truth: the runtime (``MetricsRegistry._get`` raises on
 #: a declared name used with the wrong kind) and the dktlint
-#: telemetry-registry checker (``distkeras_tpu/analysis/registry.py``
+#: telemetry-registry checker (``distkeras_tpu_torch/analysis/registry.py``
 #: parses this literal from the AST and cross-checks every producer call
 #: and consumer reference in the repo). Ad-hoc names outside the declared
 #: namespaces (tests, experiments) remain legal — the registry constrains

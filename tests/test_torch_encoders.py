@@ -220,6 +220,23 @@ def test_vit_tiny_loss_and_grads_match_jax(vit_pair):
     _assert_grads_close(grads, want_grads)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vit_head_input_cast_leaves_logits_bitwise(dtype):
+    """The head's ``.float()`` (the precision pin the lint reads) is a
+    no-op: the encoder ends in a float32 LayerNorm, so the logits are
+    bitwise the head on the encoder's class token, as before the cast."""
+    from distkeras_tpu_torch.models.transformer import init_params
+    model = init_params(vit_tiny(dtype=dtype), torch.Generator().manual_seed(0))
+    seen = []
+    model.encoder.register_forward_hook(lambda m, i, out: seen.append(out))
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (2, 16, 16, 3)).astype(np.float32))
+    with torch.no_grad():
+        got = model(x)
+        assert seen[0].dtype == torch.float32
+        assert torch.equal(got, model.head(seen[0][:, 0]))
+
+
 def test_vit_flash_raises_at_197_tokens():
     model = vit_tiny(attention="flash", patch_size=16, image_size=224)
     with pytest.raises(ValueError, match="fits"):

@@ -295,17 +295,24 @@ def test_generic_pipeline_bf16_hops_round_as_jax(jax_generic_step):
 
 
 def test_generic_pipeline_trains():
-    stages = [_DenseRelu(12, 16), _Head(16, 5)]
-    pipe = pp.GenericPipeline(stages, num_microbatches=4, device="cpu")
+    """Starts from its JAX twin's weights (``key(0)``, bridged), so the
+    start does not hang on torch's global generator and on which tests
+    ran before."""
     rng = np.random.default_rng(1)
     y = rng.integers(0, 5, 32)
     batch = {"features": rng.standard_normal((32, 12)).astype(np.float32)
              + y[:, None].astype(np.float32),
              "labels": np.eye(5, dtype=np.float32)[y]}
+    params0 = _np(jpp.GenericPipeline(
+        [_JDenseRelu(16), _JHead(5)], num_microbatches=4).init(
+            jax.random.key(0), batch["features"][:8]))
+    pipe = pp.GenericPipeline([_DenseRelu(12, 16), _Head(16, 5)],
+                              num_microbatches=4, device="cpu")
     pipe.init(batch["features"][:8])
     step, place_params, place_batch = pipe.build_train_step(
         optimizers.get("sgd", 0.2), pp.make_pp_mesh(2, devices=["cpu"] * 2))
-    state, batch = place_params(), place_batch(batch)
+    state = place_params(bridge.pipeline_stages_to_state_dicts(params0))
+    batch = place_batch(batch)
     losses = []
     for _ in range(25):
         state, ms = step(state, batch)
