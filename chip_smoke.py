@@ -387,6 +387,28 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    ``distkeras_tpu`` module. One line gives the files, findings,
    suppressed findings and seconds.
 
+34. axes — the model, sequence and pipeline axes over processes: two
+   ranks of this script (``--axes-child``) on ``cuda:0`` join a gloo
+   group (TF32 off, cuDNN deterministic) and run, each layout as a row a
+   process (each rank two devices) and as one row over both ranks (each
+   one device): (a) phase 29 (b)'s ``PjitTrainer(bert_base(),
+   precision="int8")`` (the int8 product's kernel; a quantizing precision
+   takes the global batch's step on every rank), ranks equal, losses
+   bitwise or within rtol 1e-5 / atol 1e-6 of phase 29 (b)'s, 49 int8
+   launches a step a rank, each rank holding half the sharded bytes on
+   the spanning row; (b) phase 29 (c)'s MoE under the EP rules at workers
+   2 x model 2 (the three flash kernels, 4 launches a step a rank),
+   bitwise phase 29 (c); (c) ``gpt_small(attention="ring")`` bf16 at
+   b=8, T=1,024, workers 2 x seq 2 and 1 x 2, step 1's loss within
+   phase 30 (a)'s bound of its full-attention loss, ranks equal; (d)
+   phase 30 (d)'s PipelinedLM (stages 0-1 and 2-3) and (e)'s
+   GenericPipeline(resnet50()) (stem to stage 2 and stage 3 to head),
+   bitwise phase 30's losses, 212 launches of each GroupNorm kernel over
+   the two ranks. Each run logs samples/s or tokens/s, ms a step, the
+   seconds in cross-process moves, the bytes at rest and the peak memory
+   a rank; the two ranks time-slice one card, so their rates are not two
+   cards'.
+
 The last three lines of standard output are the kernels' JSON, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details are
 also written to ``chiprun_out/chip_smoke.json``.
@@ -5422,14 +5444,14 @@ def _peak_over(dev, base) -> tuple:
     return peak, peak - base
 
 
-def _sp_steps(dev, model, mesh_shape, batch, tx, steps):
+def _sp_steps(dev, model, mesh_shape, batch, tx, steps, devices=None):
     """``steps`` of ``build_sp_train_step`` over a (workers, seq) mesh
-    repeating ``dev``: losses, step seconds, (peak bytes, the run's own
-    peak bytes)."""
+    repeating ``dev`` (``devices``: this process's, in a process group):
+    losses, step seconds, (peak bytes, the run's own peak bytes)."""
     from distkeras_tpu_torch import engine
     from distkeras_tpu_torch.parallel import sequence
 
-    mesh = sequence.make_sp_mesh(*mesh_shape, devices=[dev] * (
+    mesh = sequence.make_sp_mesh(*mesh_shape, devices=devices or [dev] * (
         mesh_shape[0] * mesh_shape[1]))
     step_fn, place_state, place_batch = sequence.build_sp_train_step(
         model, tx, mesh)
@@ -5775,8 +5797,18 @@ def phase_sequence_pipeline(dev, power_line) -> dict:
                                 out["ring"]["losses"][0])
     del start
     out["long"] = _seq_long(dev, power_line)
-    out["pipelined_lm"] = _pipe_lm(dev, power_line)
-    out["generic"] = _pipe_generic(dev, power_line)
+    # cuDNN's deterministic choice, as phase 34's ranks make it: their
+    # pipelines are held to these bit for bit
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        out["pipelined_lm"] = _pipe_lm(dev, power_line)
+        out["generic"] = _pipe_generic(dev, power_line)
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
     out["phase_s"] = time.perf_counter() - t0
     log(f"[seqpipe] phase 30 in {out['phase_s']:.1f} s [{power_line}]")
     return out
@@ -6453,6 +6485,479 @@ def phase_lint(power_line) -> dict:
     return info
 
 
+# -- phase 34: the model, sequence and pipeline axes over processes -----------
+
+#: each rank's hard limit (s): a rank that hangs fails the phase
+AX_CHILD_TIMEOUT_S = 600
+#: (a)'s bound against phase 29 (b)'s one-process losses when not
+#: bitwise, rtol / atol
+AX_RTOL, AX_ATOL = 1e-5, 1e-6
+#: (c)'s adamw steps a layout (phase 30 (a) runs SP_STEPS)
+AX_SP_STEPS = 2
+
+
+class _Moves:
+    """Seconds spent in the cross-process moves (the shard all-gather,
+    the folds, the host-staged sends and receives, the batch gather),
+    counted by wrapping them."""
+
+    def __init__(self):
+        from distkeras_tpu_torch.parallel import collectives, distributed
+
+        self.seconds, self.calls = 0.0, 0
+        for mod, name in ((collectives, "all_gather_flat"),
+                          (collectives, "cross_process_sum"),
+                          (collectives, "_send"), (collectives, "_recv"),
+                          (distributed, "process_allgather"),
+                          (distributed, "broadcast_one_to_all")):
+            setattr(mod, name, self._timed(getattr(mod, name)))
+
+    def _timed(self, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+        return run
+
+    def reset(self) -> None:
+        self.seconds, self.calls = 0.0, 0
+
+
+def _ax_warmup(dev) -> float:
+    """This rank's first CUDA work, before any timed run: the context,
+    cuBLAS, cuDNN and each kernel library's load and first launch, on
+    small inputs (each path zeroes its launch counts before it runs).
+    Returns the seconds it took."""
+    from torch.nn import functional as F
+
+    from distkeras_tpu_torch import precision as precision_lib
+    from distkeras_tpu_torch.ops.attention import apply_attention
+    from distkeras_tpu_torch.ops.kernels import groupnorm as gn
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(0)
+
+    def rand(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen).to(dev, dtype) \
+            .requires_grad_()
+
+    precision_lib.scaled_int8_matmul(
+        rand(64, 768), rand(256, 768, dtype=torch.float32)).float() \
+        .sum().backward()
+    q = rand(2, 128, 12, 64)
+    apply_attention(q, q, q, causal=False, attention="flash").float() \
+        .sum().backward()
+    x = rand(2, 784, 128)
+    gn.group_norm(x, torch.ones(128, device=dev, requires_grad=True),
+                  torch.zeros(128, device=dev, requires_grad=True),
+                  GN_GROUPS).float().sum().backward()
+    F.conv2d(rand(2, 64, 28, 28).contiguous(
+        memory_format=torch.channels_last), rand(64, 64, 3, 3),
+        padding=1).float().sum().backward()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _ax_run(dev, moves, run) -> dict:
+    """``run()`` timed from a barrier to a sync, with the moves' seconds
+    and the peak memory over it (this rank's)."""
+    from distkeras_tpu_torch.parallel import distributed
+
+    distributed.barrier()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    moves.reset()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    out.update(wall_s=time.perf_counter() - t0, move_s=moves.seconds,
+               moves=moves.calls,
+               peak_bytes=torch.cuda.max_memory_allocated(dev))
+    return out
+
+
+def _held_bytes(trainer) -> dict:
+    """This rank's bytes at rest of a PjitTrainer's state: parameters
+    (its shards and the replicated tensors) and optimizer state."""
+    from distkeras_tpu_torch import precision as precision_lib
+    from distkeras_tpu_torch.parallel import tensor
+
+    opt = trainer.state.opt_state
+    inner = opt.inner if isinstance(
+        opt, precision_lib.OverflowGuardState) else opt
+    out = {"params": 0, "opt": 0, "sharded_held": 0, "sharded_whole": 0}
+    for p in trainer.state.params.values():
+        parts = p.shards if isinstance(p, tensor.Sharded) else [p]
+        out["params"] += sum(t.nbytes for t in parts)
+        out["opt"] += sum(v.nbytes for t in parts
+                          for v in inner.state.get(t, {}).values()
+                          if torch.is_tensor(v))
+        if isinstance(p, tensor.Sharded):
+            out["sharded_held"] += sum(t.nbytes for t in parts)
+            out["sharded_whole"] += math.prod(p.shape) * \
+                parts[0].element_size()
+    return out
+
+
+def _ax_pjit(dev, moves, layouts, build, kernels, **kw) -> dict:
+    """(a)/(b): one PjitTrainer epoch a layout (``layouts``: name ->
+    this process's devices and the model axis, or the workers and model
+    sizes) on ``build()``'s (model, dataset)."""
+    from distkeras_tpu_torch.parallel import distributed
+
+    out = {}
+    for name, (workers, model_size, devices) in layouts.items():
+        mesh = distributed.multihost_mesh(
+            num_workers=workers, model_parallelism=model_size,
+            devices=devices)
+        model, ds, loss = build()
+
+        def run():
+            info, trainer = _pjit_run(dev, model, ds, mesh, loss, kernels,
+                                      **kw)
+            info["held"] = _held_bytes(trainer)
+            info["digest"] = _digest(trainer.params, info["losses"])
+            info["owners"] = mesh.device_owners
+            return info
+
+        out[name] = _ax_run(dev, moves, run)
+        del model, ds
+        torch.cuda.empty_cache()
+    return out
+
+
+def _axes_child(rank: int, port: str, work: str) -> int:
+    """One rank of phase 34 (``chip_smoke.py --axes-child RANK PORT
+    DIR``): (a)-(d) in order on ``cuda:0``, the results written to
+    ``DIR/rank{RANK}.json``."""
+    from distkeras_tpu_torch.data.dataset import Dataset
+    from distkeras_tpu_torch.models.gpt import gpt_small, init_params
+    from distkeras_tpu_torch.models.moe import ep_partition_rules
+    from distkeras_tpu_torch.ops import optimizers
+    from distkeras_tpu_torch.ops.kernels import flash_attention as fa
+    from distkeras_tpu_torch.ops.kernels import groupnorm as gn
+    from distkeras_tpu_torch.ops.kernels import int8_matmul as i8
+    from distkeras_tpu_torch.parallel import distributed, pipeline
+
+    dev = torch.device("cuda:0")
+    set_tf32(False)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    distributed.initialize(coordinator_address=f"127.0.0.1:{port}",
+                           num_processes=2, process_id=rank,
+                           local_device_ids=[0], timeout_s=300)
+    _, backend = distributed.fold_group(dev)
+    moves = _Moves()
+    out = {"rank": rank, "fold_backend": backend,
+           "warmup_s": _ax_warmup(dev)}
+    layouts = {"rows": (2, 2, [dev] * 2), "span": (1, 2, [dev])}
+
+    # (a) config 4's BERT-base rows, re-stamped to int8 (phase 29 (b))
+    rows = [_bert_batch(30592, seed=40 + i) for i in range(PJIT_STEPS)]
+    bert_ds = Dataset.from_arrays(
+        features=np.concatenate([r["features"] for r in rows]),
+        label=np.concatenate([r["labels"] for r in rows]))
+    out["int8"] = _ax_pjit(
+        dev, moves, layouts, lambda: (_enc_model("bert"), bert_ds,
+                                      "masked_lm"),
+        (i8.int8_matmul_dequant,), precision="int8",
+        worker_optimizer="adam", learning_rate=1e-4, batch_size=PJIT_B)
+
+    # (b) phase 28 (d)'s MoE under the EP rules (phase 29 (c)'s rows)
+    rng = np.random.default_rng(6)
+    n = PJIT_MOE_B * PJIT_STEPS
+    x = rng.standard_normal((n,) + MOE_SHAPE[1:]).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, n)]
+    moe_ds = Dataset.from_arrays(features=x, label=y)
+    flash = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+             fa.flash_attention_bwd_dkv)
+    out["moe"] = _ax_pjit(
+        dev, moves, {"rows": layouts["rows"]},
+        lambda: (_enc_model("moe", attention="flash"), moe_ds,
+                 "categorical_crossentropy"), flash,
+        partition_rules=ep_partition_rules(), worker_optimizer="adam",
+        learning_rate=1e-4, batch_size=PJIT_MOE_B)
+    del bert_ds, moe_ds
+
+    # (c) gpt_small(attention="ring") bf16 on phase 30's weights and batch
+    start = init_params(gpt_small(), torch.Generator().manual_seed(39)) \
+        .state_dict()
+    batch = _sp_batch(SP_B, SP_T, seed=40)
+    out["ring"] = {}
+    for name, (workers, seq, devices) in layouts.items():
+        ring = gpt_small(attention="ring")
+        ring.load_state_dict(start)
+        ring.to(dev)
+
+        def run():
+            losses, times, _ = _sp_steps(
+                dev, ring, (workers, seq), batch,
+                optimizers.get("adamw", 1e-3), AX_SP_STEPS, devices=devices)
+            return {"losses": losses, "step_s": times,
+                    "param_bytes": sum(p.nbytes for p in ring.parameters())}
+
+        out["ring"][name] = _ax_run(dev, moves, run)
+        del ring
+        torch.cuda.empty_cache()
+    del start
+
+    # (d) phase 30 (d)'s PipelinedLM and (e)'s GenericPipeline(resnet50()),
+    # stages split over the two ranks
+    def pipelined_lm():
+        model = pipeline.PipelinedLM(**PP_LM, num_stages=PP_STAGES,
+                                     dtype=torch.bfloat16,
+                                     device=dev).init(43)
+        mesh = pipeline.make_pp_mesh(PP_STAGES, devices=[dev] * 2)
+        lm_batch = _sp_batch(PP_B, PP_T, seed=44)
+        step_fn, place_params, place_batch = model.build_train_step(
+            optimizers.get("sgd", SP_SGD_LR), mesh, PP_M)
+        _, ms = step_fn(place_params(), place_batch(lm_batch))
+        info = {"loss": float(ms["loss"]), "owners": mesh.device_owners}
+        step_fn, place_params, _ = model.build_train_step(
+            optimizers.get("adamw", 1e-3), mesh, PP_M)
+        state, placed = place_params(), place_batch(lm_batch)
+        losses, times = [], []
+        for _ in range(PP_STEPS):
+            t0 = time.perf_counter()
+            state, ms = step_fn(state, placed)
+            losses.append(float(ms["loss"]))
+            times.append(time.perf_counter() - t0)
+        info.update(losses=losses, step_s=times, param_bytes=sum(
+            p.nbytes for p in model.parameters() if not p.is_meta))
+        return info
+
+    out["pipelined_lm"] = _ax_run(dev, moves, pipelined_lm)
+    torch.cuda.empty_cache()
+
+    def generic():
+        model = _resnet_model("gn", torch.bfloat16, seed=45)
+        parts = _resnet_pipeline_stages(model)
+        pipe = pipeline.GenericPipeline(parts, num_microbatches=GP_M,
+                                        dtype=torch.bfloat16, device=dev)
+        rng = np.random.default_rng(46)
+        feats = rng.standard_normal((GP_B, GP_SIDE, GP_SIDE, 3)).astype(
+            np.float32)
+        labels = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, GP_B)]
+        pipe.init(feats[:GP_B // GP_M])
+        mesh = pipeline.make_pp_mesh(len(parts), devices=[dev] * 3)
+        step_fn, place_params, place_batch = pipe.build_train_step(
+            optimizers.get("adamw", 1e-3), mesh)
+        state = place_params()
+        placed = place_batch({"features": feats, "labels": labels})
+        kernels = (gn.group_norm_fwd, gn.group_norm_bwd)
+        distributed.barrier()
+        torch.cuda.synchronize()
+        for kernel in kernels:
+            kernel.launches = 0
+        t0 = time.perf_counter()
+        _, ms = step_fn(state, placed)
+        loss = float(ms["loss"])
+        return {"loss": loss, "step_s": time.perf_counter() - t0,
+                "launches": {k.__name__: k.launches for k in kernels},
+                "owners": mesh.device_owners,
+                "param_bytes": sum(p.nbytes for p in pipe.stages.parameters()
+                                   if not p.is_meta)}
+
+    out["generic"] = _ax_run(dev, moves, generic)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_axes(dev, power_line, report) -> dict:
+    """Phase 34: the model, sequence and pipeline axes over processes,
+    two ranks of this script on ``cuda:0`` (module docstring), against
+    phases 29 and 30's one-process runs in ``report``."""
+    import socket
+    import tempfile
+
+    t_phase = time.perf_counter()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as work:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = str(s.getsockname()[1])
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--axes-child",
+             str(r), port, work], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, cwd=HERE)
+            for r in (0, 1)]
+        try:
+            outs = [p.communicate(timeout=AX_CHILD_TIMEOUT_S)[0]
+                    for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, text) in enumerate(zip(procs, outs)):
+            for line in text.strip().splitlines()[-12:]:
+                log(f"[axes] rank {r}: {line}")
+            assert p.returncode == 0, f"rank {r} exited {p.returncode}"
+        ranks = []
+        for r in (0, 1):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    a, b = ranks
+    pjit, seq = report["pjit"], report["seqpipe"]
+    one_int8 = pjit["int8"]["model2"]["losses"]
+    one_moe = pjit["moe"]["w2m2"]["losses"]
+
+    def close(got, want) -> bool:
+        return all(abs(u - v) <= AX_ATOL + AX_RTOL * abs(v)
+                   for u, v in zip(got, want)) and len(got) == len(want)
+
+    def launches(part, layout=None):
+        runs = [r[part] if layout is None else r[part][layout]
+                for r in ranks]
+        return {k: sum(run["launches"][k] for run in runs)
+                for k in runs[0]["launches"]}
+
+    info = {"fold_backend": a["fold_backend"], "card": power_line,
+            "ranks": ranks, "time_sliced": "two ranks share one card"}
+    log(f"[axes] two ranks on one card over {a['fold_backend']}: their "
+        f"rates time-slice one card, not two cards'; each rank's first "
+        f"CUDA work (warm-up, untimed) {a['warmup_s']:.1f} / "
+        f"{b['warmup_s']:.1f} s [{power_line}]")
+    for name in ("rows", "span"):
+        ra, rb = a["int8"][name], b["int8"][name]
+        steps = len(ra["losses"])
+        info[f"int8_{name}"] = {
+            "bitwise_one_process": ra["losses"] == one_int8,
+            "close_one_process": close(ra["losses"], one_int8),
+            "samples_per_s": steps * PJIT_B / ra["wall_s"],
+            "tokens_per_s": steps * PJIT_B * ENC_T / ra["wall_s"],
+            "ms_a_step": 1e3 * ra["wall_s"] / steps,
+            "launches": launches("int8", name)}
+        log(f"[axes] (a) bert-base int8 PjitTrainer {name} "
+            f"{ra['owners']}: losses "
+            f"{', '.join(f'{x:.6f}' for x in ra['losses'])} (phase 29 (b) "
+            f"{', '.join(f'{x:.6f}' for x in one_int8)}: bitwise "
+            f"{info[f'int8_{name}']['bitwise_one_process']}), ranks equal "
+            f"{ra['digest'] == rb['digest']}; "
+            f"{info[f'int8_{name}']['samples_per_s']:.1f} samples/s, "
+            f"{info[f'int8_{name}']['tokens_per_s']:.0f} tokens/s, "
+            f"{info[f'int8_{name}']['ms_a_step']:.1f} ms a step, moves "
+            f"{ra['move_s']:.3f} / {rb['move_s']:.3f} s; at rest params "
+            f"{ra['held']['params'] / 2**20:.1f} / "
+            f"{rb['held']['params'] / 2**20:.1f} MiB, optimizer "
+            f"{ra['held']['opt'] / 2**20:.1f} / "
+            f"{rb['held']['opt'] / 2**20:.1f} MiB, sharded "
+            f"{ra['held']['sharded_held'] / 2**20:.1f} of "
+            f"{ra['held']['sharded_whole'] / 2**20:.1f} MiB; peak "
+            f"{ra['peak_bytes'] / 2**30:.2f} / {rb['peak_bytes'] / 2**30:.2f}"
+            f" GiB; int8 launches {info[f'int8_{name}']['launches']} "
+            f"[{power_line}]")
+        assert ra["digest"] == rb["digest"], info
+        assert info[f"int8_{name}"]["close_one_process"], info
+        assert all(run["launches"]["int8_matmul_dequant"] == 49 * steps
+                   for run in (ra, rb)), info
+    span_a, span_b = a["int8"]["span"]["held"], b["int8"]["span"]["held"]
+    assert span_a["sharded_whole"] == 2 * span_a["sharded_held"] == \
+        2 * span_b["sharded_held"] > 0, info
+    assert a["int8"]["rows"]["held"]["sharded_held"] == \
+        span_a["sharded_whole"], info
+    ma, mb_ = a["moe"]["rows"], b["moe"]["rows"]
+    info["moe"] = {"bitwise_one_process": ma["losses"] == one_moe,
+                   "launches": launches("moe", "rows"),
+                   "samples_per_s": len(ma["losses"]) * PJIT_MOE_B
+                   / ma["wall_s"],
+                   "ms_a_step": 1e3 * ma["wall_s"] / len(ma["losses"])}
+    log(f"[axes] (b) moe classifier flash, EP rules, rows {ma['owners']}: "
+        f"losses {', '.join(f'{x:.5f}' for x in ma['losses'])} (phase 29 "
+        f"(c) {', '.join(f'{x:.5f}' for x in one_moe)}: bitwise "
+        f"{info['moe']['bitwise_one_process']}), ranks equal "
+        f"{ma['digest'] == mb_['digest']}, "
+        f"{info['moe']['samples_per_s']:.1f} samples/s, "
+        f"{info['moe']['ms_a_step']:.1f} ms a step, moves "
+        f"{ma['move_s']:.3f} s, peak {ma['peak_bytes'] / 2**30:.2f} / "
+        f"{mb_['peak_bytes'] / 2**30:.2f} GiB; flash launches "
+        f"{info['moe']['launches']} [{power_line}]")
+    assert ma["digest"] == mb_["digest"], info
+    assert info["moe"]["bitwise_one_process"], info
+    assert all(v == 4 * PJIT_STEPS for run in (ma, mb_)
+               for v in run["launches"].values()), info
+    full_loss = seq["ring"]["full_loss"]
+    for name in ("rows", "span"):
+        ra, rb = a["ring"][name], b["ring"][name]
+        med = statistics.median(ra["step_s"])
+        info[f"ring_{name}"] = {
+            "rel_vs_full": _rel(ra["losses"][0], full_loss),
+            "rel_vs_phase30": _rel(ra["losses"][0],
+                                   seq["ring"]["losses"][0]),
+            "tokens_per_s": SP_B * SP_T / med, "ms_a_step": 1e3 * med}
+        log(f"[axes] (c) gpt_small ring bf16 {name}, b={SP_B}, T={SP_T}: "
+            f"losses {', '.join(f'{x:.5f}' for x in ra['losses'])}, step 1 "
+            f"against attention='full' (phase 30 (a)) "
+            f"{info[f'ring_{name}']['rel_vs_full']:.3e} (bound "
+            f"{SP_FULL_REL}), against phase 30 (a)'s ring "
+            f"{info[f'ring_{name}']['rel_vs_phase30']:.3e}; ranks equal "
+            f"{ra['losses'] == rb['losses']}; "
+            f"{info[f'ring_{name}']['tokens_per_s']:.0f} tokens/s, "
+            f"{info[f'ring_{name}']['ms_a_step']:.1f} ms a step (median), "
+            f"moves {ra['move_s']:.3f} s over {len(ra['losses'])} steps; "
+            f"params {ra['param_bytes'] / 2**20:.1f} MiB a rank; peak "
+            f"{ra['peak_bytes'] / 2**30:.2f} / {rb['peak_bytes'] / 2**30:.2f}"
+            f" GiB [{power_line}]")
+        assert ra["losses"] == rb["losses"], info
+        assert all(math.isfinite(x) for x in ra["losses"]), info
+        assert info[f"ring_{name}"]["rel_vs_full"] <= SP_FULL_REL, info
+    la, lb = a["pipelined_lm"], b["pipelined_lm"]
+    want = [seq["pipelined_lm"]["loss"]] + seq["pipelined_lm"]["losses"]
+    med = statistics.median(la["step_s"][1:])
+    info["pipelined_lm"] = {
+        "bitwise_phase30": [la["loss"]] + la["losses"] == want,
+        "tokens_per_s": PP_B * PP_T / med, "ms_a_step": 1e3 * med}
+    log(f"[axes] (d) PipelinedLM {PP_STAGES} stages {la['owners']}, M="
+        f"{PP_M}: sgd step loss {la['loss']:.6f}, adamw "
+        f"{', '.join(f'{x:.5f}' for x in la['losses'])} (phase 30 (d) "
+        f"{', '.join(f'{x:.5f}' for x in want)}: bitwise "
+        f"{info['pipelined_lm']['bitwise_phase30']}), ranks equal "
+        f"{[la['loss']] + la['losses'] == [lb['loss']] + lb['losses']}; "
+        f"{info['pipelined_lm']['tokens_per_s']:.0f} tokens/s, "
+        f"{info['pipelined_lm']['ms_a_step']:.1f} ms a step (median), hops "
+        f"{la['move_s']:.3f} / {lb['move_s']:.3f} s over "
+        f"{1 + len(la['losses'])} steps; params "
+        f"{la['param_bytes'] / 2**20:.1f} / {lb['param_bytes'] / 2**20:.1f}"
+        f" MiB; peak {la['peak_bytes'] / 2**30:.2f} / "
+        f"{lb['peak_bytes'] / 2**30:.2f} GiB [{power_line}]")
+    assert [la["loss"]] + la["losses"] == [lb["loss"]] + lb["losses"], info
+    assert info["pipelined_lm"]["bitwise_phase30"], info
+    ga, gb = a["generic"], b["generic"]
+    info["generic"] = {"bitwise_phase30": ga["loss"] ==
+                       seq["generic"]["loss"],
+                       "launches": launches("generic"),
+                       "samples_per_s": GP_B / ga["step_s"],
+                       "ms_a_step": 1e3 * ga["step_s"]}
+    log(f"[axes] (d) GenericPipeline(resnet50()) {ga['owners']}, b={GP_B} "
+        f"at {GP_SIDE}^2, M={GP_M}: loss {ga['loss']:.6f} (phase 30 (e) "
+        f"{seq['generic']['loss']:.6f}: bitwise "
+        f"{info['generic']['bitwise_phase30']}), ranks equal "
+        f"{ga['loss'] == gb['loss']}; {info['generic']['samples_per_s']:.1f}"
+        f" samples/s, {info['generic']['ms_a_step']:.1f} ms a step, hops "
+        f"{ga['move_s']:.3f} / {gb['move_s']:.3f} s; params "
+        f"{ga['param_bytes'] / 2**20:.1f} / {gb['param_bytes'] / 2**20:.1f}"
+        f" MiB; peak {ga['peak_bytes'] / 2**30:.2f} / "
+        f"{gb['peak_bytes'] / 2**30:.2f} GiB; GroupNorm launches "
+        f"{ga['launches']} + {gb['launches']} = "
+        f"{info['generic']['launches']} [{power_line}]")
+    assert ga["loss"] == gb["loss"], info
+    assert info["generic"]["bitwise_phase30"], info
+    assert all(v == 53 * GP_M for v in info["generic"]["launches"].values()), \
+        info
+    assert a["fold_backend"] == b["fold_backend"] == "gloo", info
+    info["phase_s"] = time.perf_counter() - t_phase
+    log(f"[axes] phase 34 in {info['phase_s']:.1f} s [{power_line}]")
+    return info
+
+
 #: seconds each phase took, in run order (logged and in the report)
 PHASE_SECONDS = {}
 
@@ -6542,6 +7047,7 @@ def main() -> int:
             "multiprocess", phase_multiprocess, dev, card,
             report["async"]["bench"]["k2"]["samples_per_s"])
         report["lint"] = t("lint", phase_lint, card)
+        report["axes"] = t("axes", phase_axes, dev, card, report)
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         log("[chip_smoke] FAILED")
@@ -6612,6 +7118,9 @@ def main() -> int:
         # before, read after)
         rows[-1]["launches_pjit"] = report["pjit"]["moe"]["w2m2"][
             "launches"][name]
+        # phase 34 (b): the MoE at workers 2 x model 2 over two ranks
+        # (each zeroed before its run, read after; both ranks' sum)
+        rows[-1]["launches_axes"] = report["axes"]["moe"]["launches"][name]
         if name == "flash_attention_fwd":
             rows[-1]["launches_mesh_serving"] = report["pjit"]["serving"][
                 "launches"]
@@ -6635,6 +7144,11 @@ def main() -> int:
         # model 2 (zeroed before, read after)
         "launches_pjit": report["pjit"]["int8"]["model2"]["launches"][
             "int8_matmul_dequant"],
+        # phase 34 (a): the same over two ranks, a row each and a row
+        # over both (each zeroed before its run, read after; both ranks'
+        # sum over both layouts)
+        "launches_axes": sum(report["axes"][f"int8_{k}"]["launches"][
+            "int8_matmul_dequant"] for k in ("rows", "span")),
     })
     stem = next(c for c in report["gn_cases"]
                 if c["shape"] == [128, 12544, 64]
@@ -6665,6 +7179,9 @@ def main() -> int:
             # before its step, read after)
             "launches_pipeline": report["seqpipe"]["generic"]["launches"][
                 name],
+            # phase 34 (d): the same pipeline's stages over two ranks
+            # (each zeroed before its step, read after; both ranks' sum)
+            "launches_axes": report["axes"]["generic"]["launches"][name],
         })
     kernels = {"kernels": rows}
     report["phase_seconds"] = PHASE_SECONDS
@@ -6683,4 +7200,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mp-child"]:
         sys.exit(_mp_child(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--axes-child"]:
+        sys.exit(_axes_child(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     sys.exit(main())

@@ -58,9 +58,14 @@ takes a LIST of per-shard ``[batch, t]`` id blocks, block ``j`` holding
 global positions ``j * t ... (j + 1) * t``, and returns the list of
 their logits. Every layer runs block by block, in step across the
 shards, each block computed on its shard's device (which must be the
-parameters' device: one copy of the weights, as a mesh that repeats
-``cuda:0`` has it), and its attention folds the blocks' q/k/v through
-:func:`~distkeras_tpu_torch.ops.ring_attention.ring_attention`. Block
+parameters' device: one copy of the weights a process, as a mesh that
+repeats ``cuda:0`` has it), and its attention folds the blocks' q/k/v
+through :func:`~distkeras_tpu_torch.ops.ring_attention.ring_attention`.
+A block that another process holds is a
+:class:`~distkeras_tpu_torch.ops.ring_attention.Remote` in the list, and
+in the returned list: this process computes its own blocks only, and
+the ring's hops cross to the other processes (no ``remat`` then: a
+recompute would repeat the hops). Block
 ``j`` adds rows ``j * t ... (j + 1) * t`` of the position table; a
 global length ``t * shards`` past ``max_len`` raises ValueError before
 any row is sliced (a torch slice would silently come up short). The
@@ -90,7 +95,7 @@ from distkeras_tpu_torch.models.transformer import (LN_EPS, Dense, Embed,
 from distkeras_tpu_torch.ops.attention import (apply_attention,
                                                dot_product_attention)
 from distkeras_tpu_torch.ops.kernels import flash_attention as fa
-from distkeras_tpu_torch.ops.ring_attention import ring_attention
+from distkeras_tpu_torch.ops.ring_attention import is_remote, ring_attention
 
 
 class CausalSelfAttention(nn.Module):
@@ -114,9 +119,11 @@ class CausalSelfAttention(nn.Module):
 
     def forward(self, x, cache=None, cache_index=None, page_table=None):
         if isinstance(x, (list, tuple)):  # the ring: one block a shard
-            qs, ks, vs = zip(*(self._heads(xi) for xi in x))
+            qs, ks, vs = zip(*((xi,) * 3 if is_remote(xi) else
+                               self._heads(xi) for xi in x))
             out = ring_attention(qs, ks, vs, causal=True)
-            return [self.out(o.flatten(2)) for o in out]
+            return [o if is_remote(o) else self.out(o.flatten(2))
+                    for o in out]
         if cache is None and self.attention == "ring":
             raise ValueError(
                 "attention='ring' runs over sequence shards: call the model "
@@ -295,10 +302,10 @@ class DecoderBlock(nn.Module):
 
     def forward(self, x, cache=None, cache_index=None, page_table=None):
         if isinstance(x, (list, tuple)):  # the ring, in step over shards
-            ys = self.attn([self.ln1(xi.float()).to(self.dtype) for xi in x])
-            x = [xi + yi for xi, yi in zip(x, ys)]
-            return [xi + self.mlp(self.ln2(xi.float()).to(self.dtype))
-                    for xi in x]
+            ys = self.attn([xi if is_remote(xi) else
+                            self.ln1(xi.float()).to(self.dtype) for xi in x])
+            return [xi if is_remote(xi) else self._ring_tail(xi + yi)
+                    for xi, yi in zip(x, ys)]
         y = self.ln1(x.float()).to(self.dtype)
         if cache is not None:
             y, new_cache = self.attn(y, cache, cache_index, page_table)
@@ -307,6 +314,9 @@ class DecoderBlock(nn.Module):
         x = x + y
         x = x + self.mlp(self.ln2(x.float()).to(self.dtype))
         return x if new_cache is None else (x, new_cache)
+
+    def _ring_tail(self, x):
+        return x + self.mlp(self.ln2(x.float()).to(self.dtype))
 
 
 class CausalLM(nn.Module):
@@ -373,27 +383,39 @@ class CausalLM(nn.Module):
         if self.attention != "ring":
             raise ValueError(f"a list of sequence shards needs "
                              f"attention='ring', got {self.attention!r}")
-        num, t = len(blocks), blocks[0].shape[1]
-        if any(b.shape != blocks[0].shape for b in blocks):
+        num, own = len(blocks), [b for b in blocks if not is_remote(b)]
+        if not own:
+            raise ValueError("a ring forward needs one block of this "
+                             "process at least")
+        t = own[0].shape[1]
+        if any(b.shape != own[0].shape for b in own):
             raise ValueError("sequence shards must be equal blocks")
         # before any slicing: a short slice of the table would not fail
         if t * num > self.max_len:
             raise ValueError(f"global sequence {t}*{num} exceeds max_len "
                              f"{self.max_len}")
         home = self.pos_embed.device
-        if any(b.device != home for b in blocks):
+        if any(b.device != home for b in own):
             raise ValueError(
-                f"sequence shards on {[str(b.device) for b in blocks]}, the "
-                f"parameters on {home}: each shard computes on the "
-                f"parameters' device (one copy of the weights; replicas on "
-                f"distinct cards are not ported)")
+                f"sequence shards on {[str(b.device) for b in own]}, the "
+                f"parameters on {home}: each shard of this process computes "
+                f"on the parameters' device (one copy of the weights a "
+                f"process)")
+        if len(own) < num and self.remat != "none":
+            raise ValueError(
+                f"remat={self.remat!r} over a ring that spans processes: a "
+                f"recompute would repeat the ring's hops")
         xs = []
         for j, ids in enumerate(blocks):
+            if is_remote(ids):
+                xs.append(ids)
+                continue
             x = remat_call(self.tok_embed, self.remat, ids.long(), stem=True)
             xs.append(x + self.pos_embed[j * t:(j + 1) * t].to(self.dtype))
         for block in self.layers:
             xs = remat_call(block, self.remat, xs)
-        return [self.lm_head(self.ln_final(x.float())) for x in xs]
+        return [x if is_remote(x) else self.lm_head(self.ln_final(x.float()))
+                for x in xs]
 
 
 def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -187,7 +187,9 @@ class Lamb(_OptaxOptimizer):
     :func:`~distkeras_tpu_torch.parallel.tensor.param_groups` builds):
     their ratio is the whole tensor's, taken on the concatenated ``p`` and
     ``u`` as GSPMD takes it over the logical array, so a sharded step
-    gives the unsharded one's bits."""
+    gives the unsharded one's bits. Where other processes hold some of
+    the shards, the group's ``shard_join`` (this process's shards -> the
+    whole tensor, a collective) takes the place of the concatenation."""
 
     def __init__(self, params, lr: float = 0.01, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-6, eps_root: float = 0.0,
@@ -229,9 +231,9 @@ class Lamb(_OptaxOptimizer):
         us = [self._update(p, p.grad, self._state(p, group), group)
               for p in shards]
         home = shards[0].device  # the ratio before any shard moves
-        ratio = self._trust_ratio(
-            torch.cat([p.to(home) for p in shards], dim=dim),
-            torch.cat([u.to(home) for u in us], dim=dim))
+        join = group.get("shard_join") or (lambda ts: torch.cat(
+            [t.to(home) for t in ts], dim=dim))
+        ratio = self._trust_ratio(join(shards), join(us))
         for p, u in zip(shards, us):
             p.add_(-group["lr"] * (u * ratio.to(p.device)))
 

@@ -8,11 +8,16 @@ unnormalized output ``o``, all float32), so a shard never holds more
 than a ``[B, H, T/P, T/P]`` block of logits.
 
 In the JAX package the k/v blocks ride ``ppermute`` around the ring
-inside ``shard_map``. The port runs every shard in one process: after
-each fold the k/v blocks (and ``kv_mask``) hop to the next shard's
-device with ``.to()``, which is that ``ppermute`` (a no-op copy where a
-mesh repeats a device). There are P - 1 hops; the last fold has no
-wrap-around hop, as in JAX. The fold is torch ops, as JAX's is jnp:
+inside ``shard_map``. In the port, after each fold the k/v blocks (and
+``kv_mask``) hop to the next shard's device: with ``.to()`` between
+shards of one process (a no-op copy where a mesh repeats a device), and
+through :func:`~distkeras_tpu_torch.parallel.collectives.hop` (a
+``torch.autograd.Function``: send and receive over gloo, its backward
+the ``ppermute``'s transpose) where the next shard is another process's.
+A shard another process holds is a :class:`Remote` in the block lists:
+each process folds only its own blocks, in the same order as one process
+folds them all, so its outputs are the one-process ring's bits. There
+are P - 1 hops; the last fold has no wrap-around hop, as in JAX. The fold is torch ops, as JAX's is jnp:
 there is no Pallas kernel on this path.
 
 Arithmetic mirrors the JAX function: ``q . k`` in the input dtype, then
@@ -24,9 +29,78 @@ that no key reaches gives 0; the output is cast to ``q``'s dtype.
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional, Sequence
 
 import torch
+
+from distkeras_tpu_torch.parallel import collectives
+
+
+class Remote:
+    """A sequence shard that another process (``rank``) holds: its place
+    in the block lists of :func:`ring_attention` and of gpt's ring
+    forward."""
+
+    __slots__ = ("rank",)
+
+    def __init__(self, rank: int):
+        self.rank = int(rank)
+
+    def __repr__(self) -> str:
+        return f"Remote({self.rank})"
+
+
+def is_remote(x) -> bool:
+    return isinstance(x, Remote)
+
+
+#: the next tag of a ring's cross-process hops; every process runs the
+#: same rings in the same order, so the same hop draws the same tags
+_TAGS = itertools.count()
+
+
+def reset_hop_tags() -> None:
+    """Restart the hops' tags (every process at the same point: the start
+    of a step)."""
+    global _TAGS
+    _TAGS = itertools.count()
+
+
+def _hop_blocks(kinds: Sequence[list], num: int) -> list:
+    """The ``ppermute`` i -> i + 1 of each list of ``kinds`` (blocks of
+    k, v, mask): shard ``i`` then holds shard ``i - 1``'s block, moved
+    with ``.to()`` inside this process and through one
+    :func:`collectives.hop` for the blocks that cross to or from
+    another process's shard."""
+    first = kinds[0]
+    out = [[None] * num for _ in kinds]
+    base = next(_TAGS) * num * len(kinds)
+    sends, recvs, slots = [], [], []
+    for i in range(num):
+        src = (i - 1) % num
+        if is_remote(first[i]):
+            if not is_remote(first[src]):  # this process's block leaves
+                for c, blocks in enumerate(kinds):
+                    sends.append((blocks[src], first[i].rank,
+                                  base + src * len(kinds) + c))
+            for c in range(len(kinds)):
+                out[c][i] = first[i]
+            continue
+        if not is_remote(first[src]):
+            for c, blocks in enumerate(kinds):
+                out[c][i] = blocks[src].to(first[i].device)
+            continue
+        for c, blocks in enumerate(kinds):  # the block arrives
+            like = blocks[i]
+            recvs.append((first[src].rank, base + src * len(kinds) + c,
+                          like.shape, like.dtype, like.device))
+            slots.append((c, i))
+    if sends or recvs:
+        _, got = collectives.hop(sends, recvs)
+        for (c, i), t in zip(slots, got):
+            out[c][i] = t
+    return out
 
 
 def _block_update(logits, m, l, o, v):
@@ -73,7 +147,9 @@ def ring_attention(q: Sequence[torch.Tensor], k: Sequence[torch.Tensor],
     ``q[i]``: ``[B, Tq, H, D]``; ``k[i]``/``v[i]``: ``[B, Tk, H, D]``;
     ``kv_mask[i]``: ``[B, Tk]`` bool (padding), or None. Block order
     follows global positions. Returns the P output blocks, each on its
-    shard's device in ``q[i]``'s dtype.
+    shard's device in ``q[i]``'s dtype. A block another process holds is
+    a :class:`Remote` in every list (and in the output): that process
+    calls this function with the same lists, its own blocks in them.
     """
     num = len(q)
     if not (len(k) == len(v) == num) or (kv_mask is not None
@@ -81,6 +157,9 @@ def ring_attention(q: Sequence[torch.Tensor], k: Sequence[torch.Tensor],
         raise ValueError("q, k, v (and kv_mask) need one block a shard")
     acc = []
     for qi in q:
+        if is_remote(qi):
+            acc.append(None)
+            continue
         b, tq, h, d = qi.shape
         acc.append((
             torch.full((b, h, tq), float("-inf"), dtype=torch.float32,
@@ -92,19 +171,25 @@ def ring_attention(q: Sequence[torch.Tensor], k: Sequence[torch.Tensor],
     held_mask = None if kv_mask is None else list(kv_mask)
     for step in range(num):
         for i in range(num):
+            if is_remote(q[i]):
+                continue
             mask_i = None if held_mask is None else held_mask[i]
             acc[i] = _fold(q[i], held_k[i], held_v[i], i,
                            (i - step) % num, causal, mask_i, acc[i])
         if step == num - 1:
             break  # the wrap-around hop would be discarded
         # the ppermute i -> i + 1: shard i now holds shard i - 1's block
-        hop = lambda blocks: [blocks[(i - 1) % num].to(q[i].device)
-                              for i in range(num)]
-        held_k, held_v = hop(held_k), hop(held_v)
+        kinds = [held_k, held_v] + ([] if held_mask is None else [held_mask])
+        moved = _hop_blocks(kinds, num)
+        held_k, held_v = moved[0], moved[1]
         if held_mask is not None:
-            held_mask = hop(held_mask)
+            held_mask = moved[2]
     out = []
-    for qi, (_, l, o) in zip(q, acc):
+    for qi, a in zip(q, acc):
+        if a is None:
+            out.append(qi)
+            continue
+        _, l, o = a
         l_o = l.transpose(1, 2)[..., None]
         out.append(torch.where(l_o > 0, o / torch.clamp(l_o, min=1e-30),
                                0.0).to(qi.dtype))
@@ -121,6 +206,10 @@ def ring_attention_sharded(q: torch.Tensor, k: torch.Tensor,
     :class:`~distkeras_tpu_torch.parallel.mesh.Mesh`, e.g. from
     :func:`~distkeras_tpu_torch.parallel.sequence.make_sp_mesh`), run
     through :func:`ring_attention`, and joined on ``q``'s device."""
+    if mesh.spans_processes:
+        raise ValueError(
+            "ring_attention_sharded joins the blocks in one process; over "
+            "processes call ring_attention with Remote blocks")
     devices = mesh.axis_devices(axis_name)
     num = len(devices)
     if q.shape[1] % num or k.shape[1] % num:

@@ -19,6 +19,23 @@ one collective a bucket of the same buckets. With one worker a process,
 or whenever the partials' order of additions is the one-process fold's,
 the result is the one-process fold's bits; else it differs by the
 reassociation of a float32 sum.
+
+Two more moves cross processes, both over the same gloo group and staged
+through the host for a card tensor:
+
+- :func:`all_gather_flat` gathers every process's tensors (the shards of a
+  model axis that spans processes); gloo has no reduce-scatter, and a
+  shard's gradient needs none (every process of a row computes the row's
+  whole gradient);
+- :func:`hop` sends tensors to other processes and receives theirs as a
+  ``torch.autograd.Function`` (JAX's ``ppermute`` and its transpose): the
+  forward posts the sends and waits for the receives, the backward sends
+  each received tensor's gradient back and receives the gradients of the
+  sent ones. Each message has a tag of its own (the forward's ``2 *
+  tag``, the backward's ``2 * tag + 1``), so the order in which two
+  processes' autograd engines reach their hops cannot mismatch a message.
+  A send is waited only at :func:`flush_hops`, after the backward: no
+  process blocks on a peer that has not yet posted its receive.
 """
 
 from __future__ import annotations
@@ -148,3 +165,112 @@ def cross_process_sum(tree: dict, bucket_bytes: Optional[int] = None) -> dict:
                 out[n] = flat[at:at + t.numel()].view(t.shape)
                 at += t.numel()
     return {n: out[n] for n in names}
+
+
+@torch.no_grad()
+def all_gather_flat(tensors: Sequence[torch.Tensor]) -> list:
+    """Every process's ``tensors`` (the same count, shapes and dtypes on
+    every process), as a list a process in rank order of its tensors, on
+    the devices of this process's: one all-gather a dtype over the gloo
+    group, a card's tensors staged through one pinned host buffer.
+    Outside a group: ``[list(tensors)]``."""
+    tensors = list(tensors)
+    if distributed.process_count() == 1:
+        return [tensors]
+    cards = [t.device for t in tensors if t.is_cuda]
+    group, _ = distributed.fold_group(cards[0] if cards else None)
+    count = distributed.process_count()
+    out = [[None] * len(tensors) for _ in range(count)]
+    by_dtype: dict = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for dtype, idxs in by_dtype.items():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idxs])
+        if flat.is_cuda:
+            host = _staging(flat.numel(), dtype)
+            host.copy_(flat)
+        else:
+            host = flat
+        parts = [torch.empty_like(host) for _ in range(count)]
+        torch.distributed.all_gather(parts, host, group=group)
+        for r, part in enumerate(parts):
+            part = part.to(flat.device)
+            at = 0
+            for i in idxs:
+                t = tensors[i]
+                out[r][i] = part[at:at + t.numel()].view(t.shape)
+                at += t.numel()
+    return out
+
+
+#: sends a hop posted whose completion is waited at flush_hops
+_PENDING: list = []
+
+
+def _send(t: torch.Tensor, dst: int, tag: int) -> None:
+    # a host copy of its own, which gloo keeps until the send completes
+    host = t.detach().to("cpu", copy=True).contiguous()
+    _PENDING.append((torch.distributed.isend(host, int(dst), tag=tag),
+                     host))
+
+
+def _recv(src: int, tag: int, shape, dtype, device) -> torch.Tensor:
+    host = torch.empty(tuple(shape), dtype=dtype)
+    torch.distributed.irecv(host, int(src), tag=tag).wait()
+    return host.to(device)
+
+
+def flush_hops() -> None:
+    """Wait for every send the hops posted (call after the backward that
+    closes a step, on every process)."""
+    while _PENDING:
+        work, _ = _PENDING.pop(0)
+        work.wait()
+
+
+class _Hop(torch.autograd.Function):
+    """``forward(ctx, plan, anchor, *sends) -> (token, *received)``
+    (:func:`hop`)."""
+
+    @staticmethod
+    def forward(ctx, plan, anchor, *sends):
+        ctx.plan = plan
+        ctx.sent = [(t.shape, t.dtype, t.device) for t in sends]
+        for t, (dst, tag) in zip(sends, plan[0]):
+            _send(t, dst, 2 * tag)
+        got = [_recv(src, 2 * tag, shape, dtype, device)
+               for src, tag, shape, dtype, device in plan[1]]
+        ctx.mark_non_differentiable(*[g for g in got
+                                      if not g.is_floating_point()])
+        return (anchor.new_zeros(()), *got)
+
+    @staticmethod
+    def backward(ctx, _token_grad, *grads):
+        sends, recvs = ctx.plan
+        for g, (src, tag, _, dtype, _) in zip(grads, recvs):
+            if dtype.is_floating_point:
+                _send(g, src, 2 * tag + 1)
+        back = [_recv(dst, 2 * tag + 1, shape, dtype, device)
+                if dtype.is_floating_point else None
+                for (dst, tag), (shape, dtype, device) in zip(sends,
+                                                              ctx.sent)]
+        return (None, None, *back)
+
+
+def hop(sends: Sequence[tuple] = (), recvs: Sequence[tuple] = ()) -> tuple:
+    """Move tensors between processes, differentiably: ``sends`` are
+    ``(tensor, dst_process, tag)``, ``recvs`` ``(src_process, tag, shape,
+    dtype, device)``; a send and its receive carry the same tag. Returns
+    ``(token, received)``: ``received`` in ``recvs``' order, and ``token``
+    a zero scalar that a process whose hop only sends adds to what it
+    calls backward on, so that the hop's backward runs and receives the
+    gradients of what it sent. Under grad mode every floating tensor of a
+    hop must take part in the backward on both sides (both processes call
+    it); a send's completion is waited at :func:`flush_hops`."""
+    plan = (tuple((int(dst), int(tag)) for _, dst, tag in sends),
+            tuple((int(src), int(tag), tuple(shape), dtype,
+                   torch.device(device))
+                  for src, tag, shape, dtype, device in recvs))
+    anchor = torch.zeros((), requires_grad=torch.is_grad_enabled())
+    out = _Hop.apply(plan, anchor, *[t for t, _, _ in sends])
+    return out[0], list(out[1:])

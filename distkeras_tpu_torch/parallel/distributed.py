@@ -25,7 +25,8 @@ every process's devices. The port's counterpart of that service is a
   512-byte address payload is one). Nothing here pickles: no
   ``*_object`` collective is used, so nothing on a wire can execute code;
 - :func:`multihost_mesh` is :func:`~distkeras_tpu_torch.parallel.mesh.make_mesh`,
-  which spans every process's devices inside a group;
+  which spans every process's devices inside a group, model axis
+  included (a row inside a process, or across processes);
 - :func:`determine_host_address` reads this host's address from its own
   name and never opens a socket to another host (the JAX helper connects
   a UDP socket towards a public address to pick an interface).
@@ -145,12 +146,14 @@ def process_allgather(value) -> np.ndarray:
     return np.stack([o.numpy().reshape(arr.shape) for o in out])
 
 
-def broadcast_one_to_all(value):
-    """Process 0's ``value`` on every process: a numpy array (same shape
-    and dtype everywhere), or a name -> array dict (each leaf broadcast in
-    key order). Outside a group: ``value`` unchanged."""
+def broadcast_one_to_all(value, source: int = 0):
+    """Process ``source``'s ``value`` (process 0's by default) on every
+    process: a numpy array (same shape and dtype everywhere), or a name
+    -> array dict (each leaf broadcast in key order). Outside a group:
+    ``value`` unchanged."""
     if isinstance(value, dict):
-        return {k: broadcast_one_to_all(value[k]) for k in sorted(value)}
+        return {k: broadcast_one_to_all(value[k], source)
+                for k in sorted(value)}
     if isinstance(value, torch.Tensor):
         value = value.detach().cpu().numpy()
     arr = np.ascontiguousarray(np.asarray(value))
@@ -158,7 +161,7 @@ def broadcast_one_to_all(value):
         return arr
     _require_gloo()
     t = torch.from_numpy(arr.reshape(-1).copy())
-    torch.distributed.broadcast(t, src=0)
+    torch.distributed.broadcast(t, src=int(source))
     return t.numpy().reshape(arr.shape)
 
 
@@ -226,7 +229,8 @@ def multihost_mesh(num_workers: Optional[int] = None,
     """The (workers, model) mesh over every process's devices:
     :func:`~distkeras_tpu_torch.parallel.mesh.make_mesh`, whose ``devices``
     (default ``[cuda:0]``) are this process's, every process passing as
-    many. In one process, the one-process mesh."""
+    many, reshaped row-major into (workers, model) as JAX reshapes
+    ``jax.devices()``. In one process, the one-process mesh."""
     from distkeras_tpu_torch.parallel import mesh as mesh_lib
 
     return mesh_lib.make_mesh(num_workers, model_parallelism=model_parallelism,

@@ -17,15 +17,20 @@ and :mod:`~distkeras_tpu_torch.parallel.pipeline`'s one row of
 
 Inside a ``torch.distributed`` group of P processes a mesh spans them:
 :func:`make_mesh` lays every process's ``devices`` (each process passes
-as many) end to end in rank order, and ``Mesh.owners[w]`` is the process
-that runs worker row ``w``. A row owned by another process names that
-process's device in its own numbering (``cuda:0`` on each of two hosts);
-this process touches only its own rows (:func:`local_worker_positions`),
-and :attr:`Mesh.home` is its first own row's device. A mesh built by
-hand (``Mesh(devices)``) belongs to the process that builds it. The model
-axis (> 1) over processes, and sequence and pipeline meshes over
-processes, wait for a host with several cards (ROADMAP.md Queue A,
-item 16 part 4).
+as many) end to end in rank order, row-major, as JAX reshapes
+``jax.devices()`` into (workers, model). Ownership is per device:
+``Mesh.device_owners[w][m]`` is the process that holds ``grid[w][m]``, and
+``Mesh.owners[w]`` is the process of row ``w``'s first device (the row's
+lead). A device owned by another process names that process's device in
+its own numbering (``cuda:0`` on each of two hosts). Two layouts come out
+of it: with ``model_parallelism`` dividing a process's device count, rows
+lie inside a process; with a process's device count dividing
+``model_parallelism``, a row spans whole processes (one device a process
+at model 2 over two processes: a 1 x 2 mesh whose row both hold). A
+worker row is local to every process that holds one of its devices
+(:func:`local_worker_positions`, JAX's rule), and :attr:`Mesh.home` is
+this process's first own device. A mesh built by hand (``Mesh(devices)``)
+belongs to the process that builds it.
 
 The substrate runs ``K = D * factor`` logical workers on a mesh of D
 worker devices: worker ``k`` lives on ``devices[k // factor]``. On a host
@@ -72,13 +77,20 @@ class Mesh:
                      for i in range(0, len(flat), model_parallelism)]
         #: the workers axis: each worker's first device
         self.devices = [row[0] for row in self.grid]
-        #: ``owners[w]``: the process that runs worker row ``w`` (a mesh
-        #: built by hand belongs to the process that builds it)
-        self.owners = [distributed.process_index()] * len(self.grid) if owners is None \
-            else [int(o) for o in owners]
-        if len(self.owners) != len(self.grid):
-            raise ValueError(f"{len(self.owners)} owners for "
-                             f"{len(self.grid)} worker rows")
+        me = distributed.process_index()
+        if owners is None:  # a mesh built by hand is this process's
+            owners = [me] * len(flat)
+        owners = [int(o) for o in owners]
+        if len(owners) != len(flat):
+            raise ValueError(f"{len(owners)} owners for {len(flat)} "
+                             f"devices")
+        #: ``device_owners[w][m]``: the process that holds ``grid[w][m]``
+        self.device_owners = [owners[i:i + model_parallelism]
+                              for i in range(0, len(owners),
+                                             model_parallelism)]
+        #: ``owners[w]``: the process of row ``w``'s first device (the
+        #: row's lead, which counts the row in a fold over processes)
+        self.owners = [row[0] for row in self.device_owners]
 
     @property
     def shape(self) -> dict:
@@ -95,18 +107,45 @@ class Mesh:
     @property
     def home(self) -> torch.device:
         """The device the center (the parameter server's state) and the
-        metrics live on: this process's first worker's (the first
+        metrics live on: this process's first own device (the first
         worker's in one process)."""
         me = distributed.process_index()
-        for dev, owner in zip(self.devices, self.owners):
-            if owner == me:
-                return dev
+        for row, owners in zip(self.grid, self.device_owners):
+            for dev, owner in zip(row, owners):
+                if owner == me:
+                    return dev
         return self.devices[0]
 
     @property
     def spans_processes(self) -> bool:
-        """True when another process owns a worker row."""
-        return len(set(self.owners)) > 1
+        """True when another process holds a device of the mesh."""
+        return len({o for row in self.device_owners for o in row}) > 1
+
+    def owns(self, worker: int, model: int = 0) -> bool:
+        """True when this process holds the device at (``worker``,
+        ``model``)."""
+        return self.device_owners[worker][model] == \
+            distributed.process_index()
+
+    @property
+    def row_processes(self) -> int:
+        """How many processes hold a device of each worker row: 1 when
+        rows lie inside a process, else the processes a row spans. Rows
+        over processes must span whole processes, each process holding as
+        many of a row's devices (the rows' process sets equal or
+        disjoint): another layout raises ValueError."""
+        sets = [tuple(sorted(set(row))) for row in self.device_owners]
+        size = len(sets[0])
+        ok = all(len(s) == size for s in sets) and all(
+            a == b or not set(a) & set(b) for a in sets for b in sets) \
+            and all(row.count(o) * size == len(row)
+                    for row in self.device_owners for o in set(row))
+        if not ok:
+            raise ValueError(
+                f"mesh rows over processes {self.device_owners}: a row must "
+                f"lie inside a process or span whole processes, each holding "
+                f"as many of its devices")
+        return size
 
     def device(self, worker: int, model: int = 0) -> torch.device:
         """The device at (``worker``, ``model``) of the grid."""
@@ -115,7 +154,8 @@ class Mesh:
     def __repr__(self) -> str:
         flat = [str(d) for row in self.grid for d in row]
         if self.spans_processes:
-            return f"Mesh({flat}, owners={self.owners})"
+            return f"Mesh({flat}, model_parallelism={len(self.grid[0])}, " \
+                f"owners={self.device_owners})"
         if self.axis_names != (WORKER_AXIS, MODEL_AXIS):
             return f"Mesh({flat}, axes={self.shape})"
         if len(self.grid[0]) == 1:
@@ -123,17 +163,16 @@ class Mesh:
         return f"Mesh({flat}, model_parallelism={len(self.grid[0])})"
 
 
-def check_single_process(what: str = "a mesh") -> None:
-    """Raise NotImplementedError when this process is one of several in
-    an initialized ``torch.distributed`` group, for the paths that still
-    run in one process only: the model axis (> 1), sequence and pipeline
-    meshes over processes, which wait for a host with several cards."""
+def global_devices(devices: Optional[Sequence] = None) -> tuple:
+    """``(devices, owners)``: this process's ``devices`` (default
+    ``[resolve_device(None)]``) laid end to end with every other
+    process's in rank order (each process passes as many), and the
+    process that owns each. In one process: ``devices``, all owned by
+    it."""
+    devices = list(devices) if devices is not None \
+        else [resolve_device(None)]
     count = distributed.process_count()
-    if count > 1:
-        raise NotImplementedError(
-            f"{what} over {count} processes is not ported: it waits for "
-            f"a host with several cards (ROADMAP.md Queue A, item 16 "
-            f"part 4)")
+    return devices * count, [p for p in range(count) for _ in devices]
 
 
 def make_mesh(num_workers: Optional[int] = None,
@@ -147,19 +186,14 @@ def make_mesh(num_workers: Optional[int] = None,
 
     Inside a group of P processes ``devices`` are this process's, every
     process passes as many, and the mesh is over all of them, process 0's
-    first (JAX's global device list): worker rows are owned by the
-    process whose device they take. No collective runs."""
+    first (JAX's global device list), each device owned by the process
+    that passed it: a row lies inside a process or spans several (module
+    docstring). No collective runs."""
     model_parallelism = int(model_parallelism)
     if model_parallelism < 1:
         raise ValueError(
             f"model_parallelism must be >= 1, got {model_parallelism}")
-    count = distributed.process_count()
-    if model_parallelism > 1:
-        check_single_process("the model axis (model_parallelism > 1)")
-    devices = list(devices) if devices is not None \
-        else [resolve_device(None)]
-    owners = [p for p in range(count) for _ in devices]
-    devices = devices * count
+    devices, owners = global_devices(devices)
     if num_workers is None:
         num_workers = len(devices) // model_parallelism
     need = num_workers * model_parallelism
@@ -169,16 +203,16 @@ def make_mesh(num_workers: Optional[int] = None,
             f"{model_parallelism} model shards) but only {len(devices)} "
             f"are visible")
     return Mesh([resolve_device(d) for d in devices[:need]],
-                model_parallelism=model_parallelism,
-                owners=owners[:need:model_parallelism])
+                model_parallelism=model_parallelism, owners=owners[:need])
 
 
 def local_worker_positions(mesh: Mesh) -> list:
     """Worker-axis positions this process runs (JAX's positions with a
     device owned by this process): every position in one process, so
-    host-sharded staging is then the replicated case."""
+    host-sharded staging is then the replicated case; a row that spans
+    processes is local to each of them."""
     me = distributed.process_index()
-    return [w for w, owner in enumerate(mesh.owners) if owner == me]
+    return [w for w, owners in enumerate(mesh.device_owners) if me in owners]
 
 
 def put_replicated(tree: dict, mesh: Mesh) -> dict:

@@ -18,15 +18,28 @@ last stage folds the loss terms of the microbatch it finishes. Backward
 is autograd through the whole schedule: one ``backward``, whose
 transposed hops carry the gradients back stage by stage.
 
-In one process (a mesh may repeat a device: ``["cuda:0"] * 4`` on a
-one-card host). Where the parameters live: each stage's modules on its
-stage device, the LM's embedding on stage 0's and its head on the last
-stage's. The JAX package replicates the embedding and head (and every
-``GenericPipeline`` stage) over the mesh; here each lives once, where it
-is used, so the gradients are the same. Bubble ticks (stage ``s`` at
-ticks ``t < s`` or ``t - s >= M``) compute on zeros in the JAX package
-and feed no loss; the port skips them, which changes no value. The hops
-do not overlap compute: on one card the stages run in turn.
+A mesh may repeat a device (``["cuda:0"] * 4`` on a one-card host). Where
+the parameters live: each stage's modules on its stage device, the LM's
+embedding on stage 0's and its head on the last stage's. The JAX package
+replicates the embedding and head (and every ``GenericPipeline`` stage)
+over the mesh; here each lives once, where it is used, so the gradients
+are the same. Bubble ticks (stage ``s`` at ticks ``t < s`` or ``t - s >=
+M``) compute on zeros in the JAX package and feed no loss; the port
+skips them, which changes no value. The hops do not overlap compute: on
+one card the stages run in turn.
+
+Over a process group :func:`make_pp_mesh` lays every process's devices
+end to end, and each process holds only its own stages (the embedding
+with stage 0, the head with the last; another process's stages are moved
+to the ``meta`` device) and builds its optimizer over them. An
+activation that crosses to another process's stage goes through
+:func:`~distkeras_tpu_torch.parallel.collectives.hop` (send and receive
+over gloo, the gradient carried back by its backward), tagged by (tick,
+stage), so the order in which the processes' autograd engines reach the
+hops matches no message to the wrong one. Each process runs its stages'
+ticks of the same ``M + P - 1`` schedule and calls one backward (a
+process without the head calls it on its hops' tokens); the last stage's
+process broadcasts the metrics, so every process returns the same.
 """
 
 from __future__ import annotations
@@ -45,6 +58,7 @@ from distkeras_tpu_torch.models import gpt
 from distkeras_tpu_torch.models.transformer import LN_EPS, Embed
 from distkeras_tpu_torch.ops import losses as losses_lib
 from distkeras_tpu_torch.ops.optimizers import OptimizerFactory
+from distkeras_tpu_torch.parallel import collectives, distributed
 from distkeras_tpu_torch.parallel import mesh as mesh_lib
 from distkeras_tpu_torch.parallel.mesh import WORKER_AXIS, Mesh
 
@@ -54,19 +68,83 @@ STAGE_AXIS = "stages"
 def make_pp_mesh(num_stages: int, devices=None) -> Mesh:
     """One row of ``num_stages`` stage devices over ``devices`` (default
     ``[resolve_device(None)]``: ``cuda:0``, raising without a card),
-    which may repeat a device; too few raise ValueError, as JAX's does."""
-    mesh_lib.check_single_process("a pipeline mesh")
-    devices = list(devices) if devices is not None \
-        else [resolve_device(None)]
+    which may repeat a device; too few raise ValueError, as JAX's does.
+    Inside a process group ``devices`` are this process's, every process
+    passing as many, laid end to end in rank order (JAX's global device
+    list)."""
+    devices, owners = mesh_lib.global_devices(devices)
     if num_stages > len(devices):
         raise ValueError(f"need {num_stages} devices, have {len(devices)}")
     return Mesh([resolve_device(d) for d in devices[:num_stages]],
                 model_parallelism=num_stages,
-                axis_names=(WORKER_AXIS, STAGE_AXIS))
+                axis_names=(WORKER_AXIS, STAGE_AXIS),
+                owners=owners[:num_stages])
+
+
+class _Stages:
+    """Which process holds each stage of a pipeline mesh's row, and the
+    moves between stages: ``.to()`` inside a process, a tagged
+    :func:`~distkeras_tpu_torch.parallel.collectives.hop` across."""
+
+    def __init__(self, mesh: Mesh, num_stages: int):
+        self.devices = _stage_devices(mesh, num_stages)
+        self.owners = list(mesh.device_owners[0])
+        self.mine = [mesh.owns(0, s) for s in range(num_stages)]
+        self.spans = mesh.spans_processes
+        self.tokens = []
+
+    def start(self) -> None:
+        self.tokens = []
+
+    def send(self, out: torch.Tensor, tick: int, stage: int):
+        """Stage ``stage``'s output at ``tick`` towards stage ``stage +
+        1``: its input there (this process), or None (sent)."""
+        if self.mine[stage + 1]:
+            return out.to(self.devices[stage + 1])
+        token, _ = collectives.hop(
+            [(out, self.owners[stage + 1], self.tag(tick, stage))])
+        self.tokens.append(token)
+        return None
+
+    def receive(self, tick: int, stage: int, shape, dtype) -> torch.Tensor:
+        """Stage ``stage``'s input at ``tick``, sent by another process's
+        stage ``stage - 1`` at ``tick - 1``."""
+        _, (x,) = collectives.hop((), [(
+            self.owners[stage - 1], self.tag(tick - 1, stage - 1), shape,
+            dtype, self.devices[stage])])
+        return x
+
+    def tag(self, tick: int, stage: int) -> int:
+        return tick * len(self.devices) + stage
+
+    def backward(self, loss: Optional[torch.Tensor]) -> None:
+        """One backward of this process's part of the schedule: the loss
+        (the last stage's process) plus the tokens of its sending hops."""
+        total = loss
+        for token in self.tokens:
+            total = token if total is None else total + token
+        if total is not None:
+            total.backward()
+        collectives.flush_hops()
+
+    def metrics(self, values: dict) -> dict:
+        """The last stage's metrics on every process (broadcast from its
+        process as float32; unchanged in one process)."""
+        if not self.spans:
+            return values
+        names = sorted(values)
+        row = np.array([float(values[n]) for n in names], np.float32) \
+            if self.mine[-1] else np.zeros(len(names), np.float32)
+        got = distributed.broadcast_one_to_all(row, source=self.owners[-1])
+        if self.mine[-1]:
+            return values
+        dev = self.devices[self.mine.index(True)] if any(self.mine) \
+            else torch.device("cpu")
+        return {n: torch.tensor(got[i], device=dev)
+                for i, n in enumerate(names)}
 
 
 def _stage_devices(mesh: Mesh, num_stages: int) -> list:
-    mesh_lib.check_single_process("a pipeline mesh")
     devices = mesh.axis_devices(STAGE_AXIS)
     if len(devices) != num_stages:
         raise ValueError(f"mesh has {len(devices)} stage devices, pipeline "
@@ -185,58 +263,75 @@ class PipelinedLM(nn.Module):
 
         B must divide into ``num_microbatches``; labels < 0 are ignored.
         """
-        devices = _stage_devices(mesh, self.num_stages)
+        route = _Stages(mesh, self.num_stages)
+        devices, mine = route.devices, route.mine
         m_count = int(num_microbatches)
         stages = self.num_stages
 
         def place_params(params=None) -> engine.TrainState:
             if params is not None:
                 self.load_state_dict(params)
-            self.embed.to(devices[0])
-            for stage, dev in zip(self.stages, devices):
-                stage.to(dev)
-            self.head.to(devices[-1])
-            return engine.TrainState(step=0, model=self,
-                                     opt_state=tx(self.parameters()))
+            self.embed.to(devices[0] if mine[0] else "meta")
+            for stage, dev, own in zip(self.stages, devices, mine):
+                stage.to(dev if own else "meta")
+            self.head.to(devices[-1] if mine[-1] else "meta")
+            held = [p for p in self.parameters() if not p.is_meta]
+            return engine.TrainState(step=0, model=self, opt_state=tx(held))
 
         def place_batch(batch) -> dict:
             return {"input_ids": _as_tensor(batch["input_ids"]).to(
-                        devices[0]),
-                    "labels": _as_tensor(batch["labels"]).to(devices[-1])}
+                        devices[0] if mine[0] else "cpu"),
+                    "labels": _as_tensor(batch["labels"]).to(
+                        devices[-1] if mine[-1] else "cpu")}
 
         def step_fn(state: engine.TrainState, batch):
             ids_mb = _microbatches(_as_tensor(batch["input_ids"]), m_count,
-                                   devices[0])
+                                   devices[0] if mine[0] else "cpu")
             labels_mb = _microbatches(_as_tensor(batch["labels"]), m_count,
-                                      devices[-1])
+                                      devices[-1] if mine[-1] else "cpu")
+            # a microbatch's activation between stages
+            act = (ids_mb.shape[1], ids_mb.shape[2], self.width)
             zero = lambda: torch.zeros((), device=devices[-1])
-            nll, hits, count = zero(), zero(), zero()
+            nll = hits = count = None
+            if mine[-1]:
+                nll, hits, count = zero(), zero(), zero()
+            route.start()
             inbox = [None] * stages  # inbox[s]: stage s's input this tick
             for tick in range(m_count + stages - 1):
                 outbox = [None] * stages
                 for s in range(stages):
                     mb = tick - s
-                    if not 0 <= mb < m_count:
-                        continue  # a bubble tick: no loss reads it
-                    x = self.embed(ids_mb[mb]) if s == 0 else inbox[s]
+                    if not mine[s] or not 0 <= mb < m_count:
+                        continue  # another process's, or a bubble tick
+                    if s == 0:
+                        x = self.embed(ids_mb[mb])
+                    elif mine[s - 1]:
+                        x = inbox[s]
+                    else:
+                        x = route.receive(tick, s, act, self.dtype)
                     out = self._run_stage(s, x)
                     if s < stages - 1:
-                        outbox[s + 1] = out.to(devices[s + 1])
+                        outbox[s + 1] = route.send(out, tick, s)
                         continue
                     terms = losses_lib.masked_lm_terms(self.head(out),
                                                        labels_mb[mb])
                     nll, hits, count = (nll + terms[0], hits + terms[1],
                                         count + terms[2])
                 inbox = outbox
-            count = torch.clamp(count, min=1.0)
-            loss = nll / count
+            loss = None
+            if mine[-1]:
+                count = torch.clamp(count, min=1.0)
+                loss = nll / count
             state.model.zero_grad(set_to_none=True)
-            loss.backward()
+            route.backward(loss)
             state.opt_state.step()
             state.opt_state.zero_grad(set_to_none=True)
+            ms = route.metrics({"loss": loss.detach(),
+                                "accuracy": hits / count}
+                               if mine[-1] else {"loss": 0.0,
+                                                 "accuracy": 0.0})
             return (engine.TrainState(step=state.step + 1, model=state.model,
-                                      opt_state=state.opt_state),
-                    {"loss": loss.detach(), "accuracy": hits / count})
+                                      opt_state=state.opt_state), ms)
 
         return step_fn, place_params, place_batch
 
@@ -309,7 +404,8 @@ class GenericPipeline:
         if self._shapes is None:
             raise RuntimeError("call init() before build_train_step()")
         stages_n, m_count, shapes = self.num_stages, self.M, self._shapes
-        devices = _stage_devices(mesh, stages_n)
+        route = _Stages(mesh, stages_n)
+        devices, mine = route.devices, route.mine
         # hop buffer: outputs of stages 0 .. P-2 travel, padded to the
         # largest
         hop_sizes = [math.prod(s) for s in shapes[:-1]]
@@ -319,16 +415,18 @@ class GenericPipeline:
             if params is not None:
                 for stage, sd in zip(self.stages, params):
                     stage.load_state_dict(sd)
-            for stage, dev in zip(self.stages, devices):
-                stage.to(dev)
+            for stage, dev, own in zip(self.stages, devices, mine):
+                stage.to(dev if own else "meta")
             self.devices = list(devices)
-            return engine.TrainState(
-                step=0, model=self.stages,
-                opt_state=tx(self.stages.parameters()))
+            held = [p for p in self.stages.parameters() if not p.is_meta]
+            return engine.TrainState(step=0, model=self.stages,
+                                     opt_state=tx(held))
 
         def place_batch(batch) -> dict:
-            return {"features": _as_tensor(batch["features"]).to(devices[0]),
-                    "labels": _as_tensor(batch["labels"]).to(devices[-1])}
+            return {"features": _as_tensor(batch["features"]).to(
+                        devices[0] if mine[0] else "cpu"),
+                    "labels": _as_tensor(batch["labels"]).to(
+                        devices[-1] if mine[-1] else "cpu")}
 
         def hop(k: int, out: torch.Tensor) -> torch.Tensor:
             if out.numel() != hop_sizes[k]:
@@ -336,39 +434,45 @@ class GenericPipeline:
                     f"stage {k} gave {tuple(out.shape)}, init recorded "
                     f"{shapes[k]}: init with one microbatch of the batch's "
                     f"shape")
-            flat = F.pad(out.reshape(-1).to(self.dtype),
+            return F.pad(out.reshape(-1).to(self.dtype),
                          (0, buf_n - hop_sizes[k]))
-            return flat.to(devices[k + 1])
 
         def step_fn(state: engine.TrainState, batch):
             feats = _microbatches(_as_tensor(batch["features"]), m_count,
-                                  devices[0])
+                                  devices[0] if mine[0] else "cpu")
             labels = _microbatches(_as_tensor(batch["labels"]), m_count,
-                                   devices[-1])
-            loss_sum = torch.zeros((), device=devices[-1])
+                                   devices[-1] if mine[-1] else "cpu")
+            loss_sum = torch.zeros((), device=devices[-1]) \
+                if mine[-1] else None
+            route.start()
             inbox = [None] * stages_n
             for tick in range(m_count + stages_n - 1):
                 outbox = [None] * stages_n
                 for k in range(stages_n):
                     mb = tick - k
-                    if not 0 <= mb < m_count:
-                        continue  # a bubble tick: no loss reads it
-                    x = feats[mb].to(self.dtype) if k == 0 else \
-                        inbox[k][:hop_sizes[k - 1]].reshape(shapes[k - 1])
+                    if not mine[k] or not 0 <= mb < m_count:
+                        continue  # another process's, or a bubble tick
+                    if k == 0:
+                        x = feats[mb].to(self.dtype)
+                    else:
+                        flat = inbox[k] if mine[k - 1] else route.receive(
+                            tick, k, (buf_n,), self.dtype)
+                        x = flat[:hop_sizes[k - 1]].reshape(shapes[k - 1])
                     out = self.stages[k](x)
                     if k < stages_n - 1:
-                        outbox[k + 1] = hop(k, out)
+                        outbox[k + 1] = route.send(hop(k, out), tick, k)
                     else:
                         loss_sum = loss_sum + self.loss_fn(out.float(),
                                                            labels[mb])
                 inbox = outbox
-            loss = loss_sum / m_count
+            loss = loss_sum / m_count if mine[-1] else None
             state.model.zero_grad(set_to_none=True)
-            loss.backward()
+            route.backward(loss)
             state.opt_state.step()
             state.opt_state.zero_grad(set_to_none=True)
+            ms = route.metrics({"loss": loss.detach()} if mine[-1]
+                               else {"loss": 0.0})
             return (engine.TrainState(step=state.step + 1, model=state.model,
-                                      opt_state=state.opt_state),
-                    {"loss": loss.detach()})
+                                      opt_state=state.opt_state), ms)
 
         return step_fn, place_params, place_batch

@@ -22,6 +22,18 @@ on the mesh's home and each shard computes on them there, so the
 shards' devices must be the home device (gpt's ring forward checks).
 Memory is therefore the sum of every shard's folds on one card; the
 ring changes where the logits are cut, not how much one card holds.
+
+Over a process group the mesh lays every process's devices end to end
+(:func:`make_sp_mesh`, as ``make_mesh`` does) and each process holds a
+copy of the parameters on its own home. A worker row inside a process
+runs there whole; a row that spans processes gives each process its own
+blocks only, the others standing as
+:class:`~distkeras_tpu_torch.ops.ring_attention.Remote`, and the ring's
+hops cross between them. Each process's summed NLL, token count and
+gradients then go through
+:func:`~distkeras_tpu_torch.parallel.collectives.cross_process_sum` (JAX's
+psum) before the one division by the global count, so every process
+applies the same update.
 """
 
 from __future__ import annotations
@@ -35,7 +47,9 @@ from distkeras_tpu_torch import engine
 from distkeras_tpu_torch.device import resolve_device
 from distkeras_tpu_torch.models import gpt
 from distkeras_tpu_torch.ops import losses
+from distkeras_tpu_torch.ops import ring_attention as ring_lib
 from distkeras_tpu_torch.ops.optimizers import OptimizerFactory
+from distkeras_tpu_torch.parallel import collectives
 from distkeras_tpu_torch.parallel import mesh as mesh_lib
 from distkeras_tpu_torch.parallel.mesh import WORKER_AXIS, Mesh
 
@@ -47,16 +61,16 @@ def make_sp_mesh(num_workers: int = 1, seq_parallelism: int = 1,
     """A (workers, seq) mesh: batch parallelism outer, sequence inner,
     over ``devices`` (default ``[resolve_device(None)]``: ``cuda:0``,
     raising without a card), which may repeat a device. Asking for more
-    devices than are listed raises ValueError, as JAX's does."""
-    mesh_lib.check_single_process("a sequence-parallel mesh")
-    devices = list(devices) if devices is not None \
-        else [resolve_device(None)]
+    devices than are listed raises ValueError, as JAX's does. Inside a
+    process group ``devices`` are this process's, every process passing
+    as many, and the mesh lays them end to end in rank order."""
+    devices, owners = mesh_lib.global_devices(devices)
     need = int(num_workers) * int(seq_parallelism)
     if need > len(devices):
         raise ValueError(f"need {need} devices, have {len(devices)}")
     return Mesh([resolve_device(d) for d in devices[:need]],
                 model_parallelism=seq_parallelism,
-                axis_names=(WORKER_AXIS, SEQ_AXIS))
+                axis_names=(WORKER_AXIS, SEQ_AXIS), owners=owners[:need])
 
 
 def shift_labels(input_ids: np.ndarray) -> np.ndarray:
@@ -83,7 +97,6 @@ def init_sp_state(model, tx: OptimizerFactory, mesh: Mesh,
     sample) is not needed: the module knows its shapes."""
     del batch_shape
     _check_ring(model)
-    mesh_lib.check_single_process("a sequence-parallel mesh")
     gpt.init_params(model, torch.Generator().manual_seed(int(seed)))
     model.to(mesh.home)
     return engine.TrainState(step=0, model=model,
@@ -97,7 +110,10 @@ def build_sp_train_step(model, tx: OptimizerFactory, mesh: Mesh):
 
     - ``place_batch({"input_ids": [B, T], "labels": [B, T]})`` cuts B
       over ``workers`` and T over ``seq``: block ``(w, j)`` on
-      ``mesh.device(w, j)``, as nested lists; labels < 0 are ignored;
+      ``mesh.device(w, j)``, as nested lists, one a worker row of this
+      process's (every row in one process; a block another process
+      holds is a ``Remote``); labels < 0 are ignored. Over processes
+      every process passes the same global batch;
     - ``place_state(state)`` puts the state's module on the mesh's home;
     - ``step_fn(state, batch) -> (state, metrics)`` (a batch not yet
       placed is placed first) updates the parameters in place with the
@@ -107,10 +123,11 @@ def build_sp_train_step(model, tx: OptimizerFactory, mesh: Mesh):
 
     The model must be built with ``attention="ring"``.
     """
-    mesh_lib.check_single_process("a sequence-parallel mesh")
     _check_ring(model)
     workers, seq = mesh.shape[WORKER_AXIS], mesh.shape[SEQ_AXIS]
     home = mesh.home
+    spans = mesh.spans_processes
+    rows = mesh_lib.local_worker_positions(mesh)
 
     def place_state(state: engine.TrainState) -> engine.TrainState:
         state.model.to(home)
@@ -125,9 +142,11 @@ def build_sp_train_step(model, tx: OptimizerFactory, mesh: Mesh):
                 raise ValueError(
                     f"{key} {tuple(x.shape)} does not split over {workers} "
                     f"workers x {seq} sequence shards")
-            out[key] = [[c.to(mesh.device(w, j))
-                         for j, c in enumerate(row.chunk(seq, dim=1))]
-                        for w, row in enumerate(x.chunk(workers, dim=0))]
+            cut = list(x.chunk(workers, dim=0))
+            out[key] = [[c.to(mesh.device(w, j)) if mesh.owns(w, j) else
+                         ring_lib.Remote(mesh.device_owners[w][j])
+                         for j, c in enumerate(cut[w].chunk(seq, dim=1))]
+                        for w in rows]
         return out
 
     def step_fn(state: engine.TrainState, batch):
@@ -135,17 +154,29 @@ def build_sp_train_step(model, tx: OptimizerFactory, mesh: Mesh):
             batch = place_batch(batch)
         m = state.model
         m.zero_grad(set_to_none=True)
+        ring_lib.reset_hop_tags()
         zero = lambda: torch.zeros((), dtype=torch.float32, device=home)
         nll, hits, count = zero(), zero(), zero()
         for ids, labels in zip(batch["input_ids"], batch["labels"]):
             terms = [losses.masked_lm_terms(lg, lab)
-                     for lg, lab in zip(m(ids), labels)]
+                     for lg, lab in zip(m(ids), labels)
+                     if not ring_lib.is_remote(lg)]
             worker_nll = sum(t[0].to(home) for t in terms)
             worker_nll.backward()  # the workers' gradients accumulate
             with torch.no_grad():
                 nll += worker_nll.detach()
                 hits += sum(t[1].to(home) for t in terms)
                 count += sum(t[2].to(home) for t in terms)
+        if spans:  # JAX's psum of the terms and gradients
+            collectives.flush_hops()
+            with torch.no_grad():
+                tree = {f"g/{n}": torch.zeros_like(p) if p.grad is None
+                        else p.grad for n, p in m.named_parameters()}
+                tree.update(nll=nll, hits=hits, count=count)
+                tree = collectives.cross_process_sum(tree)
+                nll, hits, count = tree["nll"], tree["hits"], tree["count"]
+                for n, p in m.named_parameters():
+                    p.grad = tree[f"g/{n}"]
         with torch.no_grad():
             count = torch.clamp(count, min=1.0)
             for p in m.parameters():

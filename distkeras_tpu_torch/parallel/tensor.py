@@ -42,14 +42,24 @@ activations over the model axis; the port gathers the parameters, so only
 storage is sharded. Splitting the activations waits for a host with
 several cards.
 
-On a mesh that spans a process group (model axis 1; the model axis over
-processes waits for a host with several cards, ROADMAP.md Queue A, item
-16 part 4) each process holds its own worker positions' rows of every
-step's global batch and the full parameters, and takes the loss over its
-rows. The processes' terms are summed
-(:func:`~distkeras_tpu_torch.parallel.collectives.cross_process_sum`)
-before anything is divided by the global batch's count, so the update is
-the global batch's and every process applies the same bits:
+On a mesh that spans a process group the shards live at rest where
+their devices live (:func:`shard_params`): when rows lie inside a
+process, each process holds its first row's shards (the parameters are
+replicated over the workers axis, as in JAX); when a row spans processes,
+shard ``m`` is held only by the process that owns the row's device ``m``,
+its optimizer state with it, and the step's gather is an all-gather over
+the row's processes, staged through the host for a card
+(:func:`~distkeras_tpu_torch.parallel.collectives.all_gather_flat`).
+Every process that holds a device of a row takes the loss over that
+row's rows of the global batch (JAX replicates a row's batch over the
+model axis) and keeps its own shards' slices of the gradient.
+
+When several row groups lie on different processes, the processes' terms
+are summed (:func:`~distkeras_tpu_torch.parallel.collectives.cross_process_sum`),
+each row counted once by its lead (the process of its first device; the
+others add zeros), before anything is divided by the global batch's
+count, so the update is the global batch's and every process applies the
+same bits:
 
 - a loss that is a mean over rows (every named loss but ``masked_lm``;
   a callable loss is taken to be one) weights each process's gradient
@@ -59,12 +69,17 @@ the global batch's and every process applies the same bits:
   once;
 - metrics sum their ``(numerator, denominator)`` terms.
 
-Two objectives the processes cannot assemble from their rows raise
-``NotImplementedError`` on every process (item 16 part 4): a
-capacity-routed MoE (its routing and load-balance term are the global
-batch's tokens') and ``masked_lm`` under ``accum_steps > 1`` (a
-microbatch is a slice of the global batch that spans processes). Dropout
-folds the process index into each step's stream.
+Three objectives are coupled across the batch and cannot be assembled
+from the rows' terms: a capacity-routed MoE (its routing and load-balance
+term are the global batch's tokens'), ``masked_lm`` under ``accum_steps >
+1`` (a microbatch is a slice of the global batch that spans processes)
+and a quantizing precision (``int8``, ``fp8-sim``: an activation's
+per-tensor scale is the global batch's ``amax``).
+For them every process all-gathers each step's global batch at staging
+and takes the one-process step on it with the one-process dropout
+stream: the update is the one-process step's bits, with no fold, at P
+times the compute (a divergence by design, ROADMAP.md Queue C). Else
+dropout folds the rows' lead process index into each step's stream.
 
 ``bucket_bytes`` is the JAX package's explicit shard_map step: each
 worker runs its slice of the batch on its device with its own dropout
@@ -76,6 +91,7 @@ bitwise the whole-tree fold); it needs a model axis of 1, as in JAX.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
 from typing import Any, Mapping, Optional, Sequence, Tuple
 
@@ -229,33 +245,87 @@ def _model_dim(spec: PartitionSpec, name: str) -> Optional[int]:
 
 @dataclasses.dataclass
 class Sharded:
-    """One parameter held as shards: ``shards[m]`` is its slice ``m`` of
-    ``dim`` (equal slices, in order), on the device at (worker 0, model
-    ``m``)."""
+    """One parameter held as shards: slice ``m`` of ``dim`` (equal
+    slices, in order) is shard ``m``. ``shards`` are the ones this
+    process holds, in order, on the devices of its first row (row, model
+    ``m``). When the row spans processes, ``owners[m]`` is the process
+    that holds shard ``m`` (None: this one holds every shard) and
+    :meth:`gather` is a collective of them."""
 
     shards: list
     dim: int
     spec: PartitionSpec
+    owners: Optional[list] = None
+
+    @property
+    def count(self) -> int:
+        """The number of shards (the model axis' size)."""
+        return len(self.shards) if self.owners is None else len(self.owners)
+
+    @property
+    def held(self) -> list:
+        """The model positions of :attr:`shards`."""
+        if self.owners is None:
+            return list(range(len(self.shards)))
+        me = distributed.process_index()
+        return [m for m, o in enumerate(self.owners) if o == me]
 
     @property
     def shape(self) -> tuple:
         shape = list(self.shards[0].shape)
-        shape[self.dim] *= len(self.shards)
+        shape[self.dim] *= self.count
         return tuple(shape)
 
+    def split(self, whole: torch.Tensor) -> list:
+        """This process's slices of ``whole`` (a tensor of :attr:`shape`),
+        in :attr:`shards`' order."""
+        chunks = whole.chunk(self.count, dim=self.dim)
+        return [chunks[m] for m in self.held]
+
     def gather(self, device) -> torch.Tensor:
-        """The whole tensor on ``device``."""
-        return torch.cat([s.to(device) for s in self.shards], dim=self.dim)
+        """The whole tensor on ``device`` (a collective of every process
+        when another one holds shards: every process calls it)."""
+        return gather_params({"p": self}, device)["p"]
+
+
+def _join(items: Sequence[Sharded], device) -> list:
+    """The whole tensors of ``items`` on ``device`` (None: each one's
+    first shard's): the local ones by
+    concatenation, those whose row spans processes by one all-gather of
+    every process's shards (:func:`collectives.all_gather_flat
+    <distkeras_tpu_torch.parallel.collectives.all_gather_flat>`)."""
+    remote = [p for p in items if p.owners is not None]
+    got = collectives.all_gather_flat(
+        [s for p in remote for s in p.shards]) if remote else None
+    out, at = [], 0
+    for p in items:
+        dev = p.shards[0].device if device is None else device
+        if p.owners is None:
+            out.append(torch.cat([s.to(dev) for s in p.shards], dim=p.dim))
+            continue
+        k = len(p.shards)
+        pieces = []
+        for m, owner in enumerate(p.owners):
+            row = got[owner]
+            pieces.append(row[at + p.owners[:m].count(owner)].to(dev))
+        at += k
+        out.append(torch.cat(pieces, dim=p.dim))
+    return out
 
 
 def shard_params(params: Mapping, mesh: Mesh,
                  rules: Optional[Rules] = None) -> dict:
     """Place ``params`` (name -> tensor) on the mesh by the rules: a
     :class:`Sharded` for each parameter a spec shards (shard ``m`` a copy
-    of its slice on ``mesh.device(0, m)``), a copy on the mesh's home for
-    the rest."""
+    of its slice on ``mesh.device(w, m)`` for this process's first row
+    ``w``, held only by the process that owns that device when the row
+    spans processes), a copy on the mesh's home for the rest."""
     specs = partition_specs(params, rules, mesh)
     m_size = mesh.shape[MODEL_AXIS]
+    row = mesh_lib.local_worker_positions(mesh)[0]
+    owners = mesh.device_owners[row]
+    spans_row = len(set(owners)) > 1
+    held = [m for m in range(m_size) if mesh.owns(row, m)]
     out = {}
     with torch.no_grad():
         for name, value in params.items():
@@ -264,16 +334,20 @@ def shard_params(params: Mapping, mesh: Mesh,
             if dim is None:
                 out[name] = x.to(mesh.home, copy=True)
                 continue
+            chunks = x.chunk(m_size, dim=dim)
             out[name] = Sharded(
-                [c.to(mesh.device(0, m), copy=True).contiguous()
-                 for m, c in enumerate(x.chunk(m_size, dim=dim))],
-                dim, specs[name])
+                [chunks[m].to(mesh.device(row, m), copy=True).contiguous()
+                 for m in held], dim, specs[name],
+                owners=list(owners) if spans_row else None)
     return out
 
 
 def gather_params(placed: Mapping, device) -> dict:
-    """Whole tensors of :func:`shard_params`' output, on ``device``."""
-    return {n: p.gather(device) if isinstance(p, Sharded) else p.to(device)
+    """Whole tensors of :func:`shard_params`' output, on ``device`` (a
+    collective of every process when a row spans processes)."""
+    names = [n for n, p in placed.items() if isinstance(p, Sharded)]
+    whole = dict(zip(names, _join([placed[n] for n in names], device)))
+    return {n: whole[n] if n in whole else p.to(device)
             for n, p in placed.items()}
 
 
@@ -290,10 +364,20 @@ def param_groups(placed: Mapping) -> list:
         if run:
             groups.append({"params": run})
             run = []
-        groups.append({"params": list(p.shards), "shard_dim": p.dim})
+        group = {"params": list(p.shards), "shard_dim": p.dim}
+        if p.owners is not None:  # the whole tensor is a collective
+            group["shard_join"] = functools.partial(_join_like, p)
+        groups.append(group)
     if run:
         groups.append({"params": run})
     return groups
+
+
+def _join_like(p: Sharded, tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The whole tensor whose shards this process holds as ``tensors``
+    (laid out as ``p``'s shards), on the first one's device."""
+    return gather_params({"t": dataclasses.replace(p, shards=list(tensors))},
+                         tensors[0].device)["t"]
 
 
 @dataclasses.dataclass
@@ -313,6 +397,27 @@ class PjitState:
 def _inner(opt):
     return opt.inner if isinstance(opt, precision_lib.OverflowGuardState) \
         else opt
+
+
+def _batch_coupled(model, masked: bool, accum_steps: int,
+                   precision) -> bool:
+    """True when the step's objective couples the rows of the global
+    batch so that no process can take its rows' terms alone: a
+    capacity-routed MoE (its routing and load-balance term are the global
+    batch's tokens'), ``masked_lm`` under ``accum_steps > 1`` (a
+    microbatch is a slice of the global batch) and a quantizing precision
+    (an activation's per-tensor scale is the global batch's ``amax``)."""
+    from distkeras_tpu_torch.models.moe import SwitchMoE
+
+    def quantizes(name) -> bool:
+        policy = precision_lib.get_policy(name) if isinstance(
+            name, (str, precision_lib.PrecisionPolicy)) else None
+        return policy is not None and policy.quant is not None
+
+    return (any(isinstance(m, SwitchMoE) for m in model.modules())
+            or (masked and accum_steps > 1) or quantizes(precision)
+            or any(quantizes(getattr(m, "precision", None))
+                   for m in model.modules()))
 
 
 def build_pjit_epoch_fn(model, loss, tx, mesh: Mesh,
@@ -348,26 +453,20 @@ def build_pjit_epoch_fn(model, loss, tx, mesh: Mesh,
     into the key. The streams are torch's, not threefry's.
     """
     spans = mesh.spans_processes
-    if spans and mesh.shape.get(MODEL_AXIS, 1) > 1:
-        mesh_lib.check_single_process("the model axis (model_parallelism "
-                                      "> 1) of a PjitTrainer mesh")
     decorrelate = bucket_bytes is not None
     masked = losses_lib.get(loss) is losses_lib.masked_lm
-    if spans and not decorrelate:
-        from distkeras_tpu_torch.models.moe import SwitchMoE
-
-        coupled = "a capacity-routed MoE (its routing and load-balance " \
-            "term are the global batch's tokens')" \
-            if any(isinstance(m, SwitchMoE) for m in model.modules()) else \
-            "masked_lm under accum_steps > 1 (a microbatch of the global " \
-            "batch spans processes)" if masked and int(accum_steps) > 1 \
-            else None
-        if coupled:
-            raise NotImplementedError(
-                f"PjitTrainer's GSPMD step over {distributed.process_count()}"
-                f" processes cannot take {coupled} from each process's rows:"
-                f" not ported (ROADMAP.md Queue A, item 16 part 4)")
     local = mesh_lib.local_worker_positions(mesh)
+    pid = distributed.process_index()
+    if spans:
+        mesh.row_processes  # a layout the fold can count raises here
+    # several row groups over processes: the data-parallel fold runs, and
+    # each row counts once, by its lead (the process of its first device)
+    fold = spans and len(set(mesh.owners)) > 1
+    lead = all(mesh.owners[w] == pid for w in local)
+    # an objective coupled across the batch's rows: every process gathers
+    # the global batch and takes the one-process step on it
+    coupled = fold and not decorrelate and _batch_coupled(
+        model, masked, int(accum_steps), precision)
     metric_names = tuple(metrics)
     accum_steps = int(accum_steps)
     if accum_steps > 1:
@@ -389,17 +488,22 @@ def build_pjit_epoch_fn(model, loss, tx, mesh: Mesh,
     if bucket_bytes is not None and int(bucket_bytes) <= 0:
         raise ValueError(f"bucket_bytes must be positive, got {bucket_bytes}")
     home = mesh.home
-    # this process's share of the global batch (1 in one process)
-    share = len(local) / num_workers
-    pid = distributed.process_index()
+    # this process's share of the global batch (1 in one process; 0 where
+    # another process leads the rows)
+    share = len(local) / num_workers if lead else 0.0
+    # the dropout stream's process index: the rows' lead (a row's
+    # processes draw the same stream); none when a process takes the
+    # global batch's step
+    stream = mesh.owners[local[0]] if fold and not coupled else None
 
     def across(out: dict, grads: dict, weight, count=None):
         """The sum over processes of ``weight`` times the gradients and
-        the loss, and of the metrics' ``(num, den)`` terms; under
-        ``count`` (this process's denominator of the loss, a tensor) the
-        sums of the gradients and the loss are divided once by the
-        processes' summed count. One process: unchanged."""
-        if not spans:
+        the loss, and of the metrics' ``(num, den)`` terms, each row
+        counted once (a process that does not lead its rows adds zeros);
+        under ``count`` (this process's denominator of the loss, a tensor)
+        the sums of the gradients and the loss are divided once by the
+        processes' summed count. No fold: unchanged."""
+        if not fold or coupled:
             return grads, out
         with torch.no_grad():
             tree = {f"g/{n}": g * weight for n, g in grads.items()}
@@ -410,6 +514,8 @@ def build_pjit_epoch_fn(model, loss, tx, mesh: Mesh,
                     tree[f"m/{name}"] = v.float() * weight
             if count is not None:
                 tree["count"] = count
+            if not lead:
+                tree = {k: torch.zeros_like(v) for k, v in tree.items()}
             tree = collectives.cross_process_sum(tree, bucket_bytes)
             if count is not None:
                 total = torch.clamp(tree.pop("count"), min=1.0)
@@ -426,13 +532,31 @@ def build_pjit_epoch_fn(model, loss, tx, mesh: Mesh,
         return PjitState(step=0, params=placed,
                          opt_state=tx(param_groups(placed)))
 
+    def global_rows(arr: np.ndarray) -> np.ndarray:
+        """``[steps, local rows, ...]`` -> ``[steps, global batch, ...]``:
+        every process's rows all-gathered, each worker row's slice taken
+        from its lead, in worker order."""
+        raw = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+        every = distributed.process_allgather(raw).view(arr.dtype).reshape(
+            (-1,) + arr.shape)  # as bytes: gloo has no int16
+        per = arr.shape[1] // len(local)
+        parts = []
+        for w in range(num_workers):
+            owner = mesh.owners[w]
+            at = [v for v, o in enumerate(mesh.device_owners)
+                  if owner in o].index(w)
+            parts.append(every[owner][:, at * per:(at + 1) * per])
+        return np.concatenate(parts, axis=1)
+
     def place_data(data: Mapping) -> dict:
         out = {}
         for key, value in data.items():
             arr = np.asarray(value)
+            if coupled:
+                arr = global_rows(arr)
             x = torch.from_numpy(arr if arr.flags.writeable else arr.copy())
             b = x.shape[1]
-            if b % len(local):
+            if not coupled and b % len(local):
                 raise ValueError(
                     f"the global batch {b} does not split over "
                     f"{len(local)} workers")
@@ -445,8 +569,8 @@ def build_pjit_epoch_fn(model, loss, tx, mesh: Mesh,
         """GSPMD's arithmetic: the loss over the global batch (a
         capacity-routed MoE and a masked-token mean are the global
         batch's), one dropout stream a step."""
-        seed = rng.fold_in(dropout_seed, step, pid) if spans \
-            else rng.fold_in(dropout_seed, step)
+        seed = rng.fold_in(dropout_seed, step) if stream is None \
+            else rng.fold_in(dropout_seed, step, stream)
         gen = rng.generator(seed, home)
         (loss_val, aux), grads = grad_fn(params, batch, gen,
                                          loss_scale=scale)
@@ -454,7 +578,7 @@ def build_pjit_epoch_fn(model, loss, tx, mesh: Mesh,
         for name in metric_names:
             out[name] = aux[name] if accum_steps > 1 else \
                 engine.compute_metric_terms(name, aux, batch["labels"])
-        if spans and masked:  # the global token mean: sum, then divide
+        if fold and masked:  # the global token mean: sum, then divide
             count = (batch["labels"] >= 0).sum().float()
             grads, out = across(out, grads, count, count)
         else:
@@ -499,6 +623,9 @@ def build_pjit_epoch_fn(model, loss, tx, mesh: Mesh,
                     if isinstance(v, tuple) else v / num_workers
         return folded, out
 
+    # a row over processes: each holds some shards of the whole gradient
+    split = spans and mesh.row_processes > 1
+
     def one_step(state: PjitState, batch, step: int) -> dict:
         scale = precision_lib.current_scale(state.opt_state)
         if decorrelate:
@@ -510,16 +637,23 @@ def build_pjit_epoch_fn(model, loss, tx, mesh: Mesh,
             grads, out = global_step(full, batch, step, scale)
             del full
         with torch.no_grad():
+            finite = None  # a guard reads the whole gradient's finiteness
+            if split and isinstance(state.opt_state,
+                                    precision_lib.OverflowGuardState):
+                finite = bool(torch.stack([torch.isfinite(g).all()
+                                           for g in grads.values()]).all())
             for name, p in state.params.items():
                 g = grads[name]
                 if isinstance(p, Sharded):
-                    for s, c in zip(p.shards,
-                                    g.chunk(len(p.shards), dim=p.dim)):
+                    for s, c in zip(p.shards, p.split(g)):
                         s.grad = c.to(s.device).contiguous()
                 else:
                     p.grad = g.to(p.device)
             del grads
-            state.opt_state.step()
+            if finite is None:
+                state.opt_state.step()
+            else:
+                state.opt_state.step(finite=finite)
             state.opt_state.zero_grad(set_to_none=True)
         return out
 
@@ -557,12 +691,13 @@ def _encode(value):
 
 def optimizer_state_tree(state: PjitState) -> dict:
     """The optimizer's per-parameter state as whole tensors (shards'
-    state concatenated along their parameter's dim), keyed by parameter
-    name, plus a guard's ``[scale, good_steps]``: a checkpoint that
-    restores onto any model-axis size."""
+    state concatenated along their parameter's dim, all-gathered where a
+    row spans processes: then a collective of every process), keyed by
+    parameter name, plus a guard's ``[scale, good_steps]``: a checkpoint
+    that restores onto any model-axis size."""
     opt = state.opt_state
     inner = _inner(opt)
-    out = {}
+    out, joins = {}, []
     for name, p in state.params.items():
         parts = p.shards if isinstance(p, Sharded) else [p]
         states = [inner.state.get(t, {}) for t in parts]
@@ -574,11 +709,15 @@ def optimizer_state_tree(state: PjitState) -> dict:
                 continue
             if isinstance(p, Sharded) and isinstance(v0, torch.Tensor) \
                     and tuple(v0.shape) == tuple(parts[0].shape):
-                v0 = torch.cat([s[key].to(v0.device) for s in states],
-                               dim=p.dim)
+                joins.append((entry, key, dataclasses.replace(
+                    p, shards=[s[key] for s in states])))
+                continue
             tag, value = _encode(v0)
             entry[key + tag] = value
         out[name] = entry
+    whole = _join([j[2] for j in joins], None) if joins else []
+    for (entry, key, _), value in zip(joins, whole):
+        entry[key] = value
     tree = {"state": out}
     if isinstance(opt, precision_lib.OverflowGuardState):
         tree["guard"] = np.array([opt.scale, opt.good_steps], np.float64)
@@ -587,9 +726,9 @@ def optimizer_state_tree(state: PjitState) -> dict:
 
 def load_optimizer_state_tree(state: PjitState, tree: Mapping) -> None:
     """Put :func:`optimizer_state_tree`'s output back into ``state``'s
-    optimizer, splitting whole tensors into this mesh's shards, through
-    ``load_state_dict`` (which places each tensor as torch's own resume
-    does)."""
+    optimizer, splitting whole tensors into the shards this process
+    holds, through ``load_state_dict`` (which places each tensor as
+    torch's own resume does)."""
     opt = state.opt_state
     inner = _inner(opt)
     index, restored = 0, {}
@@ -613,7 +752,7 @@ def load_optimizer_state_tree(state: PjitState, tree: Mapping) -> None:
                             else torch.from_numpy(np.array(value))
                         if isinstance(p, Sharded) and \
                                 tuple(v.shape) == tuple(p.shape):
-                            v = v.chunk(len(parts), dim=p.dim)[m]
+                            v = p.split(v)[m]
                         values[base] = v.clone()
                 restored[index] = values
             index += 1
@@ -628,12 +767,12 @@ def load_optimizer_state_tree(state: PjitState, tree: Mapping) -> None:
 @torch.no_grad()
 def load_params(state: PjitState, params: Mapping) -> None:
     """Copy whole tensors (name -> tensor or array) into ``state``'s
-    replicated tensors and shards, in place."""
+    replicated tensors and the shards this process holds, in place."""
     for name, p in state.params.items():
         x = params[name] if isinstance(params[name], torch.Tensor) \
             else torch.from_numpy(np.array(params[name]))
         if isinstance(p, Sharded):
-            for s, c in zip(p.shards, x.chunk(len(p.shards), dim=p.dim)):
+            for s, c in zip(p.shards, p.split(x)):
                 s.copy_(c)
         else:
             p.copy_(x)

@@ -253,16 +253,19 @@ class OverflowGuardState:
     def zero_grad(self, set_to_none: bool = True) -> None:
         self.inner.zero_grad(set_to_none=set_to_none)
 
-    def step(self) -> bool:
+    def step(self, finite: Optional[bool] = None) -> bool:
         """Apply the inner update if every gradient is finite and return
         whether it was applied. Finite: ``good_steps`` + 1, and every
         ``growth_interval`` clean steps the scale doubles (capped at
         ``max_scale``). Non-finite: the inner optimizer and its state are
-        untouched, the scale halves (floor 1), ``good_steps`` resets."""
+        untouched, the scale halves (floor 1), ``good_steps`` resets.
+        ``finite`` given (a caller that holds the whole gradient while
+        this optimizer holds some shards of it) replaces the check."""
         grads = [p.grad for group in self.inner.param_groups
                  for p in group["params"] if p.grad is not None]
-        finite = (not grads) or bool(
-            torch.stack([torch.isfinite(g).all() for g in grads]).all())
+        if finite is None:
+            finite = (not grads) or bool(
+                torch.stack([torch.isfinite(g).all() for g in grads]).all())
         if finite:
             self.inner.step()
             self.good_steps += 1

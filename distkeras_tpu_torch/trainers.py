@@ -56,9 +56,13 @@ Where the port differs from the JAX package, by design:
   processes against process 0's live center
   (:func:`~distkeras_tpu_torch.parallel.host_async.run_cross_process`);
   history, staleness and the final parameters are the same on every
-  process, and process 0 alone writes checkpoints;
+  process, and process 0 alone writes checkpoints; ``PjitTrainer``'s
+  model axis spans processes too (a row inside a process, or over
+  several, its shards held by their owners,
+  :mod:`~distkeras_tpu_torch.parallel.tensor`);
 - what is not ported raises NotImplementedError naming its ROADMAP.md
-  Queue A item: the model axis (> 1) over processes (item 16 part 4).
+  Queue A item: a fold of card tensors across processes that each hold
+  a card of their own (NCCL's, item 16 part 4).
 """
 
 from __future__ import annotations
@@ -1193,10 +1197,12 @@ class PjitTrainer(Trainer):
     model_parallelism)`` over ``[cuda:0]`` (raising without a card), or,
     with ``device=``, over that device repeated ``num_workers x
     model_parallelism`` times (``device="cpu"`` runs on the host; over
-    several processes that count is split among them). In one process
-    ``data_layout="host_sharded"`` is the replicated case; over several
-    (model axis 1) each process holds its worker positions' rows of
-    every global batch.
+    several processes that count is split among them: a row lies inside
+    a process, or spans processes when each holds fewer devices than
+    ``model_parallelism``). In one process ``data_layout="host_sharded"``
+    is the replicated case; over several each process holds its worker
+    positions' rows of every global batch (a row that spans processes:
+    the same rows on each of them).
     Checkpoints (``checkpoint_dir=``) hold whole tensors (parameters and
     optimizer state) and re-shard on restore, onto any model-axis size.
 
@@ -1377,14 +1383,16 @@ class PjitTrainer(Trainer):
                         {k: float(v[i]) for k, v in host.items()}
                         for i in range(steps))
             if ckpt is not None:
-                # every process holds the same state: process 0 writes,
-                # and none goes on before the step is on disk
-                if distributed.process_index() == 0:
-                    ckpt.save(epoch, {
-                        "state": {"params": state.gathered("cpu"),
+                # whole tensors, gathered on every process (a row over
+                # processes holds its shards on their owners): process 0
+                # writes, and none goes on before the step is on disk
+                tree = {"state": {"params": state.gathered("cpu"),
                                   "opt": tensor.optimizer_state_tree(state),
                                   "step": np.asarray(state.step, np.int64)},
-                        "counters": np.array([step_offset], np.int64)})
+                        "counters": np.array([step_offset], np.int64)}
+                if distributed.process_index() == 0:
+                    ckpt.save(epoch, tree)
+                del tree
                 distributed.barrier()
         with span("trainer.finalize"):
             self.params = state.gathered(self.mesh.home)

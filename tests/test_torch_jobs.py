@@ -163,7 +163,8 @@ def test_initialize_noop_and_single_process_group(monkeypatch):
     """No arguments and no launcher: a no-op. Explicit arguments join a
     one-process gloo group, after which meshes still build; in a group
     of several processes a mesh spans them (a worker row a process's
-    device) and the model axis over processes raises (item 16 part 4)."""
+    device), the model axis included: a row a process when each passes
+    two devices at model 2, a row over both when each passes one."""
     for var in ("MASTER_ADDR", "WORLD_SIZE", "RANK"):
         monkeypatch.delenv(var, raising=False)
     distributed.initialize()
@@ -181,11 +182,16 @@ def test_initialize_noop_and_single_process_group(monkeypatch):
         assert mesh.shape["workers"] == 2 and mesh.owners == [0, 1]
         assert mesh_lib.local_worker_positions(mesh) == [0]
         assert distributed.multihost_mesh(devices=["cpu"]).owners == [0, 1]
-        with pytest.raises(NotImplementedError, match="item 16 part 4"):
-            mesh_lib.make_mesh(devices=["cpu"] * 2, model_parallelism=2)
-        with pytest.raises(NotImplementedError, match="item 16 part 4"):
-            distributed.multihost_mesh(devices=["cpu"] * 2,
-                                       model_parallelism=2)
+        rows = mesh_lib.make_mesh(devices=["cpu"] * 2, model_parallelism=2)
+        assert rows.shape == {"workers": 2, "model": 2}
+        assert rows.device_owners == [[0, 0], [1, 1]]
+        assert mesh_lib.local_worker_positions(rows) == [0]
+        span = distributed.multihost_mesh(devices=["cpu"],
+                                          model_parallelism=2)
+        assert span.shape == {"workers": 1, "model": 2}
+        assert span.device_owners == [[0, 1]] and span.owners == [0]
+        assert mesh_lib.local_worker_positions(span) == [0]
+        assert span.row_processes == 2 and rows.row_processes == 1
     finally:
         monkeypatch.undo()
         torch.distributed.destroy_process_group()

@@ -26,7 +26,7 @@ packages, at its default) scores within 0.5 percentage points of JAX's
 accuracy.
 """
 
-import types
+import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -264,44 +264,51 @@ def test_dataset_too_small_and_master_port_like_jax():
             == 8
 
 
+@contextlib.contextmanager
+def _rank0_of_two():
+    """What looks like rank 0 of a two-process ``torch.distributed``
+    group."""
+    from unittest import mock
+
+    with mock.patch.object(torch.distributed, "is_initialized",
+                           lambda: True), \
+            mock.patch.object(torch.distributed, "get_world_size",
+                              lambda: 2), \
+            mock.patch.object(torch.distributed, "get_rank", lambda: 0):
+        yield
+
+
 def _multi_process(build):
     """``build()`` inside what looks like a two-process
     ``torch.distributed`` group, as its rank 0."""
-    from unittest import mock
-
     def run():
-        with mock.patch.object(torch.distributed, "is_initialized",
-                               lambda: True), \
-                mock.patch.object(torch.distributed, "get_world_size",
-                                  lambda: 2), \
-                mock.patch.object(torch.distributed, "get_rank",
-                                  lambda: 0):
+        with _rank0_of_two():
             return build()
     return run
 
 
+def _nccl_fold():
+    """``fold_group`` of a card tensor when the two ranks hold cards of
+    their own (two hosts' names gathered): NCCL's fold across cards."""
+    from unittest import mock
+
+    rows = np.stack([tdistributed.encode_payload(f"host{r}|0")
+                     for r in (0, 1)])
+    tdistributed._CARDS.clear()
+    try:
+        with mock.patch.object(tdistributed, "_require_gloo", lambda: None), \
+                mock.patch.object(tdistributed, "process_allgather",
+                                  lambda value: rows):
+            return tdistributed.fold_group(torch.device("cuda:0"))
+    finally:
+        tdistributed._CARDS.clear()
+
+
 NOT_PORTED = [  # (build, item)
-    # the one-process mesh, re-stamping, sharded scoring, sequence and
-    # pipeline parallelism (items 12 and 16) and the multi-process plane
-    # over the workers axis (item 16 part 3) are ported: these cases hold
-    # what still raises across processes, each waiting for a host with
-    # several cards
-    (_multi_process(lambda: tsequence.make_sp_mesh(devices=["cpu"])),
-     "item 16 part 4"),
-    (_multi_process(lambda: tpipeline.make_pp_mesh(1, devices=["cpu"])),
-     "item 16 part 4"),
-    (_multi_process(lambda: tsequence.build_sp_train_step(None, None, None)),
-     "item 16 part 4"),
-    (_multi_process(lambda: tdk.parallel.mesh.make_mesh(
-        devices=["cpu"] * 2, model_parallelism=2)), "item 16 part 4"),
-    (_multi_process(lambda: tdistributed.multihost_mesh(
-        2, model_parallelism=2, devices=["cpu"] * 2)), "item 16 part 4"),
-    (_multi_process(lambda: tdk.PjitTrainer(
-        _tmodel(), device="cpu", num_workers=2, model_parallelism=2,
-        batch_size=32)), "item 16 part 4"),
-    (_multi_process(lambda: tsequence.init_sp_state(
-        types.SimpleNamespace(attention="ring"), None, None)),
-     "item 16 part 4"),
+    # every process-spanning mesh and step is ported (items 12, 16 and 19):
+    # what still raises across processes is NCCL's fold across cards,
+    # which waits for a host with several cards
+    (_multi_process(_nccl_fold), "item 16 part 4"),
 ]
 
 
@@ -310,6 +317,76 @@ def test_unported_paths_name_their_item(case):
     build, item = NOT_PORTED[case]
     with pytest.raises(NotImplementedError, match=item):
         build()
+
+
+def _ring_step():
+    """``build_sp_train_step`` over one row of two sequence shards, one a
+    process: the fns and this process's placed blocks."""
+    from distkeras_tpu_torch.models import gpt
+    from distkeras_tpu_torch.ops import optimizers
+
+    mesh = tsequence.make_sp_mesh(1, 2, devices=["cpu"])
+    fns = tsequence.build_sp_train_step(gpt.gpt_tiny(attention="ring"),
+                                        optimizers.get("sgd", 0.1), mesh)
+    ids = np.zeros((2, 16), np.int32)
+    return mesh, fns[2]({"input_ids": ids, "labels": ids})
+
+
+def _ring_state():
+    from distkeras_tpu_torch.models import gpt
+    from distkeras_tpu_torch.ops import optimizers
+
+    mesh = tsequence.make_sp_mesh(1, 2, devices=["cpu"])
+    return mesh, tsequence.init_sp_state(gpt.gpt_tiny(attention="ring"),
+                                         optimizers.get("sgd", 0.1), mesh)
+
+
+SPANNING = [  # (build -> (mesh, extra), shape, device owners, rank 0's rows)
+    # the objects whose construction raised across processes before the
+    # model, sequence and pipeline axes spanned them (item 16 part 4),
+    # built as rank 0 of a two-process group
+    (lambda: (tsequence.make_sp_mesh(devices=["cpu"]), None),
+     {"workers": 1, "seq": 1}, [[0]], [0]),
+    (lambda: (tpipeline.make_pp_mesh(1, devices=["cpu"]), None),
+     {"workers": 1, "stages": 1}, [[0]], [0]),
+    (_ring_step, {"workers": 1, "seq": 2}, [[0, 1]], [0]),
+    (lambda: (tdk.parallel.mesh.make_mesh(
+        devices=["cpu"] * 2, model_parallelism=2), None),
+     {"workers": 2, "model": 2}, [[0, 0], [1, 1]], [0]),
+    (lambda: (tdistributed.multihost_mesh(
+        1, model_parallelism=2, devices=["cpu"]), None),
+     {"workers": 1, "model": 2}, [[0, 1]], [0]),
+    (lambda: (tdk.PjitTrainer(_tmodel(), device="cpu", num_workers=2,
+                              model_parallelism=2, batch_size=32).mesh,
+              None), {"workers": 2, "model": 2}, [[0, 0], [1, 1]], [0]),
+    (_ring_state, {"workers": 1, "seq": 2}, [[0, 1]], [0]),
+]
+
+
+@pytest.mark.parametrize("case", range(len(SPANNING)))
+def test_spanning_objects_build_in_a_group(case):
+    """Each object builds as rank 0 of a (faked) two-process group with
+    every process's devices laid end to end: its mesh's shape, each
+    device's owner, each row's lead and the rows rank 0 runs; a sequence
+    row over both ranks places rank 1's block as a ``Remote``, and its
+    state lives on rank 0's home."""
+    from distkeras_tpu_torch.ops.ring_attention import Remote
+    from distkeras_tpu_torch.parallel import mesh as tmesh
+
+    build, shape, owners, rows = SPANNING[case]
+    mesh, extra = _multi_process(build)()
+    assert mesh.shape == shape
+    assert mesh.device_owners == owners
+    assert mesh.owners == [row[0] for row in owners]
+    with _rank0_of_two():
+        assert tmesh.local_worker_positions(mesh) == rows
+        assert mesh.home == torch.device("cpu")
+    if isinstance(extra, dict):  # placed blocks: rank 1's is Remote
+        row = extra["input_ids"][0]
+        assert isinstance(row[0], torch.Tensor) and row[0].shape == (2, 8)
+        assert isinstance(row[1], Remote) and row[1].rank == 1
+    elif extra is not None:  # the state's module on rank 0's home
+        assert next(extra.model.parameters()).device == mesh.home
 
 
 def _mlm_rows(n=32, t=16, vocab=128):

@@ -1,14 +1,16 @@
 """One rank of the two-process runs of ``tests/test_torch_multiprocess.py``.
 
-Usage: ``python torch_multiprocess_worker.py {sync,async} RANK PORT DIR``.
+Usage: ``python torch_multiprocess_worker.py {sync,async,axes} RANK PORT
+DIR``.
 The rank joins a two-process gloo group on ``127.0.0.1:PORT`` through
 ``distributed.initialize`` and runs its pair's scenarios in order, on
 ``device="cpu"`` with one intra-op thread. Each scenario prints one line,
 ``SCEN <name> OK <json>`` or ``SCEN <name> FAIL <error>``; arrays too long
 for a line are saved under ``DIR`` as ``<name>.r<RANK>.npz``. The start
 weights (``DIR/mlp16.npz``, a JAX init bridged to a state_dict) and the
-shard pools (``DIR/pool7``, ``DIR/pool11``) are the test's. Imports no
-JAX.
+shard pools (``DIR/pool7``, ``DIR/pool11``) are the test's, and so are
+the axes pair's start weights and batches (``DIR/axes_*.npz``). Imports
+no JAX.
 """
 
 import json
@@ -236,36 +238,6 @@ def s_pjit_bert_mlm():
     return {"n": len(t.history), "checksum": checksum(params)}
 
 
-def s_pjit_refused():
-    # objectives the processes cannot assemble from their rows raise on
-    # both ranks, naming item 16 part 4
-    from distkeras_tpu_torch.models import moe
-
-    rng = np.random.default_rng(2)
-    x = rng.standard_normal((16, 8, 16)).astype(np.float32)
-    y = np.eye(4, dtype=np.float32)[rng.integers(0, 4, 16)]
-    out = {}
-    for name, build, ds in (
-            ("moe_ep", lambda: _pjit2(
-                moe.MoEClassifier(4, num_layers=1, num_heads=2,
-                                  num_experts=4, mlp_dim=32,
-                                  capacity_factor=0.5, dtype=torch.float32,
-                                  width=16),
-                loss="categorical_crossentropy",
-                partition_rules=moe.ep_partition_rules()),
-             dk.Dataset({"features": x, "label": y})),
-            ("bert_mlm_accum", lambda: _pjit2(_bert_mlm()[0],
-                                              loss="masked_lm",
-                                              accum_steps=2),
-             _bert_mlm()[1])):
-        try:
-            build().train(ds)
-            out[name] = None
-        except NotImplementedError as e:
-            out[name] = "item 16 part 4" in str(e)
-    return out
-
-
 def s_global_shards():
     pool = os.path.join(DIR, "pool7")
     gs = GlobalShards({
@@ -396,7 +368,7 @@ SYNC = [("psum", s_psum), ("adag_epoch", s_adag_epoch),
         ("averaging_ensemble", s_averaging_ensemble),
         ("host_sharded", s_host_sharded),
         ("pjit", s_pjit), ("pjit_bert_mlm", s_pjit_bert_mlm),
-        ("pjit_refused", s_pjit_refused), ("global_shards", s_global_shards),
+        ("global_shards", s_global_shards),
         ("predict", s_predict), ("too_few_workers", s_too_few_workers),
         ("short_peer", s_short_peer),
         ("spread_fleet", s_spread_fleet), ("failed_start", s_failed_start)]
@@ -511,8 +483,356 @@ ASYNC = [("live_center", a_live_center), ("gs_live_center", a_global_shards),
          ("resume", a_resume), ("fleet_runs", a_spread_standby)]
 
 
+# -- the axes pair: the model, sequence and pipeline axes over processes ------
+
+#: ``gpt_tiny``'s widths at one layer (the test's ``GPT``)
+GPT = dict(num_layers=1)
+
+
+def load(name):
+    with np.load(os.path.join(DIR, f"axes_{name}.npz")) as f:
+        return {k: f[k] for k in f.files}
+
+
+def into(model, arrays, prefix=""):
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(torch.from_numpy(arrays[prefix + n]))
+    return model
+
+
+def mesh_info(mesh):
+    from distkeras_tpu_torch.parallel import mesh as mesh_lib
+
+    return {"shape": mesh.shape, "owners": mesh.owners,
+            "device_owners": mesh.device_owners,
+            "local": mesh_lib.local_worker_positions(mesh),
+            "home": str(mesh.home), "spans": mesh.spans_processes,
+            "row_processes": mesh.row_processes}
+
+
+def x_meshes():
+    from distkeras_tpu_torch.parallel import mesh as mesh_lib
+    from distkeras_tpu_torch.parallel import pipeline, sequence
+
+    return {
+        "rows": mesh_info(distributed.multihost_mesh(
+            num_workers=2, model_parallelism=2, devices=["cpu"] * 2)),
+        "span": mesh_info(mesh_lib.make_mesh(model_parallelism=2,
+                                             devices=["cpu"])),
+        "sp_rows": mesh_info(sequence.make_sp_mesh(2, 2, ["cpu"] * 2)),
+        "sp_span": mesh_info(sequence.make_sp_mesh(1, 2, ["cpu"])),
+        "pp": mesh_info(pipeline.make_pp_mesh(4, ["cpu"] * 2))}
+
+
+def x_hop():
+    # the hop alone: a symmetric exchange (each rank sends x, receives the
+    # peer's), then a send-only rank 0 whose backward runs off its token
+    peer = 1 - RANK
+    x = torch.from_numpy(np.random.default_rng(10 + RANK).standard_normal(
+        (3, 5)).astype(np.float32)).requires_grad_()
+    w = torch.from_numpy(np.random.default_rng(20 + RANK).standard_normal(
+        (3, 5)).astype(np.float32))
+    _, (got,) = collectives.hop([(x, peer, 7)],
+                                [(peer, 7, (3, 5), torch.float32, "cpu")])
+    (got * w).sum().backward()
+    collectives.flush_hops()
+    want_x = np.random.default_rng(10 + peer).standard_normal(
+        (3, 5)).astype(np.float32)
+    want_g = np.random.default_rng(20 + peer).standard_normal(
+        (3, 5)).astype(np.float32)
+    out = {"forward": bool(np.array_equal(got.detach().numpy(), want_x)),
+           "backward": bool(np.array_equal(x.grad.numpy(), want_g))}
+    y = torch.arange(6, dtype=torch.float32).reshape(2, 3).requires_grad_()
+    if RANK == 0:
+        token, _ = collectives.hop([(y * 2, 1, 8)])
+        token.backward()
+    else:
+        _, (r,) = collectives.hop((), [(0, 8, (2, 3), torch.float32,
+                                        "cpu")])
+        (r ** 2).sum().backward()
+    collectives.flush_hops()
+    out["one_way"] = y.grad.tolist() if RANK == 0 else None
+    return out
+
+
+def _gpt_pjit(mesh, worker_optimizer="momentum", learning_rate=0.1, **kw):
+    from distkeras_tpu_torch.models import gpt
+
+    data = load("gpt")
+    model = into(gpt.gpt_tiny(**GPT), data, "p/")
+    t = dk.PjitTrainer(model, loss="masked_lm",
+                       worker_optimizer=worker_optimizer,
+                       learning_rate=learning_rate, batch_size=16,
+                       metrics=(), mesh=mesh, **kw)
+    return t, dk.Dataset({"features": data["x"], "label": data["y"]})
+
+
+def _held(t):
+    from distkeras_tpu_torch.parallel import tensor
+
+    opt = t.state.opt_state.state
+    out = {"held": 0, "whole": 0, "opt_held": 0, "opt_whole": 0,
+           "sharded": 0}
+    for p in t.state.params.values():
+        if not isinstance(p, tensor.Sharded):
+            continue
+        out["sharded"] += 1
+        out["held"] += sum(s.nbytes for s in p.shards)
+        out["whole"] += int(np.prod(p.shape)) * p.shards[0].element_size()
+        held = sum(v.nbytes for s in p.shards for v in opt[s].values()
+                   if torch.is_tensor(v))
+        out["opt_held"] += held
+        out["opt_whole"] += held * p.count // len(p.shards)
+    return out
+
+
+def x_pjit_rows():
+    t, ds = _gpt_pjit(distributed.multihost_mesh(
+        num_workers=2, model_parallelism=2, devices=["cpu"] * 2))
+    params = t.train(ds)
+    save("pjit_rows", history=history(t), **params_np(params))
+    return {"n": len(t.history), "checksum": checksum(params), **_held(t)}
+
+
+def x_pjit_span():
+    from distkeras_tpu_torch.parallel.mesh import Mesh
+
+    def span():
+        return distributed.multihost_mesh(model_parallelism=2,
+                                          devices=["cpu"])
+
+    t, ds = _gpt_pjit(span(), num_epoch=2)
+    params = t.train(ds)
+    save("pjit_span", history=history(t), **params_np(params))
+    held = _held(t)
+    ckdir = os.path.join(DIR, "axes_ck")
+    _gpt_pjit(span(), num_epoch=1, checkpoint_dir=ckdir)[0].train(ds)
+    t2, _ = _gpt_pjit(span(), num_epoch=2, checkpoint_dir=ckdir)
+    resumed = t2.train(ds, resume=True)
+    # LAMB's trust ratio spans the whole tensor: its shards' norms join
+    # across the row's processes
+    lamb = {}
+    for key, mesh in (("multi", span()),
+                      ("one", Mesh(["cpu"] * 2, model_parallelism=2))):
+        lt, _ = _gpt_pjit(mesh, worker_optimizer="lamb", learning_rate=1e-2)
+        lamb[key] = (lt.train(ds), history(lt))
+    return {"n": len(t.history), "checksum": checksum(params), **held,
+            "resumed_bitwise": all(torch.equal(resumed[n], params[n])
+                                   for n in params),
+            "resumed_n": len(t2.history),
+            "lamb_bitwise": bool(np.array_equal(lamb["multi"][1],
+                                                lamb["one"][1])) and all(
+                torch.equal(lamb["multi"][0][n], lamb["one"][0][n])
+                for n in params),
+            "on_disk": sorted(x for x in os.listdir(ckdir) if x.isdigit())
+            if RANK == 0 else []}
+
+
+def x_pjit_coupled():
+    # batch-coupled objectives on the 2 x 2 mesh (rows in a process):
+    # each rank gathers the global batch and takes the one-process step
+    from distkeras_tpu_torch.models import bert_tiny, gpt, moe
+    from distkeras_tpu_torch.parallel.mesh import Mesh
+
+    out = {}
+    cases = {"moe_ep": lambda: (
+        into(moe.MoEClassifier(4, num_layers=1, num_heads=2, num_experts=4,
+                               mlp_dim=32, capacity_factor=0.5,
+                               dtype=torch.float32, width=16), load("moe"),
+             "p/"), load("moe"),
+        dict(loss="categorical_crossentropy",
+             partition_rules=moe.ep_partition_rules())),
+        "bert_mlm": lambda: (
+            into(bert_tiny(num_segments=0), load("bert"), "p/"),
+            load("bert"), dict(loss="masked_lm", accum_steps=2)),
+        # int8's activation scale is the global batch's amax; int16 ids
+        # cross as bytes
+        "gpt_int8": lambda: (
+            into(gpt.gpt_tiny(**GPT), load("gpt"), "p/"),
+            {**load("gpt"), "x": load("gpt")["x"].astype(np.int16)},
+            dict(loss="masked_lm", precision="int8"))}
+    for name, build in cases.items():
+        got = {}
+        for key, mesh in (
+                ("multi", distributed.multihost_mesh(
+                    num_workers=2, model_parallelism=2,
+                    devices=["cpu"] * 2)),
+                ("one", Mesh(["cpu"] * 4, model_parallelism=2))):
+            model, data, kw = build()
+            t = dk.PjitTrainer(model, worker_optimizer="sgd",
+                               learning_rate=0.1, batch_size=16, metrics=(),
+                               mesh=mesh, **kw)
+            got[key] = (t.train(dk.Dataset({"features": data["x"],
+                                            "label": data["y"]})),
+                        history(t))
+        (pm, hm), (po, ho) = got["multi"], got["one"]
+        save(f"coupled_{name}", history=hm, **params_np(pm))
+        out[name] = {"n": len(hm),
+                     "bitwise": bool(np.array_equal(hm, ho)) and all(
+                         torch.equal(pm[n], po[n]) for n in po),
+                     "checksum": checksum(pm)}
+    return out
+
+
+def _sp(mesh):
+    from distkeras_tpu_torch.models import gpt
+    from distkeras_tpu_torch.parallel import sequence
+
+    data = load("sp")
+    model = gpt.gpt_tiny(attention="ring", **GPT)
+    tx = opt_lib.get("sgd", 0.1)
+    state = sequence.init_sp_state(model, tx, mesh)
+    into(model, data, "p/")
+    step_fn, place_state, place_batch = sequence.build_sp_train_step(
+        model, tx, mesh)
+    return data, model, state, step_fn, place_batch
+
+
+def x_sp_rows():
+    from distkeras_tpu_torch.parallel import sequence
+
+    data, model, state, step_fn, _ = _sp(sequence.make_sp_mesh(
+        2, 2, ["cpu"] * 2))
+    state, ms = step_fn(state, {"input_ids": data["ids"],
+                                "labels": data["labels"]})
+    save("sp_rows", **params_np(dict(model.named_parameters())))
+    return {"loss": float(ms["loss"]), "accuracy": float(ms["accuracy"]),
+            "checksum": checksum(dict(model.named_parameters()))}
+
+
+def x_sp_span():
+    from distkeras_tpu_torch.parallel import sequence
+    from distkeras_tpu_torch.parallel.mesh import Mesh
+
+    mesh = sequence.make_sp_mesh(1, 2, ["cpu"])
+    data, model, state, step_fn, place_batch = _sp(mesh)
+    batch = {"input_ids": data["ids"], "labels": data["labels"]}
+    placed = place_batch(batch)
+    ids = torch.from_numpy(data["ids"])
+    with torch.no_grad():
+        mine = model(placed["input_ids"][0])[RANK]
+        # the same weights' one-process ring, every block in this process
+        alone = model(list(ids.chunk(2, dim=1)))[RANK]
+    state, ms = step_fn(state, placed)
+    save("sp_span", **params_np(dict(model.named_parameters())))
+    # this process's one-process step for the update's bits
+    ref = _sp(Mesh(["cpu"] * 2, model_parallelism=2,
+                   axis_names=("workers", "seq")))
+    _, ref_ms = ref[3](ref[2], batch)
+    return {"forward_bitwise": bool(torch.equal(mine, alone)),
+            "remote": [type(b).__name__ for b in placed["input_ids"][0]],
+            "loss": float(ms["loss"]), "accuracy": float(ms["accuracy"]),
+            "one_process_loss": float(ref_ms["loss"]),
+            "max_param_diff": max(float((a - b).abs().max()) for a, b in zip(
+                model.parameters(), ref[1].parameters())),
+            "checksum": checksum(dict(model.named_parameters()))}
+
+
+LM = dict(vocab_size=64, max_len=32, num_layers=4, num_heads=2, width=32,
+          mlp_dim=64, num_stages=4)
+
+
+def _owned(module):
+    return {n: p.detach().numpy() for n, p in module.named_parameters()
+            if not p.is_meta}
+
+
+def x_pp_lm():
+    from distkeras_tpu_torch.parallel import pipeline
+    from distkeras_tpu_torch.parallel.mesh import Mesh
+
+    data = load("pp_lm")
+    params = {n[2:]: torch.from_numpy(v) for n, v in data.items()
+              if n.startswith("p/")}
+    batch = {"input_ids": data["ids"], "labels": data["labels"]}
+    out = {}
+    for key, mesh in (("multi", pipeline.make_pp_mesh(4, ["cpu"] * 2)),
+                      ("one", Mesh(["cpu"] * 4, model_parallelism=4,
+                                   axis_names=("workers", "stages")))):
+        model = pipeline.PipelinedLM(**LM, device="cpu")
+        step_fn, place_params, place_batch = model.build_train_step(
+            opt_lib.get("sgd", 0.1), mesh, num_microbatches=4)
+        state = place_params(params)
+        _, ms = step_fn(state, place_batch(batch))
+        out[key] = (_owned(model), {k: float(v) for k, v in ms.items()})
+    (pm, mm), (po, mo) = out["multi"], out["one"]
+    save("pp_lm", **pm)
+    return {"metrics": mm, "owned": sorted(pm),
+            "bitwise": mm == mo and all(np.array_equal(pm[n], po[n])
+                                        for n in pm)}
+
+
+class ConvPool(torch.nn.Module):
+    """NHWC in and out: SAME 3x3 conv, relu, 2x2 mean pool (the stages of
+    ``tests/test_torch_pipeline.py``)."""
+
+    def __init__(self, fan_in, channels):
+        super().__init__()
+        self.conv = torch.nn.Conv2d(fan_in, channels, 3, padding=1)
+
+    def forward(self, x):
+        y = torch.relu(self.conv(x.float().permute(0, 3, 1, 2)))
+        return torch.nn.functional.avg_pool2d(y, 2).permute(0, 2, 3, 1)
+
+
+class DenseRelu(torch.nn.Module):
+    def __init__(self, fan_in, width):
+        super().__init__()
+        self.fc = torch.nn.Linear(fan_in, width)
+
+    def forward(self, x):
+        return torch.relu(self.fc(x.float()))
+
+
+class Head(torch.nn.Module):
+    def __init__(self, fan_in, classes):
+        super().__init__()
+        self.out = torch.nn.Linear(fan_in, classes)
+
+    def forward(self, x):
+        return self.out(x.float().reshape(x.shape[0], -1))
+
+
+def x_pp_generic():
+    from distkeras_tpu_torch.parallel import pipeline
+    from distkeras_tpu_torch.parallel.mesh import Mesh
+
+    data = load("pp_generic")
+    params = tuple({n[len(f"p{k}/"):]: torch.from_numpy(v)
+                    for n, v in data.items() if n.startswith(f"p{k}/")}
+                   for k in range(4))
+    batch = {"features": data["features"], "labels": data["labels"]}
+    out = {}
+    for key, mesh in (("multi", pipeline.make_pp_mesh(4, ["cpu"] * 2)),
+                      ("one", Mesh(["cpu"] * 4, model_parallelism=4,
+                                   axis_names=("workers", "stages")))):
+        pipe = pipeline.GenericPipeline(
+            [ConvPool(3, 8), ConvPool(8, 16), DenseRelu(16, 32),
+             Head(2 * 2 * 32, 5)], num_microbatches=2, device="cpu")
+        pipe.init(batch["features"][:4])
+        step_fn, place_params, place_batch = pipe.build_train_step(
+            opt_lib.get("sgd", 0.1), mesh)
+        state = place_params(params)
+        _, ms = step_fn(state, place_batch(batch))
+        out[key] = ({f"{k}/{n}": v for k, stage in enumerate(pipe.stages)
+                     for n, v in _owned(stage).items()},
+                    {k: float(v) for k, v in ms.items()})
+    (pm, mm), (po, mo) = out["multi"], out["one"]
+    save("pp_generic", **pm)
+    return {"metrics": mm, "owned": sorted(pm),
+            "bitwise": mm == mo and all(np.array_equal(pm[n], po[n])
+                                        for n in pm)}
+
+
+AXES = [("meshes", x_meshes), ("hop", x_hop), ("pjit_rows", x_pjit_rows),
+        ("pjit_span", x_pjit_span), ("pjit_coupled", x_pjit_coupled),
+        ("sp_rows", x_sp_rows), ("sp_span", x_sp_span), ("pp_lm", x_pp_lm),
+        ("pp_generic", x_pp_generic)]
+
+
 def main():
-    for name, fn in (SYNC if ROLE == "sync" else ASYNC):
+    for name, fn in {"sync": SYNC, "async": ASYNC, "axes": AXES}[ROLE]:
         t0 = time.perf_counter()
         try:
             out = fn()
