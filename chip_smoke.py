@@ -408,6 +408,40 @@ Phases (each asserts; any failure exits non-zero and prints no result):
    seconds in cross-process moves, the bytes at rest and the peak memory
    a rank; the two ranks time-slice one card, so their rates are not two
    cards'.
+35. cards — the cards of one host (N = ``torch.cuda.device_count()``, up
+   to 4; on a host with one card the phase says that it needs two and
+   runs nothing), TF32 off, cuDNN deterministic, each card's name and
+   power limit logged: (a) rows 1-7 of the kernel table on every card,
+   ``cuda:0`` first, each against its plain version (``card_rows``: a
+   kernel opts into its shared memory once a card); (b) one process over
+   the N cards, each run beside its one-card twin on ``cuda:0``:
+   ``ADAG(resnet50_nf())`` sync with one worker a card (``make_mesh()``)
+   against K = N replicas on one card (the center bitwise, or within
+   rtol 1e-5 / atol 1e-6), in float32, and one round of it in phase 24's
+   bf16 recipe, ``mode="host_async"`` with one thread a card,
+   ``ModelPredictor`` over the cards' mesh, ``PjitTrainer(bert_base(),
+   precision="int8")`` at workers N/2 x model 2, ``gpt_small(attention=
+   "ring")`` bf16 at 1 x N (a replica of the weights a card: step 1's
+   loss bitwise, later steps within the bound, the replicas' gradients
+   summed in another order), ``PipelinedLM`` and ``GenericPipeline(
+   resnet50())`` with a stage a card, and a ``GenerationEngine(
+   page_size=16)`` on the last card (its graphs captured there, its
+   tokens those of the same engine on ``cuda:0``); samples/s or tokens/s,
+   ms a step and peak memory a card; (c) N ranks of this script
+   (``--cards-child``), one card each: the PipelinedLM a stage a rank
+   first on the fresh group (its first NCCL call a hop between two
+   ranks), the fold backend then reading ``"nccl"`` on every rank, then
+   the sync fold in float32 and one round in bf16, the BERT row over two
+   ranks, the ring at 1 x N and GenericPipeline a stage a rank, every
+   rank equal and each within rtol 1e-5 / atol 1e-6 of (b) (NCCL's ring
+   order reassociates sums for N >= 3; the bf16 round's center too, the
+   workers' round being the same on both layouts so that only the
+   fold's float32 sums can differ), and the moves alone: the NCCL
+   fold of resnet50_nf's 102 MB, its all-gather of 253 MiB a rank and a
+   hop, beside the same bytes staged through the host over gloo. These
+   are N cards' rates, not time slices of one. Run it alone (phases 1,
+   2 and 35) with ``python -c "import sys, chip_smoke;
+   sys.exit(chip_smoke.cards_alone())"``.
 
 The last three lines of standard output are the kernels' JSON, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Details are
@@ -6498,7 +6532,7 @@ AX_SP_STEPS = 2
 
 class _Moves:
     """Seconds spent in the cross-process moves (the shard all-gather,
-    the folds, the host-staged sends and receives, the batch gather),
+    the folds, the hops' sends and receives, the batch gather),
     counted by wrapping them."""
 
     def __init__(self):
@@ -6507,7 +6541,7 @@ class _Moves:
         self.seconds, self.calls = 0.0, 0
         for mod, name in ((collectives, "all_gather_flat"),
                           (collectives, "cross_process_sum"),
-                          (collectives, "_send"), (collectives, "_recv"),
+                          (collectives, "_exchange"),
                           (distributed, "process_allgather"),
                           (distributed, "broadcast_one_to_all")):
             setattr(mod, name, self._timed(getattr(mod, name)))
@@ -6958,6 +6992,886 @@ def phase_axes(dev, power_line, report) -> dict:
     return info
 
 
+# -- phase 35: the cards of one host -------------------------------------------
+
+#: (b)/(c): resnet50_nf ADAG rows a step, window and rounds, one worker a
+#: card (phase 24 (b)'s batch and window); the bf16 run takes one round
+CARDS_B, CARDS_WINDOW, CARDS_ROUNDS = 32, 4, 2
+#: the bound where a run is not bitwise its one-card twin (the gradient
+#: sums of the ring's replicas, NCCL's ring order for three ranks or more),
+#: relative / absolute
+CARDS_RTOL, CARDS_ATOL = 1e-5, 1e-6
+#: (b)/(c): the ring's and the pipelines' adamw steps after the first
+#: (rates from the steps after the first)
+CARDS_STEPS = 3
+#: (b): rows each card's ModelPredictor scores
+CARDS_PREDICT = 256
+#: (b): the engine's prompts and new tokens on the last card and on cuda:0
+CARDS_PROMPTS, CARDS_NEW = 8, 32
+#: (c): each rank's hard limit (s); the moves' repeats and bytes: the fold
+#: of resnet50_nf's float32 parameters (phase 32's 102 MB), the
+#: all-gather of 253 MiB a rank (phase 34's), a PipelinedLM hop
+CARDS_CHILD_TIMEOUT_S = 420
+CARDS_MOVE_REPS = 5
+CARDS_GATHER_BYTES = 253 << 20
+CARDS_HOP_SHAPE = (PP_B // PP_M, PP_T, 768)
+#: (c): the fold backend every rank must read (one card a rank)
+CARDS_BACKEND = "nccl"
+
+
+def _cards_nf_model(seed):
+    """(b)/(c)'s ``resnet50_nf()``, computing in float32 (TF32 off): a
+    fold over NCCL reassociates the center's float32 sums, and in bf16
+    compute the next round's roundings of the activations then flip, so
+    two rounds would drift past the bound by rounding alone. Phase 24's
+    bf16 recipe (``_nf_model``) runs one round, where only the fold can
+    differ."""
+    from distkeras_tpu_torch.models.resnet import init_params, resnet50_nf
+
+    return init_params(resnet50_nf(dtype=torch.float32),
+                       torch.Generator().manual_seed(seed))
+
+
+def _sync(cards) -> None:
+    for card in cards:
+        torch.cuda.synchronize(card)
+
+
+def _peaks(cards) -> list:
+    return [torch.cuda.max_memory_allocated(c) for c in cards]
+
+
+def _reset_peaks(cards) -> None:
+    _sync(cards)
+    torch.cuda.empty_cache()
+    for card in cards:
+        torch.cuda.reset_peak_memory_stats(card)
+
+
+def _close(got, want) -> bool:
+    """Two lists of numbers, or two name -> array dicts, within
+    CARDS_RTOL / CARDS_ATOL."""
+    if isinstance(want, dict):
+        return sorted(got) == sorted(want) and all(
+            np.allclose(np.asarray(got[n], np.float64),
+                        np.asarray(want[n], np.float64), rtol=CARDS_RTOL,
+                        atol=CARDS_ATOL) for n in want)
+    return len(got) == len(want) and all(
+        abs(u - v) <= CARDS_ATOL + CARDS_RTOL * abs(v)
+        for u, v in zip(got, want))
+
+
+def card_rows(dev) -> list:
+    """Rows 1-7 of the kernel table on ``dev``, each held against its
+    plain version on the same inputs at phase 3, 7, 11 and 13's bounds:
+    the paged kernel at gpt_small's bf16 decode (8, 2), the three flash
+    kernels at [4, 128, 12, 64] causal bf16, the int8 product at BERT-base's
+    qkv over 4,096 rows (bitwise) and GroupNorm at [32, 3136, 256] bf16
+    (bitwise, the stats within one ulp). Returns one dict a row."""
+    from distkeras_tpu_torch.ops.kernels import flash_attention as fa
+    from distkeras_tpu_torch.ops.kernels import groupnorm as gn
+    from distkeras_tpu_torch.ops.kernels import int8_matmul as i8
+
+    rows = []
+    with torch.cuda.device(dev):
+        rng = np.random.default_rng(35)
+        q, k, v, table, ci = _paged_inputs(8, 2, torch.bfloat16, rng, dev)
+        got = fa.paged_flash_attention(q, k, v, table, ci)
+        want = fa.paged_flash_attention_reference(q, k, v, table, ci)
+        err = (got.float() - want.float()).abs().max().item()
+        bound = min(BOUNDS[torch.bfloat16],
+                    PAGED_BF16_REL * want.float().abs().max().item())
+        rows.append({"name": "paged_flash_attention", "max_abs_err": err,
+                     "ok": err <= bound and bool(torch.isfinite(got).all())})
+        q, k, v, dout = (torch.from_numpy(rng.standard_normal(
+            (4, 128, 12, 64)).astype(np.float32)).to(dev, torch.bfloat16)
+            for _ in range(4))
+        o_ref, lse_ref = fa.flash_attention_reference(q, k, v, True)
+        delta = fa.flash_attention_delta(o_ref, dout)
+        args = (q, k, v, dout, lse_ref, delta, True)
+        pairs = {"flash_attention_fwd": zip(
+                     fa.flash_attention_fwd(q, k, v, True), (o_ref, lse_ref),
+                     (False, False)),
+                 "flash_attention_bwd_dq": [(
+                     fa.flash_attention_bwd_dq(*args),
+                     fa.flash_attention_bwd_dq_reference(*args), True)],
+                 "flash_attention_bwd_dkv": zip(
+                     fa.flash_attention_bwd_dkv(*args),
+                     fa.flash_attention_bwd_dkv_reference(*args),
+                     (True, True))}
+        for name, outs in pairs.items():
+            ok, worst = True, 0.0
+            for g, w, grad in outs:
+                # phase 7's bf16 bounds: outputs 2e-2, gradients 2e-2 of
+                # their largest magnitude
+                err = (g.float() - w.float()).abs().max().item()
+                bound = 2e-2 * w.float().abs().max().item() if grad \
+                    else 2e-2
+                ok &= err <= bound and bool(torch.isfinite(g).all())
+                worst = max(worst, err)
+            rows.append({"name": name, "max_abs_err": worst, "ok": ok})
+        qx = torch.from_numpy(rng.integers(-127, 128, (4096, 768)).astype(
+            np.int8)).to(dev)
+        qw = torch.from_numpy(rng.integers(-127, 128, (2304, 768)).astype(
+            np.int8)).to(dev)
+        sxw = torch.tensor(3e-3, dtype=torch.float32, device=dev)
+        got = i8.int8_matmul_dequant(qx, qw, sxw, torch.bfloat16)
+        want = i8.int8_matmul_dequant_reference(qx, qw, sxw, torch.bfloat16)
+        rows.append({"name": "int8_matmul_dequant", "max_abs_err": (
+            got.float() - want.float()).abs().max().item(),
+            "ok": torch.equal(got, want)})
+        mk = lambda *s: torch.from_numpy(
+            rng.standard_normal(s).astype(np.float32)).to(dev)
+        x, dy = (mk(32, 3136, 256).to(torch.bfloat16) for _ in range(2))
+        gamma, beta = 1.0 + 0.1 * mk(256), 0.1 * mk(256)
+        names = ("y", "stats", "dx", "dgamma_p", "dbeta_p")
+        got = (*gn.group_norm_fwd(x, gamma, beta, GN_GROUPS),)
+        want = gn.group_norm_fwd_reference(x, gamma, beta, GN_GROUPS, 1e-6)
+        got += gn.group_norm_bwd(x, gamma, want[1], dy, GN_GROUPS)
+        want += gn.group_norm_bwd_reference(x, gamma, want[1], dy, GN_GROUPS)
+        # y, dx and the partials bitwise, the stats within one ulp
+        errs, ok = _gn_errors(dict(zip(names, got)), dict(zip(names, want)))
+        for name, outs in (("group_norm_fwd", ("y", "stats")),
+                           ("group_norm_bwd", ("dx", "dgamma_p",
+                                               "dbeta_p"))):
+            rows.append({"name": name, "ok": ok, "max_abs_err": max(
+                errs[o]["max_abs_err"] for o in outs)})
+        torch.cuda.synchronize(dev)
+    return rows
+
+
+def _cards_kernels(cards, power_line) -> dict:
+    """(a) rows 1-7 on every card, cuda:0 first."""
+    out = {}
+    for card in cards:
+        t0 = time.perf_counter()
+        rows = card_rows(card)
+        out[str(card)] = rows
+        log(f"[cards] (a) {card}: "
+            + ", ".join(f"{r['name']} {r['max_abs_err']:.3g} "
+                        f"{'ok' if r['ok'] else 'FAILED'}" for r in rows)
+            + f" ({time.perf_counter() - t0:.1f} s) [{power_line}]")
+        assert all(r["ok"] for r in rows), rows
+    return out
+
+
+def _cards_adag(cards, power_line) -> dict:
+    """(b) ADAG(resnet50_nf()) sync, one worker a card (``make_mesh()``:
+    every card) against K = N replicas on cuda:0, the same rows, then one
+    round of it in phase 24's bf16 recipe (``_nf_model``); and
+    ``mode="host_async"`` with one thread a card against N threads on
+    cuda:0; then ``ModelPredictor`` over the cards' mesh against
+    ``mesh=None`` on the sync run's center."""
+    from distkeras_tpu_torch import ADAG, ModelPredictor
+    from distkeras_tpu_torch.parallel import mesh as mesh_lib
+
+    n = len(cards)
+    ds = _images(n * CARDS_ROUNDS * CARDS_WINDOW * CARDS_B, seed=70)
+    out = {}
+
+    def train(key, rows=ds, make=_cards_nf_model, **kw):
+        trainer = ADAG(make(seed=71), worker_optimizer="sgd",
+                       learning_rate=0.05, batch_size=CARDS_B,
+                       communication_window=CARDS_WINDOW, metrics=(), **kw)
+        _reset_peaks(cards)
+        t0 = time.perf_counter()
+        params = trainer.train(rows)
+        _sync(cards)
+        wall = time.perf_counter() - t0
+        losses = [h["loss"] for h in trainer.history]
+        out[key] = {"wall_s": wall, "rows": len(rows),
+                    "samples_per_s": len(rows) / wall,
+                    "losses": losses, "peak_bytes": _peaks(cards),
+                    "commits": trainer.num_updates,
+                    "digest": _digest(params, losses)}
+        assert all(math.isfinite(x) for x in losses), (key, losses)
+        return {k: v.detach().cpu() for k, v in params.items()}
+
+    # one round on every card first, untimed: the first training run's
+    # set-up (cuDNN's plans a card and shape, the staging's buffers)
+    train("warmup", rows=_images(n * CARDS_WINDOW * CARDS_B, seed=69),
+          mesh=mesh_lib.make_mesh(n))
+    one = train("sync_one_card", mesh=mesh_lib.Mesh([cards[0]]),
+                parallelism_factor=n)
+    center = train("sync_cards", mesh=mesh_lib.make_mesh(n))
+    out["sync_bitwise"] = out["sync_cards"]["digest"] == \
+        out["sync_one_card"]["digest"]
+    out["sync_close"] = _close(center, one) and _close(
+        out["sync_cards"]["losses"], out["sync_one_card"]["losses"])
+    out["center"] = center
+    # phase 24's bf16 recipe for one round (its center held against (c)'s)
+    out["center_bf16"] = train(
+        "sync_cards_bf16", rows=_images(n * CARDS_WINDOW * CARDS_B, seed=73),
+        make=_nf_model, mesh=mesh_lib.make_mesh(n))
+    train("async_one_card", mode="host_async", num_workers=n,
+          devices=[cards[0]])
+    train("async_cards", mode="host_async", num_workers=n)
+    model = _scoring_model(center).eval()
+    rows = _images(CARDS_PREDICT, seed=72)
+    _reset_peaks(cards)
+    t0 = time.perf_counter()
+    mesh_pred = ModelPredictor(model, mesh=mesh_lib.make_mesh(n),
+                               batch_size=CARDS_B).predict(rows)
+    _sync(cards)
+    mesh_s = time.perf_counter() - t0
+    alone = ModelPredictor(_scoring_model(center).eval(),
+                           batch_size=CARDS_B,
+                           device=cards[0]).predict(rows)
+    got, want = (np.asarray(p["prediction"]) for p in (mesh_pred, alone))
+    out["predict"] = {"rows": CARDS_PREDICT, "mesh_s": mesh_s,
+                      "bitwise": bool(np.array_equal(got, want)),
+                      "max_rel": float(np.abs(got - want).max()
+                                       / max(np.abs(want).max(), 1e-30))}
+    for key in ("sync_one_card", "sync_cards", "sync_cards_bf16",
+                "async_one_card", "async_cards"):
+        r = out[key]
+        log(f"[cards] (b) ADAG resnet50_nf {key} (b={CARDS_B}, window "
+            f"{CARDS_WINDOW}, {n} workers): {r['samples_per_s']:.1f} "
+            f"samples/s over {r['rows']} rows in {r['wall_s']:.2f} s, "
+            f"{r['commits']} commits, losses {r['losses'][0]:.4f} -> "
+            f"{r['losses'][-1]:.4f}, peak a card "
+            f"{[round(p / 2**30, 2) for p in r['peak_bytes']]} GiB "
+            f"[{power_line}]")
+    log(f"[cards] (b) sync center over {n} cards bitwise the one-card K={n}"
+        f" run: {out['sync_bitwise']} (within rtol {CARDS_RTOL}: "
+        f"{out['sync_close']}); ModelPredictor over the {n}-card mesh vs "
+        f"mesh=None: bitwise {out['predict']['bitwise']}, max relative "
+        f"{out['predict']['max_rel']:.2e} [{power_line}]")
+    assert out["sync_close"], out
+    assert out["async_cards"]["commits"] == n * CARDS_ROUNDS, out
+    assert out["predict"]["max_rel"] <= 1e-5, out
+    return out
+
+
+def _cards_pjit(cards, power_line) -> dict:
+    """(b) ``PjitTrainer(bert_base(), precision="int8")`` at workers N/2 x
+    model 2 over the cards against the same shape on cuda:0 repeated
+    (phase 29 (b)'s rows and optimizer)."""
+    from distkeras_tpu_torch.data.dataset import Dataset
+    from distkeras_tpu_torch.ops.kernels import int8_matmul as i8
+    from distkeras_tpu_torch.parallel import mesh as mesh_lib
+
+    n = len(cards)
+    rows = [_bert_batch(30592, seed=40 + i) for i in range(PJIT_STEPS)]
+    ds = Dataset.from_arrays(
+        features=np.concatenate([r["features"] for r in rows]),
+        label=np.concatenate([r["labels"] for r in rows]))
+    out = {}
+    for key, mesh in (("one_card", mesh_lib.Mesh([cards[0]] * n,
+                                                 model_parallelism=2)),
+                      ("cards", mesh_lib.make_mesh(
+                          n // 2, model_parallelism=2))):
+        _reset_peaks(cards)
+        info, trainer = _pjit_run(cards[0], _enc_model("bert"), ds, mesh,
+                                  "masked_lm", (i8.int8_matmul_dequant,),
+                                  precision="int8", worker_optimizer="adam",
+                                  learning_rate=1e-4, batch_size=PJIT_B)
+        _sync(cards)
+        info.update(peak_bytes=_peaks(cards), mesh=repr(mesh),
+                    samples_per_s=len(ds) / info["wall_s"])
+        out[key] = info
+        del trainer
+    out["bitwise"] = out["cards"]["losses"] == out["one_card"]["losses"]
+    log(f"[cards] (b) bert-base int8 PjitTrainer {n // 2} x 2 over "
+        f"{out['cards']['mesh']}: losses "
+        f"{', '.join(f'{x:.6f}' for x in out['cards']['losses'])}, bitwise "
+        f"the one-card mesh's {out['bitwise']}; "
+        f"{out['cards']['samples_per_s']:.1f} vs "
+        f"{out['one_card']['samples_per_s']:.1f} samples/s on one card; "
+        f"int8 launches {out['cards']['launches']}; peak a card "
+        f"{[round(p / 2**30, 2) for p in out['cards']['peak_bytes']]} GiB "
+        f"[{power_line}]")
+    assert out["bitwise"] or _close(out["cards"]["losses"],
+                                    out["one_card"]["losses"]), out
+    for key in ("one_card", "cards"):  # the global batch's step
+        assert out[key]["launches"]["int8_matmul_dequant"] == \
+            49 * len(out[key]["losses"]), out
+    return out
+
+
+def _cards_ring(cards, power_line, start) -> dict:
+    """(b) gpt_small(attention="ring") bf16 at workers 1 x seq N over the
+    cards (a replica of the weights a card) against 1 x N on cuda:0."""
+    from distkeras_tpu_torch.models.gpt import gpt_small
+    from distkeras_tpu_torch.ops import optimizers
+
+    batch = _sp_batch(SP_B, SP_T, seed=40)
+    out = {}
+    for key, devices in (("one_card", [cards[0]] * len(cards)),
+                         ("cards", list(cards))):
+        ring = gpt_small(attention="ring")
+        ring.load_state_dict(start)
+        ring.to(cards[0])
+        _reset_peaks(cards)
+        losses, times, _ = _sp_steps(
+            cards[0], ring, (1, len(cards)), batch,
+            optimizers.get("adamw", 1e-3), CARDS_STEPS, devices=devices)
+        _sync(cards)
+        med = statistics.median(times[1:])
+        out[key] = {"losses": losses, "step_s": times,
+                    "tokens_per_s": SP_B * SP_T / med,
+                    "peak_bytes": _peaks(cards)}
+        del ring
+    a, b = out["cards"]["losses"], out["one_card"]["losses"]
+    out["step1_bitwise"] = a[0] == b[0]
+    out["bitwise"] = a == b
+    out["close"] = _close(a, b)
+    log(f"[cards] (b) gpt_small ring bf16 1 x {len(cards)} over the cards: "
+        f"losses {', '.join(f'{x:.6f}' for x in a)} against one card's "
+        f"{', '.join(f'{x:.6f}' for x in b)} (step 1 bitwise "
+        f"{out['step1_bitwise']}, all bitwise {out['bitwise']}; later steps "
+        f"differ only by the order in which the replicas' gradients are "
+        f"summed); {out['cards']['tokens_per_s']:.0f} vs "
+        f"{out['one_card']['tokens_per_s']:.0f} tokens/s; peak a card "
+        f"{[round(p / 2**30, 2) for p in out['cards']['peak_bytes']]} GiB "
+        f"[{power_line}]")
+    assert out["step1_bitwise"] and out["close"], out
+    return out
+
+
+def _pp_lm_steps(dev, devices):
+    """Phase 30 (d)'s PipelinedLM with one stage a device of ``devices``
+    (this process's; every process's end to end in a group): one sgd
+    step, then CARDS_STEPS adamw steps: ``{"losses", "step_s"}``."""
+    from distkeras_tpu_torch.ops import optimizers
+    from distkeras_tpu_torch.parallel import mesh as mesh_lib
+    from distkeras_tpu_torch.parallel import pipeline
+
+    stages = len(mesh_lib.global_devices(devices)[0])
+    model = pipeline.PipelinedLM(**PP_LM, num_stages=stages,
+                                 dtype=torch.bfloat16, device=dev).init(43)
+    mesh = pipeline.make_pp_mesh(stages, devices=devices)
+    batch = _sp_batch(PP_B, PP_T, seed=44)
+    losses, times = [], []
+    for tx, steps in ((optimizers.get("sgd", SP_SGD_LR), 1),
+                      (optimizers.get("adamw", 1e-3), CARDS_STEPS)):
+        step_fn, place_params, place_batch = model.build_train_step(
+            tx, mesh, PP_M)
+        state, placed = place_params(), place_batch(batch)
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, ms = step_fn(state, placed)
+            losses.append(float(ms["loss"]))
+            times.append(time.perf_counter() - t0)
+    return {"losses": losses, "step_s": times, "stages": stages,
+            "owners": mesh.device_owners}
+
+
+def _resnet_stages(parts, n) -> list:
+    """The six stages of :func:`_resnet_pipeline_stages` joined into ``n``
+    consecutive stages."""
+    from torch import nn
+
+    cuts = np.array_split(np.arange(len(parts)), n)
+    return [nn.Sequential(*[parts[i] for i in c]) for c in cuts]
+
+
+def _generic_step(dev, devices, n):
+    """Phase 30 (e)'s GenericPipeline(resnet50()) in ``n`` stages, one a
+    device of ``devices`` (this process's, in a group): one adamw step,
+    the loss and both GroupNorm kernels' launches over it."""
+    from distkeras_tpu_torch.ops import optimizers
+    from distkeras_tpu_torch.ops.kernels import groupnorm as gn
+    from distkeras_tpu_torch.parallel import pipeline
+
+    model = _resnet_model("gn", torch.bfloat16, seed=45)
+    parts = _resnet_stages(_resnet_pipeline_stages(model), n)
+    pipe = pipeline.GenericPipeline(parts, num_microbatches=GP_M,
+                                    dtype=torch.bfloat16, device=dev)
+    rng = np.random.default_rng(46)
+    feats = rng.standard_normal((GP_B, GP_SIDE, GP_SIDE, 3)).astype(
+        np.float32)
+    labels = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, GP_B)]
+    pipe.init(feats[:GP_B // GP_M])
+    mesh = pipeline.make_pp_mesh(n, devices=devices)
+    step_fn, place_params, place_batch = pipe.build_train_step(
+        optimizers.get("adamw", 1e-3), mesh)
+    state = place_params()
+    placed = place_batch({"features": feats, "labels": labels})
+    kernels = (gn.group_norm_fwd, gn.group_norm_bwd)
+    for card in {torch.device(d) for d in devices}:
+        torch.cuda.synchronize(card)
+    for kernel in kernels:
+        kernel.launches = 0
+    t0 = time.perf_counter()
+    _, ms = step_fn(state, placed)
+    loss = float(ms["loss"])
+    return {"loss": loss, "step_s": time.perf_counter() - t0,
+            "launches": {k.__name__: k.launches for k in kernels},
+            "owners": mesh.device_owners}
+
+
+def _cards_pipelines(cards, power_line) -> dict:
+    """(b) PipelinedLM (12 layers in N stages) and GenericPipeline(
+    resnet50()) in N stages, a stage a card, against the same stages on
+    cuda:0 repeated."""
+    n = len(cards)
+    out = {"lm": {}, "generic": {}}
+    for key, devices in (("one_card", [cards[0]] * n), ("cards", cards)):
+        _reset_peaks(cards)
+        out["lm"][key] = _pp_lm_steps(cards[0], devices)
+        _sync(cards)
+        out["lm"][key]["peak_bytes"] = _peaks(cards)
+        _reset_peaks(cards)
+        out["generic"][key] = _generic_step(cards[0], devices, n)
+        _sync(cards)
+        out["generic"][key]["peak_bytes"] = _peaks(cards)
+    lm, gen = out["lm"], out["generic"]
+    out["lm_bitwise"] = lm["cards"]["losses"] == lm["one_card"]["losses"]
+    out["generic_bitwise"] = gen["cards"]["loss"] == gen["one_card"]["loss"]
+    med = statistics.median(lm["cards"]["step_s"][1:])
+    med1 = statistics.median(lm["one_card"]["step_s"][1:])
+    log(f"[cards] (b) PipelinedLM gpt_small config {n} stages a card: "
+        f"losses {', '.join(f'{x:.6f}' for x in lm['cards']['losses'])} "
+        f"(one card {', '.join(f'{x:.6f}' for x in lm['one_card']['losses'])}"
+        f": bitwise {out['lm_bitwise']}); {PP_B * PP_T / med:.0f} vs "
+        f"{PP_B * PP_T / med1:.0f} tokens/s, {med * 1e3:.1f} vs "
+        f"{med1 * 1e3:.1f} ms a step; GenericPipeline(resnet50()) {n} "
+        f"stages: loss {gen['cards']['loss']:.6f} (one card "
+        f"{gen['one_card']['loss']:.6f}: bitwise {out['generic_bitwise']}), "
+        f"{gen['cards']['step_s'] * 1e3:.1f} vs "
+        f"{gen['one_card']['step_s'] * 1e3:.1f} ms a step, GroupNorm "
+        f"launches {gen['cards']['launches']} [{power_line}]")
+    assert out["lm_bitwise"] or _close(lm["cards"]["losses"],
+                                       lm["one_card"]["losses"]), out
+    assert out["generic_bitwise"] or _close(
+        [gen["cards"]["loss"]], [gen["one_card"]["loss"]]), out
+    assert all(v == 53 * GP_M for v in gen["cards"]["launches"].values()), \
+        out
+    return out
+
+
+def _cards_engine(cards, power_line) -> dict:
+    """(b) ``GenerationEngine(page_size=16)`` on the last card (its graphs
+    captured there) against the same engine on cuda:0: bf16 greedy
+    tokens for CARDS_PROMPTS prompts, equal; the paged launches on the
+    last card (zeroed before, read after)."""
+    from distkeras_tpu_torch import telemetry
+    from distkeras_tpu_torch.ops.kernels import flash_attention as fa
+    from distkeras_tpu_torch.serving import GenerationEngine
+
+    prompts = _serving_prompts()[:CARDS_PROMPTS]
+    compiles = telemetry.counter("serving.decode.compiles")
+    out = {}
+    for key, card in (("cuda0", cards[0]), ("last", cards[-1])):
+        c0 = compiles.value
+        t0 = time.perf_counter()
+        eng = GenerationEngine(_gpt_small_bf16(), device=card, page_size=PAGE,
+                               **ENGINE_KW)
+        setup_s = time.perf_counter() - t0
+        captured = compiles.value - c0
+        try:
+            fa.paged_flash_attention.launches = 0
+            t0 = time.perf_counter()
+            tokens = [f.result(timeout=600).tokens.tolist() for f in
+                      [eng.generate(p, max_new_tokens=CARDS_NEW)
+                       for p in prompts]]
+            wall = time.perf_counter() - t0
+            launches = fa.paged_flash_attention.launches
+            assert compiles.value - c0 == captured, "captured late"
+        finally:
+            eng.shutdown()
+        out[key] = {"card": str(card), "tokens": tokens, "setup_s": setup_s,
+                    "graphs": captured, "launches": launches,
+                    "tokens_per_s": CARDS_PROMPTS * CARDS_NEW / wall}
+        del eng
+    out["equal"] = out["last"]["tokens"] == out["cuda0"]["tokens"]
+    log(f"[cards] (b) GenerationEngine(page_size={PAGE}) bf16 on "
+        f"{out['last']['card']}: {out['last']['graphs']} graphs captured "
+        f"there in {out['last']['setup_s']:.2f} s, {CARDS_PROMPTS} prompts "
+        f"x {CARDS_NEW} new tokens, tokens equal cuda:0's {out['equal']}, "
+        f"{out['last']['tokens_per_s']:.1f} tokens/s, paged launches "
+        f"{out['last']['launches']} [{power_line}]")
+    assert out["equal"], out
+    assert out["last"]["launches"] > 0 and out["last"]["graphs"] > 0, out
+    return out
+
+
+def _cards_one_process(cards, power_line) -> dict:
+    """(b) one process over the cards."""
+    from distkeras_tpu_torch.models.gpt import gpt_small, init_params
+
+    out = {"adag": _cards_adag(cards, power_line)}
+    out["pjit"] = _cards_pjit(cards, power_line)
+    start = init_params(gpt_small(), torch.Generator().manual_seed(39)) \
+        .state_dict()
+    out["ring"] = _cards_ring(cards, power_line, start)
+    out["pipelines"] = _cards_pipelines(cards, power_line)
+    out["engine"] = _cards_engine(cards, power_line)
+    return out
+
+
+def _timed_moves(dev, count) -> dict:
+    """(c) the moves alone, CARDS_MOVE_REPS times each after one warm-up,
+    timed from a barrier to a sync: the fold of resnet50_nf's float32
+    parameters, the all-gather of CARDS_GATHER_BYTES a rank and a hop of
+    CARDS_HOP_SHAPE bf16 to the next rank and back, over the fold group
+    (NCCL); and the same fold and all-gather host-staged over the gloo
+    default group (phases 32 and 34's path)."""
+    from distkeras_tpu_torch.parallel import collectives, distributed
+
+    me = distributed.process_index()
+    tree = {n: p.detach() for n, p in _cards_nf_model(seed=71).to(
+        dev).named_parameters()}
+    fold_bytes = sum(t.nbytes for t in tree.values())
+    gather = torch.full((CARDS_GATHER_BYTES // 4,), float(me),
+                        device=dev)
+    act = torch.full(CARDS_HOP_SHAPE, float(me), dtype=torch.bfloat16,
+                     device=dev, requires_grad=True)
+    nxt, prv = (me + 1) % count, (me - 1) % count
+
+    def hop():
+        _, (got,) = collectives.hop(
+            [(act, nxt)], [(prv, CARDS_HOP_SHAPE, torch.bfloat16, dev)])
+        got.float().sum().backward()
+        collectives.flush_hops()
+
+    def staged(flat):  # cross_process_sum's gloo path
+        host = collectives._staging(flat.numel(), flat.dtype)
+        host.copy_(flat)
+        torch.distributed.all_reduce(host)
+        flat.copy_(host)
+
+    def staged_gather():  # all_gather_flat's gloo path
+        host = collectives._staging(gather.numel(), gather.dtype)
+        host.copy_(gather)
+        parts = [torch.empty_like(host) for _ in range(count)]
+        torch.distributed.all_gather(parts, host)
+        return [p.to(dev) for p in parts]
+
+    flat = torch.cat([t.reshape(-1) for t in tree.values()])
+    moves = {"fold": lambda: collectives.cross_process_sum(tree),
+             "all_gather": lambda: collectives.all_gather_flat([gather]),
+             "hop": hop,
+             "fold_gloo_staged": lambda: staged(flat),
+             "all_gather_gloo_staged": staged_gather}
+    out = {"fold_bytes": fold_bytes, "gather_bytes": CARDS_GATHER_BYTES,
+           "hop_bytes": 2 * math.prod(CARDS_HOP_SHAPE)}
+    for name, fn in moves.items():
+        times = []
+        for rep in range(CARDS_MOVE_REPS + 1):
+            distributed.barrier()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            if rep:
+                times.append(time.perf_counter() - t0)
+        out[name] = statistics.median(times)
+    return out
+
+
+def _cards_child(rank: int, count: int, port: str, work: str) -> int:
+    """One rank of phase 35 (c) (``chip_smoke.py --cards-child RANK N PORT
+    DIR``) on ``cuda:RANK``: the PipelinedLM first on the fresh group, the
+    sync fold (float32, then one bf16 round), the row over processes, the
+    ring, GenericPipeline and the moves, written to
+    ``DIR/rank{RANK}.json``."""
+    from distkeras_tpu_torch import ADAG
+    from distkeras_tpu_torch.data.dataset import Dataset
+    from distkeras_tpu_torch.models.gpt import gpt_small, init_params
+    from distkeras_tpu_torch.ops import optimizers
+    from distkeras_tpu_torch.ops.kernels import int8_matmul as i8
+    from distkeras_tpu_torch.parallel import distributed
+
+    set_tf32(False)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    distributed.initialize(coordinator_address=f"127.0.0.1:{port}",
+                           num_processes=count, process_id=rank,
+                           local_device_ids=[rank], timeout_s=300)
+    dev = torch.device("cuda", torch.cuda.current_device())  # initialize's
+    out = {"rank": rank, "card": str(dev),
+           "uuid": distributed.card_uuid(dev.index),
+           "warmup_s": _ax_warmup(dev)}
+
+    def run(fn):
+        distributed.barrier()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize(dev)
+        got.update(wall_s=time.perf_counter() - t0,
+                   peak_bytes=torch.cuda.max_memory_allocated(dev))
+        return got
+
+    # first on the fresh group: the PipelinedLM, a stage a rank, whose
+    # first NCCL call is a hop between two ranks (fold_group forms the
+    # group with every rank before it); its wall time includes that
+    out["lm"] = run(lambda: _pp_lm_steps(dev, [dev]))
+    out["fold_backend"] = distributed.fold_group(dev)[1]
+
+    # the sync fold: one worker a rank, (b)'s rows, after one untimed
+    # round (as (b) warms up)
+    ds = _images(count * CARDS_ROUNDS * CARDS_WINDOW * CARDS_B, seed=70)
+
+    def sync(rows=ds, make=_cards_nf_model, name="center"):
+        trainer = ADAG(make(seed=71), worker_optimizer="sgd",
+                       learning_rate=0.05, batch_size=CARDS_B,
+                       communication_window=CARDS_WINDOW, metrics=(),
+                       device=dev)
+        params = trainer.train(rows)
+        losses = [h["loss"] for h in trainer.history]
+        if rank == 0:
+            np.savez(os.path.join(work, f"{name}.npz"),
+                     **{n: p.detach().cpu().numpy()
+                        for n, p in params.items()})
+        return {"losses": losses, "commits": trainer.num_updates,
+                "owners": trainer.mesh.owners,
+                "digest": _digest(params, losses)}
+
+    sync(_images(count * CARDS_WINDOW * CARDS_B, seed=69))
+    out["sync"] = run(sync)
+    del ds
+    out["sync_bf16"] = run(lambda: sync(
+        _images(count * CARDS_WINDOW * CARDS_B, seed=73), _nf_model,
+        "center_bf16"))
+
+    # phase 34 (a)'s row over processes: workers N/2 x model 2, a row
+    # over two ranks
+    rows = [_bert_batch(30592, seed=40 + i) for i in range(PJIT_STEPS)]
+    bert_ds = Dataset.from_arrays(
+        features=np.concatenate([r["features"] for r in rows]),
+        label=np.concatenate([r["labels"] for r in rows]))
+
+    def pjit():
+        mesh = distributed.multihost_mesh(count // 2, model_parallelism=2,
+                                          devices=[dev])
+        info, trainer = _pjit_run(dev, _enc_model("bert"), bert_ds, mesh,
+                                  "masked_lm", (i8.int8_matmul_dequant,),
+                                  precision="int8", worker_optimizer="adam",
+                                  learning_rate=1e-4, batch_size=PJIT_B)
+        info.update(owners=mesh.device_owners,
+                    digest=_digest(trainer.params, info["losses"]))
+        assert info["launches"]["int8_matmul_dequant"] == \
+            49 * len(info["losses"]), info
+        return info
+
+    out["pjit"] = run(pjit)
+    del bert_ds
+
+    # the ring at 1 x N, a shard a rank
+    start = init_params(gpt_small(), torch.Generator().manual_seed(39)) \
+        .state_dict()
+
+    def ring():
+        model = gpt_small(attention="ring")
+        model.load_state_dict(start)
+        model.to(dev)
+        losses, times, _ = _sp_steps(dev, model, (1, count),
+                                     _sp_batch(SP_B, SP_T, seed=40),
+                                     optimizers.get("adamw", 1e-3),
+                                     CARDS_STEPS, devices=[dev])
+        return {"losses": losses, "step_s": times}
+
+    out["ring"] = run(ring)
+    del start
+    out["generic"] = run(lambda: _generic_step(dev, [dev], count))
+    out["moves"] = _timed_moves(dev, count)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _cards_ranks(count, power_line, one) -> dict:
+    """(c) ``count`` ranks of this script, one card each, over NCCL,
+    against (b)'s one-process runs in ``one``."""
+    import socket
+    import tempfile
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as work:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = str(s.getsockname()[1])
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cards-child",
+             str(r), str(count), port, work], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, cwd=HERE)
+            for r in range(count)]
+        try:
+            outs = [p.communicate(timeout=CARDS_CHILD_TIMEOUT_S)[0]
+                    for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for r, (p, text) in enumerate(zip(procs, outs)):
+            for line in text.strip().splitlines()[-12:]:
+                log(f"[cards] rank {r}: {line}")
+            assert p.returncode == 0, f"rank {r} exited {p.returncode}"
+        ranks = []
+        for r in range(count):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        center, center_bf16 = (
+            dict(np.load(os.path.join(work, f"{name}.npz")))
+            for name in ("center", "center_bf16"))
+    a = ranks[0]
+    adag, pjit = one["adag"], one["pjit"]
+    want = {n: t.numpy() for n, t in adag["center"].items()}
+    want_bf16 = {n: t.numpy() for n, t in adag["center_bf16"].items()}
+    max_abs = lambda got, ref: max(float(np.abs(
+        got[n].astype(np.float64) - ref[n]).max()) for n in ref)
+    ring, pipes = one["ring"], one["pipelines"]
+    same = lambda part, key: all(r[part][key] == a[part][key] for r in ranks)
+    info = {
+        "backends": [r["fold_backend"] for r in ranks],
+        "uuids_distinct": len({r["uuid"] for r in ranks}) == count,
+        "ranks_equal": {
+            "sync": same("sync", "digest"),
+            "sync_bf16": same("sync_bf16", "digest"),
+            "pjit": same("pjit", "digest"),
+            "ring": same("ring", "losses"), "lm": same("lm", "losses"),
+            "generic": same("generic", "loss")},
+        "vs_one_process": {
+            "sync_center": _close(center, want),
+            "sync_losses": _close(a["sync"]["losses"],
+                                  adag["sync_cards"]["losses"]),
+            "sync_bf16_center": _close(center_bf16, want_bf16),
+            "pjit": _close(a["pjit"]["losses"], pjit["cards"]["losses"]),
+            "ring": _close(a["ring"]["losses"], ring["cards"]["losses"]),
+            "lm": _close(a["lm"]["losses"], pipes["lm"]["cards"]["losses"]),
+            "generic": _close([a["generic"]["loss"]],
+                              [pipes["generic"]["cards"]["loss"]])},
+        "bitwise_one_process": {
+            "sync": a["sync"]["losses"] == adag["sync_cards"]["losses"],
+            "sync_bf16": a["sync_bf16"]["losses"]
+            == adag["sync_cards_bf16"]["losses"],
+            "pjit": a["pjit"]["losses"] == pjit["cards"]["losses"],
+            "ring": a["ring"]["losses"] == ring["cards"]["losses"],
+            "lm": a["lm"]["losses"] == pipes["lm"]["cards"]["losses"],
+            "generic": a["generic"]["loss"]
+            == pipes["generic"]["cards"]["loss"]},
+        "sync_center_max_abs": max_abs(center, want),
+        "sync_bf16_center_max_abs": max_abs(center_bf16, want_bf16),
+        "moves": [r["moves"] for r in ranks],
+        "peak_bytes": {k: [r[k]["peak_bytes"] for r in ranks]
+                       for k in ("sync", "sync_bf16", "pjit", "ring", "lm",
+                                 "generic")},
+        "launches": {
+            "int8_matmul_dequant": sum(
+                r["pjit"]["launches"]["int8_matmul_dequant"] for r in ranks),
+            **{k: sum(r["generic"]["launches"][k] for r in ranks)
+               for k in a["generic"]["launches"]}},
+        "wall_s": {k: a[k]["wall_s"] for k in ("sync", "pjit", "ring", "lm",
+                                               "generic")},
+        "ranks": ranks}
+    mv = a["moves"]
+    n_rows = count * CARDS_ROUNDS * CARDS_WINDOW * CARDS_B
+    log(f"[cards] (c) {count} ranks, one card each, fold backends "
+        f"{info['backends']}, card UUIDs distinct {info['uuids_distinct']};"
+        f" ranks equal {info['ranks_equal']}; against (b): within rtol "
+        f"{CARDS_RTOL} {info['vs_one_process']}, bitwise "
+        f"{info['bitwise_one_process']}; the center's largest difference "
+        f"{info['sync_center_max_abs']:.3e} (float32, {CARDS_ROUNDS} rounds)"
+        f", {info['sync_bf16_center_max_abs']:.3e} (bf16, one round) "
+        f"[{power_line}]")
+    log(f"[cards] (c) sync ADAG {n_rows / a['sync']['wall_s']:.1f} "
+        f"samples/s ((b) one process {adag['sync_cards']['samples_per_s']:.1f}"
+        f"), bert int8 rows over ranks "
+        f"{len(a['pjit']['losses']) * PJIT_B * (count // 2) / a['pjit']['wall_s']:.1f}"
+        f" samples/s, ring {a['ring']['wall_s']:.2f} s, PipelinedLM "
+        f"{a['lm']['wall_s']:.2f} s (forming the NCCL group included), "
+        f"GenericPipeline "
+        f"{a['generic']['wall_s']:.2f} s; peak a rank "
+        f"{ {k: [round(p / 2**30, 2) for p in v] for k, v in info['peak_bytes'].items()} } GiB "
+        f"[{power_line}]")
+    wire = a["fold_backend"]
+    log(f"[cards] (c) moves (median of {CARDS_MOVE_REPS}, rank 0): {wire} "
+        f"fold of {mv['fold_bytes'] / 1e6:.1f} MB {mv['fold'] * 1e3:.2f} ms, "
+        f"gloo host-staged {mv['fold_gloo_staged'] * 1e3:.2f} ms; {wire} "
+        f"all-gather of {mv['gather_bytes'] / 2**20:.0f} MiB a rank "
+        f"{mv['all_gather'] * 1e3:.2f} ms, gloo host-staged "
+        f"{mv['all_gather_gloo_staged'] * 1e3:.2f} ms; {wire} hop of "
+        f"{mv['hop_bytes'] / 2**20:.1f} MiB there and back "
+        f"{mv['hop'] * 1e3:.2f} ms ({count} cards' rates, not time slices "
+        f"of one card) [{power_line}]")
+    assert all(info["launches"][k] == 53 * GP_M
+               for k in a["generic"]["launches"]), info["launches"]
+    assert info["backends"] == [CARDS_BACKEND] * count, info["backends"]
+    assert info["uuids_distinct"], info
+    assert all(info["ranks_equal"].values()), info["ranks_equal"]
+    assert all(info["vs_one_process"].values()), info["vs_one_process"]
+    return info
+
+
+def _smi_cards() -> list:
+    """``name, power.limit`` of every card, one line each (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()
+
+
+def phase_cards(power_line) -> dict:
+    """Phase 35: the cards of one host (module docstring). On a host with
+    one card it runs nothing and says so."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"[cards] phase 35 needs two cards or more; this host has "
+            f"{count}: ran nothing [{power_line}]")
+        return {"cards": count, "ran": False}
+    count = min(count, 4)
+    cards = [torch.device("cuda", i) for i in range(count)]
+    set_tf32(False)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    smi = _smi_cards()
+    for line in smi:
+        log(f"[cards] card: {line}")
+    try:
+        info = {"cards": count, "ran": True, "smi": smi,
+                "kernels": _cards_kernels(cards, power_line)}
+        # each card's first CUDA work (cuBLAS, cuDNN, the kernels' first
+        # launches) before the timed runs, untimed
+        info["warmup_s"] = []
+        for card in cards:
+            with torch.cuda.device(card):
+                info["warmup_s"].append(_ax_warmup(card))
+        info["one"] = _cards_one_process(cards, power_line)
+        torch.cuda.empty_cache()
+        info["ranks"] = _cards_ranks(count, power_line, info["one"])
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    info["one"]["adag"].pop("center")
+    info["one"]["adag"].pop("center_bf16")
+    info["phase_s"] = time.perf_counter() - t0
+    log(f"[cards] phase 35 on {count} cards in {info['phase_s']:.1f} s: "
+        f"{'; '.join(smi)}")
+    return info
+
+
+def cards_alone() -> int:
+    """Phases 1, 2 and 35 alone (``python -c "import sys, chip_smoke;
+    sys.exit(chip_smoke.cards_alone())"``): the four-card run without the
+    one-card phases. Writes ``chiprun_out/chip_smoke_cards.json``."""
+    report = {}
+    try:
+        report["device"] = _run_phase("device", phase_device)
+        import distkeras_tpu_torch  # noqa: F401 — fails outside a checkout
+
+        report["build"] = _run_phase("build", phase_build)
+        report["cards"] = _run_phase("cards", phase_cards,
+                                     report["device"]["nvidia_smi"])
+    except Exception:  # any phase failing fails the run
+        traceback.print_exc()
+        log("[chip_smoke] FAILED")
+        return 1
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_cards.json"), "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    log(json.dumps({"cards_ok": report["cards"].get("ran", False)}))
+    return 0
+
+
 #: seconds each phase took, in run order (logged and in the report)
 PHASE_SECONDS = {}
 
@@ -7048,6 +7962,7 @@ def main() -> int:
             report["async"]["bench"]["k2"]["samples_per_s"])
         report["lint"] = t("lint", phase_lint, card)
         report["axes"] = t("axes", phase_axes, dev, card, report)
+        report["cards"] = t("cards", phase_cards, card)
     except Exception:  # any phase failing fails the run
         traceback.print_exc()
         log("[chip_smoke] FAILED")
@@ -7183,6 +8098,21 @@ def main() -> int:
             # (each zeroed before its step, read after; both ranks' sum)
             "launches_axes": report["axes"]["generic"]["launches"][name],
         })
+    cards = report["cards"]
+    if cards["ran"]:  # phase 35 (b) and (c): zeroed before, read after
+        one, ranks = cards["one"], cards["ranks"]["launches"]
+        lc = {"paged_flash_attention": one["engine"]["last"]["launches"],
+              "int8_matmul_dequant": one["pjit"]["cards"]["launches"][
+                  "int8_matmul_dequant"] + ranks["int8_matmul_dequant"]}
+        for name in ("group_norm_fwd", "group_norm_bwd"):
+            lc[name] = one["pipelines"]["generic"]["cards"]["launches"][
+                name] + ranks[name]
+        for row in rows:
+            # (a): the cards on which the row matched its plain version
+            row["cards_checked"] = sum(
+                r["ok"] for card in cards["kernels"].values() for r in card
+                if r["name"] == row["name"])
+            row["launches_cards"] = lc.get(row["name"], 0)
     kernels = {"kernels": rows}
     report["phase_seconds"] = PHASE_SECONDS
     log(f"[chip_smoke] phases took {sum(PHASE_SECONDS.values()):.1f} s")
@@ -7202,4 +8132,7 @@ if __name__ == "__main__":
         sys.exit(_mp_child(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
     if sys.argv[1:2] == ["--axes-child"]:
         sys.exit(_axes_child(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--cards-child"]:
+        sys.exit(_cards_child(int(sys.argv[2]), int(sys.argv[3]),
+                              sys.argv[4], sys.argv[5]))
     sys.exit(main())

@@ -12,7 +12,10 @@ Usage::
     python -m distkeras_tpu_torch.benchmarks <1-5|all> [--full] [--marginal]
                                              [--device cpu]
 
-The runs go on ``cuda:0``; without a card they fail (an ``error`` line,
+The runs go on the card: configs 2 and 4 on ``min(4, cards)`` workers and
+5 on ``min(8, cards)``, one card a worker, as the JAX runner takes
+``jax.devices()``; 1 and 3 on ``cuda:0``. Without a card they fail (an
+``error`` line,
 exit code 1) unless ``--device cpu`` names the host, which only the
 smoke shapes use (``--full`` is the card's benchmark scale). A line
 holds samples/s, steps, wall seconds and the final loss and, on a card
@@ -57,6 +60,23 @@ def _device(trainer) -> torch.device:
     return mesh.home if mesh is not None else trainer._device
 
 
+def _num_cards(trainer) -> int:
+    """The distinct devices a trainer's mesh runs on (a mesh may repeat
+    one card; JAX's ``_num_chips`` counts the mesh's devices)."""
+    mesh = getattr(trainer, "mesh", None)
+    if mesh is None:
+        return 1
+    return len({str(d) for row in mesh.grid for d in row})
+
+
+def _workers(device, most: int = 4) -> int:
+    """The JAX runner's ``min(most, len(jax.devices()))``: every visible
+    card up to ``most`` on the card, one worker on a named device."""
+    from distkeras_tpu_torch.device import visible_devices
+
+    return 1 if device is not None else min(most, len(visible_devices()))
+
+
 def _time_trainer(trainer, ds, marginal: bool = False) -> dict:
     """Two runs: one to warm up (and move the model to the card), one
     timed, so samples/s and MFU measure the steady state. ``marginal``
@@ -96,6 +116,8 @@ def _time_trainer(trainer, ds, marginal: bool = False) -> dict:
            "final_loss": round(final_loss, 4),
            "device": observability.device_name(device) or str(device)}
     peak = observability.device_peak_flops(device)
+    if peak:
+        peak *= _num_cards(trainer)
     if flops_step and peak:
         out["mfu"] = round(flops_step * n_steps * workers / (dt * peak), 4)
     if marg is not None:
@@ -142,9 +164,8 @@ def config_2(full, marginal=False, device=None):
     # smoke mode narrows the CNN, as the JAX runner does
     model = (cifar10_cnn(dtype=torch.bfloat16) if full
              else cifar10_cnn(channels=(8, 16), dense_width=64))
-    # one worker: the JAX runner's min(4, devices) on a one-card host
     t = DOWNPOUR(model, worker_optimizer="adam", learning_rate=1e-3,
-                 num_workers=1, batch_size=64, communication_window=4,
+                 num_workers=_workers(device), batch_size=64, communication_window=4,
                  num_epoch=4 if full else 1, device=device)
     return _time_trainer(t, _images(n, 32, 10, full), marginal)
 
@@ -181,9 +202,9 @@ def config_4(full, marginal=False, device=None):
     dt = np.int16 if model.vocab_size < 2 ** 15 else np.int32
     ids = rng.integers(1, model.vocab_size, (n, seq)).astype(dt)
     labels = np.where(rng.random((n, seq)) < 0.15, ids, -1).astype(dt)
-    # one worker: the JAX runner's min(4, devices) on a one-card host
     t = DynSGD(model, loss="masked_lm", metrics=(),
-               worker_optimizer="adam", learning_rate=1e-4, num_workers=1,
+               worker_optimizer="adam", learning_rate=1e-4,
+               num_workers=_workers(device),
                batch_size=32 if full else 16, communication_window=2,
                num_epoch=3 if full else 1, device=device)
     return _time_trainer(t, Dataset.from_arrays(features=ids, label=labels),
@@ -202,9 +223,8 @@ def config_5(full, marginal=False, device=None):
     # n=512 in both modes, batch 64, as the JAX runner; full mode stages
     # uint8 (ViT normalizes on the device)
     n, bs = 512, 64
-    # one worker: the JAX runner's min(8, devices) on a one-card host
     t = PjitTrainer(model, worker_optimizer="adamw", learning_rate=1e-3,
-                    num_workers=1, batch_size=bs,
+                    num_workers=_workers(device, 8), batch_size=bs,
                     num_epoch=8 if full else 1, metrics=(), device=device)
     return _time_trainer(t, _images(n, side, classes, full), marginal)
 
@@ -225,8 +245,8 @@ def main(argv=None) -> int:
     ap.add_argument("--marginal", action="store_true",
                     help="also report staging-cancelled per-epoch throughput")
     ap.add_argument("--device", default=None,
-                    help="cpu runs the smoke shapes on the host; default "
-                         "cuda:0")
+                    help="cpu runs the smoke shapes on the host (one "
+                         "worker); default the visible cards")
     args = ap.parse_args(argv)
     if args.full and args.device is not None \
             and torch.device(args.device).type == "cpu":

@@ -57,9 +57,10 @@ the int8 matmul kernel); the LM head stays float32 and unquantized.
 takes a LIST of per-shard ``[batch, t]`` id blocks, block ``j`` holding
 global positions ``j * t ... (j + 1) * t``, and returns the list of
 their logits. Every layer runs block by block, in step across the
-shards, each block computed on its shard's device (which must be the
-parameters' device: one copy of the weights a process, as a mesh that
-repeats ``cuda:0`` has it), and its attention folds the blocks' q/k/v
+shards, each block computed on its shard's device (the parameters'
+device, as on a mesh that repeats ``cuda:0``; or another card of this
+process, through a replica of the weights there, as JAX replicates the
+parameters over ``jax.devices()``), and its attention folds the blocks' q/k/v
 through :func:`~distkeras_tpu_torch.ops.ring_attention.ring_attention`.
 A block that another process holds is a
 :class:`~distkeras_tpu_torch.ops.ring_attention.Remote` in the list, and
@@ -86,6 +87,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.nn.parallel import replicate
 
 from distkeras_tpu_torch import precision as precision_lib
 from distkeras_tpu_torch.comms import codec
@@ -118,12 +120,6 @@ class CausalSelfAttention(nn.Module):
                      for z in self.qkv(x).split(width, dim=-1))
 
     def forward(self, x, cache=None, cache_index=None, page_table=None):
-        if isinstance(x, (list, tuple)):  # the ring: one block a shard
-            qs, ks, vs = zip(*((xi,) * 3 if is_remote(xi) else
-                               self._heads(xi) for xi in x))
-            out = ring_attention(qs, ks, vs, causal=True)
-            return [o if is_remote(o) else self.out(o.flatten(2))
-                    for o in out]
         if cache is None and self.attention == "ring":
             raise ValueError(
                 "attention='ring' runs over sequence shards: call the model "
@@ -302,10 +298,8 @@ class DecoderBlock(nn.Module):
 
     def forward(self, x, cache=None, cache_index=None, page_table=None):
         if isinstance(x, (list, tuple)):  # the ring, in step over shards
-            ys = self.attn([xi if is_remote(xi) else
-                            self.ln1(xi.float()).to(self.dtype) for xi in x])
-            return [xi if is_remote(xi) else self._ring_tail(xi + yi)
-                    for xi, yi in zip(x, ys)]
+            return _ring_layer([None if is_remote(xi) else self for xi in x],
+                               x)
         y = self.ln1(x.float()).to(self.dtype)
         if cache is not None:
             y, new_cache = self.attn(y, cache, cache_index, page_table)
@@ -317,6 +311,20 @@ class DecoderBlock(nn.Module):
 
     def _ring_tail(self, x):
         return x + self.mlp(self.ln2(x.float()).to(self.dtype))
+
+
+def _ring_layer(views, xs):
+    """One decoder block over the ring's shards, in step: shard ``j``
+    through ``views[j]`` (the block, or its replica on shard ``j``'s
+    card; None for another process's shard), the attention folding every
+    shard's q/k/v through the ring."""
+    hs = [x if v is None else v.ln1(x.float()).to(v.dtype)
+          for v, x in zip(views, xs)]
+    qs, ks, vs = zip(*((h,) * 3 if v is None else v.attn._heads(h)
+                       for v, h in zip(views, hs)))
+    out = ring_attention(qs, ks, vs, causal=True)
+    return [x if v is None else v._ring_tail(x + v.attn.out(o.flatten(2)))
+            for v, x, o in zip(views, xs, out)]
 
 
 class CausalLM(nn.Module):
@@ -395,27 +403,43 @@ class CausalLM(nn.Module):
             raise ValueError(f"global sequence {t}*{num} exceeds max_len "
                              f"{self.max_len}")
         home = self.pos_embed.device
-        if any(b.device != home for b in own):
+        cards = list(dict.fromkeys(b.device for b in own if b.device != home))
+        if cards and not all(d.type == "cuda" for d in cards + [home]):
             raise ValueError(
                 f"sequence shards on {[str(b.device) for b in own]}, the "
                 f"parameters on {home}: each shard of this process computes "
-                f"on the parameters' device (one copy of the weights a "
-                f"process)")
+                f"on the parameters' device, or on another card of this "
+                f"process (through a replica of the weights)")
         if len(own) < num and self.remat != "none":
             raise ValueError(
                 f"remat={self.remat!r} over a ring that spans processes: a "
                 f"recompute would repeat the ring's hops")
-        xs = []
-        for j, ids in enumerate(blocks):
-            if is_remote(ids):
-                xs.append(ids)
-                continue
-            x = remat_call(self.tok_embed, self.remat, ids.long(), stem=True)
-            xs.append(x + self.pos_embed[j * t:(j + 1) * t].to(self.dtype))
-        for block in self.layers:
-            xs = remat_call(block, self.remat, xs)
-        return [x if is_remote(x) else self.lm_head(self.ln_final(x.float()))
-                for x in xs]
+        if cards and self.remat != "none":
+            raise ValueError(
+                f"remat={self.remat!r} over a ring across cards of one "
+                f"process: a recompute would run on the replicas")
+        # a shard on another card than the parameters' computes through a
+        # replica of the weights there (differentiable copies whose
+        # gradients are summed back onto the parameters)
+        on = {}
+        if cards:
+            replicas = replicate(self, [home] + cards,
+                                 detach=not torch.is_grad_enabled())
+            on = dict(zip(cards, replicas[1:]))
+        views = [None if is_remote(b) else on.get(b.device, self)
+                 for b in blocks]
+        xs = [b if v is None else
+              remat_call(v.tok_embed, self.remat, b.long(), stem=True)
+              + v.pos_embed[j * t:(j + 1) * t].to(self.dtype)
+              for j, (v, b) in enumerate(zip(views, blocks))]
+        for i, block in enumerate(self.layers):
+            if on:  # each shard through its card's block (remat is "none")
+                xs = _ring_layer([None if v is None else v.layers[i]
+                                  for v in views], xs)
+            else:
+                xs = remat_call(block, self.remat, xs)
+        return [x if v is None else v.lm_head(v.ln_final(x.float()))
+                for v, x in zip(views, xs)]
 
 
 def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:

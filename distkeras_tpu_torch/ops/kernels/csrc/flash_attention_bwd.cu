@@ -261,7 +261,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, int b, int t, int h, int d, float scale,
                       float mask_value, int causal, cudaStream_t stream) {
-  static bool opted_in = false;
+  static flash::SmemOptIn opted_in;
   const size_t smem = dq_smem_bytes(D);
   const cudaError_t err =
       flash::opt_in_smem(flash_bwd_dq_kernel<T, D>, smem, &opted_in);
@@ -280,7 +280,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        void* dk, void* dv, int b, int t, int h, int d,
                        float scale, float mask_value, int causal,
                        cudaStream_t stream) {
-  static bool opted_in = false;
+  static flash::SmemOptIn opted_in;
   const size_t smem = dkv_smem_bytes(D);
   const cudaError_t err =
       flash::opt_in_smem(flash_bwd_dkv_kernel<T, D>, smem, &opted_in);
@@ -581,7 +581,7 @@ cudaError_t launch_dq_sm90(const void* q, const void* k, const void* v,
                            const float* delta, void* dq, int b, int t, int h,
                            int d, float scale, float mask_value, int causal,
                            cudaStream_t stream) {
-  static bool opted_in = false;
+  static flash::SmemOptIn opted_in;
   const size_t smem = dq90_smem_bytes<D>();
   const cudaError_t err =
       flash::opt_in_smem(flash_bwd_dq_sm90<D>, smem, &opted_in);
@@ -602,7 +602,7 @@ cudaError_t launch_dkv_sm90(const void* q, const void* k, const void* v,
                             int t, int h, int d, float scale,
                             float mask_value, int causal,
                             cudaStream_t stream) {
-  static bool opted_in = false;
+  static flash::SmemOptIn opted_in;
   const size_t smem = dkv90_smem_bytes<D>();
   const cudaError_t err =
       flash::opt_in_smem(flash_bwd_dkv_sm90<D>, smem, &opted_in);

@@ -23,6 +23,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace flash {
 
 constexpr int kTile = 64;      // rows of every staged tile (queries or keys)
@@ -192,15 +194,31 @@ __device__ __forceinline__ void write_block(T* __restrict__ dst, size_t stride,
     }
 }
 
+// Which devices a kernel has been opted into its dynamic shared memory
+// on: cudaFuncSetAttribute acts on the current device, so a launch on
+// another card opts in again. A slot a device; two threads that race on
+// one device both set the same attribute.
+constexpr int kMaxDevices = 64;
+struct SmemOptIn {
+  std::atomic<bool> done[kMaxDevices] = {};
+};
+
 // Opt a kernel into `bytes` of dynamic shared memory (above the 48 KiB
-// default) on first use.
+// default) on its first use on the current device.
 template <typename Kernel>
-__host__ cudaError_t opt_in_smem(Kernel kernel, size_t bytes, bool* done) {
-  if (*done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err == cudaSuccess) *done = true;
+__host__ cudaError_t opt_in_smem(Kernel kernel, size_t bytes,
+                                 SmemOptIn* record) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (record->done[device].load(std::memory_order_acquire))
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess)
+    record->done[device].store(true, std::memory_order_release);
   return err;
 }
 

@@ -157,7 +157,7 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int b, int t, int h, int d, float scale,
                    float mask_value, int causal, cudaStream_t stream) {
-  static bool opted_in = false;
+  static flash::SmemOptIn opted_in;
   const size_t smem = smem_bytes(D);
   const cudaError_t err =
       flash::opt_in_smem(flash_fwd_kernel<T, D>, smem, &opted_in);
@@ -336,7 +336,7 @@ cudaError_t launch_sm90(const void* q, const void* k, const void* v,
                         cudaStream_t stream) {
   constexpr int W = kWarpgroups<D>;
   if (t % (W * sm90::kRows)) return cudaErrorInvalidValue;
-  static bool opted_in = false;
+  static flash::SmemOptIn opted_in;
   const size_t smem = fwd90_smem_bytes<D>();
   const cudaError_t err =
       flash::opt_in_smem(flash_fwd_sm90<D>, smem, &opted_in);

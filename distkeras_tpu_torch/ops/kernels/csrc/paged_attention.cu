@@ -60,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kTileQ = 16;    // queries per CTA
@@ -494,6 +496,11 @@ cudaError_t opt_in(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// cudaFuncSetAttribute acts on the current device: one slot a device
+// records that an instantiation's two kernels were opted in there (two
+// threads that race on one device both set the same attributes).
+constexpr int kMaxDevices = 64;
+
 struct Args {
   const void *q, *k_pages, *v_pages;
   const int32_t *page_table, *cache_index;
@@ -513,14 +520,18 @@ cudaError_t launch(const Args& a) {
   const dim3 grid(a.b * a.h, nsplit, (a.t + kTileQ - 1) / kTileQ);
   const size_t smem_k = logits_smem<T, D>(a.split);
   const size_t smem_v = values_smem<T, D>();
-  static bool opted_in = false;  // once per instantiation, at the most
-  if (!opted_in) {
+  static std::atomic<bool> opted_in[kMaxDevices];  // once a device
+  int device = 0;
+  cudaError_t dev_err = cudaGetDevice(&device);
+  if (dev_err != cudaSuccess) return dev_err;
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!opted_in[device].load(std::memory_order_acquire)) {
     cudaError_t err =
         opt_in(paged_logits_kernel<T, D, kVec>, logits_smem<T, D>(kMaxSplit));
     if (err == cudaSuccess)
       err = opt_in(paged_values_kernel<T, D, kVec>, smem_v);
     if (err != cudaSuccess) return err;
-    opted_in = true;
+    opted_in[device].store(true, std::memory_order_release);
   }
   float* split_max = a.stats;
   float* split_sum = a.stats + rows * nsplit;

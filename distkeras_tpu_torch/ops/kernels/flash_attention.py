@@ -180,6 +180,9 @@ def reserve_counters(device, stream: int, n: int = 4096) -> torch.Tensor:
     shrunk. Call it before capturing a CUDA graph on ``stream``: a
     capture finds the buffer and never allocates one."""
     device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        # one key a card: a bare "cuda" is the current card
+        device = torch.device("cuda", torch.cuda.current_device())
     buf = _paged_counters.get((device, stream))
     if buf is None or buf.numel() < n:
         if torch.cuda.is_current_stream_capturing():

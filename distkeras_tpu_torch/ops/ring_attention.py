@@ -12,8 +12,10 @@ inside ``shard_map``. In the port, after each fold the k/v blocks (and
 ``kv_mask``) hop to the next shard's device: with ``.to()`` between
 shards of one process (a no-op copy where a mesh repeats a device), and
 through :func:`~distkeras_tpu_torch.parallel.collectives.hop` (a
-``torch.autograd.Function``: send and receive over gloo, its backward
-the ``ppermute``'s transpose) where the next shard is another process's.
+``torch.autograd.Function``: send and receive over gloo or NCCL, its
+backward the ``ppermute``'s transpose; every process posts a ring's hops
+in the same order, since messages are matched by their order) where the next
+shard is another process's.
 A shard another process holds is a :class:`Remote` in the block lists:
 each process folds only its own blocks, in the same order as one process
 folds them all, so its outputs are the one-process ring's bits. There
@@ -29,7 +31,6 @@ that no key reaches gives 0; the output is cast to ``q``'s dtype.
 
 from __future__ import annotations
 
-import itertools
 from typing import Optional, Sequence
 
 import torch
@@ -55,18 +56,6 @@ def is_remote(x) -> bool:
     return isinstance(x, Remote)
 
 
-#: the next tag of a ring's cross-process hops; every process runs the
-#: same rings in the same order, so the same hop draws the same tags
-_TAGS = itertools.count()
-
-
-def reset_hop_tags() -> None:
-    """Restart the hops' tags (every process at the same point: the start
-    of a step)."""
-    global _TAGS
-    _TAGS = itertools.count()
-
-
 def _hop_blocks(kinds: Sequence[list], num: int) -> list:
     """The ``ppermute`` i -> i + 1 of each list of ``kinds`` (blocks of
     k, v, mask): shard ``i`` then holds shard ``i - 1``'s block, moved
@@ -75,15 +64,13 @@ def _hop_blocks(kinds: Sequence[list], num: int) -> list:
     another process's shard."""
     first = kinds[0]
     out = [[None] * num for _ in kinds]
-    base = next(_TAGS) * num * len(kinds)
     sends, recvs, slots = [], [], []
     for i in range(num):
         src = (i - 1) % num
         if is_remote(first[i]):
             if not is_remote(first[src]):  # this process's block leaves
-                for c, blocks in enumerate(kinds):
-                    sends.append((blocks[src], first[i].rank,
-                                  base + src * len(kinds) + c))
+                for blocks in kinds:
+                    sends.append((blocks[src], first[i].rank))
             for c in range(len(kinds)):
                 out[c][i] = first[i]
             continue
@@ -93,8 +80,8 @@ def _hop_blocks(kinds: Sequence[list], num: int) -> list:
             continue
         for c, blocks in enumerate(kinds):  # the block arrives
             like = blocks[i]
-            recvs.append((first[src].rank, base + src * len(kinds) + c,
-                          like.shape, like.dtype, like.device))
+            recvs.append((first[src].rank, like.shape, like.dtype,
+                          like.device))
             slots.append((c, i))
     if sends or recvs:
         _, got = collectives.hop(sends, recvs)

@@ -20,22 +20,34 @@ or whenever the partials' order of additions is the one-process fold's,
 the result is the one-process fold's bits; else it differs by the
 reassociation of a float32 sum.
 
-Two more moves cross processes, both over the same gloo group and staged
-through the host for a card tensor:
+Two more moves cross processes, over the same group as the fold:
 
 - :func:`all_gather_flat` gathers every process's tensors (the shards of a
-  model axis that spans processes); gloo has no reduce-scatter, and a
-  shard's gradient needs none (every process of a row computes the row's
-  whole gradient);
+  model axis that spans processes); a shard's gradient needs no
+  reduce-scatter (every process of a row computes the row's whole
+  gradient);
 - :func:`hop` sends tensors to other processes and receives theirs as a
   ``torch.autograd.Function`` (JAX's ``ppermute`` and its transpose): the
-  forward posts the sends and waits for the receives, the backward sends
-  each received tensor's gradient back and receives the gradients of the
-  sent ones. Each message has a tag of its own (the forward's ``2 *
-  tag``, the backward's ``2 * tag + 1``), so the order in which two
-  processes' autograd engines reach their hops cannot mismatch a message.
-  A send is waited only at :func:`flush_hops`, after the backward: no
-  process blocks on a peer that has not yet posted its receive.
+  forward posts the sends and the receives, the backward sends each
+  received tensor's gradient back and receives the gradients of the sent
+  ones. A send is waited only at :func:`flush_hops`, after the backward:
+  no process blocks on a peer that has not yet posted its receive.
+
+The group is :func:`~distkeras_tpu_torch.parallel.distributed.fold_group`'s
+for the tensors' device. Over gloo (host tensors, or ranks that share a
+card) a card tensor is staged through the host. Over NCCL (every rank on a
+card of its own) the card buffers move as they are: the fold all-reduces
+them in place, the gather is ``all_gather_into_tensor``, and a hop's
+sends and receives are one ``batch_isend_irecv`` group on NCCL's stream,
+each receive waited on the compute stream before its first use.
+
+Both backends match point-to-point messages by their order between two
+ranks alone (no message carries a tag), so the hops' order is part of the
+schedule: every process posts its hops in the schedule's order, and each
+hop under grad mode takes the previous hop's token as its anchor, so that
+the backward runs the hops of a step in exactly the reverse order on every
+process, whatever order the autograd engine would pick among independent
+nodes.
 """
 
 from __future__ import annotations
@@ -130,11 +142,11 @@ def cross_process_sum(tree: dict, bucket_bytes: Optional[int] = None) -> dict:
     bucket's leaves of one dtype flattened into one buffer. Outside a
     group: ``tree`` unchanged.
 
-    The fold runs over gloo (:func:`distributed.fold_group
-    <distkeras_tpu_torch.parallel.distributed.fold_group>`, which raises
-    for an NCCL fold across cards), so a card tensor is staged through one pinned host buffer: copied to
-    it, all-reduced there, copied back. That is the one path for a card
-    (gloo's collectives run on the host)."""
+    Over :func:`distributed.fold_group
+    <distkeras_tpu_torch.parallel.distributed.fold_group>`'s group: over
+    NCCL the card buffer is all-reduced in place; over gloo a card
+    tensor is staged through one pinned host buffer (copied to it,
+    all-reduced there, copied back)."""
     cards = [t.device for t in tree.values() if t.is_cuda]
     group, backend = distributed.fold_group(cards[0] if cards else None)
     if backend is None:
@@ -152,7 +164,7 @@ def cross_process_sum(tree: dict, bucket_bytes: Optional[int] = None) -> dict:
             by_dtype.setdefault(tree[names[i]].dtype, []).append(names[i])
         for dtype, group_names in by_dtype.items():
             flat = torch.cat([tree[n].reshape(-1) for n in group_names])
-            if flat.is_cuda:
+            if flat.is_cuda and backend == "gloo":
                 host = _staging(flat.numel(), dtype)
                 host.copy_(flat)
                 torch.distributed.all_reduce(host, group=group)
@@ -167,18 +179,25 @@ def cross_process_sum(tree: dict, bucket_bytes: Optional[int] = None) -> dict:
     return {n: out[n] for n in names}
 
 
+#: dtypes neither gloo nor NCCL carries: gathered as their bytes
+_AS_BYTES = (torch.int16, torch.bool)
+
+
 @torch.no_grad()
 def all_gather_flat(tensors: Sequence[torch.Tensor]) -> list:
     """Every process's ``tensors`` (the same count, shapes and dtypes on
     every process), as a list a process in rank order of its tensors, on
-    the devices of this process's: one all-gather a dtype over the gloo
-    group, a card's tensors staged through one pinned host buffer.
-    Outside a group: ``[list(tensors)]``."""
+    the devices of this process's: one all-gather a dtype over
+    :func:`distributed.fold_group
+    <distkeras_tpu_torch.parallel.distributed.fold_group>`'s group (over
+    NCCL on the card, ``all_gather_into_tensor``; over gloo a card's
+    tensors staged through one pinned host buffer), int16 and bool as
+    their bytes. Outside a group: ``[list(tensors)]``."""
     tensors = list(tensors)
     if distributed.process_count() == 1:
         return [tensors]
     cards = [t.device for t in tensors if t.is_cuda]
-    group, _ = distributed.fold_group(cards[0] if cards else None)
+    group, backend = distributed.fold_group(cards[0] if cards else None)
     count = distributed.process_count()
     out = [[None] * len(tensors) for _ in range(count)]
     by_dtype: dict = {}
@@ -186,15 +205,22 @@ def all_gather_flat(tensors: Sequence[torch.Tensor]) -> list:
         by_dtype.setdefault(t.dtype, []).append(i)
     for dtype, idxs in by_dtype.items():
         flat = torch.cat([tensors[i].reshape(-1) for i in idxs])
-        if flat.is_cuda:
-            host = _staging(flat.numel(), dtype)
-            host.copy_(flat)
+        wire = flat.view(torch.uint8) if dtype in _AS_BYTES else flat
+        if backend == "nccl":
+            whole = torch.empty(count * wire.numel(), dtype=wire.dtype,
+                                device=wire.device)
+            torch.distributed.all_gather_into_tensor(whole, wire,
+                                                     group=group)
+            parts = whole.chunk(count)
         else:
-            host = flat
-        parts = [torch.empty_like(host) for _ in range(count)]
-        torch.distributed.all_gather(parts, host, group=group)
+            host = wire
+            if wire.is_cuda:
+                host = _staging(wire.numel(), wire.dtype)
+                host.copy_(wire)
+            parts = [torch.empty_like(host) for _ in range(count)]
+            torch.distributed.all_gather(parts, host, group=group)
         for r, part in enumerate(parts):
-            part = part.to(flat.device)
+            part = part.to(flat.device).view(dtype)
             at = 0
             for i in idxs:
                 t = tensors[i]
@@ -203,26 +229,62 @@ def all_gather_flat(tensors: Sequence[torch.Tensor]) -> list:
     return out
 
 
-#: sends a hop posted whose completion is waited at flush_hops
+#: sends a hop posted whose completion is waited at flush_hops, with
+#: the buffers they read
 _PENDING: list = []
 
-
-def _send(t: torch.Tensor, dst: int, tag: int) -> None:
-    # a host copy of its own, which gloo keeps until the send completes
-    host = t.detach().to("cpu", copy=True).contiguous()
-    _PENDING.append((torch.distributed.isend(host, int(dst), tag=tag),
-                     host))
+#: the token of this step's last hop under grad mode (the next hop's
+#: anchor); reset by new_chain and flush_hops
+_CHAIN: list = []
 
 
-def _recv(src: int, tag: int, shape, dtype, device) -> torch.Tensor:
-    host = torch.empty(tuple(shape), dtype=dtype)
-    torch.distributed.irecv(host, int(src), tag=tag).wait()
-    return host.to(device)
+def new_chain() -> None:
+    """Start a step's chain of hops (every process at the same point)."""
+    _CHAIN.clear()
+
+
+def _exchange(sends, recvs) -> list:
+    """Post ``sends`` (``(tensor, dst)``) and ``recvs`` (``(src, shape,
+    dtype, device)``) and return the received tensors, each ready on its
+    device's current stream. Over NCCL (:func:`distributed.fold_group
+    <distkeras_tpu_torch.parallel.distributed.fold_group>` of the cards)
+    one ``batch_isend_irecv`` group on the card buffers; over gloo the
+    sends leave from host copies and each receive is waited in turn. The
+    sends are waited at :func:`flush_hops`."""
+    dist = torch.distributed
+    cards = [t.device for t, _ in sends if t.is_cuda] + [
+        torch.device(d) for *_, d in recvs if torch.device(d).type == "cuda"]
+    group, backend = distributed.fold_group(cards[0] if cards else None)
+    if backend == "nccl":
+        keep = [t.detach().contiguous() for t, _ in sends]
+        got = [torch.empty(tuple(shape), dtype=dtype, device=device)
+               for _, shape, dtype, device in recvs]
+        ops = [dist.P2POp(dist.isend, t, int(dst), group)
+               for t, (_, dst) in zip(keep, sends)] + [
+            dist.P2POp(dist.irecv, g, int(src), group)
+            for g, (src, *_) in zip(got, recvs)]
+        with torch.cuda.device(cards[0]):
+            works = dist.batch_isend_irecv(ops) if ops else []
+            for work in works:
+                work.wait()  # the current stream waits for NCCL's
+        _PENDING.extend((work, keep) for work in works)
+        return got
+    for t, dst in sends:
+        # a host copy of its own, which gloo keeps until the send completes
+        host = t.detach().to("cpu", copy=True).contiguous()
+        _PENDING.append((dist.isend(host, int(dst)), host))
+    got = []
+    for src, shape, dtype, device in recvs:
+        host = torch.empty(tuple(shape), dtype=dtype)
+        dist.irecv(host, int(src)).wait()
+        got.append(host.to(device))
+    return got
 
 
 def flush_hops() -> None:
-    """Wait for every send the hops posted (call after the backward that
-    closes a step, on every process)."""
+    """Wait for every send the hops posted and end the step's chain (call
+    after the backward that closes a step, on every process)."""
+    _CHAIN.clear()
     while _PENDING:
         work, _ = _PENDING.pop(0)
         work.wait()
@@ -236,41 +298,46 @@ class _Hop(torch.autograd.Function):
     def forward(ctx, plan, anchor, *sends):
         ctx.plan = plan
         ctx.sent = [(t.shape, t.dtype, t.device) for t in sends]
-        for t, (dst, tag) in zip(sends, plan[0]):
-            _send(t, dst, 2 * tag)
-        got = [_recv(src, 2 * tag, shape, dtype, device)
-               for src, tag, shape, dtype, device in plan[1]]
+        got = _exchange(list(zip(sends, plan[0])), list(plan[1]))
         ctx.mark_non_differentiable(*[g for g in got
                                       if not g.is_floating_point()])
         return (anchor.new_zeros(()), *got)
 
     @staticmethod
-    def backward(ctx, _token_grad, *grads):
+    def backward(ctx, token_grad, *grads):
         sends, recvs = ctx.plan
-        for g, (src, tag, _, dtype, _) in zip(grads, recvs):
-            if dtype.is_floating_point:
-                _send(g, src, 2 * tag + 1)
-        back = [_recv(dst, 2 * tag + 1, shape, dtype, device)
-                if dtype.is_floating_point else None
-                for (dst, tag), (shape, dtype, device) in zip(sends,
-                                                              ctx.sent)]
-        return (None, None, *back)
+        back = iter(_exchange(
+            [(g, src) for g, (src, _, dtype, _) in zip(grads, recvs)
+             if dtype.is_floating_point],
+            [(dst, shape, dtype, device)
+             for dst, (shape, dtype, device) in zip(sends, ctx.sent)
+             if dtype.is_floating_point]))
+        # the anchor's gradient is zero: the edge only orders the hops
+        return (None, torch.zeros_like(token_grad),
+                *[next(back) if dtype.is_floating_point else None
+                  for _, dtype, _ in ctx.sent])
 
 
 def hop(sends: Sequence[tuple] = (), recvs: Sequence[tuple] = ()) -> tuple:
     """Move tensors between processes, differentiably: ``sends`` are
-    ``(tensor, dst_process, tag)``, ``recvs`` ``(src_process, tag, shape,
-    dtype, device)``; a send and its receive carry the same tag. Returns
-    ``(token, received)``: ``received`` in ``recvs``' order, and ``token``
-    a zero scalar that a process whose hop only sends adds to what it
-    calls backward on, so that the hop's backward runs and receives the
-    gradients of what it sent. Under grad mode every floating tensor of a
-    hop must take part in the backward on both sides (both processes call
-    it); a send's completion is waited at :func:`flush_hops`."""
-    plan = (tuple((int(dst), int(tag)) for _, dst, tag in sends),
-            tuple((int(src), int(tag), tuple(shape), dtype,
-                   torch.device(device))
-                  for src, tag, shape, dtype, device in recvs))
-    anchor = torch.zeros((), requires_grad=torch.is_grad_enabled())
-    out = _Hop.apply(plan, anchor, *[t for t, _, _ in sends])
+    ``(tensor, dst_process)``, ``recvs`` ``(src_process, shape, dtype,
+    device)``; between two processes the receives take the sends in the
+    order they were posted (module docstring). Returns ``(token,
+    received)``: ``received`` in ``recvs``' order, and ``token`` a zero
+    scalar that a process whose hop only sends adds to what it calls
+    backward on, so that the hop's backward runs and receives the
+    gradients of what it sent. Under grad mode each hop's anchor is the
+    previous hop's token, so the backward runs a step's hops in reverse
+    order. Under grad mode every floating tensor of a hop must take part
+    in the backward on both sides (both processes call it); a send's
+    completion is waited at :func:`flush_hops`."""
+    plan = (tuple(int(dst) for _, dst in sends),
+            tuple((int(src), tuple(shape), dtype, torch.device(device))
+                  for src, shape, dtype, device in recvs))
+    grad = torch.is_grad_enabled()
+    anchor = _CHAIN[-1] if grad and _CHAIN else torch.zeros(
+        (), requires_grad=grad)
+    out = _Hop.apply(plan, anchor, *[t for t, _ in sends])
+    if grad:
+        _CHAIN[:] = [out[0]]
     return out[0], list(out[1:])

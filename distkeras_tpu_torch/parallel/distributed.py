@@ -12,15 +12,16 @@ every process's devices. The port's counterpart of that service is a
   ``RANK``) or explicit arguments it joins the group with an explicit
   ``timeout`` (a peer that never arrives fails the collective instead of
   hanging the job);
-- the group is ``gloo``: the host-side agreement plane
+- the default group is ``gloo``: the host-side agreement plane
   (:func:`process_allgather`, :func:`broadcast_one_to_all`,
-  :func:`barrier`) and the tensor folds (:func:`fold_group`). Several
-  ranks on one card fold their card tensors over it, staged through the
-  host; NCCL refuses two ranks of one communicator on one card, which is
-  the one-card host's case. A fold of card tensors when every rank holds
-  a card of its own (an NCCL fold across cards) raises
-  ``NotImplementedError`` until a host with several cards can run it
-  (ROADMAP.md Queue A, item 16 part 4);
+  :func:`barrier`) and the folds of host tensors. The folds of card
+  tensors go over :func:`fold_group`'s group, which the layout chooses:
+  when every rank holds a card of its own (told apart by the cards'
+  UUIDs) an NCCL group beside the gloo one, made once; when some ranks
+  share a card, the gloo group, staged through the host (NCCL refuses
+  two ranks of one communicator on one card, the one-card host's case).
+  Nothing falls back from NCCL to gloo: a group that fails to form or a
+  collective that fails raises on every rank;
 - the host helpers move fixed-size numpy payloads as tensors (JAX's
   512-byte address payload is one). Nothing here pickles: no
   ``*_object`` collective is used, so nothing on a wire can execute code;
@@ -45,8 +46,11 @@ import torch
 #: seconds a collective of the group waits for its peers before failing
 DEFAULT_TIMEOUT_S = 300.0
 
-#: (world size, device) -> whether every rank folds on a card of its own
+#: (world size, card index) -> (group, backend) of the folds of card tensors
 _CARDS: dict = {}
+
+#: the timeout the group was joined with (the NCCL group takes the same)
+_TIMEOUT = {"s": DEFAULT_TIMEOUT_S}
 
 
 def determine_host_address() -> str:
@@ -92,8 +96,10 @@ def initialize(coordinator_address: Optional[str] = None,
     calls ``torch.distributed.init_process_group("gloo", timeout=...)``:
     explicit arguments give ``tcp://{coordinator_address}``,
     ``num_processes`` and ``process_id``; a launcher's environment gives
-    ``env://``. ``local_device_ids[0]`` selects this process's card.
-    Joining a group that this process already joined is a no-op."""
+    ``env://``. ``local_device_ids[0]`` selects this process's card (JAX's
+    ``local_device_ids``), else a launcher's ``LOCAL_RANK`` does
+    (torchrun's idiom). Joining a group that this process already joined
+    is a no-op."""
     dist = torch.distributed
     explicit = any(a is not None for a in
                    (coordinator_address, num_processes, process_id))
@@ -107,10 +113,13 @@ def initialize(coordinator_address: Optional[str] = None,
             "initialize() with explicit arguments needs all of "
             "coordinator_address, num_processes and process_id (or none of "
             "them, with a launcher's MASTER_ADDR/WORLD_SIZE/RANK)")
-    if local_device_ids and torch.cuda.is_available():
-        torch.cuda.set_device(int(local_device_ids[0]))
+    card = local_device_ids[0] if local_device_ids \
+        else os.environ.get("LOCAL_RANK")
+    if card is not None and torch.cuda.is_available():
+        torch.cuda.set_device(int(card))
     timeout = datetime.timedelta(seconds=float(timeout_s))
     _CARDS.clear()
+    _TIMEOUT["s"] = float(timeout_s)
     if explicit:
         dist.init_process_group("gloo",
                                 init_method=f"tcp://{coordinator_address}",
@@ -190,37 +199,54 @@ def decode_payload(payload) -> str:
     return bytes(row[row != 0]).decode()
 
 
+def card_uuid(index: int) -> str:
+    """The UUID of card ``index`` (the same card has the same UUID in
+    every process, whatever ``CUDA_VISIBLE_DEVICES`` numbers it)."""
+    return str(torch.cuda.get_device_properties(int(index)).uuid)
+
+
 def fold_group(device=None) -> tuple:
     """``(group, backend)`` of the tensor folds across processes of
-    tensors on ``device`` (default the CPU): the gloo default group,
-    ``(None, "gloo")``. Outside a group: ``(None, None)``.
+    tensors on ``device`` (default the CPU). Outside a group: ``(None,
+    None)``. Host tensors fold over the gloo default group: ``(None,
+    "gloo")``.
 
-    For a card, the first call a (world size, device) is a collective of
-    every rank: each rank's host name and card index are all-gathered. If
-    every rank holds a card of its own, the fold would be NCCL's across
-    cards, which waits for a host with several cards: every rank raises
-    ``NotImplementedError`` (ROADMAP.md Queue A, item 16 part 4). Every
-    rank folds tensors on the same kind of device."""
+    For a card, the first call a (world size, card) is a collective of
+    every rank: each rank's card UUID is all-gathered. When every rank
+    holds a card of its own, every rank then makes one
+    ``torch.distributed.new_group(backend="nccl")`` beside the default
+    group, with its timeout, and forms its communicator at once with an
+    all-reduce of a scalar on the card, every rank joining (a hop, which
+    joins two ranks, may not be a group's first NCCL call): ``(group,
+    "nccl")``, the folds on the cards. Both run with the card as the
+    current device, which stays what it was for the rest of the process.
+    When some ranks share a card, ``(None, "gloo")``: the folds staged
+    through the host. Every rank folds tensors on the same kind of
+    device and calls this in the same order.
+    ``torch.distributed.destroy_process_group()`` ends the NCCL group
+    with the default one (newest first)."""
     if process_count() == 1:
         return None, None
     _require_gloo()
     dev = torch.device("cpu" if device is None else device)
-    if dev.type == "cuda":
-        key = (process_count(), str(dev))
-        if key not in _CARDS:
-            index = torch.cuda.current_device() if dev.index is None \
-                else dev.index
-            rows = process_allgather(
-                encode_payload(f"{socket.gethostname()}|{index}"))
-            _CARDS[key] = len({decode_payload(r) for r in rows}) \
-                == process_count()
-        if _CARDS[key]:
-            raise NotImplementedError(
-                "a fold across processes that each hold a card of their own "
-                "(an NCCL fold across cards) is not ported yet (ROADMAP.md "
-                "Queue A, item 16 part 4); several ranks on one card fold "
-                "over gloo")
-    return None, "gloo"
+    if dev.type != "cuda":
+        return None, "gloo"
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    key = (process_count(), index)
+    if key not in _CARDS:
+        rows = process_allgather(encode_payload(card_uuid(index)))
+        if len({decode_payload(r) for r in rows}) == process_count():
+            with torch.cuda.device(index):
+                group = torch.distributed.new_group(
+                    backend="nccl",
+                    timeout=datetime.timedelta(seconds=_TIMEOUT["s"]))
+                torch.distributed.all_reduce(
+                    torch.zeros((), device=torch.device("cuda", index)),
+                    group=group)
+            _CARDS[key] = (group, "nccl")
+        else:
+            _CARDS[key] = (None, "gloo")
+    return _CARDS[key]
 
 
 def multihost_mesh(num_workers: Optional[int] = None,
@@ -228,7 +254,7 @@ def multihost_mesh(num_workers: Optional[int] = None,
                    devices: Optional[Sequence] = None):
     """The (workers, model) mesh over every process's devices:
     :func:`~distkeras_tpu_torch.parallel.mesh.make_mesh`, whose ``devices``
-    (default ``[cuda:0]``) are this process's, every process passing as
+    (default this process's card) are this process's, every process passing as
     many, reshaped row-major into (workers, model) as JAX reshapes
     ``jax.devices()``. In one process, the one-process mesh."""
     from distkeras_tpu_torch.parallel import mesh as mesh_lib

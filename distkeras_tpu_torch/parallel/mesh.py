@@ -33,8 +33,9 @@ this process's first own device. A mesh built by hand (``Mesh(devices)``)
 belongs to the process that builds it.
 
 The substrate runs ``K = D * factor`` logical workers on a mesh of D
-worker devices: worker ``k`` lives on ``devices[k // factor]``. On a host
-with one card the mesh is ``[cuda:0]`` and the K replicas are stacked
+worker devices: worker ``k`` lives on ``devices[k // factor]``. By default
+a mesh takes every visible card, as JAX's takes ``jax.devices()``; on a
+host with one card the mesh is ``[cuda:0]`` and the K replicas are stacked
 there (the trainers' ``parallelism_factor``). A mesh may repeat a device,
 as the tests repeat ``cpu`` (and a one-card host repeats ``cuda:0``) to
 get two-level layouts and workers x model grids without more cards.
@@ -46,6 +47,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from distkeras_tpu_torch import device as device_lib
 from distkeras_tpu_torch.device import resolve_device
 from distkeras_tpu_torch.parallel import distributed
 
@@ -165,12 +167,13 @@ class Mesh:
 
 def global_devices(devices: Optional[Sequence] = None) -> tuple:
     """``(devices, owners)``: this process's ``devices`` (default
-    ``[resolve_device(None)]``) laid end to end with every other
-    process's in rank order (each process passes as many), and the
+    :func:`~distkeras_tpu_torch.device.visible_devices`: every card in one
+    process, this process's card in a group) laid end to end with every
+    other process's in rank order (each process passes as many), and the
     process that owns each. In one process: ``devices``, all owned by
     it."""
     devices = list(devices) if devices is not None \
-        else [resolve_device(None)]
+        else device_lib.visible_devices()
     count = distributed.process_count()
     return devices * count, [p for p in range(count) for _ in devices]
 
@@ -179,8 +182,9 @@ def make_mesh(num_workers: Optional[int] = None,
               model_parallelism: int = 1,
               devices: Optional[Sequence] = None) -> Mesh:
     """A (workers, model) mesh over ``devices`` (default
-    ``[resolve_device(None)]``: ``cuda:0``, raising without a card),
-    which may repeat a device. ``num_workers=None`` uses every device:
+    :func:`~distkeras_tpu_torch.device.visible_devices`: every visible
+    card, ``[cuda:0]`` on a one-card host, raising without a card), which
+    may repeat a device. ``num_workers=None`` uses every device:
     ``len(devices) // model_parallelism`` workers. Asking for more
     devices than are listed raises ValueError, as JAX's does.
 

@@ -34,10 +34,13 @@ with stage 0, the head with the last; another process's stages are moved
 to the ``meta`` device) and builds its optimizer over them. An
 activation that crosses to another process's stage goes through
 :func:`~distkeras_tpu_torch.parallel.collectives.hop` (send and receive
-over gloo, the gradient carried back by its backward), tagged by (tick,
-stage), so the order in which the processes' autograd engines reach the
-hops matches no message to the wrong one. Each process runs its stages'
-ticks of the same ``M + P - 1`` schedule and calls one backward (a
+over the fold group: gloo, or NCCL when every process holds a card of its
+own; the gradient carried back by its backward). Messages carry no
+tags: both backends match them by their order between two processes, and
+the order is the schedule's. Every process posts its hops in tick order
+and each hop's anchor is its previous hop's token, so the backward runs
+them in reverse tick order on every process. Each process runs its
+stages' ticks of the same ``M + P - 1`` schedule and calls one backward (a
 process without the head calls it on its hops' tokens); the last stage's
 process broadcasts the metrics, so every process returns the same.
 """
@@ -67,7 +70,8 @@ STAGE_AXIS = "stages"
 
 def make_pp_mesh(num_stages: int, devices=None) -> Mesh:
     """One row of ``num_stages`` stage devices over ``devices`` (default
-    ``[resolve_device(None)]``: ``cuda:0``, raising without a card),
+    :func:`~distkeras_tpu_torch.device.visible_devices`: every visible
+    card, raising without one),
     which may repeat a device; too few raise ValueError, as JAX's does.
     Inside a process group ``devices`` are this process's, every process
     passing as many, laid end to end in rank order (JAX's global device
@@ -83,7 +87,7 @@ def make_pp_mesh(num_stages: int, devices=None) -> Mesh:
 
 class _Stages:
     """Which process holds each stage of a pipeline mesh's row, and the
-    moves between stages: ``.to()`` inside a process, a tagged
+    moves between stages: ``.to()`` inside a process, a
     :func:`~distkeras_tpu_torch.parallel.collectives.hop` across."""
 
     def __init__(self, mesh: Mesh, num_stages: int):
@@ -95,31 +99,29 @@ class _Stages:
 
     def start(self) -> None:
         self.tokens = []
+        collectives.new_chain()
 
-    def send(self, out: torch.Tensor, tick: int, stage: int):
-        """Stage ``stage``'s output at ``tick`` towards stage ``stage +
+    def send(self, out: torch.Tensor, stage: int):
+        """Stage ``stage``'s output at this tick towards stage ``stage +
         1``: its input there (this process), or None (sent)."""
         if self.mine[stage + 1]:
             return out.to(self.devices[stage + 1])
-        token, _ = collectives.hop(
-            [(out, self.owners[stage + 1], self.tag(tick, stage))])
+        token, _ = collectives.hop([(out, self.owners[stage + 1])])
         self.tokens.append(token)
         return None
 
-    def receive(self, tick: int, stage: int, shape, dtype) -> torch.Tensor:
-        """Stage ``stage``'s input at ``tick``, sent by another process's
-        stage ``stage - 1`` at ``tick - 1``."""
+    def receive(self, stage: int, shape, dtype) -> torch.Tensor:
+        """Stage ``stage``'s input at this tick, sent by another process's
+        stage ``stage - 1`` at the tick before."""
         _, (x,) = collectives.hop((), [(
-            self.owners[stage - 1], self.tag(tick - 1, stage - 1), shape,
-            dtype, self.devices[stage])])
+            self.owners[stage - 1], shape, dtype, self.devices[stage])])
         return x
-
-    def tag(self, tick: int, stage: int) -> int:
-        return tick * len(self.devices) + stage
 
     def backward(self, loss: Optional[torch.Tensor]) -> None:
         """One backward of this process's part of the schedule: the loss
-        (the last stage's process) plus the tokens of its sending hops."""
+        (the last stage's process) plus the tokens of its sending hops
+        (the hops run their backward in reverse tick order: each hop's
+        anchor is the previous hop's token)."""
         total = loss
         for token in self.tokens:
             total = token if total is None else total + token
@@ -308,10 +310,10 @@ class PipelinedLM(nn.Module):
                     elif mine[s - 1]:
                         x = inbox[s]
                     else:
-                        x = route.receive(tick, s, act, self.dtype)
+                        x = route.receive(s, act, self.dtype)
                     out = self._run_stage(s, x)
                     if s < stages - 1:
-                        outbox[s + 1] = route.send(out, tick, s)
+                        outbox[s + 1] = route.send(out, s)
                         continue
                     terms = losses_lib.masked_lm_terms(self.head(out),
                                                        labels_mb[mb])
@@ -456,11 +458,11 @@ class GenericPipeline:
                         x = feats[mb].to(self.dtype)
                     else:
                         flat = inbox[k] if mine[k - 1] else route.receive(
-                            tick, k, (buf_n,), self.dtype)
+                            k, (buf_n,), self.dtype)
                         x = flat[:hop_sizes[k - 1]].reshape(shapes[k - 1])
                     out = self.stages[k](x)
                     if k < stages_n - 1:
-                        outbox[k + 1] = route.send(hop(k, out), tick, k)
+                        outbox[k + 1] = route.send(hop(k, out), k)
                     else:
                         loss_sum = loss_sum + self.loss_fn(out.float(),
                                                            labels[mb])

@@ -18,10 +18,13 @@ step on the same global batch up to summation order.
 
 In one process, on a mesh that may repeat a device (``["cuda:0"] * 4``
 on a one-card host, ``["cpu"] * 8`` in the tests): the parameters live
-on the mesh's home and each shard computes on them there, so the
-shards' devices must be the home device (gpt's ring forward checks).
-Memory is therefore the sum of every shard's folds on one card; the
-ring changes where the logits are cut, not how much one card holds.
+on the mesh's home and each shard computes on them there. Memory is then
+the sum of every shard's folds on one card; the ring changes where the
+logits are cut, not how much one card holds. On a mesh over several
+cards (the default on a host with several) a shard on another card
+computes there through a replica of the weights (gpt's ring forward),
+whose gradients are summed back onto the home's parameters: the shards'
+folds then spread over the cards.
 
 Over a process group the mesh lays every process's devices end to end
 (:func:`make_sp_mesh`, as ``make_mesh`` does) and each process holds a
@@ -59,8 +62,9 @@ SEQ_AXIS = "seq"
 def make_sp_mesh(num_workers: int = 1, seq_parallelism: int = 1,
                  devices=None) -> Mesh:
     """A (workers, seq) mesh: batch parallelism outer, sequence inner,
-    over ``devices`` (default ``[resolve_device(None)]``: ``cuda:0``,
-    raising without a card), which may repeat a device. Asking for more
+    over ``devices`` (default
+    :func:`~distkeras_tpu_torch.device.visible_devices`: every visible
+    card, raising without one), which may repeat a device. Asking for more
     devices than are listed raises ValueError, as JAX's does. Inside a
     process group ``devices`` are this process's, every process passing
     as many, and the mesh lays them end to end in rank order."""
@@ -154,10 +158,10 @@ def build_sp_train_step(model, tx: OptimizerFactory, mesh: Mesh):
             batch = place_batch(batch)
         m = state.model
         m.zero_grad(set_to_none=True)
-        ring_lib.reset_hop_tags()
         zero = lambda: torch.zeros((), dtype=torch.float32, device=home)
         nll, hits, count = zero(), zero(), zero()
         for ids, labels in zip(batch["input_ids"], batch["labels"]):
+            collectives.new_chain()  # each row's backward is its own
             terms = [losses.masked_lm_terms(lg, lab)
                      for lg, lab in zip(m(ids), labels)
                      if not ring_lib.is_remote(lg)]

@@ -264,8 +264,11 @@ class OverflowGuardState:
         grads = [p.grad for group in self.inner.param_groups
                  for p in group["params"] if p.grad is not None]
         if finite is None:
-            finite = (not grads) or bool(
-                torch.stack([torch.isfinite(g).all() for g in grads]).all())
+            # a sharded model's gradients may lie on several cards: the
+            # flags meet on the first one's
+            finite = (not grads) or bool(torch.stack(
+                [torch.isfinite(g).all().to(grads[0].device)
+                 for g in grads]).all())
         if finite:
             self.inner.step()
             self.good_steps += 1

@@ -6,8 +6,8 @@ messages.
 
 Execution: a worker is one of K logical replicas on a
 :class:`~distkeras_tpu_torch.parallel.mesh.Mesh` of this process's
-devices (``cuda:0`` by default; ``parallelism_factor=K`` stacks K
-replicas on it), run by :mod:`~distkeras_tpu_torch.parallel.substrate`;
+devices (every visible card by default, as JAX's ``jax.devices()``;
+``parallelism_factor=K`` stacks K replicas on each), run by :mod:`~distkeras_tpu_torch.parallel.substrate`;
 the center is a tensor dict on the mesh's first device.
 
 Where the port differs from the JAX package, by design:
@@ -18,17 +18,19 @@ Where the port differs from the JAX package, by design:
   ``EnsembleTrainer`` gives member ``k`` a fresh init from ``(seed,
   k)``. ``train()`` returns the trained parameters as a name -> tensor
   dict and loads them into ``trainer.model``;
-- placement: the mesh comes from ``resolve_device`` (``cuda:0``, raising
-  without a card) unless the caller passes ``mesh=`` or ``device=``
-  (the one added kwarg; ``device="cpu"`` runs on the host);
+- placement: the mesh comes from ``make_mesh`` over
+  :func:`~distkeras_tpu_torch.device.visible_devices` (every visible card
+  in one process, this process's card in a group; raising without a
+  card) unless the caller passes ``mesh=`` or ``device=`` (the one added
+  kwarg; ``device="cpu"`` runs on the host);
 - checkpoints (``checkpoint_dir=``, ``resume=True``) are DKTP2 steps
   of :mod:`~distkeras_tpu_torch.checkpoint`, not Orbax's: a carry's
   ``torch.optim`` state and the counters come back with the weights, so
   a resumed run continues the uninterrupted one bit for bit;
 - ``mode="host_async"`` runs ``num_workers`` threads against a live
   parameter server (:mod:`~distkeras_tpu_torch.parallel.host_async`);
-  worker ``k`` runs on ``devices[k % D]`` (default ``[cuda:0]``, or
-  ``[device]``). In one process ``ps_shards``, ``ps_placement`` and
+  worker ``k`` runs on ``devices[k % D]`` (default ``visible_devices()``,
+  JAX's ``jax.local_devices()``, or ``[device]``). In one process ``ps_shards``, ``ps_placement`` and
   ``ps_standby`` are validated and one in-process server runs, as in the
   JAX package; over several processes they build the service fleet of
   ``run_cross_process``; snapshots ``{"center", "clock"}`` are DKTP2 steps every
@@ -77,6 +79,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from distkeras_tpu_torch import device as device_lib
 from distkeras_tpu_torch import engine, telemetry
 from distkeras_tpu_torch import precision as precision_lib
 from distkeras_tpu_torch.data.dataset import Dataset
@@ -447,8 +450,12 @@ class DistributedTrainer(Trainer):
             # multiplies the thread count (reference: partitions per worker)
             self.num_workers = int(num_workers) * self.parallelism_factor
             # worker k runs on devices[k % D]
-            self.devices = [resolve_device(d) for d in devices] if devices \
-                else [resolve_device(device)]
+            if devices:
+                self.devices = [resolve_device(d) for d in devices]
+            elif device is not None:
+                self.devices = [resolve_device(device)]
+            else:  # JAX's jax.local_devices()
+                self.devices = device_lib.visible_devices()
         else:
             if devices is not None:
                 raise ValueError(
@@ -1194,7 +1201,8 @@ class PjitTrainer(Trainer):
     shards). No parameter server: every step is one synchronous update.
 
     Placement: ``mesh=`` as given; else ``make_mesh(num_workers,
-    model_parallelism)`` over ``[cuda:0]`` (raising without a card), or,
+    model_parallelism)`` over every visible card (this process's in a
+    group; raising without a card), or,
     with ``device=``, over that device repeated ``num_workers x
     model_parallelism`` times (``device="cpu"`` runs on the host; over
     several processes that count is split among them: a row lies inside

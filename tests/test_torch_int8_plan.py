@@ -178,3 +178,29 @@ def test_shared_memory_holds_the_ring_and_the_epilogue():
     assert ti.SMEM_BYTES == 1024 + ti.STAGES * stage + 8 * 2 * 16 * 128 \
         + 16 * ti.STAGES
     assert ti.SMEM_BYTES <= SMEM_OPTIN_BYTES < 2 * ti.SMEM_BYTES
+
+
+def test_no_launch_opts_in_once_a_process():
+    """``cudaFuncSetAttribute`` acts on the current device, so a kernel's
+    dynamic shared memory is opted into once a card: no source under
+    ``csrc/`` keeps a process-wide ``static bool`` flag, every file that
+    sets the attribute reads the device (``cudaGetDevice``), and every
+    flash launch passes its per-device record to ``opt_in_smem``."""
+    import glob
+    import os
+    import re
+
+    csrc = os.path.join(os.path.dirname(ti.__file__), "csrc")
+    sources = sorted(glob.glob(os.path.join(csrc, "*.cu*")))
+    assert len(sources) == 7
+    for path in sources:
+        with open(path) as f:
+            text = f.read()
+        name = os.path.basename(path)
+        assert not re.search(r"static\s+bool\b", text), name
+        if "cudaFuncSetAttribute" in text:
+            assert "cudaGetDevice" in text or "opt_in_smem" in text, name
+        for call in re.findall(r"opt_in_smem\([^;]*;", text, re.S):
+            assert "&opted_in" in call or "SmemOptIn*" in call, (name, call)
+        assert len(re.findall(r"static flash::SmemOptIn opted_in;", text)) \
+            == text.count("flash::opt_in_smem("), name

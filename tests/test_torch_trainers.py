@@ -287,36 +287,202 @@ def _multi_process(build):
     return run
 
 
-def _nccl_fold():
-    """``fold_group`` of a card tensor when the two ranks hold cards of
-    their own (two hosts' names gathered): NCCL's fold across cards."""
+@contextlib.contextmanager
+def _rank0_of(world):
+    """What looks like rank 0 of a ``world``-process group."""
     from unittest import mock
 
-    rows = np.stack([tdistributed.encode_payload(f"host{r}|0")
-                     for r in (0, 1)])
+    with mock.patch.object(torch.distributed, "is_initialized",
+                           lambda: True), \
+            mock.patch.object(torch.distributed, "get_world_size",
+                              lambda: world), \
+            mock.patch.object(torch.distributed, "get_rank", lambda: 0):
+        yield
+
+
+def _fold_choice(uuids, device="cuda:0", new_group=None):
+    """``fold_group(device)`` twice as rank 0 of ``len(uuids)`` ranks
+    whose cards have ``uuids`` (rank 0's first): ``(group, backend,
+    new_group's calls, the payload rank 0 gathered, the all-reduces that
+    formed the group as (current card, tensor's device, group))``."""
+    from unittest import mock
+
+    rows = np.stack([tdistributed.encode_payload(u) for u in uuids])
+    calls, sent, reduces, current = [], [], [], [None]
+    zeros = torch.zeros
+
+    def gather(value):
+        sent.append(tdistributed.decode_payload(value))
+        return rows
+
+    def group(**kw):
+        calls.append((current[0], kw))
+        return "nccl-group"
+
+    @contextlib.contextmanager
+    def on_card(index):
+        current[0] = index
+        try:
+            yield
+        finally:
+            current[0] = None
+
+    def set_device(index):
+        raise AssertionError("fold_group moved the current card")
+
+    def zeros_on(*shape, device=None, **kw):  # a card tensor, on the CPU
+        t = zeros(*shape, **kw)
+        t.card = torch.device(device)
+        return t
+
+    def all_reduce(t, group=None):
+        reduces.append((current[0], t.card, group))
+
     tdistributed._CARDS.clear()
     try:
-        with mock.patch.object(tdistributed, "_require_gloo", lambda: None), \
-                mock.patch.object(tdistributed, "process_allgather",
-                                  lambda value: rows):
-            return tdistributed.fold_group(torch.device("cuda:0"))
+        with _rank0_of(len(uuids)), \
+                mock.patch.object(tdistributed, "_require_gloo",
+                                  lambda: None), \
+                mock.patch.object(tdistributed, "process_allgather", gather), \
+                mock.patch.object(tdistributed, "card_uuid",
+                                  lambda index: uuids[0]), \
+                mock.patch.object(torch.cuda, "set_device", set_device), \
+                mock.patch.object(torch.cuda, "device", on_card), \
+                mock.patch.object(torch, "zeros", zeros_on), \
+                mock.patch.object(torch.distributed, "all_reduce",
+                                  all_reduce), \
+                mock.patch.object(torch.distributed, "new_group",
+                                  new_group or group):
+            got = tdistributed.fold_group(torch.device(device))
+            # the choice is made once: no second gather, no second group
+            assert tdistributed.fold_group(torch.device(device)) == got
+        return (*got, calls, sent, reduces)
     finally:
         tdistributed._CARDS.clear()
 
 
-NOT_PORTED = [  # (build, item)
-    # every process-spanning mesh and step is ported (items 12, 16 and 19):
-    # what still raises across processes is NCCL's fold across cards,
-    # which waits for a host with several cards
-    (_multi_process(_nccl_fold), "item 16 part 4"),
-]
+FOLD_CHOICES = {  # name -> (uuids of ranks 0.., backend)
+    # every rank on a card of its own: one NCCL group beside gloo's
+    "distinct_cards": (["GPU-a", "GPU-b", "GPU-c", "GPU-d"], "nccl"),
+    # two ranks on one card: gloo through the host (NCCL refuses it)
+    "one_shared_card": (["GPU-a", "GPU-a"], "gloo"),
+    # two of four ranks share a card: the whole layout stays on gloo
+    "two_of_four_share": (["GPU-a", "GPU-b", "GPU-c", "GPU-c"], "gloo"),
+    # CUDA_VISIBLE_DEVICES=i gives every rank index 0: the UUIDs differ
+    "same_index_two_cards": (["GPU-0-host-a", "GPU-0-host-b"], "nccl"),
+}
 
 
-@pytest.mark.parametrize("case", range(len(NOT_PORTED)))
-def test_unported_paths_name_their_item(case):
-    build, item = NOT_PORTED[case]
-    with pytest.raises(NotImplementedError, match=item):
-        build()
+@pytest.mark.parametrize("name", sorted(FOLD_CHOICES))
+def test_fold_group_chooses_nccl_exactly_for_distinct_cards(name):
+    """``fold_group`` of a card tensor all-gathers each rank's card UUID
+    once and makes one ``new_group(backend="nccl")``, with the group's
+    timeout, exactly when every rank's card is its own, and forms it at
+    once with one all-reduce on the card, every rank joining (so that a
+    hop between two ranks is never the group's first NCCL call); both
+    under the card as the current device, and the process's current
+    card is not moved. Ranks that share a card fold over gloo. Two ranks
+    whose cards are both ``cuda:0`` (each under its own
+    ``CUDA_VISIBLE_DEVICES``) are told apart by UUID, not by index."""
+    import datetime
+
+    uuids, backend = FOLD_CHOICES[name]
+    group, got, calls, sent, reduces = _fold_choice(uuids, device="cuda:1")
+    assert got == backend
+    assert sent == [uuids[0]]  # the card's UUID, not hostname|index
+    if backend == "nccl":
+        assert group == "nccl-group"
+        assert calls == [(1, {"backend": "nccl",
+                              "timeout": datetime.timedelta(
+                                  seconds=tdistributed._TIMEOUT["s"])})]
+        assert reduces == [(1, torch.device("cuda:1"), "nccl-group")]
+    else:
+        assert group is None and calls == [] and reduces == []
+
+
+def test_fold_group_raises_when_the_nccl_group_fails():
+    """A group that fails to form raises on the rank: nothing falls back
+    to gloo or to the host."""
+    def refuse(**kw):
+        raise RuntimeError("NCCL error: unhandled system error")
+
+    with pytest.raises(RuntimeError, match="NCCL error"):
+        _fold_choice(["GPU-a", "GPU-b"], new_group=refuse)
+    tdistributed._CARDS.clear()
+
+
+def _eight_cpus(monkeypatch):
+    from distkeras_tpu_torch import device as tdevice
+
+    cpus = [torch.device("cpu")] * 8
+    monkeypatch.setattr(tdevice, "visible_devices", lambda: list(cpus))
+    return cpus
+
+
+def test_default_meshes_take_every_device_as_jax_does(monkeypatch):
+    """With eight visible devices (conftest's eight CPU devices for JAX,
+    ``visible_devices`` patched to eight for the port) the default
+    meshes have JAX's shapes: ``make_mesh()`` 8 workers, at model 2 four
+    rows of two, ``make_sp_mesh(2, 4)`` and ``make_pp_mesh(4)``."""
+    from distkeras_tpu.parallel import mesh as jmesh
+    from distkeras_tpu.parallel import pipeline as jpipeline
+    from distkeras_tpu.parallel import sequence as jsequence
+    from distkeras_tpu_torch.parallel import mesh as tmesh
+
+    assert len(jax.devices()) == 8
+    _eight_cpus(monkeypatch)
+    for port, ref in ((tmesh.make_mesh(), jmesh.make_mesh()),
+                      (tmesh.make_mesh(model_parallelism=2),
+                       jmesh.make_mesh(model_parallelism=2)),
+                      (tsequence.make_sp_mesh(2, 4),
+                       jsequence.make_sp_mesh(2, 4))):
+        assert port.shape == dict(ref.shape)
+    assert tpipeline.make_pp_mesh(4).shape == {
+        "workers": 1, "stages": dict(jpipeline.make_pp_mesh(4).shape)[
+            jpipeline.STAGE_AXIS]}
+    with pytest.raises(ValueError, match="only 8 are visible"):
+        tmesh.make_mesh(num_workers=9)
+
+
+def test_default_trainers_place_workers_on_every_device(monkeypatch):
+    """``DistributedTrainer`` in sync mode takes ``make_mesh(num_workers)``
+    over the visible devices, and under ``mode="host_async"`` its
+    workers' devices are all of them (JAX's ``jax.local_devices()``),
+    worker ``k`` on ``devices[k % 8]``; ``device=`` still names one."""
+    cpus = _eight_cpus(monkeypatch)
+    t = tdk.ADAG(_tmodel(), num_workers=4, batch_size=8)
+    assert t.mesh.shape == {"workers": 4, "model": 1} and t.num_workers == 4
+    t = tdk.ADAG(_tmodel(), mode="host_async", num_workers=8, batch_size=8)
+    assert t.devices == cpus and len(t.devices) == len(jax.local_devices())
+    t = tdk.ADAG(_tmodel(), mode="host_async", num_workers=2, batch_size=8,
+                 device="cpu")
+    assert t.devices == [torch.device("cpu")]
+
+
+def test_visible_devices_one_process_and_in_a_group(monkeypatch):
+    """``visible_devices``: every card in order in one process (``[cuda:0]``
+    on a one-card host), this process's card in a group, where the
+    default meshes then lay one card a process end to end."""
+    from distkeras_tpu_torch.device import visible_devices
+    from distkeras_tpu_torch.parallel import mesh as tmesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert visible_devices() == [torch.device("cuda:0")]
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert visible_devices() == [torch.device("cuda", i) for i in range(4)]
+    assert tmesh.make_mesh().shape == {"workers": 4, "model": 1}
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 2)
+    with _rank0_of(4):
+        assert visible_devices() == [torch.device("cuda:2")]
+        mesh = tmesh.make_mesh()
+        assert mesh.shape == {"workers": 4, "model": 1}
+        assert mesh.device_owners == [[0], [1], [2], [3]]
+        assert mesh.home == torch.device("cuda:2")
+        assert tpipeline.make_pp_mesh(4).device_owners == [[0, 1, 2, 3]]
+        assert tsequence.make_sp_mesh(1, 4).shape == {"workers": 1,
+                                                      "seq": 4}
 
 
 def _ring_step():

@@ -533,8 +533,8 @@ def x_hop():
         (3, 5)).astype(np.float32)).requires_grad_()
     w = torch.from_numpy(np.random.default_rng(20 + RANK).standard_normal(
         (3, 5)).astype(np.float32))
-    _, (got,) = collectives.hop([(x, peer, 7)],
-                                [(peer, 7, (3, 5), torch.float32, "cpu")])
+    _, (got,) = collectives.hop([(x, peer)],
+                                [(peer, (3, 5), torch.float32, "cpu")])
     (got * w).sum().backward()
     collectives.flush_hops()
     want_x = np.random.default_rng(10 + peer).standard_normal(
@@ -545,11 +545,10 @@ def x_hop():
            "backward": bool(np.array_equal(x.grad.numpy(), want_g))}
     y = torch.arange(6, dtype=torch.float32).reshape(2, 3).requires_grad_()
     if RANK == 0:
-        token, _ = collectives.hop([(y * 2, 1, 8)])
+        token, _ = collectives.hop([(y * 2, 1)])
         token.backward()
     else:
-        _, (r,) = collectives.hop((), [(0, 8, (2, 3), torch.float32,
-                                        "cpu")])
+        _, (r,) = collectives.hop((), [(0, (2, 3), torch.float32, "cpu")])
         (r ** 2).sum().backward()
     collectives.flush_hops()
     out["one_way"] = y.grad.tolist() if RANK == 0 else None
